@@ -1,0 +1,552 @@
+"""Prometheus metrics registry (parity: sky/server/metrics.py, grown
+into the data-plane observability substrate).
+
+No prometheus_client dependency: the registry renders the text
+exposition format directly.  Four instrument kinds:
+
+- counters (`inc_counter`) — monotonic, family names end `_total`;
+- gauges (`set_gauge`/`add_gauge`/`remove_gauge`);
+- summaries (`observe`) — count+sum only (no percentiles);
+- histograms (`observe_hist`) — fixed bucket sets with full
+  `_bucket`/`_sum`/`_count` exposition, so TTFT/TPOT/step-time
+  percentiles are computable server-side from one scrape.
+
+Every exported family MUST have a `_HELP` entry (the registry is
+central on purpose: tests/test_observability.py walks it and the call
+sites to enforce naming + help coverage).  Scrape GET /metrics on the
+API server, the inference server, or a service's load balancer (which
+federates its replicas — see merge_federated).
+"""
+from __future__ import annotations
+
+import re
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
+
+_lock = threading.Lock()
+# (metric, labels-tuple) -> float
+_counters: Dict[Tuple[str, Tuple[Tuple[str, str], ...]], float] = {}
+_gauges: Dict[Tuple[str, Tuple[Tuple[str, str], ...]], float] = {}
+# (metric, labels) -> (count, sum)
+_summaries: Dict[Tuple[str, Tuple[Tuple[str, str], ...]],
+                 List[float]] = {}
+# (metric, labels) -> [per-bucket counts (len(buckets)+1, last = +Inf),
+#                      sum]; counts are NON-cumulative in storage and
+#                      rendered cumulatively.
+_histograms: Dict[Tuple[str, Tuple[Tuple[str, str], ...]], list] = {}
+
+_HELP = {
+    # ----- API server (control plane) ------------------------------------
+    'skytpu_requests_total':
+        'API requests by route handler and terminal status',
+    'skytpu_requests_in_flight': 'Requests currently executing',
+    'skytpu_request_duration_seconds': 'Request wall time',
+    'skytpu_server_start_time_seconds': 'Unix time the server started',
+    # ----- state backend (utils/db_utils funnel) --------------------------
+    'skytpu_db_op_seconds':
+        'State-backend operation wall time (transaction / execute / '
+        'query / ensure_schema), labeled backend=sqlite|postgres — the '
+        'control plane\'s DB latency, the first signal a deployment '
+        'has outgrown one sqlite writer',
+    'skytpu_db_op_errors_total':
+        'State-backend operations that raised, by backend and op '
+        '(Postgres: includes connection loss; sqlite: lock timeouts)',
+    # ----- k8s pod scraping (metrics_utils) ------------------------------
+    'skytpu_k8s_pod_tpu_chips':
+        'TPU chips requested by a skytpu-managed pod',
+    'skytpu_k8s_pod_cpu_millicores':
+        'Pod CPU usage from metrics-server, in millicores',
+    'skytpu_k8s_pod_memory_bytes':
+        'Pod memory usage from metrics-server, in bytes',
+    # ----- decode engine (data plane) ------------------------------------
+    'skytpu_engine_ttft_seconds':
+        'Time from submit to first emitted token',
+    'skytpu_engine_inter_token_seconds':
+        'Mean inter-token latency per finished request '
+        '((finish - first token) / (tokens - 1))',
+    'skytpu_engine_prefill_tokens_total':
+        'Prompt tokens prefilled into decode slots',
+    'skytpu_engine_prefill_chunks_total':
+        'Chunked-prefill dispatches (fixed-size chunks of long prompts '
+        'interleaved with decode calls)',
+    'skytpu_engine_queued_prefill_tokens':
+        'Prompt tokens accepted but not yet prefilled (queued requests '
+        'plus the un-prefilled remainder of an in-progress chunked '
+        'prompt) — the long-prompt backlog per replica',
+    'skytpu_engine_decode_tokens_total':
+        'Tokens emitted by the decode loop',
+    'skytpu_engine_prefix_cache_hits_total':
+        'Requests whose prompt matched cached KV pages (the matched '
+        'prefill work is skipped — the pages are referenced, not '
+        'recomputed)',
+    'skytpu_engine_prefix_cache_misses_total':
+        'Requests whose prompt matched no cached KV pages (full '
+        'prefill)',
+    'skytpu_engine_prefix_cache_tokens_total':
+        'Prompt tokens served from the prefix cache instead of being '
+        'prefilled (page-aligned match length, summed over hits)',
+    'skytpu_engine_prefix_cache_evicted_pages_total':
+        'KV pages LRU-evicted from the prefix cache to satisfy an '
+        'admission (cached-only pages; pages referenced by live slots '
+        'are never evicted)',
+    'skytpu_engine_kv_free_pages':
+        'Free pages in the paged KV pool — admission charges pages '
+        '(ceil((prompt+max_new)/page_size)), so this gauge is the '
+        'engine\'s real admission headroom',
+    'skytpu_engine_requests_total':
+        'Requests admitted to the engine queue',
+    'skytpu_engine_kv_exports_total':
+        'Prefill-role requests whose KV pages were gathered for '
+        'handoff to a decode replica (disaggregated serving)',
+    'skytpu_engine_kv_adopts_total':
+        'KV handoffs adopted into this engine\'s page pool (decode '
+        'role): pages scattered at page granularity, decode continued '
+        'from the transferred first token — no per-token recompute',
+    'skytpu_engine_kv_quant_pages_total':
+        'KV pages written to the pool int8-quantized (kv_dtype=int8: '
+        'symmetric absmax along head_dim at scatter time, dequantized '
+        'inside the attention gather) — real pages only, trash-page '
+        'scribbles excluded',
+    'skytpu_engine_spec_proposed_tokens_total':
+        'Draft tokens proposed by the self-speculative n-gram '
+        'proposer (k per active slot per verify dispatch)',
+    'skytpu_engine_spec_accepted_tokens_total':
+        'Draft tokens accepted by the verify dispatch (longest '
+        'greedy-matching prefix; every verify commits at least the '
+        'one token plain decode would have — accepted counts only '
+        'the EXTRA tokens drafts bought)',
+    'skytpu_engine_spec_acceptance':
+        'Draft acceptance rate of the latest verify step (accepted / '
+        'proposed, 0..1): the health signal of speculative decoding '
+        '— near 0 the engine is doing plain decode plus wasted '
+        'verify columns, near 1 each dispatch commits k+1 tokens',
+    'skytpu_engine_batch_occupancy_ratio':
+        'Active decode slots / total slots, sampled each loop step',
+    'skytpu_engine_active_slots': 'Decode slots occupied this step',
+    'skytpu_engine_queue_depth':
+        'Requests waiting in the prefill queue',
+    # ----- device-level perf attribution (perf/) ---------------------------
+    'skytpu_engine_mfu':
+        'Live decode model-FLOPs utilization (%): the static '
+        'per-dispatch cost model (perf/cost_model.py) evaluated at the '
+        'loop thread\'s host-side token rate and mean context — zero '
+        'added device syncs (test-enforced)',
+    'skytpu_engine_hbm_bytes_per_token':
+        'Modeled HBM traffic per decoded token (bytes): one weight '
+        'stream amortized over the active batch plus the KV history '
+        'read/write at the current mean context and cache dtype (an '
+        'int8 KV cache shows up as a measured halving)',
+    'skytpu_engine_arith_intensity':
+        'Modeled decode arithmetic intensity (FLOPs/HBM byte) at the '
+        'current occupancy — distance from the chip\'s roofline ridge',
+    'skytpu_engine_xla_compile_total':
+        'XLA backend compiles observed in this process '
+        '(jax.monitoring): increments after engine warmup are '
+        'recompile hazards (see the perf.recompile sentinel)',
+    'skytpu_engine_xla_compile_seconds':
+        'XLA backend compile durations (jax.monitoring event stream)',
+    'skytpu_profile_captures_total':
+        'On-demand jax.profiler captures served via /debug/profile',
+    # ----- serve load balancer -------------------------------------------
+    'skytpu_lb_requests_total':
+        'Proxied requests by replica and upstream status code',
+    'skytpu_lb_request_duration_seconds':
+        'Proxied request wall time, per replica',
+    'skytpu_lb_no_ready_replicas_total':
+        'Requests rejected 503 because no replica was ready',
+    'skytpu_lb_shed_total':
+        'Requests shed 429 by queue-aware admission control (every '
+        'ready replica over max_queue_tokens_per_replica)',
+    'skytpu_lb_scrape_age_seconds':
+        'Age of the last successful federated /metrics scrape of each '
+        'replica — the staleness of the window SLO decisions run on '
+        '(a growing age means that replica is scraping dark)',
+    # ----- disaggregated prefill/decode (KV handoff) ----------------------
+    'skytpu_lb_kv_transfer_total':
+        'KV-page handoff pushes from prefill to decode replicas, by '
+        'outcome (ok / error — an errored push fails over to the next '
+        'decode candidate, then to monolithic serving)',
+    'skytpu_lb_kv_transfer_bytes_total':
+        'Payload bytes of successful KV-page handoffs (header + '
+        'layer-major page data)',
+    'skytpu_lb_kv_transfer_seconds':
+        'Wall time of one KV handoff push attempt, including the '
+        'decode replica\'s generation (the adopt response carries the '
+        'completion)',
+    # ----- training -------------------------------------------------------
+    'skytpu_train_step_seconds':
+        'Train step wall time, per host (the host label is '
+        'jax.process_index() — the straggler skew gauge is derived '
+        'from the per-host distributions the telemetry store keeps)',
+    'skytpu_train_tokens_per_second':
+        'Training throughput over the recent logging window, per '
+        'PRODUCTIVE second (goodput-ledger-classified badput — '
+        'checkpoint saves, input stalls — is excluded from the '
+        'denominator)',
+    'skytpu_train_mfu_percent':
+        'Estimated model FLOPs utilization (bench.py accounting)',
+    'skytpu_train_hbm_bytes_per_token':
+        'Modeled training HBM traffic per token (weight fwd+bwd '
+        'streams, gradient write, optimizer-state read/write, '
+        'amortized over the step\'s tokens — train/flops.py)',
+    'skytpu_train_arith_intensity':
+        'Modeled training arithmetic intensity (FLOPs/HBM byte)',
+    # ----- training goodput plane (obs/goodput.py) -------------------------
+    'skytpu_train_goodput_percent':
+        'Share of this run\'s classified wall-clock spent in '
+        'productive step time (goodput ledger headline: productive / '
+        'wall * 100; the durable, recovery-summed twin lives in the '
+        'goodput_ledger table)',
+    'skytpu_train_badput_seconds_total':
+        'Non-productive wall-clock by ledger category (init_compile / '
+        'checkpoint_save / checkpoint_restore / input_stall / '
+        'preemption_downtime / recovery_relaunch)',
+    'skytpu_train_step_skew':
+        'Multi-host step-time skew over the recent window: slowest '
+        'host\'s p50 step time over the median host\'s — 1.0 is a '
+        'balanced slice, the straggler alert rule fires on sustained '
+        'excess',
+    # ----- managed jobs ----------------------------------------------------
+    'skytpu_jobs_preemptions_total':
+        'Task clusters lost to preemption (cloud says not-UP)',
+    'skytpu_jobs_recoveries_total':
+        'Managed-job recoveries by trigger '
+        '(preemption / lost_job / user_failure)',
+    'skytpu_jobs_recovery_launches_total':
+        'Recovery relaunches by strategy (slice delete + re-provision)',
+    # ----- serve replicas --------------------------------------------------
+    'skytpu_serve_replica_preemptions_total':
+        'Serve replicas lost to preemption',
+    'skytpu_serve_ready_view_cache_total':
+        'ready_replicas()/num_live() lookups by result (hit = served '
+        'from the version-keyed cache, miss = full state re-query) — '
+        'the fleetsim ready_view hot path rides this cache',
+    # ----- fleet simulator (fleetsim/) -------------------------------------
+    'skytpu_fleetsim_control_seconds':
+        'Wall time of one control-plane step inside a fleet '
+        'simulation, by path (lease.try_acquire / '
+        'autoscaler.evaluate / replicas.scale_up / lb.route / ...) — '
+        'with skytpu_db_op_seconds, the raw material of the per-run '
+        'hot-path profile report',
+    'skytpu_fleetsim_requests_total':
+        'Simulated requests by outcome (admitted / shed / no_ready / '
+        'retried) across the whole virtual fleet',
+    'skytpu_fleetsim_events_total':
+        'Scripted scenario events fired (preemption_storm / '
+        'leaseholder_kill / lb_severed / lb_restored)',
+    'skytpu_fleetsim_prefix_tokens_total':
+        'Cacheable prefix tokens by outcome (hit = served from a '
+        'replica\'s radix cache, miss = prefilled) — the emergent '
+        'prefix-cache hit rate of the simulated session traffic',
+    # ----- fleet telemetry plane (obs/) ------------------------------------
+    'skytpu_engine_prefix_fingerprint':
+        'Rolling-hash fingerprint of the radix cache\'s resident '
+        'prefixes (XOR of per-node page-key digests, as an integer '
+        'gauge) — two replicas holding the same hot prefixes expose '
+        'the same value, the affinity-routing signal for ROADMAP '
+        'item 2',
+    'skytpu_obs_ingest_total':
+        'Telemetry-store ingests performed by this process (one per '
+        'downsampled federated scrape), by service — the durable twin '
+        'is one heartbeat row per interval, whose gaps the '
+        'dark_scrape alert rule measures',
+    'skytpu_obs_ingest_seconds':
+        'Wall time to downsample one federated scrape into the '
+        'telemetry store (parse + delta extraction + one batched '
+        'transaction), by service — the bench_obs_overhead '
+        'per-scrape cost lives in this histogram',
+    'skytpu_obs_alerts_total':
+        'SLO alert transitions by rule and transition (fire / clear) '
+        '— the counter twin of the durable obs_alerts rows',
+}
+
+# Fixed bucket upper bounds per histogram family (seconds unless the
+# family name says otherwise).  Central so the exposition is stable
+# across replicas — federation sums only make sense on shared buckets.
+DEFAULT_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
+                   5.0, 10.0, 30.0, 60.0)
+_BUCKETS: Dict[str, Tuple[float, ...]] = {
+    # Upper buckets sized for chunked long-context prefills on a
+    # saturated engine (a 128k prefill interleaves with decode over
+    # many loop iterations — TTFT can legitimately reach minutes).
+    'skytpu_engine_ttft_seconds':
+        (0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
+         60.0, 120.0),
+    'skytpu_engine_inter_token_seconds':
+        (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+         0.5, 1.0),
+    'skytpu_lb_request_duration_seconds': DEFAULT_BUCKETS,
+    # Sub-millisecond floor: local sqlite ops are microseconds, a
+    # loaded Postgres round-trip is milliseconds — both tails matter.
+    'skytpu_db_op_seconds':
+        (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+         0.5, 1.0, 2.5, 5.0),
+    'skytpu_train_step_seconds':
+        (0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0,
+         60.0, 120.0),
+    # XLA compiles: sub-second tiny-model CPU compiles through
+    # multi-minute 70B-class sharded programs.
+    'skytpu_engine_xla_compile_seconds':
+        (0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120.0,
+         300.0),
+    # Control-plane steps in a fleet sim: same shape as db ops (they
+    # are mostly made OF db ops) with a longer tail for chunked
+    # thousand-replica scale-ups.
+    'skytpu_fleetsim_control_seconds':
+        (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+         0.5, 1.0, 2.5, 5.0, 10.0, 30.0),
+    # One telemetry-store ingest = parse + deltas + one transaction:
+    # microseconds-to-milliseconds on sqlite, a network round-trip on
+    # Postgres — same shape as db ops.
+    'skytpu_obs_ingest_seconds':
+        (0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25,
+         0.5, 1.0, 2.5, 5.0),
+}
+
+# Family names referenced OUTSIDE the exporting process (the LB's
+# admission control, the SLO autoscaler, and the bench sim all read
+# this gauge out of scraped exposition text): shared constants so a
+# rename cannot silently sever a consumer (the fail-open readers would
+# just find nothing).
+QUEUED_PREFILL_TOKENS_FAMILY = 'skytpu_engine_queued_prefill_tokens'
+ENGINE_TTFT_FAMILY = 'skytpu_engine_ttft_seconds'
+ENGINE_TPOT_FAMILY = 'skytpu_engine_inter_token_seconds'
+# Training goodput plane: the trainer exports these, the telemetry
+# store downsamples them (per-host for the step histogram), and the
+# obs alert rules / `skytpu jobs top` read them back.
+TRAIN_STEP_FAMILY = 'skytpu_train_step_seconds'
+TRAIN_GOODPUT_FAMILY = 'skytpu_train_goodput_percent'
+TRAIN_BADPUT_FAMILY = 'skytpu_train_badput_seconds_total'
+TRAIN_STEP_SKEW_FAMILY = 'skytpu_train_step_skew'
+# Response header the inference server stamps the queued-prefill-token
+# backlog on; the serve LB reads it on the proxy response path (same
+# cross-process contract as the gauge above, same drift risk).
+BACKLOG_HEADER = 'X-Skytpu-Queued-Prefill-Tokens'
+
+_started_at = time.time()
+
+
+def _key(metric: str, labels: dict):
+    return (metric, tuple(sorted(labels.items())))
+
+
+def inc_counter(metric: str, value: float = 1.0, **labels: str) -> None:
+    with _lock:
+        k = _key(metric, labels)
+        _counters[k] = _counters.get(k, 0.0) + value
+
+
+def set_gauge(metric: str, value: float, **labels: str) -> None:
+    with _lock:
+        _gauges[_key(metric, labels)] = value
+
+
+def remove_gauge(metric: str, **labels: str) -> None:
+    """Drop one labeled series (e.g. a torn-down pod's gauges — leaving
+    them would report stale values forever)."""
+    with _lock:
+        _gauges.pop(_key(metric, labels), None)
+
+
+def add_gauge(metric: str, delta: float, **labels: str) -> None:
+    with _lock:
+        k = _key(metric, labels)
+        _gauges[k] = _gauges.get(k, 0.0) + delta
+
+
+def observe(metric: str, value: float, **labels: str) -> None:
+    with _lock:
+        k = _key(metric, labels)
+        if k not in _summaries:
+            _summaries[k] = [0.0, 0.0]
+        _summaries[k][0] += 1
+        _summaries[k][1] += value
+
+
+def buckets_for(metric: str) -> Tuple[float, ...]:
+    return _BUCKETS.get(metric, DEFAULT_BUCKETS)
+
+
+def observe_hist(metric: str, value: float, **labels: str) -> None:
+    """Record into a fixed-bucket histogram (bucket bounds from
+    _BUCKETS, DEFAULT_BUCKETS otherwise)."""
+    bounds = buckets_for(metric)
+    # Index of the first bucket the value fits; len(bounds) == +Inf.
+    idx = len(bounds)
+    for i, b in enumerate(bounds):
+        if value <= b:
+            idx = i
+            break
+    with _lock:
+        k = _key(metric, labels)
+        h = _histograms.get(k)
+        if h is None:
+            h = [[0] * (len(bounds) + 1), 0.0]
+            _histograms[k] = h
+        h[0][idx] += 1
+        h[1] += value
+
+
+def _escape_label_value(v: str) -> str:
+    return str(v).replace('\\', '\\\\').replace('"', '\\"').replace(
+        '\n', '\\n')
+
+
+def _fmt_labels(labels: Tuple[Tuple[str, str], ...],
+                extra: Tuple[Tuple[str, str], ...] = ()) -> str:
+    pairs = tuple(labels) + tuple(extra)
+    if not pairs:
+        return ''
+    inner = ','.join(f'{k}="{_escape_label_value(v)}"' for k, v in pairs)
+    return '{' + inner + '}'
+
+
+def _fmt_bucket_value(b: float) -> str:
+    # 1.0 -> "1.0" is fine, but trim trailing noise: match Prometheus
+    # client conventions loosely (repr of the float).
+    return repr(float(b))
+
+
+def render() -> str:
+    """Prometheus text exposition format."""
+    lines: List[str] = []
+    with _lock:
+        emitted = set()
+
+        def header(name: str, mtype: str):
+            if name not in emitted:
+                emitted.add(name)
+                if name in _HELP:
+                    lines.append(f'# HELP {name} {_HELP[name]}')
+                lines.append(f'# TYPE {name} {mtype}')
+
+        header('skytpu_server_start_time_seconds', 'gauge')
+        lines.append(f'skytpu_server_start_time_seconds {_started_at}')
+        for (name, labels), val in sorted(_counters.items()):
+            header(name, 'counter')
+            lines.append(f'{name}{_fmt_labels(labels)} {val}')
+        for (name, labels), val in sorted(_gauges.items()):
+            header(name, 'gauge')
+            lines.append(f'{name}{_fmt_labels(labels)} {val}')
+        for (name, labels), (count, total) in sorted(_summaries.items()):
+            header(name, 'summary')
+            lines.append(f'{name}_count{_fmt_labels(labels)} {count}')
+            lines.append(f'{name}_sum{_fmt_labels(labels)} {total}')
+        for (name, labels), (counts, total) in sorted(_histograms.items()):
+            header(name, 'histogram')
+            bounds = buckets_for(name)
+            cum = 0
+            for i, b in enumerate(bounds):
+                cum += counts[i]
+                le = (('le', _fmt_bucket_value(b)),)
+                lines.append(
+                    f'{name}_bucket{_fmt_labels(labels, le)} {cum}')
+            cum += counts[-1]
+            lines.append(
+                f'{name}_bucket'
+                f'{_fmt_labels(labels, (("le", "+Inf"),))} {cum}')
+            lines.append(f'{name}_sum{_fmt_labels(labels)} {total}')
+            lines.append(f'{name}_count{_fmt_labels(labels)} {cum}')
+    return '\n'.join(lines) + '\n'
+
+
+# ----- federation -------------------------------------------------------------
+# A sample line: name, optional {labels}, value (+ optional timestamp).
+_SAMPLE_RE = re.compile(
+    r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{.*\})?\s+(-?[0-9.eE+\-]+|NaN|[+\-]Inf)'
+    r'(\s+-?[0-9]+)?\s*$')
+_META_RE = re.compile(r'^#\s+(HELP|TYPE)\s+([a-zA-Z_:][a-zA-Z0-9_:]*)\s+(.*)$')
+
+
+def _relabel_sample(line: str, extra: str) -> str:
+    """Insert pre-escaped label text `k="v"` into one sample line."""
+    m = _SAMPLE_RE.match(line)
+    assert m is not None, line
+    name, labels = m.group(1), m.group(2)
+    if labels and labels != '{}':
+        rest = line[m.end(2):]
+        return f'{name}{labels[:-1]},{extra}}}{rest}'
+    rest = line[m.end(2) if labels else m.end(1):]
+    return f'{name}{{{extra}}}{rest}'
+
+
+def merge_federated(own: str,
+                    replicas: List[Tuple[str, str]]) -> str:
+    """Merge this process's exposition with scraped replica expositions.
+
+    ``replicas`` is [(replica_id, exposition_text)]; every replica
+    sample is relabeled with replica="<id>" and the result is regrouped
+    per family (one HELP/TYPE header, all samples together) so the
+    output stays parseable by strict exposition consumers.  Unparseable
+    replica lines (a workload without /metrics answered something else)
+    are dropped.
+    """
+    families: Dict[str, dict] = {}
+    order: List[str] = []
+
+    def fam(name: str) -> dict:
+        if name not in families:
+            families[name] = {'help': None, 'type': None, 'lines': []}
+            order.append(name)
+        return families[name]
+
+    def feed(text: str, replica_id: Optional[str]) -> None:
+        current: Optional[str] = None
+        for line in text.splitlines():
+            line = line.rstrip()
+            if not line:
+                continue
+            meta = _META_RE.match(line)
+            if meta is not None:
+                kind, name, rest = meta.groups()
+                f = fam(name)
+                key = kind.lower()
+                if f[key] is None:
+                    f[key] = rest
+                current = name
+                continue
+            if line.startswith('#'):
+                continue
+            m = _SAMPLE_RE.match(line)
+            if m is None:
+                continue                      # not exposition text: drop
+            name = m.group(1)
+            # _bucket/_sum/_count samples belong to the preceding
+            # family header (our renderer always emits header-first).
+            owner = current if (current is not None and
+                                name.startswith(current)) else name
+            if replica_id is not None and \
+                    (m.group(2) is None or
+                     re.search(r'[{,]replica="', m.group(2)) is None):
+                # Never emit a duplicate label name: a sample already
+                # carrying replica= (e.g. nested federation) keeps it.
+                line = _relabel_sample(
+                    line, f'replica="{_escape_label_value(replica_id)}"')
+            fam(owner)['lines'].append(line)
+
+    feed(own, None)
+    for rid, text in replicas:
+        feed(text, rid)
+    out: List[str] = []
+    for name in order:
+        f = families[name]
+        if f['help'] is not None:
+            out.append(f'# HELP {name} {f["help"]}')
+        if f['type'] is not None:
+            out.append(f'# TYPE {name} {f["type"]}')
+        out.extend(f['lines'])
+    return '\n'.join(out) + '\n'
+
+
+def help_registry() -> Dict[str, str]:
+    """The central family -> help map (tests walk this)."""
+    return dict(_HELP)
+
+
+def reset_for_tests() -> None:
+    with _lock:
+        _counters.clear()
+        _gauges.clear()
+        _summaries.clear()
+        _histograms.clear()

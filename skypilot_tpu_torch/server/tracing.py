@@ -1,0 +1,451 @@
+"""Per-request distributed tracing + always-on flight recorder.
+
+PR 5 gave the data plane aggregate metrics (server/metrics.py) and PR 9
+made it decide on them — but aggregates cannot answer "where did THIS
+request's 400 ms go?".  This module is the request-scoped layer:
+
+- A ``skytpu-request-id`` is minted at LB admission (or honored from the
+  client's ``X-Skytpu-Request-Id`` header), propagated through the serve
+  load balancer to the inference server, and threaded into the decode
+  engine, which stamps host-side span events along the request's life:
+  admission, routing decision, queue wait, each prefill chunk, first
+  token (with decode-batch membership), stream end, shed/reject.
+- Events land in an always-on bounded RING BUFFER per process (the
+  "flight recorder"): cheap enough to leave on in production, and the
+  last N events survive for a postmortem even when nobody was watching
+  — jobs preemption/recovery events record here too, so a `/debug`
+  dump after a crash still explains it.
+- Queryable via ``GET /debug/requests`` and ``/debug/requests/<id>`` on
+  the inference server and the API server, FEDERATED at the serve LB
+  (same pattern as its /metrics federation), exportable to the
+  Chrome-trace/Perfetto format ``utils/timeline.py`` established
+  (``?format=chrome``), and surfaced as ``skytpu trace <request-id>``
+  with a TTFT decomposition (queue + N x chunk + dispatch = measured
+  TTFT).
+
+Engine spans TILE the TTFT interval by construction — queue_wait ends
+where the first prefill dispatch begins, each chunk span ends where the
+next begins, and the dispatch span ends at the host-observed first
+token — so the decomposition SUMS to the measured TTFT instead of
+merely correlating with it.
+
+All stamping is host-side ``time.perf_counter()`` on the thread doing
+the work (the engine's loop thread on the hot path): ZERO added device
+syncs and nothing blocking in async handlers — both enforced by
+``skytpu check``, whose metric-naming rule also validates every span
+name at the call site against the central ``SPAN_HELP`` table below.
+
+Knob: ``SKYTPU_TRACE_RING_SIZE`` — events retained per process
+(default 8192; 0 disables recording entirely).
+"""
+from __future__ import annotations
+
+import os
+import threading
+import time
+import uuid
+from collections import deque
+from typing import Any, Dict, List, Optional
+
+from skypilot_tpu_torch.utils import timeline
+
+# Request-id header: minted at LB admission when absent, honored when a
+# client supplies its own, forwarded to the replica, and stamped on
+# every response so callers always learn the id to `skytpu trace`.
+TRACE_HEADER = 'X-Skytpu-Request-Id'
+
+RING_SIZE_ENV = 'SKYTPU_TRACE_RING_SIZE'
+DEFAULT_RING_SIZE = 8192
+
+# Central span-name registry (the tracing twin of metrics.py _HELP):
+# every record_span/record_instant call site must name a key here —
+# `skytpu check`'s metric-naming rule enforces it statically, so a
+# typo'd or undocumented span cannot ship.  Names are dotted lowercase:
+# <component>.<event>.
+SPAN_HELP = {
+    # ----- serve load balancer -------------------------------------------
+    'lb.admission':
+        'Request arrived at the LB (id minted here unless the client '
+        'sent one)',
+    'lb.route':
+        'Routing decision: chosen replica plus the backlog/outstanding/'
+        'latency snapshot it was chosen on',
+    'lb.proxy':
+        'Whole proxied exchange as seen by the LB (connect + upstream '
+        'processing + streaming), with the upstream status code',
+    'lb.shed':
+        'Queue-aware admission control shed this request with 429 + '
+        'Retry-After',
+    'lb.no_ready_replicas':
+        'Rejected 503: no replica was ready',
+    # ----- inference server / decode engine -------------------------------
+    'server.reject':
+        'Inference server refused admission (e.g. 413 prompt beyond '
+        'max_prompt_len)',
+    'engine.queue_wait':
+        'Submit to first prefill dispatch: time spent queued behind '
+        'other admissions',
+    'engine.prefill':
+        'Fused bucket prefill+insert dispatch covering this request '
+        '(grouped per bucket)',
+    'engine.prefill_chunk':
+        'One chunked-prefill dispatch of a long prompt, interleaved '
+        'with decode; spans tile from the previous chunk dispatch',
+    'engine.prefix_hit':
+        'Prefix-cache hit: the matched KV pages gather into the '
+        'scratch cache instead of being prefilled — cached_tokens '
+        'attrs show the prefill work skipped; prefill resumes past '
+        'the match',
+    'engine.dispatch':
+        'End of the last prefill dispatch to the host observing the '
+        'first token (the decode call the token rode)',
+    'engine.first_token':
+        'First token emitted: decode-batch membership (slot, batch '
+        'size) and the measured TTFT',
+    'engine.stream_end':
+        'Request retired: emitted token count and decode duration',
+    'engine.kv_export':
+        'Prefill-role retire gathered this request\'s KV pages off '
+        'the pool for handoff to a decode replica (dispatch only; the '
+        'device->host copy happens on the HTTP thread)',
+    'engine.kv_adopt':
+        'Decode-role admission scattered a KV handoff\'s pages into '
+        'the local pool and seeded the slot from the transferred '
+        'first token — occupies the prefill slot of the TTFT tiling',
+    'engine.verify':
+        'One speculative verify dispatch covering this request\'s '
+        'slot: k n-gram-drafted tokens scored in a single fixed-shape '
+        'call (attrs: proposed, accepted).  A decode-phase span — '
+        'NOT part of the TTFT tiling, which first_token closes before '
+        'any verify runs',
+    # ----- device-level perf observability (perf/) -------------------------
+    'perf.recompile':
+        'Post-warmup XLA compile caught by the runtime recompile '
+        'sentinel (rid "recompile-sentinel"): attrs carry the traced '
+        'input shapes and compile seconds.  SKYTPU_STRICT_RECOMPILE=1 '
+        'escalates this event to a hard failure in the compiling call',
+    'perf.profile_capture':
+        'On-demand jax.profiler window served by /debug/profile '
+        '(attrs: Perfetto artifact path and size)',
+    # ----- fleet telemetry plane (obs/) ------------------------------------
+    'alert.fire':
+        'SLO burn-rate alert began firing (rid "alert-engine"): attrs '
+        'carry the service, rule, attributed pool, and the fast '
+        'short-window burn at the transition — the durable record is '
+        'the obs_alerts row',
+    'alert.clear':
+        'SLO burn-rate alert cleared with hysteresis (fast '
+        'short-window burn back under the rule\'s clear_ratio)',
+    # ----- managed jobs (postmortem events) --------------------------------
+    'jobs.preemption':
+        'Managed job cluster lost to preemption (cloud says not-UP)',
+    'jobs.recovery':
+        'Managed job recovery decision, by trigger '
+        '(preemption / lost_job / user_failure)',
+    'jobs.recovery_launch':
+        'Recovery relaunch dispatched (slice delete + re-provision)',
+    'jobs.downtime':
+        'One controller-observed goodput-ledger interval '
+        '(category = preemption_downtime | recovery_relaunch), '
+        'bracketed by the jobs.preemption/jobs.recovery instants — '
+        'the durable twin is a goodput_intervals row',
+    # ----- training goodput plane (obs/goodput.py) -------------------------
+    'train.phase':
+        'One trainer-side goodput-ledger interval (category = '
+        'productive | init_compile | checkpoint_save | '
+        'checkpoint_restore; per-step input-stall time rides as a '
+        '*_s attr carved out of the enclosing interval) — the '
+        'intervals tile the run\'s wall-clock exactly',
+}
+
+# Anchor monotonic stamps to the wall clock ONCE per process: events
+# are recorded with perf_counter (cheap, monotonic, what the engine
+# already stamps Request lifecycle with) and rendered in wall time so
+# LB and replica recorders — different processes, possibly different
+# hosts — merge onto one comparable axis.
+_ANCHOR_WALL = time.time()
+_ANCHOR_PERF = time.perf_counter()
+
+_lock = threading.Lock()
+_ring: 'deque[dict]' = deque(maxlen=DEFAULT_RING_SIZE or None)
+_capacity = DEFAULT_RING_SIZE
+
+
+def _configure() -> None:
+    """(Re)read the ring-size knob; called at import and from
+    reset_for_tests so tests can flip the env."""
+    global _ring, _capacity
+    try:
+        cap = int(os.environ.get(RING_SIZE_ENV, str(DEFAULT_RING_SIZE)))
+    except ValueError:
+        cap = DEFAULT_RING_SIZE
+    _capacity = max(0, cap)
+    _ring = deque(maxlen=_capacity or 1)
+
+
+_configure()
+
+
+def enabled() -> bool:
+    return _capacity > 0
+
+
+def capacity() -> int:
+    return _capacity
+
+
+def mint_request_id() -> str:
+    """New request id: short, collision-safe enough for a ring-buffer
+    lifetime, cheap (no blocking entropy pool reads on the hot path)."""
+    return uuid.uuid4().hex[:16]
+
+
+def wall_of(perf_t: float) -> float:
+    """Monotonic perf_counter stamp -> wall-clock seconds."""
+    return _ANCHOR_WALL + (perf_t - _ANCHOR_PERF)
+
+
+def record_span(request_id: str, name: str, start: float, end: float,
+                **attrs: Any) -> None:
+    """Record one duration span (perf_counter stamps).  No-op when the
+    recorder is disabled; never raises on the hot path."""
+    if _capacity <= 0 or request_id is None:
+        return
+    evt = {'rid': request_id, 'name': name, 'start': start,
+           'end': end, 'attrs': attrs or None, 'tid': timeline._tid()}
+    with _lock:
+        _ring.append(evt)
+
+
+def record_instant(request_id: str, name: str,
+                   t: Optional[float] = None, **attrs: Any) -> None:
+    """Record one zero-duration marker (perf_counter stamp; now when
+    omitted)."""
+    if _capacity <= 0 or request_id is None:
+        return
+    t = time.perf_counter() if t is None else t
+    evt = {'rid': request_id, 'name': name, 'start': t, 'end': None,
+           'attrs': attrs or None, 'tid': timeline._tid()}
+    with _lock:
+        _ring.append(evt)
+
+
+# ----- queries ----------------------------------------------------------------
+def _render(evt: dict) -> dict:
+    """Internal event -> the wire/JSON form (wall-clock ts seconds,
+    duration in ms)."""
+    dur_ms = None
+    if evt['end'] is not None:
+        dur_ms = round((evt['end'] - evt['start']) * 1e3, 4)
+    return {
+        'request_id': evt['rid'],
+        'name': evt['name'],
+        'ts': round(wall_of(evt['start']), 6),
+        'dur_ms': dur_ms,
+        'attrs': evt['attrs'] or {},
+        'tid': evt['tid'],
+    }
+
+
+def events_for(request_id: str) -> List[dict]:
+    """All retained events of one request, in record order (JSON
+    form)."""
+    with _lock:
+        events = [e for e in _ring if e['rid'] == request_id]
+    return [_render(e) for e in events]
+
+
+def recent_requests(limit: int = 100) -> List[dict]:
+    """Most-recent request summaries in the ring (newest first)."""
+    with _lock:
+        events = list(_ring)
+    by_rid: Dict[str, dict] = {}
+    for e in events:
+        s = by_rid.get(e['rid'])
+        if s is None:
+            s = by_rid[e['rid']] = {
+                'request_id': e['rid'], 'first_ts': wall_of(e['start']),
+                'last_ts': wall_of(e['start']), 'events': 0,
+                'spans': []}
+        s['events'] += 1
+        s['last_ts'] = max(s['last_ts'], wall_of(e['end'] if e['end']
+                                                 is not None
+                                                 else e['start']))
+        if e['name'] not in s['spans']:
+            s['spans'].append(e['name'])
+    out = sorted(by_rid.values(), key=lambda s: s['last_ts'],
+                 reverse=True)[:max(0, limit)]
+    for s in out:
+        s['first_ts'] = round(s['first_ts'], 6)
+        s['last_ts'] = round(s['last_ts'], 6)
+    return out
+
+
+def clear_for_tests() -> None:
+    with _lock:
+        _ring.clear()
+
+
+def reset_for_tests() -> None:
+    _configure()      # re-reads the env knob; replaces (clears) the ring
+
+
+# ----- TTFT decomposition -----------------------------------------------------
+def decompose(events: List[dict]) -> dict:
+    """TTFT decomposition from one request's (JSON-form) events.
+
+    The engine spans tile [submit, first token], so
+    queue_wait + prefill (fused or N chunks) + dispatch should SUM to
+    the measured TTFT (`engine.first_token`'s ttft_s attr);
+    ``unattributed_ms`` is the residual and should be ~0.
+    """
+    def durs(name):
+        return [e['dur_ms'] for e in events
+                if e['name'] == name and e['dur_ms'] is not None]
+
+    queue = sum(durs('engine.queue_wait'))
+    chunks = durs('engine.prefill_chunk')
+    # A prefix-cache hit's page gather replaces the prefill work it
+    # skipped (its span occupies the same slot in the tiling), and an
+    # adopted KV handoff's scatter replaces the prefill entirely.
+    hits = durs('engine.prefix_hit')
+    adopts = durs('engine.kv_adopt')
+    prefill = (sum(durs('engine.prefill')) + sum(chunks) + sum(hits) +
+               sum(adopts))
+    dispatch = sum(durs('engine.dispatch'))
+    cached_tokens = sum(
+        e['attrs'].get('cached_tokens') or 0 for e in events
+        if e['name'] == 'engine.prefix_hit')
+    first = next((e for e in events if e['name'] == 'engine.first_token'),
+                 None)
+    ttft_ms = None
+    if first is not None and first['attrs'].get('ttft_s') is not None:
+        ttft_ms = round(first['attrs']['ttft_s'] * 1e3, 4)
+    decomposed = round(queue + prefill + dispatch, 4)
+    # Decode-phase speculation attribution (engine.verify spans are
+    # NOT part of the TTFT tiling — first_token closes before any
+    # verify dispatch covers this request).
+    verify = durs('engine.verify')
+    spec_proposed = sum(
+        e['attrs'].get('proposed') or 0 for e in events
+        if e['name'] == 'engine.verify')
+    spec_accepted = sum(
+        e['attrs'].get('accepted') or 0 for e in events
+        if e['name'] == 'engine.verify')
+    route = next((e for e in events if e['name'] == 'lb.route'), None)
+    outcome = 'ok'
+    if any(e['name'] == 'lb.shed' for e in events):
+        outcome = 'shed'
+    elif any(e['name'] == 'server.reject' for e in events):
+        outcome = 'rejected'
+    elif any(e['name'] == 'lb.no_ready_replicas' for e in events):
+        outcome = 'no_ready_replicas'
+    elif first is None:
+        outcome = 'pending'
+    end = next((e for e in events if e['name'] == 'engine.stream_end'),
+               None)
+    return {
+        'outcome': outcome,
+        'replica': (route or {}).get('attrs', {}).get('replica'),
+        'ttft_ms': ttft_ms,
+        'queue_wait_ms': round(queue, 4),
+        'prefill_ms': round(prefill, 4),
+        'prefill_chunks': len(chunks),
+        'prefix_cached_tokens': cached_tokens,
+        'dispatch_ms': round(dispatch, 4),
+        'decomposed_ttft_ms': decomposed,
+        'unattributed_ms': (round(ttft_ms - decomposed, 4)
+                            if ttft_ms is not None else None),
+        'verify_ms': round(sum(verify), 4),
+        'verify_calls': len(verify),
+        'spec_proposed_tokens': spec_proposed,
+        'spec_accepted_tokens': spec_accepted,
+        'emitted_tokens': (end or {}).get('attrs', {}).get('emitted'),
+    }
+
+
+# ----- export / endpoint payloads ---------------------------------------------
+def to_chrome(events: List[dict]) -> dict:
+    """(JSON-form) events -> the Chrome trace-event document
+    utils/timeline.py writes — loadable in chrome://tracing and
+    Perfetto.  Spans become 'X' complete events, instants 'i'."""
+    pid = os.getpid()
+    out = []
+    for e in events:
+        ce = {
+            'name': e['name'],
+            'ph': 'i' if e['dur_ms'] is None else 'X',
+            'ts': e['ts'] * 1e6,
+            'pid': pid,
+            'tid': e['tid'],
+            'args': dict(e['attrs'], request_id=e['request_id']),
+        }
+        if e['dur_ms'] is not None:
+            ce['dur'] = e['dur_ms'] * 1e3
+        else:
+            ce['s'] = 't'                   # instant scope: thread
+        out.append(ce)
+    return timeline.trace_document(out)
+
+
+def dedupe(events: List[dict]) -> List[dict]:
+    """Merge events from multiple sources (the LB federates its own
+    recorder with its replicas'; library-direct deployments run both in
+    ONE process/recorder, so a federated view would double-count
+    without this), keyed on (name, ts, dur), ordered by ts."""
+    seen = set()
+    out = []
+    for e in sorted(events, key=lambda e: (e['ts'], e['name'])):
+        key = (e['name'], round(e['ts'] * 1e6),
+               None if e['dur_ms'] is None else round(e['dur_ms'], 3))
+        if key in seen:
+            continue
+        seen.add(key)
+        out.append(e)
+    return out
+
+
+def debug_request_payload(request_id: str,
+                          events: Optional[List[dict]] = None,
+                          fmt: str = '') -> Optional[dict]:
+    """Payload for GET /debug/requests/<id> (shared by the inference
+    server, the API server and the LB's federated view).  None when the
+    id is in no retained event (the caller 404s)."""
+    events = dedupe(events if events is not None
+                    else events_for(request_id))
+    if not events:
+        return None
+    if fmt == 'chrome':
+        return to_chrome(events)
+    return {
+        'request_id': request_id,
+        'events': events,
+        'summary': decompose(events),
+    }
+
+
+def make_debug_handlers():
+    """aiohttp handlers for GET /debug/requests and
+    /debug/requests/{request_id} over THIS process's recorder — one
+    implementation shared by the inference server and the API server,
+    so the payload shape and the 404 contract (`skytpu trace` parses
+    both) cannot diverge.  Pure in-memory reads: nothing blocks the
+    event loop.  (The serve LB has its own FEDERATING handlers.)"""
+    from aiohttp import web
+
+    async def debug_requests(_request):
+        return web.json_response({'ring_size': capacity(),
+                                  'requests': recent_requests()})
+
+    async def debug_request(request):
+        rid = request.match_info['request_id']
+        payload = debug_request_payload(
+            rid, fmt=request.query.get('format', ''))
+        if payload is None:
+            return web.json_response(
+                {'error': f'request id {rid!r} not in the flight '
+                          f'recorder (evicted or never seen)'},
+                status=404)
+        return web.json_response(payload)
+
+    return debug_requests, debug_request
