@@ -15,17 +15,26 @@ cache) and S == 1 a decode step (scatter at each row's own position).
 Cache tensors are updated in place: the engine owns them, as the JAX
 engine donates its cache buffers.
 
-Not in this slice: the one-hot embedding, MoE, the paged cache, ring
-attention and remat.
+The non-decode forward is the training forward: differentiable (the
+flash op is an autograd Function over the forward and backward kernels)
+and, with `cfg.remat`, checkpointed per block as the JAX model's
+`nn.remat` does: policy 'none' keeps only each block's input, 'dots'
+also keeps the projection products (`aten.mm`, the counterpart of
+`dots_with_no_batch_dims_saveable`); attention is recomputed under both.
+
+Not in this ported package yet: the one-hot embedding, MoE, the paged
+cache and ring attention.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as checkpoint_lib
 
 from skypilot_tpu_torch.device import DeviceLike, resolve_device
 from skypilot_tpu_torch.ops import attention as attn_lib
@@ -47,8 +56,8 @@ class LlamaConfig:
     tie_embeddings: bool = False
     dtype: Any = torch.bfloat16          # compute dtype
     param_dtype: Any = torch.float32
-    remat: bool = True                   # training knob (training slice)
-    remat_policy: str = 'none'           # 'none' | 'dots' (training slice)
+    remat: bool = True                   # checkpoint each block (training)
+    remat_policy: str = 'none'           # 'none' | 'dots'
     attention_impl: str = 'flash'        # 'flash' | 'xla' ('ring' later)
     n_experts: int = 0                   # MoE: not in this slice
     moe_top_k: int = 2
@@ -296,6 +305,9 @@ class Llama(nn.Module):
                 f'context-parallel port)')
         if cfg.n_experts > 0:
             raise ValueError('MoE comes with the model-zoo port')
+        if cfg.remat_policy not in ('none', 'dots'):
+            raise ValueError(f'remat_policy {cfg.remat_policy!r} not in '
+                             f"('none', 'dots')")
         self.cfg = cfg
         self.embed = nn.Embedding(cfg.vocab_size, cfg.dim, device='meta',
                                   dtype=cfg.param_dtype)
@@ -306,8 +318,9 @@ class Llama(nn.Module):
             self.lm_head = Dense(cfg.dim, cfg.vocab_size, cfg.dtype,
                                  cfg.param_dtype)
         self.load_state_dict(params, strict=True, assign=True)
-        # Serving slice: no parameter takes a gradient (the flash op is
-        # forward-only until the training port).
+        # Serving needs no gradient; a trainer turns them on for the model
+        # it trains (load_state_dict(assign=True) keeps the module's
+        # requires_grad, not the given tensors').
         self.requires_grad_(False)
 
     def forward(self, tokens: torch.Tensor,
@@ -322,9 +335,15 @@ class Llama(nn.Module):
             positions = positions[None, :].expand(tokens.shape)
         x = F.embedding(tokens, self.embed.weight).to(cfg.dtype)
         new_cache: List[LayerCache] = []
+        remat = cfg.remat and not decode and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
-            x, layer_cache = layer(x, positions, decode,
-                                   None if cache is None else cache[i])
+            if remat:
+                x, layer_cache = checkpoint_lib.checkpoint(
+                    layer, x, positions, use_reentrant=False,
+                    context_fn=_REMAT_CONTEXTS[cfg.remat_policy])
+            else:
+                x, layer_cache = layer(x, positions, decode,
+                                       None if cache is None else cache[i])
             new_cache.append(layer_cache)
         x = self.final_norm(x)
         if cfg.tie_embeddings:
@@ -333,6 +352,23 @@ class Llama(nn.Module):
             logits = self.lm_head(x)
         logits = logits.float()
         return (logits, new_cache) if decode else logits
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of remat 'dots': keep the projection
+    products, recompute everything else."""
+    del ctx, args, kwargs
+    return (checkpoint_lib.CheckpointPolicy.MUST_SAVE
+            if op is torch.ops.aten.mm.default else
+            checkpoint_lib.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+# remat_policy -> checkpoint context_fn ('none' saves only block inputs).
+_REMAT_CONTEXTS = {
+    'none': checkpoint_lib.noop_context_fn,
+    'dots': functools.partial(
+        checkpoint_lib.create_selective_checkpoint_contexts, _save_dots),
+}
 
 
 def _lecun_normal(shape, fan_in: int, cfg: LlamaConfig, device,

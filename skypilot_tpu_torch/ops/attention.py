@@ -1,11 +1,12 @@
-"""Attention ops: the plain reference and the flash-forward kernel.
+"""Attention ops: the plain reference and the flash-attention kernels.
 
 PyTorch twin of `skypilot_tpu/ops/attention.py`.  `mha_reference` is the
 plain implementation (runs anywhere; the ground truth of the tests).
-`flash_attention` runs the hand-written Hopper forward kernel
-(`ops/cuda/flash_attention.py`) on CUDA tensors and its plain version on
-CPU tensors.  It is forward-only in this package: the autograd Function
-and the two backward kernels come with the training port.
+`flash_attention` is a `torch.autograd.Function` (the counterpart of the
+JAX package's `jax.custom_vjp`): its forward is the hand-written Hopper
+forward kernel, its backward the dq and dk/dv kernels
+(`ops/cuda/flash_attention.py`), on CUDA tensors; CPU tensors take the
+kernels' plain versions in both directions.
 
 Shapes: q [B, Hq, Sq, D], k/v [B, Hkv, Sk, D]; grouped-query attention is
 expressed by Hq = G * Hkv (query heads grouped over kv heads).
@@ -66,19 +67,40 @@ def mha_reference(q: torch.Tensor,
     return out.to(orig_dtype)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """Forward kernel with residuals (q, k, v, out, lse) saved; backward
+    is delta = rowsum(dO * O) and the two backward kernels, dk/dv already
+    at Hkv heads.  `causal` and `block_size` take no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, block_size):
+        ctx.causal, ctx.block_size = causal, block_size
+        if not any(ctx.needs_input_grad[:3]):
+            return cuda_fa.flash_attention_fwd(q, k, v, causal=causal,
+                                               block_size=block_size)
+        out, lse = cuda_fa.flash_attention_fwd(
+            q, k, v, causal=causal, block_size=block_size,
+            return_residuals=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        # The incoming gradient is usually a transposed view (the model
+        # reshapes [B, H, S, D] to [B, S, H*D]); the kernels take
+        # contiguous tensors.
+        dq, dk, dv = cuda_fa.flash_attention_bwd(
+            q, k, v, out, lse, g.contiguous(), causal=ctx.causal,
+            block_size=ctx.block_size)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q: torch.Tensor,
                     k: torch.Tensor,
                     v: torch.Tensor,
                     causal: bool = True,
                     block_size: int = 512) -> torch.Tensor:
-    """Flash attention forward: the Hopper kernel on CUDA tensors, its
-    plain version on CPU tensors.  Forward only: inputs that need a
-    gradient are refused rather than silently detached by the kernel."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            'flash_attention has no backward in this package yet (the '
-            'training port brings the dq and dk/dv kernels); run it under '
-            'torch.no_grad()')
-    return cuda_fa.flash_attention_fwd(q, k, v, causal=causal,
-                                       block_size=block_size)
+    """Flash attention, differentiable in q, k and v: the Hopper kernels
+    on CUDA tensors, their plain versions on CPU tensors."""
+    return _FlashAttention.apply(q, k, v, causal, block_size)

@@ -1,6 +1,8 @@
-"""GPU-only checks of the PyTorch port: the hand-written flash-forward
-kernel against its plain version, and the engine's kernel path against
-attention_impl='xla', on the card.  Marked `gpu`; each test asks the
+"""GPU-only checks of the PyTorch port: the hand-written flash-attention
+kernels (forward, dq, dk/dv) against their plain versions, the autograd
+op against autograd through `mha_reference`, the engine's kernel path
+against attention_impl='xla', and a narrow model trained through the
+kernels, on the card.  Marked `gpu`; each test asks the
 `cuda` fixture, which skips when there is no CUDA device.  No JAX here,
 so the file runs where only the port is installed:
 
@@ -67,6 +69,70 @@ def test_flash_kernel_rejects_what_it_cannot_run(cuda):
         fa.flash_attention_fwd(q, q, q)
 
 
+# Backward kernels vs their plain versions (same bf16 rounding of P and
+# dS, f32 sums in another order, outputs rounded to bf16): judged on the
+# norm of the difference relative to the reference's norm; one bf16 ulp
+# is 2^-8 relative, a wrong kernel is off by ~1.
+BWD_NORM_RTOL = 1e-2
+
+
+def _norm_rel(x, ref):
+    return ((x.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+@pytest.mark.parametrize('b,hq,hkv,s,d,causal,dtype', [
+    (1, 4, 2, 256, 128, True, torch.bfloat16),
+    (2, 4, 4, 128, 64, True, torch.bfloat16),
+    (1, 4, 2, 192, 128, False, torch.bfloat16),
+    (2, 4, 2, 96, 64, True, torch.float16),
+    (1, 2, 2, 32, 128, True, torch.bfloat16),
+])
+def test_flash_bwd_kernels_match_plain(cuda, b, hq, hkv, s, d, causal,
+                                       dtype):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, g = (torch.randn((b, hq, s, d), generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    k, v = (torch.randn((b, hkv, s, d), generator=gen,
+                        device=cuda).to(dtype) for _ in range(2))
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                      return_residuals=True)
+    delta = (g.float() * out.float()).sum(-1)
+    before = (fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches)
+    dq = fa.flash_attention_bwd_dq(q, k, v, g, lse, delta, causal)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    ref_dq = fa.flash_attention_bwd_dq_reference(q, k, v, g, lse, delta,
+                                                 causal)
+    ref_dk, ref_dv = fa.flash_attention_bwd_dkv_reference(
+        q, k, v, g, lse, delta, causal)
+    for got, ref in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        assert got.dtype == dtype and got.shape == ref.shape
+        assert torch.isfinite(got).all()
+        assert _norm_rel(got, ref) <= BWD_NORM_RTOL
+
+
+def test_flash_attention_grads_match_mha_reference(cuda):
+    """The autograd op (forward kernel, then both backward kernels) in
+    bf16 against autograd through `mha_reference` on the same inputs."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn((2, 8, 256, 128), generator=gen, device=cuda)
+    k, v = (torch.randn((2, 4, 256, 128), generator=gen, device=cuda)
+            for _ in range(2))
+    g = torch.randn((2, 8, 256, 128), generator=gen, device=cuda)
+    leaves = [t.to(torch.bfloat16).requires_grad_() for t in (q, k, v)]
+    from skypilot_tpu_torch.ops import attention as attn
+    got = torch.autograd.grad(attn.flash_attention(*leaves),
+                              leaves, g.to(torch.bfloat16))
+    want = torch.autograd.grad(attn.mha_reference(*leaves), leaves,
+                               g.to(torch.bfloat16))
+    for x, ref in zip(got, want):
+        assert _norm_rel(x, ref) <= 2 * BWD_NORM_RTOL
+
+
 def test_engine_on_gpu_goes_through_kernel(cuda):
     """A narrow llama2-shaped model (MHA, head_dim 128, bf16) served on
     the card: every prefill group launches the kernel once per layer, and
@@ -97,3 +163,31 @@ def test_engine_on_gpu_goes_through_kernel(cuda):
         got, _ = model(toks, decode=True)
         want, _ = xla(toks, decode=True)
     assert (got - want).abs().max() <= 5e-2 * want.abs().max()
+
+
+def test_narrow_model_trains_through_kernels(cuda):
+    """A narrow bench-1b-shaped model (GQA, head_dim 128, tied, remat
+    'none') takes 3 train steps on the card: every layer launches the
+    forward kernel twice (forward and remat recompute) and each backward
+    kernel once per step, and the loss is finite and falls."""
+    from skypilot_tpu_torch.train import trainer as tt
+    cfg = LlamaConfig(vocab_size=512, dim=512, n_layers=2, n_heads=4,
+                      n_kv_heads=2, ffn_dim=1024, max_seq_len=256,
+                      tie_embeddings=True, dtype=torch.bfloat16)
+    model = Llama(cfg, init_params(
+        cfg, cuda, torch.Generator(device=cuda).manual_seed(0)))
+    trainer = tt.Trainer(model, tt.TrainConfig(learning_rate=1e-2,
+                                               warmup_steps=1,
+                                               total_steps=50))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 256), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv)
+    before = [c.launches for c in counters]
+    losses = []
+    for _ in range(3):
+        trainer.state, metrics = trainer.train_step(trainer.state, tokens)
+        losses.append(float(metrics['loss']))
+    assert [c.launches - b for c, b in zip(counters, before)] == [
+        3 * 2 * cfg.n_layers, 3 * cfg.n_layers, 3 * cfg.n_layers]
+    assert all(torch.isfinite(torch.tensor(losses))) and losses[-1] < losses[0]

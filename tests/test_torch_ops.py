@@ -1,6 +1,7 @@
-"""Port attention ops against the JAX package's: `mha_reference` and the
-flash forward's plain version (what CPU tensors take) against the Pallas
-kernel in interpret mode.  Inputs come from a seeded numpy generator and
+"""Port attention ops against the JAX package's: `mha_reference`, and the
+flash kernels' plain versions (what CPU tensors take, forward and
+backward) against the Pallas kernels in interpret mode, and the autograd
+op against autograd through `mha_reference`.  Inputs come from a seeded numpy generator and
 go to both frameworks as numpy; JAX stays on the CPU."""
 import jax
 import jax.numpy as jnp
@@ -104,13 +105,66 @@ def test_flash_fwd_block_contract_and_devices():
         torch_fa.flash_attention_fwd(*[t.to('meta') for t in _t(q, k, v)])
 
 
-def test_flash_attention_refuses_grad():
-    q, k, v = _t(*_qkv(b=1, h=2, s=32, d=64))
-    q.requires_grad_(True)
-    with pytest.raises(NotImplementedError):
-        torch_attn.flash_attention(q, k, v)
+@pytest.mark.parametrize('causal,hkv', [(True, None), (False, None),
+                                        (True, 2)])
+def test_flash_bwd_plain_matches_pallas_interpret(causal, hkv):
+    """The JAX backward's own shapes and tolerance (tests/test_ops.py):
+    (1, 2, 256, 64) causal and not, GQA (1, 4 -> 2, 256, 64)."""
+    h = 4 if hkv else 2
+    q, k, v = _qkv(b=1, h=h, s=256, d=64, hkv=hkv, seed=1)
+    g = np.random.default_rng(2).standard_normal(q.shape).astype(np.float32)
+    out, lse = jax_fa.flash_attention_fwd(q, k, v, causal=causal,
+                                          block_size=128, interpret=True,
+                                          return_residuals=True)
+    want = jax_fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal,
+                                      block_size=128, interpret=True)
+    before = (torch_fa.flash_attention_bwd_dq.launches,
+              torch_fa.flash_attention_bwd_dkv.launches)
+    got = torch_fa.flash_attention_bwd(
+        *_t(q, k, v, np.asarray(out), np.asarray(lse), g), causal=causal,
+        block_size=128)
+    assert (torch_fa.flash_attention_bwd_dq.launches,
+            torch_fa.flash_attention_bwd_dkv.launches) == before
+    for name, x, ref in zip(('dq', 'dk', 'dv'), got, want):
+        assert x.shape == ref.shape and x.dtype == torch.float32, name
+        np.testing.assert_allclose(x.numpy(), np.asarray(ref),
+                                   atol=FLASH_ATOL, rtol=0, err_msg=name)
+
+
+def test_flash_bwd_contract():
+    q, k, v = _t(*_qkv(b=1, h=2, s=600, d=64))
+    lse = torch.zeros(1, 2, 600)
+    with pytest.raises(ValueError, match='must divide block size'):
+        torch_fa.flash_attention_bwd(q, k, v, q, lse, q)
+    q, k, v = _t(*_qkv(b=1, h=2, s=64, d=64))
+    lse = torch.zeros(1, 2, 64)
+    with pytest.raises(ValueError, match='CPU or CUDA'):
+        torch_fa.flash_attention_bwd(
+            *[t.to('meta') for t in (q, k, v, q, lse, q)])
+
+
+# Autograd through the op vs autograd through mha_reference, both f32:
+# summation order only (-1e30 vs -inf masking changes nothing visible).
+GRAD_ATOL = 1e-4
+
+
+@pytest.mark.parametrize('causal,hkv,s', [(True, None, 64), (False, None, 64),
+                                          (True, 2, 96)])
+def test_flash_attention_autograd_matches_mha_reference(causal, hkv, s):
+    q, k, v = _qkv(b=2, h=4, s=s, d=32, hkv=hkv, seed=3)
+    g = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        q.shape).astype(np.float32))
+    results = []
+    for fn in (torch_attn.flash_attention, torch_attn.mha_reference):
+        leaves = [t.requires_grad_() for t in _t(q, k, v)]
+        out = fn(*leaves, causal=causal)
+        results.append((out.detach(), *torch.autograd.grad(out, leaves, g)))
+    for name, got, want in zip(('out', 'dq', 'dk', 'dv'), *results):
+        torch.testing.assert_close(got, want, atol=GRAD_ATOL, rtol=0,
+                                   msg=name)
+    # Without an input that needs a gradient, nothing is saved or built.
     with torch.no_grad():
-        assert torch_attn.flash_attention(q, k, v).shape == q.shape
+        assert torch_attn.flash_attention(*_t(q, k, v)).grad_fn is None
 
 
 def test_jax_stays_on_cpu():

@@ -108,3 +108,15 @@ def test_copied_modules_match_originals(rel):
     for line in copy.splitlines():
         if re.match(r'\s*(from|import)\s+skypilot_tpu', line):
             assert 'skypilot_tpu_torch' in line
+
+
+def test_training_slice_modules_are_covered():
+    """The isolation checks above walk every module of the port; the
+    training slice's modules are among them."""
+    mods = set(_port_modules())
+    assert {'skypilot_tpu_torch.train.trainer',
+            'skypilot_tpu_torch.train.checkpoint',
+            'skypilot_tpu_torch.train.flops',
+            'skypilot_tpu_torch.obs.goodput'} <= mods
+    assert sorted(p.name for p in (PORT / 'csrc').glob('*.cu')) == [
+        'flash_attention_bwd.cu', 'flash_attention_fwd.cu']
