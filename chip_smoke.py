@@ -9,15 +9,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
 2. Build: nvcc compiles every kernel source in skypilot_tpu_torch/csrc/
    for sm_90a (one process per source, in parallel) and links them into
    one library under build/skypilot_tpu_torch/; ptxas reports registers,
-   shared memory and spills.
+   shared memory and spills, and any spill store (or a setmaxnreg that
+   ptxas ignored) fails the run.
 3. Kernels: each kernel against its plain PyTorch version on the card:
    the forward at the serving path's shapes, then the forward, dq and
    dk/dv at the training path's (bench-1b, llama-250m, llama2-7b, a
-   non-causal and a ragged fp16 case); then CUDA-event times of each
-   kernel, its plain
-   version and the library call, beside the roofline bound, at the
-   llama2-7b prefill shape (forward) and the bench-1b training shape
-   (forward, dq, dk/dv).
+   non-causal, a ragged fp16 case, S=32 and S=320); then CUDA-event
+   times of each kernel (and its TFLOP/s), its plain version and the
+   library call, beside the roofline bound, at the llama2-7b prefill
+   shape (forward, also with the L2 flushed before each call) and the
+   bench-1b training shape (forward, dq, dk/dv), and one profiled launch
+   of each (registers per thread and shared memory as launched).
 4. Serving: llama2-7b at full width and depth (bf16 random weights from
    a seed) behind the port's HTTP app on a local port, 8 prompts of 219
    tokens plus one of 300 (chunked prefill), 32 new tokens each; every
@@ -31,7 +33,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    through the kernels against the same step with the backward kernels'
    plain versions (same forward) and against attention_impl='xla', on
    the same weights, and one step traced with torch.profiler.
-6. Result: the kernels JSON line, the nvidia-smi line, then
+6. Result: the kernels JSON line (per kernel also TFLOP/s, ptxas
+   registers and spill-store bytes, shared memory per launch), the
+   nvidia-smi line, then
    {"ok": true, "device": {...}} as the last line.
 
 Needs one CUDA device; exits non-zero without one and imports nothing of
@@ -44,6 +48,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import socket
 import subprocess
 import sys
@@ -92,13 +97,15 @@ TRAIN = dict(model='bench-1b', batch=4, seq=4096, warm_steps=2,
              timed_steps=8, grad_batch=1, warmup_steps=5, total_steps=1000)
 # (b, hq, hkv, s, d, causal, dtype) of the backward check: bench-1b's
 # training shape first (it is also the timed one), llama-250m, llama2-7b
-# (MHA), a non-causal and a ragged fp16 case.
+# (MHA), a non-causal and a ragged fp16 case, and S shorter than one
+# tile and past a multiple of the 128-row tiles.
 BWD_SHAPES = [(4, 16, 8, 4096, 128, True, 'bfloat16'),
               (8, 16, 8, 2048, 64, True, 'bfloat16'),
               (2, 32, 32, 512, 128, True, 'bfloat16'),
               (2, 16, 8, 1024, 128, False, 'bfloat16'),
               (2, 8, 2, 96, 64, True, 'float16'),
-              (1, 4, 2, 32, 128, True, 'bfloat16')]
+              (1, 4, 2, 32, 128, True, 'bfloat16'),
+              (1, 4, 2, 320, 128, True, 'bfloat16')]
 SERVE = dict(model='llama2-7b', max_seq_len=448, n_slots=8,
              steps_per_call=32, prefill_buckets=(256,), prompt_len=219,
              n_prompts=8, long_prompt_len=300, max_tokens=32)
@@ -116,6 +123,13 @@ def nvidia_smi_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
+# Device cycles of the spin kernel queued ahead of a timed run (~10 ms):
+# the host enqueues every timed call behind it, so the events time the
+# calls back to back on the device and not the host's launch overhead,
+# which exceeds a short kernel's own time.
+SPIN_CYCLES = 20_000_000
+
+
 def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     import torch
     for _ in range(warmup):
@@ -123,12 +137,93 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cold_l2_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean CUDA-event time of `fn` with the 50 MB L2 flushed before each
+    call (a 64 MB write between calls; events around each call only)."""
+    import torch
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device='cuda')
+    for _ in range(warmup):
+        fn()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    for start, end in events:
+        flush.fill_(1)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / iters
+
+
+# Kernel symbols as ptxas and the profiler name them, by wrapper.
+KERNEL_SYMBOLS = {'flash_attention_fwd': 'fa_fwd_kernel',
+                  'flash_attention_bwd_dq': 'fa_bwd_dq_kernel',
+                  'flash_attention_bwd_dkv': 'fa_bwd_dkv_kernel'}
+
+
+def ptxas_report(build_log: str) -> dict:
+    """{(symbol, 'bf16' | 'fp16', head_dim): {'registers', 'stack',
+    'spill_stores', 'spill_loads'}} from nvcc's -Xptxas -v output."""
+    report, cur = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?(fa_\w+?_kernel)I"
+                      r"(\w+?)Li(\d+)E", line)
+        if m:
+            cur = (m.group(1), 'bf16' if 'bfloat16' in m.group(2) else 'fp16',
+                   int(m.group(3)))
+            report[cur] = {}
+            continue
+        m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
+                      r'(\d+) bytes spill loads', line)
+        if m and cur:
+            report[cur].update(stack=int(m.group(1)),
+                               spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        m = re.search(r'Used (\d+) registers', line)
+        if m and cur:
+            report[cur]['registers'] = int(m.group(1))
+    return report
+
+
+def launch_attrs(calls: dict) -> dict:
+    """{symbol: the profiler's record of its launch} for each {symbol:
+    fn} of `calls`, all under one profiler: registers per thread,
+    shared memory (static + dynamic), grid, block ({} where the trace has
+    no such kernel)."""
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for fn in calls.values():
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'trace.json')
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    attrs = {symbol: {} for symbol in calls}
+    for evt in trace.get('traceEvents', []):
+        for symbol in calls:
+            if evt.get('cat') == 'kernel' and symbol in evt.get('name', ''):
+                args = evt.get('args', {})
+                attrs[symbol] = {key: args.get(key) for key in (
+                    'registers per thread', 'shared memory', 'grid',
+                    'block', 'blocks per SM', 'warps per SM')}
+    return attrs
 
 
 def attention_bound(b, hq, hkv, s, d, causal, itemsize=2):
@@ -275,33 +370,54 @@ def bwd_kernel_phase(device):
             q, k, v, is_causal=causal, enable_gqa=True))
     del sdpa_out, leaves
     entries = {}
-    for kind, name, line in (('dq', 'flash_attention_bwd_dq', 196),
-                             ('dkv', 'flash_attention_bwd_dkv', 225)):
+    calls = {KERNEL_SYMBOLS['flash_attention_fwd']:
+             lambda: fa.flash_attention_fwd(q, k, v, causal=causal,
+                                            return_residuals=True)}
+    for kind, name, line, source, call in (
+            ('dq', 'flash_attention_bwd_dq', 196, 'flash_attention_bwd.cu',
+             lambda: fa.flash_attention_bwd_dq(q, k, v, g, lse, delta,
+                                               causal)),
+            ('dkv', 'flash_attention_bwd_dkv', 225,
+             'flash_attention_bwd_dkv.cu',
+             lambda: fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta,
+                                                causal))):
         bound_ms, bound_by, flops, nbytes = bwd_bound(kind, b, hq, hkv, s,
                                                       d, causal)
+        tflops = flops / ms[kind] / 1e9
         log(f'  timing {name} b={b} hq={hq} hkv={hkv} s={s} d={d} causal '
-            f'bf16: kernel {ms[kind]:.4f} ms, plain {plain_ms[kind]:.4f} '
-            f'ms, sdpa backward (dq+dk+dv) {lib_bwd_ms:.4f} ms, bound '
-            f'{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.1f} GFLOP, '
-            f'{nbytes / 1e6:.1f} MB), {bound_ms / ms[kind]:.1%} of bound')
+            f'bf16: kernel {ms[kind]:.4f} ms ({tflops:.1f} TFLOP/s), plain '
+            f'{plain_ms[kind]:.4f} ms, sdpa backward (dq+dk+dv) '
+            f'{lib_bwd_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: '
+            f'{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB), '
+            f'{bound_ms / ms[kind]:.1%} of bound')
         entries[kind] = {
             'name': name, 'route': 'cuda',
-            'source': 'skypilot_tpu_torch/csrc/flash_attention_bwd.cu',
+            'source': f'skypilot_tpu_torch/csrc/{source}',
             'replaces': f'skypilot_tpu/ops/pallas/flash_attention.py:{line}',
             'max_abs_err': errs[kind], 'ms': ms[kind],
             'plain_ms': plain_ms[kind], 'bound_ms': bound_ms,
             'bound_by': bound_by, 'library_ms': lib_bwd_ms,
-            'shape': list(shape)}
+            'tflops': tflops, 'shape': list(shape)}
+        calls[KERNEL_SYMBOLS[name]] = call
     bound_ms, bound_by, flops, nbytes = attention_bound(b, hq, hkv, s, d,
                                                         causal)
     fwd_train = {'ms': ms['fwd'], 'plain_ms': plain_ms['fwd'],
                  'bound_ms': bound_ms, 'bound_by': bound_by,
-                 'library_ms': lib_fwd_ms, 'shape': list(shape),
-                 'max_abs_err': errs['fwd']}
+                 'library_ms': lib_fwd_ms, 'tflops': flops / ms['fwd'] / 1e9,
+                 'shape': list(shape), 'max_abs_err': errs['fwd']}
     log(f'  timing flash_attention_fwd (with lse) at the same shape: kernel '
-        f'{ms["fwd"]:.4f} ms, plain {plain_ms["fwd"]:.4f} ms, sdpa '
+        f'{ms["fwd"]:.4f} ms ({fwd_train["tflops"]:.1f} TFLOP/s), plain '
+        f'{plain_ms["fwd"]:.4f} ms, sdpa '
         f'{lib_fwd_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: '
         f'{flops / 1e9:.1f} GFLOP), {bound_ms / ms["fwd"]:.1%} of bound')
+    # One profiled launch of each kernel at this shape (all three are the
+    # bf16, head_dim 128 instantiations the main paths run).
+    attrs = launch_attrs(calls)
+    for entry, symbol in ((entries['dq'], 'fa_bwd_dq_kernel'),
+                          (entries['dkv'], 'fa_bwd_dkv_kernel'),
+                          (fwd_train, 'fa_fwd_kernel')):
+        entry['launch'] = attrs[symbol]
+        log(f'  launch of {symbol}: {attrs[symbol]}')
     del q, k, v, g, out, lse, delta, timed
     torch.cuda.empty_cache()
     return entries['dq'], entries['dkv'], fwd_train
@@ -351,22 +467,32 @@ def kernel_phase(device):
     q, k, v = (torch.randn((b, h, s, d), generator=gen,
                            device=device).to(torch.bfloat16)
                for _ in range(3))
-    ms = cuda_time_ms(lambda: fa.flash_attention_fwd(q, k, v))
+    def call():
+        return fa.flash_attention_fwd(q, k, v)
+
+    ms = cuda_time_ms(call)
+    # q, k, v and out are 16.8 MB each (67.1 MB together): part of them
+    # stays in the 50 MB L2 between back-to-back calls; the flushed time
+    # reads them all from device memory.
+    cold_ms = cold_l2_ms(call)
     plain_ms = cuda_time_ms(lambda: fa.flash_attention_fwd_reference(q, k, v))
     library_ms = cuda_time_ms(
         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
     bound_ms, bound_by, flops, nbytes = attention_bound(b, h, h, s, d, True)
-    log(f'  timing b={b} h={h} s={s} d={d} causal bf16: kernel {ms:.4f} ms, '
-        f'plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound '
+    log(f'  timing b={b} h={h} s={s} d={d} causal bf16: kernel {ms:.4f} ms '
+        f'(L2 warm), {cold_ms:.4f} ms (L2 flushed before each call), plain '
+        f'{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound '
         f'{bound_ms:.4f} ms ({bound_by}: {flops / 1e9:.3f} GFLOP, '
-        f'{nbytes / 1e6:.2f} MB)')
+        f'{nbytes / 1e6:.2f} MB): {bound_ms / ms:.1%} of bound warm, '
+        f'{bound_ms / cold_ms:.1%} cold')
     return {
         'name': 'flash_attention_fwd', 'route': 'cuda',
         'source': 'skypilot_tpu_torch/csrc/flash_attention_fwd.cu',
         'replaces': 'skypilot_tpu/ops/pallas/flash_attention.py:37',
         'max_abs_err': max_err, 'ms': ms, 'plain_ms': plain_ms,
         'bound_ms': bound_ms, 'bound_by': bound_by,
-        'library_ms': library_ms,
+        'library_ms': library_ms, 'tflops': flops / ms / 1e9,
+        'ms_l2_flushed': cold_ms,
         'shape': [b, h, h, s, d, True, 'bfloat16'],
     }
 
@@ -558,7 +684,8 @@ def profile_step(engine, prompts, card):
         raise SystemExit('profiled step did not finish its requests')
     rows = kernel_rows(prof)
     busy_ms = sum(r[0] for r in rows)
-    flash_ms = sum(r[0] for r in rows if 'fa_fwd_kernel' in r[2])
+    flash_ms = sum(r[0] for r in rows
+                   if KERNEL_SYMBOLS['flash_attention_fwd'] in r[2])
     log(f'  profile on {card}: 1 prefill group of {len(prompts)} x '
         f'{SERVE["prompt_len"]} + 1 decode call of '
         f'{SERVE["steps_per_call"]} steps: wall {wall_ms:.1f} ms, device '
@@ -767,8 +894,7 @@ def profile_train_step(trainer, tokens, card):
     rows = kernel_rows(prof)
     busy_ms = sum(r[0] for r in rows)
     flash = {name: sum(r[0] for r in rows if name in r[2])
-             for name in ('fa_fwd_kernel', 'fa_bwd_dq_kernel',
-                          'fa_bwd_dkv_kernel')}
+             for name in KERNEL_SYMBOLS.values()}
     gemm_ms = sum(r[0] for r in rows
                   if any(t in r[2].lower() for t in ('gemm', 'nvjet',
                                                      'cutlass', 'sm90')))
@@ -805,8 +931,14 @@ def main() -> int:
         f'{time.perf_counter() - t0:.1f} s -> {fa.BUILD_DIR}')
     for line in build_log.splitlines():
         if line.startswith('==') or 'error' in line.lower() or any(
-                t in line for t in ('registers', 'spill', 'Compiling')):
+                t in line for t in ('registers', 'spill', 'Compiling',
+                                    'arning', 'Performance')):
             log(f'  {line.strip()}')
+    ptxas = ptxas_report(build_log)
+    spills = {key: r['spill_stores'] for key, r in ptxas.items()
+              if r.get('spill_stores')}
+    if spills or 'setmaxnreg ignored' in build_log:
+        raise SystemExit(f'ptxas spilled ({spills}) or ignored setmaxnreg')
 
     log(f'[kernels] forward vs plain version (out |d| <= {OUT_ATOL} + '
         f'{OUT_RTOL}*|ref|, lse |d| <= {LSE_ATOL})')
@@ -823,9 +955,18 @@ def main() -> int:
     by_path['training'] = training_phase(device, card, smi)
 
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
-            'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
+            'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'tflops',
+            'registers', 'smem_bytes', 'spill_bytes')
     rows = []
     for entry in (fwd, dq, dkv):
+        # ptxas of the timed instantiation (bf16, head_dim 128); shared
+        # memory as the profiler saw the timed launch.  None where the
+        # library was reused from an earlier build (no ptxas output).
+        report = ptxas.get((KERNEL_SYMBOLS[entry['name']], 'bf16', 128), {})
+        entry['registers'] = report.get('registers')
+        entry['spill_bytes'] = report.get('spill_stores')
+        launch = entry.get('launch') or entry['at_training_shape']['launch']
+        entry['smem_bytes'] = launch.get('shared memory')
         counts = {path: c[entry['name']] for path, c in by_path.items()}
         if not any(counts.values()):
             raise SystemExit(f'{entry["name"]} was never launched on the '

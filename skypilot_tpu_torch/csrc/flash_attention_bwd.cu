@@ -1,50 +1,38 @@
 // Flash-attention backward for Hopper (sm_90a), CUDA C++ with WMMA: the dq
-// kernel and the dk/dv kernel.
+// kernel.  (The dk/dv kernel is flash_attention_bwd_dkv.cu.)
 //
-// Replaces the Pallas TPU kernels `_fa_bwd_dq_kernel` and
-// `_fa_bwd_dkv_kernel`, driven by `flash_attention_bwd` in
-// skypilot_tpu/ops/pallas/flash_attention.py.  Both recompute the softmax
-// tile from the forward's saved row logsumexp, so nothing O(S^2) reaches
-// device memory:
+// Replaces the Pallas TPU kernel `_fa_bwd_dq_kernel`, driven by
+// `flash_attention_bwd` in skypilot_tpu/ops/pallas/flash_attention.py.  It
+// recomputes the softmax tile from the forward's saved row logsumexp, so
+// nothing O(S^2) reaches device memory:
 //   P  = exp(mask(Q K^T * scale) - lse)       (-1e30 mask; lse = +inf -> 0)
 //   dP = dO V^T
 //   dS = P * (dP - delta) * scale             (delta = rowsum(dO * O), f32,
-//                                              computed outside the kernels)
-//   dQ = dS K,   dV = P^T dO,   dK = dS^T Q
-// with P and dS rounded to the input type before their products, as the
-// TPU kernels do (p.astype(do.dtype), ds.astype(q.dtype)), and f32 sums.
+//                                              computed outside the kernel)
+//   dQ = dS K
+// with dS rounded to the input type before its product, as the TPU kernel
+// does (ds.astype(k.dtype)), and f32 sums.
 //
-// What bounds them on an H100: at training shapes (S = 2k-4k, head_dim
-// 64/128) each (q, k) pair costs 6*D (dq) or 8*D (dk/dv) flops against
-// O(S*D) bytes, so the tensor cores (989 TFLOP/s bf16) bound both; the
-// bytes are ~5x below.  This first version is not near that bound: WMMA
-// (mma.sync class) instead of wgmma, synchronous tile loads without double
-// buffering, f32 score tiles round-tripped through shared memory (the WMMA
-// accumulator layout is opaque, so per-row lse/delta and the causal mask
-// are applied there), 4 warps and ~120 KB of shared memory per block.
+// What bounds it on an H100: at training shapes (S = 2k-4k, head_dim
+// 64/128) each (q, k) pair costs 6*D flops against O(S*D) bytes, so the
+// tensor cores (989 TFLOP/s bf16) bound it; the bytes are ~5x below.
+// This first version is not near that bound: WMMA (mma.sync class)
+// instead of wgmma, synchronous tile loads without double buffering, f32
+// score tiles round-tripped through shared memory (the WMMA accumulator
+// layout is opaque, so per-row lse/delta and the causal mask are applied
+// there), 4 warps and ~120 KB of shared memory per block.
 //
-// Design, translated from the TPU blocking rather than copied:
-// - dq: one block per (batch*q-head, 64-row q tile); each warp owns 16 q
-//   rows.  The TPU's sequential k grid axis becomes a loop over 64-row K/V
-//   tiles that stops at the diagonal when causal.  Nothing is rescaled
-//   across the loop, so the f32 dQ accumulator stays in WMMA accumulator
-//   fragments (registers) for the whole sweep and is written once.
-// - dk/dv: one block per (batch*kv-head, 64-row k tile); each warp owns 16
-//   k rows.  The block loops over the Hq/Hkv query heads of its group and,
-//   for each, over the q tiles from the diagonal down, so the GQA group
-//   sum happens in the f32 accumulators: no atomics, no [B, Hq, S, D]
-//   temporary (the TPU wrapper repeats K/V to Hq heads and sums dk/dv per
-//   group afterwards, rounding each head's share first).  The warp
-//   computes S^T = K Q^T and dP^T = V dO^T directly (Q and dO loaded as
-//   col-major WMMA operands), so P^T and dS^T land row-major in shared
-//   memory as the A operand of dV and dK: no explicit transpose, and every
-//   stage of a tile touches only the warp's own rows.
-// - Key columns / query rows past S on the ragged last tile (S = 32 or 96)
-//   are zero-filled, contribute exactly 0 (k_pos >= S gives P = 0; q rows
-//   past S get lse = +inf and delta = 0), and are not stored.
-// - Shared memory at D = 128: four 16-bit [64, D] tiles (70 KB), two f32
-//   [64, 64] tiles (34 KB), two 16-bit [64, 64] tiles (18 KB): ~121 KB of
-//   dynamic shared memory, opted in with cudaFuncSetAttribute.
+// Design, translated from the TPU blocking rather than copied: one block
+// per (batch*q-head, 64-row q tile); each warp owns 16 q rows.  The TPU's
+// sequential k grid axis becomes a loop over 64-row K/V tiles that stops
+// at the diagonal when causal.  Nothing is rescaled across the loop, so
+// the f32 dQ accumulator stays in WMMA accumulator fragments (registers)
+// for the whole sweep and is written once.  Key columns on the ragged
+// last tile (S = 32 or 96) are zero-filled, contribute exactly 0
+// (k_pos >= S gives P = 0), and rows past S are not stored.  Shared
+// memory at D = 128: four 16-bit [64, D] tiles (70 KB), two f32 [64, 64]
+// tiles (34 KB), two 16-bit [64, 64] tiles (18 KB): ~121 KB of dynamic
+// shared memory, opted in with cudaFuncSetAttribute.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -63,7 +51,7 @@ constexpr int kWarps = 4;   // 16 rows per warp
 constexpr int kThreads = kWarps * 32;
 constexpr float kNegInf = -1e30f;  // the TPU kernels' mask value
 
-// Shared-memory layout shared by both kernels.  Row pitches are padded
+// Shared-memory layout.  Row pitches are padded
 // (fewer bank conflicts) and keep every WMMA pointer 32-byte aligned.
 template <int D>
 struct Smem {
@@ -286,101 +274,9 @@ __global__ void __launch_bounds__(kThreads)
                    lane);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    fa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const T* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, T* __restrict__ dk,
-                      T* __restrict__ dv, int hq, int hkv, int s_len,
-                      float scale, int causal) {
-  using L = Smem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* k_s = reinterpret_cast<T*>(smem + L::t0_off);
-  T* v_s = reinterpret_cast<T*>(smem + L::t1_off);
-  T* q_s = reinterpret_cast<T*>(smem + L::t2_off);
-  T* do_s = reinterpret_cast<T*>(smem + L::t3_off);
-  float* st_s = reinterpret_cast<float*>(smem + L::s_off);
-  float* dpt_s = reinterpret_cast<float*>(smem + L::dp_off);
-  T* pt_s = reinterpret_cast<T*>(smem + L::p_off);
-  T* dst_s = reinterpret_cast<T*>(smem + L::ds_off);
-  float* lse_s = reinterpret_cast<float*>(smem + L::lse_off);
-  float* delta_s = reinterpret_cast<float*>(smem + L::delta_off);
-
-  const int bkv = blockIdx.x;  // b * hkv + h_kv
-  const int k_tile = blockIdx.y;
-  const int b = bkv / hkv;
-  const int h_kv = bkv - b * hkv;
-  const int group = hq / hkv;
-  const int k0 = k_tile * kTile;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int row_w = warp * 16;
-
-  // The block's K/V tile stays for the whole sweep.
-  load_tile<T, D>(k_s, k + size_t(bkv) * s_len * D, k0, s_len);
-  load_tile<T, D>(v_s, v + size_t(bkv) * s_len * D, k0, s_len);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dk_acc[D / 16];
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dv_acc[D / 16];
-#pragma unroll
-  for (int dn = 0; dn < D / 16; ++dn) {
-    wmma::fill_fragment(dk_acc[dn], 0.f);
-    wmma::fill_fragment(dv_acc[dn], 0.f);
-  }
-
-  const int n_q_tiles = (s_len + kTile - 1) / kTile;
-  const int first_q_tile = causal ? k_tile : 0;
-  for (int g = 0; g < group; ++g) {
-    const size_t bh = size_t(b) * hq + h_kv * group + g;
-    for (int qt = first_q_tile; qt < n_q_tiles; ++qt) {
-      const int q0 = qt * kTile;
-      __syncthreads();  // every warp is done with the previous Q/dO tile
-      load_tile<T, D>(q_s, q + bh * s_len * D, q0, s_len);
-      load_tile<T, D>(do_s, dout + bh * s_len * D, q0, s_len);
-      load_rows(lse_s, delta_s, lse + bh * s_len, delta + bh * s_len, q0,
-                s_len);
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T for the warp's 16 k rows.
-      two_products_nt<T, D>(k_s, q_s, v_s, do_s, st_s, dpt_s, row_w);
-      __syncwarp();
-
-      // P^T and dS^T, rounded to T; lane owns 2 q columns.
-      for (int r = 0; r < 16; ++r) {
-        const int row = row_w + r;
-        const int k_pos = k0 + row;
-        const bool k_in = k_pos < s_len;
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const int c = lane + 32 * j;
-          const int q_pos = q0 + c;
-          float x = st_s[row * L::kLdS + c] * scale;
-          if (causal && q_pos < k_pos) x = kNegInf;
-          const float p = k_in ? expf(x - lse_s[c]) : 0.f;
-          const float ds =
-              p * (dpt_s[row * L::kLdS + c] - delta_s[c]) * scale;
-          pt_s[row * L::kLdP + c] = from_float<T>(p);
-          dst_s[row * L::kLdP + c] = from_float<T>(ds);
-        }
-      }
-      __syncwarp();
-
-      // dV += P^T dO and dK += dS^T Q.
-      accumulate_nn<T, D>(dv_acc, pt_s, do_s, row_w);
-      accumulate_nn<T, D>(dk_acc, dst_s, q_s, row_w);
-    }
-  }
-  __syncthreads();  // the staging area overlaps other warps' score rows
-  store_rows<T, D>(dk_acc, st_s, dk + size_t(bkv) * s_len * D, k0, s_len,
-                   row_w, lane);
-  store_rows<T, D>(dv_acc, st_s, dv + size_t(bkv) * s_len * D, k0, s_len,
-                   row_w, lane);
-}
-
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
-  void *out0, *out1;
+  void* dq;
   int b, hq, hkv, s_len;
   float scale;
   int causal;
@@ -399,70 +295,35 @@ cudaError_t launch_dq(const Args& a) {
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(a.out0), a.hq, a.hkv, a.s_len, a.scale, a.causal);
+      static_cast<T*>(a.dq), a.hq, a.hkv, a.s_len, a.scale, a.causal);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_dkv(const Args& a) {
-  const size_t smem = Smem<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      fa_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(a.b * a.hkv, (a.s_len + kTile - 1) / kTile);
-  fa_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.hq, a.hkv,
-      a.s_len, a.scale, a.causal);
-  return cudaGetLastError();
-}
-
-template <bool kDkv>
 int dispatch(const Args& a, int head_dim, int dtype) {
   if (a.b <= 0 || a.hkv <= 0 || a.hq % a.hkv != 0 || a.s_len <= 0)
     return int(cudaErrorInvalidValue);
   if (dtype == 0 && head_dim == 128)
-    return int(kDkv ? launch_dkv<__nv_bfloat16, 128>(a)
-                    : launch_dq<__nv_bfloat16, 128>(a));
+    return int(launch_dq<__nv_bfloat16, 128>(a));
   if (dtype == 0 && head_dim == 64)
-    return int(kDkv ? launch_dkv<__nv_bfloat16, 64>(a)
-                    : launch_dq<__nv_bfloat16, 64>(a));
-  if (dtype == 1 && head_dim == 128)
-    return int(kDkv ? launch_dkv<__half, 128>(a) : launch_dq<__half, 128>(a));
-  if (dtype == 1 && head_dim == 64)
-    return int(kDkv ? launch_dkv<__half, 64>(a) : launch_dq<__half, 64>(a));
+    return int(launch_dq<__nv_bfloat16, 64>(a));
+  if (dtype == 1 && head_dim == 128) return int(launch_dq<__half, 128>(a));
+  if (dtype == 1 && head_dim == 64) return int(launch_dq<__half, 64>(a));
   return int(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// Plain C entry points (bound with ctypes).  q, dout [B,Hq,S,D] and k, v
-// [B,Hkv,S,D] contiguous, 16-byte aligned; lse, delta [B,Hq,S] f32.
-// dtype: 0 = bf16, 1 = fp16.  Each returns its launch's cudaError_t.
-
-// dq [B,Hq,S,D].
+// Plain C entry point (bound with ctypes).  q, dout [B,Hq,S,D] and k, v
+// [B,Hkv,S,D] contiguous, 16-byte aligned; lse, delta [B,Hq,S] f32;
+// dq [B,Hq,S,D].  dtype: 0 = bf16, 1 = fp16.  Returns the launch's
+// cudaError_t.
 extern "C" int skytpu_flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int b, int hq, int hkv,
     int s_len, int head_dim, int dtype, float scale, int causal,
     void* stream) {
-  const Args a{q,     k,   v,   dout,  lse,   delta,
-               dq,    nullptr, b, hq,  hkv,   s_len,
-               scale, causal,  static_cast<cudaStream_t>(stream)};
-  return dispatch<false>(a, head_dim, dtype);
-}
-
-// dk, dv [B,Hkv,S,D], summed over each kv head's group of query heads.
-extern "C" int skytpu_flash_attention_bwd_dkv(
-    const void* q, const void* k, const void* v, const void* dout,
-    const void* lse, const void* delta, void* dk, void* dv, int b, int hq,
-    int hkv, int s_len, int head_dim, int dtype, float scale, int causal,
-    void* stream) {
-  const Args a{q,     k,   v,  dout, lse,   delta,
-               dk,    dv,  b,  hq,   hkv,   s_len,
-               scale, causal, static_cast<cudaStream_t>(stream)};
-  return dispatch<true>(a, head_dim, dtype);
+  const Args a{q,   k,   v,     dout,  lse,   delta, dq,
+               b,   hq,  hkv,   s_len, scale, causal,
+               static_cast<cudaStream_t>(stream)};
+  return dispatch(a, head_dim, dtype);
 }

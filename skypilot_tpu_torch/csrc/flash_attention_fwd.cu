@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), CUDA C++ with WMMA.
+// Flash-attention forward for Hopper (sm_90a): wgmma, a TMA ring of K/V
+// stages, the online softmax in registers.
 //
 // Replaces the Pallas TPU kernel `_fa_kernel`, driven by
 // `flash_attention_fwd` in skypilot_tpu/ops/pallas/flash_attention.py:
@@ -7,271 +8,356 @@
 // emitting 0, and (optionally) the row logsumexp (+inf for all-masked
 // rows).
 //
-// What bounds it on an H100: at the serving prefill shapes (S <= 512,
-// head_dim 128) the work is ~S*D flops per byte moved, so the roofline
-// says memory (q, k, v read once, out written once at 3.35 TB/s) for
-// short prompts and tensor cores (989 TFLOP/s bf16) only past S ~ 1k.
-// This first version is not near either bound: it keeps the score tile
-// and the output accumulator in shared memory (the WMMA accumulator
-// layout is opaque, so the per-row rescale goes through shared memory),
-// loads K/V synchronously without double buffering, and runs 4 warps
-// per block on mma.sync-class WMMA instead of wgmma/TMA.
+// What bounds it on an H100: each (q, k) pair costs 4 D flops (Q K^T and
+// P V) against O(S D) bytes, so past S ~ 1k the tensor cores bound it
+// (989 TFLOP/s bf16: 0.278 ms for bench-1b's B=4, Hq=16, S=4096, D=128
+// causal); at the serving prefill shapes (S <= 512) the bytes do (q, k, v
+// read once, out written once at 3.35 TB/s).
 //
-// Design, translated from the TPU blocking rather than copied:
-// - One thread block per (batch*q-head, 64-row q tile); its 4 warps own
-//   16 q rows each.  The TPU's sequential k grid axis becomes a loop over
-//   64-row K/V tiles inside the block, stopping at the diagonal tile when
-//   causal.
-// - GQA reads kv head h / (Hq / Hkv) directly; no repeated tensor exists.
-// - Running max, denominator and accumulator are f32; P is rounded to the
-//   input type before P*V, as the TPU kernel does (p.astype(v.dtype)).
-// - Masking uses the TPU kernel's -1e30; rows whose denominator is 0 emit
-//   0 and lse = +inf.  Key columns past S (the ragged edge of the last
-//   tile, e.g. S = 32 < 64) contribute exactly nothing.
-// - Q, K, V tiles at D = 128 in 16-bit types are 48 KB together, plus the
-//   f32 score tile and accumulator: ~110 KB of dynamic shared memory,
-//   enabled with cudaFuncSetAttribute.
+// Design:
+// - One CTA per (batch * q-head, 128-row q tile) and three warpgroups.
+//   Warpgroup 0 is the producer: it gives up registers (setmaxnreg) and
+//   one thread issues every TMA load.  Warpgroups 1 and 2 are consumers
+//   of 64 q rows each and take the registers.
+// - Q is loaded once; K and V tiles of 128 rows go through a ring of
+//   kStages stages with full and empty barriers of their own, so Q K^T
+//   starts before V lands and K is released as soon as S is done.  At
+//   D = 128 that is 32 KB of Q and 2 x 64 KB of K/V: 160 KB of dynamic
+//   shared memory, one CTA per SM.  128-row K/V tiles halve the barrier
+//   round trips of 64-row ones and still keep the S accumulator at 64
+//   registers a thread.
+// - S = Q K^T by wgmma m64n128k16 with Q and K both K-major in shared
+//   memory (as TMA lays rows down), so nothing is transposed.
+// - The softmax stays in registers: each row's 32 values per thread,
+//   then two xor-shuffles over the 4 lanes that share the row; the f32 O
+//   accumulator is rescaled in registers.  2^x on the SFU with log2(e)
+//   folded into the scale (one FFMA per element); lse is written back in
+//   natural-log units (the dq kernel reads it as expf(x - lse)).  The row
+//   sum is reduced across lanes once, at the end.
+// - P is rounded to the input type in registers (as the TPU kernel's
+//   p.astype(v.dtype)) and is the register A operand of O += P V
+//   (m64nDk16); V is the shared-memory B operand, MN-major, with the
+//   transpose flag.
+// - The tensor cores are kept busy two ways.  Inside a warpgroup, tile
+//   t's S = Q K_t^T and tile t-1's O += P V_{t-1} are issued together and
+//   the softmax of S_t runs while P V is in flight (S, O and P: 160 f32
+//   registers a thread).  Between the two warpgroups, named barriers hand
+//   the turn to issue products back and forth (ping-pong), so one
+//   warpgroup's softmax overlaps the other's products.
+// - Causal: tiles above the diagonal are skipped, and only the last tile
+//   a CTA visits (the diagonal, or the ragged edge past S) is masked
+//   element by element, with the TPU kernel's -1e30.  Key columns past S
+//   are zero-filled by TMA and masked, so they contribute exactly 0.
+//   Blocks are numbered so that the heaviest q tiles start first.
+// - Epilogue: out = acc / l (0 where l = 0), lse = m + log l (+inf where
+//   l = 0), rows past S not stored, and no lse write when lse is null
+//   (serving).
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
-#include <stdint.h>
 
-using namespace nvcuda;
+#include "sm90_common.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;  // q rows per thread block
-constexpr int kBlockK = 64;  // kv rows per inner-loop tile (== kBlockQ: the
-                             // diagonal tile of q tile t is kv tile t)
-constexpr int kWarps = 4;    // 16 q rows per warp
-constexpr int kThreads = kWarps * 32;
+constexpr int kBlockM = 128;  // q rows per CTA: 2 consumer warpgroups x 64
+constexpr int kBlockN = 128;  // kv rows per tile (== kBlockM: the diagonal
+                              // tile of q tile t is kv tile t)
+constexpr int kStages = 2;
+constexpr int kThreads = 384;
+constexpr int kConsumerThreads = 256;
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
 constexpr float kNegInf = -1e30f;  // the TPU kernel's mask value
+constexpr float kLn2 = 0.6931471805599453f;
 
-// Shared-memory layout.  Row pitches are padded (fewer bank conflicts) and
-// keep every WMMA fragment pointer 32-byte aligned: 16-bit tiles pitch a
-// multiple of 8 elements, f32 tiles a multiple of 4.
 template <int D>
 struct Smem {
-  static constexpr int kLd = D + 8;         // Q/K/V tiles (16-bit)
-  static constexpr int kLdS = kBlockK + 4;  // scores (f32)
-  static constexpr int kLdP = kBlockK + 8;  // probabilities (16-bit)
-  static constexpr int kLdO = D + 4;        // output accumulator (f32)
-  static constexpr size_t q_off = 0;
-  static constexpr size_t k_off = q_off + size_t(kBlockQ) * kLd * 2;
-  static constexpr size_t v_off = k_off + size_t(kBlockK) * kLd * 2;
-  static constexpr size_t s_off = v_off + size_t(kBlockK) * kLd * 2;
-  static constexpr size_t p_off = s_off + size_t(kBlockQ) * kLdS * 4;
-  static constexpr size_t o_off = p_off + size_t(kBlockQ) * kLdP * 2;
-  static constexpr size_t m_off = o_off + size_t(kBlockQ) * kLdO * 4;
-  static constexpr size_t l_off = m_off + size_t(kBlockQ) * 4;
-  static constexpr size_t bytes = l_off + size_t(kBlockQ) * 4;
-  static_assert(k_off % 32 == 0 && v_off % 32 == 0 && s_off % 32 == 0 &&
-                    p_off % 32 == 0 && o_off % 32 == 0,
-                "WMMA tiles must start 32-byte aligned");
+  static constexpr int kQBytes = kBlockM * D * 2;
+  static constexpr int kKVBytes = kBlockN * D * 2;
+  static constexpr int q_off = 0;
+  __host__ __device__ static constexpr int k_off(int s) {
+    return kQBytes + s * 2 * kKVBytes;
+  }
+  __host__ __device__ static constexpr int v_off(int s) {
+    return k_off(s) + kKVBytes;
+  }
+  static constexpr int bar_off = kQBytes + kStages * 2 * kKVBytes;
+  // q_full, then k_full, v_full, k_empty, v_empty [kStages] each
+  static constexpr int bytes =
+      bar_off + (1 + 4 * kStages) * 8 + sm90::kSmemAlign;
+  static_assert(kQBytes % 1024 == 0 && kKVBytes % 1024 == 0,
+                "tiles must keep 1024-byte alignment");
 };
 
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float(float x) {
-  return __float2bfloat16(x);
-}
-template <>
-__device__ __forceinline__ __half from_float(float x) {
-  return __float2half(x);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
+// One tile's online-softmax step on this thread's share of the S
+// accumulator (rows rows[0], rows[1]; columns k0 + 8 j + 2 quad + e):
+// masks the raw scores (the last tile only), updates the running max m
+// (log2 units: max times scale log2 e) and the thread's share of the row
+// sum l, leaves P = 2^(s scale log2 e - m) in s (one FFMA and one SFU op
+// an element), and returns in corr the factor the O accumulator must
+// take.
+__device__ __forceinline__ void softmax_tile(
+    float (&s)[kBlockN / 2], float (&m)[2], float (&l)[2], float (&corr)[2],
+    bool mask, int k0, const int (&rows)[2], int s_len, int causal,
+    float scale_log2, int quad) {
+  float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
+  for (int j = 0; j < kBlockN / 8; ++j)
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// Copies rows [row0, row0 + rows) of a row-major [s_len, D] matrix into a
-// shared tile of pitch Smem<D>::kLd, 16 bytes per thread per step; rows
-// past s_len are zero-filled.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src,
-                                          int row0, int s_len, int rows) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPerRow = D / kVec;
-  for (int i = threadIdx.x; i < rows * kPerRow; i += kThreads) {
-    const int r = i / kPerRow;
-    const int c = (i % kPerRow) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < s_len)
-      val = *reinterpret_cast<const uint4*>(src + size_t(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * Smem<D>::kLd + c) = val;
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * j + 2 * i + e];
+        if (mask) {
+          const int col = k0 + 8 * j + 2 * quad + e;
+          if (col >= s_len || (causal && col > rows[i])) x = kNegInf;
+        }
+        mx[i] = fmaxf(mx[i], x);
+      }
+  float neg_m[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i] * scale_log2);
+    corr[i] = sm90::ex2(m[i] - m_new);
+    m[i] = m_new;
+    neg_m[i] = -m_new;
+    l[i] *= corr[i];
   }
+#pragma unroll
+  for (int j = 0; j < kBlockN / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * j + 2 * i + e];
+        x = sm90::ex2(fmaf(x, scale_log2, neg_m[i]));
+        l[i] += x;
+      }
+}
+
+// P rounded to T, as the register A fragments of the k16 slices of P V.
+template <typename T>
+__device__ __forceinline__ void to_a_frags(const float (&s)[kBlockN / 2],
+                                           uint32_t (&frag)[kBlockN / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kBlockN / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      frag[kk][r] = sm90::pack2<T>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ o,
-                  float* __restrict__ lse, int hq, int hkv, int s_len,
-                  float scale, int causal) {
+__global__ void __launch_bounds__(kThreads, 1)
+    fa_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                  const __grid_constant__ CUtensorMap k_map,
+                  const __grid_constant__ CUtensorMap v_map,
+                  T* __restrict__ o, float* __restrict__ lse, int hq,
+                  int hkv, int s_len, float scale_log2, int causal) {
   using L = Smem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = sm90::align_smem(smem_raw);
   T* q_s = reinterpret_cast<T*>(smem + L::q_off);
-  T* k_s = reinterpret_cast<T*>(smem + L::k_off);
-  T* v_s = reinterpret_cast<T*>(smem + L::v_off);
-  float* s_s = reinterpret_cast<float*>(smem + L::s_off);
-  T* p_s = reinterpret_cast<T*>(smem + L::p_off);
-  float* o_s = reinterpret_cast<float*>(smem + L::o_off);
-  float* m_s = reinterpret_cast<float*>(smem + L::m_off);
-  float* l_s = reinterpret_cast<float*>(smem + L::l_off);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::bar_off);
+  uint64_t* q_full = bars;
+  uint64_t* k_full = bars + 1;
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* k_empty = v_full + kStages;
+  uint64_t* v_empty = k_empty + kStages;
 
-  const int bh = blockIdx.x;  // b * hq + h
-  const int q_tile = blockIdx.y;
+  const int bh = blockIdx.x;                        // b * hq + h
+  const int q_tile = gridDim.y - 1 - blockIdx.y;    // heaviest first
   const int b = bh / hq;
-  const int h = bh - b * hq;
-  const int h_kv = h / (hq / hkv);
-  const int q0 = q_tile * kBlockQ;
-  const T* q_bh = q + size_t(bh) * s_len * D;
-  const T* k_bh = k + (size_t(b) * hkv + h_kv) * s_len * D;
-  const T* v_bh = v + (size_t(b) * hkv + h_kv) * s_len * D;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int row_w = warp * 16;  // this warp's first row in the tile
+  const int bkv = b * hkv + (bh - b * hq) / (hq / hkv);
+  const int q0 = q_tile * kBlockM;
+  const int n_tiles_all = (s_len + kBlockN - 1) / kBlockN;
+  const int n_tiles = causal ? min(n_tiles_all, q_tile + 1) : n_tiles_all;
 
-  load_tile<T, D>(q_s, q_bh, q0, s_len, kBlockQ);
-  for (int i = threadIdx.x; i < kBlockQ * L::kLdO; i += kThreads) o_s[i] = 0.f;
-  for (int i = threadIdx.x; i < kBlockQ; i += kThreads) {
-    m_s[i] = kNegInf;
-    l_s[i] = 0.f;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&k_full[s], 1);
+      sm90::mbar_init(&v_full[s], 1);
+      sm90::mbar_init(&k_empty[s], 8);  // lane 0 of each consumer warp
+      sm90::mbar_init(&v_empty[s], 8);
+    }
+    sm90::fence_barrier_init();
   }
   __syncthreads();
 
-  // The warp's Q rows stay in registers for the whole K/V sweep.
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> qf[D / 16];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wmma::load_matrix_sync(qf[kk], q_s + row_w * L::kLd + kk * 16, L::kLd);
-
-  const int n_tiles_all = (s_len + kBlockK - 1) / kBlockK;
-  const int n_tiles = causal ? min(n_tiles_all, q_tile + 1) : n_tiles_all;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBlockK;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<T, D>(k_s, k_bh, k0, s_len, kBlockK);
-    load_tile<T, D>(v_s, v_bh, k0, s_len, kBlockK);
-    __syncthreads();
-
-    // Scores S = Q K^T for the warp's 16 rows x 64 kv columns (f32).
-#pragma unroll
-    for (int n = 0; n < kBlockK / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> kf;
-        wmma::load_matrix_sync(kf, k_s + n * 16 * L::kLd + kk * 16, L::kLd);
-        wmma::mma_sync(acc, qf[kk], kf, acc);
-      }
-      wmma::store_matrix_sync(s_s + row_w * L::kLdS + n * 16, acc, L::kLdS,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // Online softmax, one row at a time; lane owns columns lane, lane+32.
-    for (int r = 0; r < 16; ++r) {
-      const int row = row_w + r;
-      const int q_pos = q0 + row;
-      float sv[2];
-      bool in_seq[2];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = lane + 32 * j;
-        const int k_pos = k0 + c;
-        in_seq[j] = k_pos < s_len;
-        float x = s_s[row * L::kLdS + c] * scale;
-        if (causal && q_pos < k_pos) x = kNegInf;
-        sv[j] = x;
-        if (in_seq[j]) mx = fmaxf(mx, x);
-      }
-      mx = warp_max(mx);
-      const float m_prev = m_s[row];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const float p = in_seq[j] ? expf(sv[j] - m_new) : 0.f;
-        p_s[row * L::kLdP + lane + 32 * j] = from_float<T>(p);
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      const float corr = expf(m_prev - m_new);
-      for (int c = lane; c < D; c += 32) o_s[row * L::kLdO + c] *= corr;
-      if (lane == 0) {
-        l_s[row] = l_s[row] * corr + sum;
-        m_s[row] = m_new;
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ----- producer: one thread keeps both rings full.
+    sm90::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      sm90::mbar_arrive_expect_tx(q_full, L::kQBytes);
+      sm90::tma_load_tile<T, D>(q_s, &q_map, q_full, kBlockM, q0, bh);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        const uint32_t free_parity = ((t / kStages) & 1) ^ 1;
+        sm90::mbar_wait(&k_empty[s], free_parity);
+        sm90::mbar_arrive_expect_tx(&k_full[s], L::kKVBytes);
+        sm90::tma_load_tile<T, D>(reinterpret_cast<T*>(smem + L::k_off(s)),
+                                  &k_map, &k_full[s], kBlockN, t * kBlockN,
+                                  bkv);
+        sm90::mbar_wait(&v_empty[s], free_parity);
+        sm90::mbar_arrive_expect_tx(&v_full[s], L::kKVBytes);
+        sm90::tma_load_tile<T, D>(reinterpret_cast<T*>(smem + L::v_off(s)),
+                                  &v_map, &v_full[s], kBlockN, t * kBlockN,
+                                  bkv);
       }
     }
-    __syncwarp();
+  } else {
+    // ----- consumers: 64 q rows per warpgroup.
+    sm90::setmaxnreg_inc<kConsumerRegs>();
+    const int cw = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int quad = lane % 4;
+    // The two rows (i = 0, 1) this thread holds in every accumulator.
+    const int row_base = q0 + cw * 64 + warp * 16 + lane / 4;
+    const int rows[2] = {row_base, row_base + 8};
+    // Ping-pong: a warpgroup issues its products only on its turn (named
+    // barrier 1 + cw), then hands the turn over, so one warpgroup's
+    // softmax runs under the other's products.  Warpgroup 0 starts.
+    const int my_turn = 1 + cw;
+    const int other_turn = 2 - cw;
+    if (cw == 0) sm90::named_barrier_arrive(my_turn, kConsumerThreads);
 
-    // Accumulator O += P V, one 16-column slab of O at a time.
+    float o_acc[D / 2];
 #pragma unroll
-    for (int dn = 0; dn < D / 16; ++dn) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      float* o_tile = o_s + row_w * L::kLdO + dn * 16;
-      wmma::load_matrix_sync(acc, o_tile, L::kLdO, wmma::mem_row_major);
+    for (int i = 0; i < D / 2; ++i) o_acc[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf};  // running max, log2 units
+    float l[2] = {0.f, 0.f};          // this thread's share of the row sum
+    float corr[2];
+    float s_acc[kBlockN / 2];
+    uint32_t p_frag[kBlockN / 16][4];
+
+    auto issue_s = [&](const T* k_s) {
 #pragma unroll
-      for (int kk = 0; kk < kBlockK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> pf;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> vf;
-        wmma::load_matrix_sync(pf, p_s + row_w * L::kLdP + kk * 16, L::kLdP);
-        wmma::load_matrix_sync(vf, v_s + kk * 16 * L::kLd + dn * 16, L::kLd);
-        wmma::mma_sync(acc, pf, vf, acc);
-      }
-      wmma::store_matrix_sync(o_tile, acc, L::kLdO, wmma::mem_row_major);
+      for (int k = 0; k < D / 16; ++k)
+        sm90::wgmma_ss<T, kBlockN, 0>(
+            s_acc, sm90::desc_kmajor(q_s, kBlockM, cw * 64, k),
+            sm90::desc_kmajor(k_s, kBlockN, 0, k), k > 0);
+      sm90::wgmma_commit();
+    };
+    auto issue_pv = [&](const T* v_s) {
+#pragma unroll
+      for (int kk = 0; kk < kBlockN / 16; ++kk)
+        sm90::wgmma_rs<T, D, 1>(o_acc, p_frag[kk],
+                                sm90::desc_mnmajor(v_s, kBlockN, kk), true);
+      sm90::wgmma_commit();
+    };
+    auto k_tile = [&](int t) {
+      return reinterpret_cast<const T*>(smem + L::k_off(t % kStages));
+    };
+    auto v_tile = [&](int t) {
+      return reinterpret_cast<const T*>(smem + L::v_off(t % kStages));
+    };
+    auto parity = [](int t) { return uint32_t(t / kStages) & 1; };
+
+    // Tile 0: S only (O is still 0).
+    sm90::mbar_wait(q_full, 0);
+    sm90::mbar_wait(&k_full[0], 0);
+    sm90::named_barrier_sync(my_turn, kConsumerThreads);
+    sm90::wgmma_fence();
+    issue_s(k_tile(0));
+    sm90::named_barrier_arrive(other_turn, kConsumerThreads);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(s_acc);
+    if (lane == 0) sm90::mbar_arrive(&k_empty[0]);
+    softmax_tile(s_acc, m, l, corr, n_tiles == 1, 0, rows, s_len, causal,
+                 scale_log2, quad);
+    to_a_frags<T>(s_acc, p_frag);
+
+    // Tile t: S_t = Q K_t^T and O += P_{t-1} V_{t-1} in flight together;
+    // the softmax of S_t runs under P V.
+    for (int t = 1; t < n_tiles; ++t) {
+      const int s = t % kStages;
+      const int sp = (t - 1) % kStages;
+      sm90::mbar_wait(&k_full[s], parity(t));
+      sm90::mbar_wait(&v_full[sp], parity(t - 1));
+      sm90::named_barrier_sync(my_turn, kConsumerThreads);
+      sm90::wgmma_fence();
+      issue_s(k_tile(t));
+      issue_pv(v_tile(t - 1));
+      sm90::named_barrier_arrive(other_turn, kConsumerThreads);
+      sm90::wgmma_wait<1>();
+      sm90::fence_regs(s_acc);
+      if (lane == 0) sm90::mbar_arrive(&k_empty[s]);
+      softmax_tile(s_acc, m, l, corr, t == n_tiles - 1, t * kBlockN, rows,
+                   s_len, causal, scale_log2, quad);
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(o_acc);
+      if (lane == 0) sm90::mbar_arrive(&v_empty[sp]);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          o_acc[4 * j + 2 * i] *= corr[i];
+          o_acc[4 * j + 2 * i + 1] *= corr[i];
+        }
+      to_a_frags<T>(s_acc, p_frag);
     }
-    __syncwarp();
-  }
 
-  // Finalize the warp's rows: out = acc / l (0 where l == 0), lse = m + log l.
-  for (int r = 0; r < 16; ++r) {
-    const int row = row_w + r;
-    const int q_pos = q0 + row;
-    if (q_pos >= s_len) break;
-    const float l = l_s[row];
-    const float safe_l = l == 0.f ? 1.f : l;
-    T* o_row = o + (size_t(bh) * s_len + q_pos) * D;
-    for (int c = lane; c < D; c += 32)
-      o_row[c] = from_float<T>(o_s[row * L::kLdO + c] / safe_l);
-    if (lse != nullptr && lane == 0)
-      lse[size_t(bh) * s_len + q_pos] =
-          l == 0.f ? INFINITY : m_s[row] + logf(safe_l);
+    // The last tile's P V.
+    sm90::mbar_wait(&v_full[(n_tiles - 1) % kStages], parity(n_tiles - 1));
+    sm90::named_barrier_sync(my_turn, kConsumerThreads);
+    sm90::wgmma_fence();
+    issue_pv(v_tile(n_tiles - 1));
+    sm90::named_barrier_arrive(other_turn, kConsumerThreads);
+    // Warpgroup 0 takes the last hand-over, so both barriers end even.
+    if (cw == 0) sm90::named_barrier_sync(my_turn, kConsumerThreads);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(o_acc);
+
+    // Epilogue: out = acc / l (0 where l == 0), lse = m + log l.
+    float inv[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      inv[i] = l[i] == 0.f ? 0.f : 1.f / l[i];
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (rows[i] >= s_len) continue;
+      T* o_row = o + (size_t(bh) * s_len + rows[i]) * D + 2 * quad;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(o_row + 8 * j) =
+            sm90::pack2<T>(o_acc[4 * j + 2 * i] * inv[i],
+                           o_acc[4 * j + 2 * i + 1] * inv[i]);
+      if (lse != nullptr && quad == 0)
+        lse[size_t(bh) * s_len + rows[i]] =
+            l[i] == 0.f ? INFINITY : (m[i] + log2f(l[i])) * kLn2;
+    }
   }
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int b, int hq, int hkv, int s_len, float scale,
-                   int causal, cudaStream_t stream) {
-  const size_t smem = Smem<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      fa_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
+                   void* lse, int b, int hq, int hkv, int s_len, int dtype,
+                   float scale, int causal, cudaStream_t stream) {
+  CUtensorMap q_map, k_map, v_map;
+  cudaError_t err =
+      sm90::make_tile_map(&q_map, q, dtype, b * hq, s_len, D, kBlockM);
+  if (err == cudaSuccess)
+    err = sm90::make_tile_map(&k_map, k, dtype, b * hkv, s_len, D, kBlockN);
+  if (err == cudaSuccess)
+    err = sm90::make_tile_map(&v_map, v, dtype, b * hkv, s_len, D, kBlockN);
   if (err != cudaSuccess) return err;
-  const dim3 grid(b * hq, (s_len + kBlockQ - 1) / kBlockQ);
+  const int smem = sm90::launch_smem_bytes(Smem<D>::bytes);
+  err = cudaFuncSetAttribute(fa_fwd_kernel<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(b * hq, (s_len + kBlockM - 1) / kBlockM);
   fa_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      hq, hkv, s_len, scale, causal);
+      q_map, k_map, v_map, static_cast<T*>(o), static_cast<float*>(lse), hq,
+      hkv, s_len, scale * 1.4426950408889634f, causal);
   return cudaGetLastError();
 }
 
@@ -290,15 +376,15 @@ extern "C" int skytpu_flash_attention_fwd(const void* q, const void* k,
     return int(cudaErrorInvalidValue);
   if (dtype == 0 && head_dim == 128)
     return int(launch<__nv_bfloat16, 128>(q, k, v, o, lse, b, hq, hkv, s_len,
-                                          scale, causal, st));
+                                          dtype, scale, causal, st));
   if (dtype == 0 && head_dim == 64)
     return int(launch<__nv_bfloat16, 64>(q, k, v, o, lse, b, hq, hkv, s_len,
-                                         scale, causal, st));
+                                         dtype, scale, causal, st));
   if (dtype == 1 && head_dim == 128)
-    return int(launch<__half, 128>(q, k, v, o, lse, b, hq, hkv, s_len, scale,
-                                   causal, st));
+    return int(launch<__half, 128>(q, k, v, o, lse, b, hq, hkv, s_len, dtype,
+                                   scale, causal, st));
   if (dtype == 1 && head_dim == 64)
-    return int(launch<__half, 64>(q, k, v, o, lse, b, hq, hkv, s_len, scale,
-                                  causal, st));
+    return int(launch<__half, 64>(q, k, v, o, lse, b, hq, hkv, s_len, dtype,
+                                  scale, causal, st));
   return int(cudaErrorInvalidValue);
 }

@@ -5,21 +5,25 @@ PyTorch/CUDA counterparts of `skypilot_tpu/ops/pallas/flash_attention.py`:
 - `flash_attention_fwd` (the Pallas `_fa_kernel`): q [B, Hq, S, D], k/v
   [B, Hkv, S, D] -> out [B, Hq, S, D] in q's dtype and, with
   `return_residuals=True`, the row logsumexp [B, Hq, S] f32 (+inf for
-  all-masked rows).  Source `csrc/flash_attention_fwd.cu`.
+  all-masked rows).  Source `csrc/flash_attention_fwd.cu` (wgmma, a TMA
+  ring of K/V stages, the softmax in registers).
 - `flash_attention_bwd` (the Pallas `flash_attention_bwd`): the same
   contract minus `interpret`; delta = rowsum(dO * O) in PyTorch, then
-  `flash_attention_bwd_dq` (`_fa_bwd_dq_kernel`) and
-  `flash_attention_bwd_dkv` (`_fa_bwd_dkv_kernel`, dk/dv already summed
-  to Hkv heads).  Source `csrc/flash_attention_bwd.cu`.
+  `flash_attention_bwd_dq` (`_fa_bwd_dq_kernel`, source
+  `csrc/flash_attention_bwd.cu`) and `flash_attention_bwd_dkv`
+  (`_fa_bwd_dkv_kernel`, dk/dv already summed to Hkv heads; source
+  `csrc/flash_attention_bwd_dkv.cu`, wgmma with P^T and dS^T in
+  registers).  The Hopper building blocks both wgmma kernels share are in
+  `csrc/sm90_common.cuh`.
 
 GQA reads kv head h // (Hq // Hkv) inside the kernels.  Every source in
 `csrc/` is compiled with nvcc for sm_90a (one process per source, in
 parallel) and linked into one shared library with a plain C interface,
-named by a hash of all sources and flags, at first use, under
+named by a hash of all sources, headers and flags, at first use, under
 `build/skypilot_tpu_torch/` beside the package; kernels launch on
 PyTorch's current stream.  `block_size` keeps the TPU wrappers' contract
-(S must divide min(block_size, S)); the CUDA kernels tile at 64 rows and
-mask the ragged edge themselves.
+(S must divide min(block_size, S)); the CUDA kernels pick their own tiles
+and mask the ragged edge themselves.
 
 CPU tensors take each kernel's plain PyTorch version (`*_reference`); a
 CUDA tensor always launches the kernel or raises.  Each kernel's wrapper
@@ -63,13 +67,24 @@ _SIGNATURES = {
 
 
 def sources() -> List[pathlib.Path]:
+    """The files nvcc compiles, one process each."""
     return sorted(CSRC_DIR.glob('*.cu'))
+
+
+def library_name(csrc_dir: pathlib.Path = CSRC_DIR) -> str:
+    """File name of the library built from `csrc_dir`: a digest of every
+    source and header there (name and bytes) and of the compile and link
+    flags, so an edited header rebuilds too."""
+    digest = hashlib.sha256(' '.join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    for path in sorted([*csrc_dir.glob('*.cu'), *csrc_dir.glob('*.cuh')]):
+        digest.update(path.name.encode() + b'\0' + path.read_bytes())
+    return f'libskytpu_kernels-{digest.hexdigest()[:16]}.so'
 
 
 class _Library:
     """The compiled kernel library: built once per process (content-
-    addressed on disk over every source and flag, so an edited source
-    never loads a stale binary)."""
+    addressed on disk over every source, header and flag, so an edited
+    file never loads a stale binary)."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
@@ -93,10 +108,7 @@ class _Library:
 
     def _build_and_load(self) -> ctypes.CDLL:
         srcs = sources()
-        digest = hashlib.sha256(' '.join(COMPILE_FLAGS + LINK_FLAGS).encode())
-        for src in srcs:
-            digest.update(src.name.encode() + b'\0' + src.read_bytes())
-        out = BUILD_DIR / f'libskytpu_kernels-{digest.hexdigest()[:16]}.so'
+        out = BUILD_DIR / library_name()
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             # Build in a private directory, then rename the library: a

@@ -31,12 +31,34 @@ def cuda():
     return torch.device('cuda', torch.cuda.current_device())
 
 
+# Shapes at the edges of the kernels' tiles (128-row q/k tiles, 64-row
+# q stages of the dk/dv kernel): S below, at and past multiples of 128,
+# bench-1b's S=4096 with 16 over 8 heads, GQA group 4 at D=64,
+# non-causal ragged, fp16 ragged, odd lengths.
+EDGE_SHAPES = [
+    (2, 4, 2, 5, 128, True, torch.bfloat16),
+    (1, 4, 2, 17, 64, False, torch.float16),
+    (1, 4, 2, 64, 128, True, torch.bfloat16),
+    (1, 4, 2, 128, 128, True, torch.bfloat16),
+    (1, 4, 2, 192, 128, True, torch.bfloat16),
+    (1, 4, 2, 320, 128, True, torch.bfloat16),
+    (1, 16, 8, 4096, 128, True, torch.bfloat16),
+    (1, 32, 8, 256, 64, True, torch.bfloat16),
+    (1, 4, 2, 192, 128, False, torch.bfloat16),
+    (1, 4, 2, 96, 128, True, torch.float16),
+]
+
+
 @pytest.mark.parametrize('b,hq,hkv,s,d,causal,dtype', [
     (2, 32, 32, 256, 128, True, torch.bfloat16),
     (1, 8, 8, 32, 128, True, torch.bfloat16),
     (2, 12, 4, 128, 128, True, torch.bfloat16),
     (2, 32, 8, 96, 64, True, torch.float16),
     (1, 4, 4, 512, 64, False, torch.bfloat16),
+    *EDGE_SHAPES,
+    # A single row: forward only, since with one key the softmax is
+    # constant and dq, dk are 0 up to rounding (no relative error).
+    (2, 4, 2, 1, 128, True, torch.bfloat16),
 ])
 def test_flash_kernel_matches_plain(cuda, b, hq, hkv, s, d, causal, dtype):
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -54,6 +76,25 @@ def test_flash_kernel_matches_plain(cuda, b, hq, hkv, s, d, causal, dtype):
     torch.testing.assert_close(out.float(), ref.float(), atol=OUT_ATOL,
                                rtol=OUT_RTOL)
     torch.testing.assert_close(lse, ref_lse, atol=LSE_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize('s,causal', [(32, True), (192, True), (320, False)])
+def test_flash_kernel_without_lse_matches_plain(cuda, s, causal):
+    """The serving call: no lse requested (the kernel skips its write),
+    the same output as with it."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn((2, 8, s, 128), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    k, v = (torch.randn((2, 8, s, 128), generator=gen,
+                        device=cuda).to(torch.bfloat16) for _ in range(2))
+    out = fa.flash_attention_fwd(q, k, v, causal=causal)
+    with_lse, _ = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                         return_residuals=True)
+    torch.cuda.synchronize()
+    ref = fa.flash_attention_fwd_reference(q, k, v, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), atol=OUT_ATOL,
+                               rtol=OUT_RTOL)
+    assert torch.equal(out, with_lse)
 
 
 def test_flash_kernel_rejects_what_it_cannot_run(cuda):
@@ -86,6 +127,7 @@ def _norm_rel(x, ref):
     (1, 4, 2, 192, 128, False, torch.bfloat16),
     (2, 4, 2, 96, 64, True, torch.float16),
     (1, 2, 2, 32, 128, True, torch.bfloat16),
+    *EDGE_SHAPES,
 ])
 def test_flash_bwd_kernels_match_plain(cuda, b, hq, hkv, s, d, causal,
                                        dtype):

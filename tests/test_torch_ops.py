@@ -2,7 +2,12 @@
 flash kernels' plain versions (what CPU tensors take, forward and
 backward) against the Pallas kernels in interpret mode, and the autograd
 op against autograd through `mha_reference`.  Inputs come from a seeded numpy generator and
-go to both frameworks as numpy; JAX stays on the CPU."""
+go to both frameworks as numpy; JAX stays on the CPU.  Also, without a
+GPU: the kernel library's name covers every source and header, and each
+C entry point's parameters match its ctypes signature."""
+import ctypes
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -165,6 +170,51 @@ def test_flash_attention_autograd_matches_mha_reference(causal, hkv, s):
     # Without an input that needs a gradient, nothing is saved or built.
     with torch.no_grad():
         assert torch_attn.flash_attention(*_t(q, k, v)).grad_fn is None
+
+
+def test_library_name_covers_headers(tmp_path):
+    """The kernel library's name digests every source and shared header:
+    an edited header (or source) gives a new name, so a stale build is
+    never loaded; nvcc still compiles only the sources."""
+    src = tmp_path / 'kernel.cu'
+    header = tmp_path / 'common.cuh'
+    src.write_text('#include "common.cuh"\n')
+    header.write_text('// v1\n')
+    first = torch_fa.library_name(tmp_path)
+    assert first == torch_fa.library_name(tmp_path)
+    header.write_text('// v2\n')
+    second = torch_fa.library_name(tmp_path)
+    assert second != first
+    src.write_text('#include "common.cuh"\n// edited\n')
+    assert torch_fa.library_name(tmp_path) not in (first, second)
+    assert (torch_fa.CSRC_DIR / 'sm90_common.cuh').exists()
+    assert torch_fa.sources() and all(p.suffix == '.cu'
+                                      for p in torch_fa.sources())
+
+
+_C_KINDS = {ctypes.c_void_p: 'pointer', ctypes.c_int: 'int',
+            ctypes.c_float: 'float'}
+
+
+def _c_kind(param: str) -> str:
+    if '*' in param:
+        return 'pointer'
+    return {'int': 'int', 'float': 'float'}[param.split()[-2]]
+
+
+def test_c_entry_points_match_ctypes_signatures():
+    """Every `extern "C" int skytpu_...(` in csrc/ has the parameter count
+    and pointer/int/float kinds its ctypes argtypes declare: a mistyped
+    pointer would be cut to 32 bits without a word."""
+    declared = {}
+    for src in torch_fa.sources():
+        for name, params in re.findall(
+                r'extern "C" int (skytpu_\w+)\(([^)]*)\)', src.read_text()):
+            assert name not in declared, name
+            declared[name] = [_c_kind(p) for p in params.split(',')]
+    assert set(declared) == set(torch_fa._SIGNATURES)
+    for name, argtypes in torch_fa._SIGNATURES.items():
+        assert declared[name] == [_C_KINDS[a] for a in argtypes], name
 
 
 def test_jax_stays_on_cpu():
