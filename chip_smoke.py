@@ -16,7 +16,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    dk/dv at the training path's (bench-1b, llama-250m, llama2-7b, a
    non-causal, a ragged fp16 case, S=32 and S=320); then CUDA-event
    times of each kernel (and its TFLOP/s), its plain version and the
-   library call, beside the roofline bound, at the llama2-7b prefill
+   library call (SDPA; beside its backward also the port's dq + dk/dv
+   sum), next to the roofline bound, at the llama2-7b prefill
    shape (forward, also with the L2 flushed before each call) and the
    bench-1b training shape (forward, dq, dk/dv), and one profiled launch
    of each (registers per thread and shared memory as launched).
@@ -71,9 +72,9 @@ OUT_ATOL, OUT_RTOL, LSE_ATOL = 1e-2, 1e-2, 1e-3
 LOGITS_RTOL = 5e-2
 # Backward kernels vs their plain versions on the same bf16 inputs: both
 # round P and dS to the input type before their products, as the TPU
-# kernels do; they differ in the order of f32 sums, in expf, in where a
-# value lands next to a bf16 rounding boundary, and in the output's bf16
-# rounding (2^-8 relative).  Judged on ||kernel - plain|| / ||plain|| per
+# kernels do; they differ in the order of f32 sums, in the SFU's 2^x
+# against exp, in where a value lands next to a bf16 rounding boundary,
+# and in the output's bf16 rounding (2^-8 relative).  Judged on ||kernel - plain|| / ||plain|| per
 # output; a wrong kernel is off by ~1.
 BWD_NORM_RTOL = 1e-2
 # Training gradients at batch 1 through the backward kernels vs the same
@@ -374,7 +375,7 @@ def bwd_kernel_phase(device):
              lambda: fa.flash_attention_fwd(q, k, v, causal=causal,
                                             return_residuals=True)}
     for kind, name, line, source, call in (
-            ('dq', 'flash_attention_bwd_dq', 196, 'flash_attention_bwd.cu',
+            ('dq', 'flash_attention_bwd_dq', 196, 'flash_attention_bwd_dq.cu',
              lambda: fa.flash_attention_bwd_dq(q, k, v, g, lse, delta,
                                                causal)),
             ('dkv', 'flash_attention_bwd_dkv', 225,
@@ -399,6 +400,11 @@ def bwd_kernel_phase(device):
             'bound_by': bound_by, 'library_ms': lib_bwd_ms,
             'tflops': tflops, 'shape': list(shape)}
         calls[KERNEL_SYMBOLS[name]] = call
+    # The like-for-like yardstick of SDPA's one backward call: the port's
+    # two backward kernels together.
+    entries['dq']['port_bwd_ms'] = ms['dq'] + ms['dkv']
+    log(f'  timing the port\'s backward (dq + dk/dv kernels) '
+        f'{ms["dq"] + ms["dkv"]:.4f} ms vs sdpa backward {lib_bwd_ms:.4f} ms')
     bound_ms, bound_by, flops, nbytes = attention_bound(b, hq, hkv, s, d,
                                                         causal)
     fwd_train = {'ms': ms['fwd'], 'plain_ms': plain_ms['fwd'],

@@ -32,8 +32,9 @@
 //   then two xor-shuffles over the 4 lanes that share the row; the f32 O
 //   accumulator is rescaled in registers.  2^x on the SFU with log2(e)
 //   folded into the scale (one FFMA per element); lse is written back in
-//   natural-log units (the dq kernel reads it as expf(x - lse)).  The row
-//   sum is reduced across lanes once, at the end.
+//   natural-log units (the dq and dk/dv kernels scale it by log2 e once
+//   and rebuild P as 2^(x scale log2 e - lse log2 e)).  The row sum is
+//   reduced across lanes once, at the end.
 // - P is rounded to the input type in registers (as the TPU kernel's
 //   p.astype(v.dtype)) and is the register A operand of O += P V
 //   (m64nDk16); V is the shared-memory B operand, MN-major, with the

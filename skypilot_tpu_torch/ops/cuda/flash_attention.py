@@ -9,11 +9,12 @@ PyTorch/CUDA counterparts of `skypilot_tpu/ops/pallas/flash_attention.py`:
   ring of K/V stages, the softmax in registers).
 - `flash_attention_bwd` (the Pallas `flash_attention_bwd`): the same
   contract minus `interpret`; delta = rowsum(dO * O) in PyTorch, then
-  `flash_attention_bwd_dq` (`_fa_bwd_dq_kernel`, source
-  `csrc/flash_attention_bwd.cu`) and `flash_attention_bwd_dkv`
-  (`_fa_bwd_dkv_kernel`, dk/dv already summed to Hkv heads; source
+  `flash_attention_bwd_dq` (`_fa_bwd_dq_kernel`; source
+  `csrc/flash_attention_bwd_dq.cu`, wgmma, a TMA ring of K/V stages, dS
+  in registers) and `flash_attention_bwd_dkv` (`_fa_bwd_dkv_kernel`,
+  dk/dv already summed to Hkv heads; source
   `csrc/flash_attention_bwd_dkv.cu`, wgmma with P^T and dS^T in
-  registers).  The Hopper building blocks both wgmma kernels share are in
+  registers).  The Hopper building blocks the three kernels share are in
   `csrc/sm90_common.cuh`.
 
 GQA reads kv head h // (Hq // Hkv) inside the kernels.  Every source in

@@ -3,6 +3,7 @@
     python -m skypilot_tpu_torch.ops.cuda.probe build  # nvcc, ptxas report
     python -m skypilot_tpu_torch.ops.cuda.probe check  # kernels vs plain
     python -m skypilot_tpu_torch.ops.cuda.probe time   # CUDA-event times
+    python -m skypilot_tpu_torch.ops.cuda.probe time dq  # only names with 'dq'
 
 `check` holds the forward (out, lse) and the dk/dv and dq kernels against
 their plain versions at shapes on the edges of the kernels' tiles, up to
@@ -24,7 +25,11 @@ import torch
 from skypilot_tpu_torch.ops.cuda import flash_attention as fa
 
 CHECK_SHAPES = [  # (b, hq, hkv, s, d, causal, dtype)
+    (1, 2, 2, 63, 128, True, torch.bfloat16),
+    (1, 2, 2, 65, 128, False, torch.bfloat16),
     (1, 2, 2, 128, 128, True, torch.bfloat16),
+    (1, 2, 2, 129, 64, True, torch.float16),
+    (1, 8, 1, 255, 128, True, torch.bfloat16),
     (1, 2, 2, 128, 128, False, torch.bfloat16),
     (1, 2, 2, 32, 128, True, torch.bfloat16),
     (2, 8, 2, 96, 64, True, torch.float16),
@@ -93,7 +98,7 @@ def _time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def time_kernels() -> None:
+def time_kernels(only: str = '') -> None:
     gen = torch.Generator(device='cuda').manual_seed(0)
     q, k, v, g = _inputs(gen, 4, 16, 8, 4096, 128, torch.bfloat16)
     out, lse = fa.flash_attention_fwd(q, k, v, return_residuals=True)
@@ -107,10 +112,12 @@ def time_kernels() -> None:
             q, k, v, g, lse, delta),
     }
     for name, fn in calls.items():
-        print(f'{name} ms {_time_ms(fn):.4f}', flush=True)
-    qs, ks, vs, _ = _inputs(gen, 8, 32, 32, 256, 128, torch.bfloat16)
-    print(f'serving fwd ms '
-          f'{_time_ms(lambda: fa.flash_attention_fwd(qs, ks, vs)):.4f}')
+        if only in name:
+            print(f'{name} ms {_time_ms(fn):.4f}', flush=True)
+    if only in 'serving fwd':
+        qs, ks, vs, _ = _inputs(gen, 8, 32, 32, 256, 128, torch.bfloat16)
+        print(f'serving fwd ms '
+              f'{_time_ms(lambda: fa.flash_attention_fwd(qs, ks, vs)):.4f}')
 
 
 def main(argv) -> int:
@@ -120,7 +127,7 @@ def main(argv) -> int:
     elif mode == 'check':
         check()
     elif mode == 'time':
-        time_kernels()
+        time_kernels(argv[2] if len(argv) > 2 else '')
     else:
         print(__doc__)
         return 2

@@ -121,6 +121,19 @@ def _norm_rel(x, ref):
     return ((x.float() - ref.float()).norm() / ref.float().norm()).item()
 
 
+# Edges of the dq kernel's tiles (128 q rows per CTA in two 64-row
+# warpgroups, 64-row K/V stages): S one short of and one past 64 and
+# 128, and one short of 256, causal and not; GQA group 8 at D=128; fp16
+# at D=64.
+DQ_EDGE_SHAPES = [
+    *((1, 2, 2, s, 128, causal, torch.bfloat16)
+      for s in (63, 65, 127, 129, 255) for causal in (True, False)),
+    (1, 8, 1, 256, 128, True, torch.bfloat16),
+    (2, 4, 2, 129, 64, True, torch.float16),
+    (1, 4, 4, 255, 64, False, torch.float16),
+]
+
+
 @pytest.mark.parametrize('b,hq,hkv,s,d,causal,dtype', [
     (1, 4, 2, 256, 128, True, torch.bfloat16),
     (2, 4, 4, 128, 64, True, torch.bfloat16),
@@ -128,6 +141,7 @@ def _norm_rel(x, ref):
     (2, 4, 2, 96, 64, True, torch.float16),
     (1, 2, 2, 32, 128, True, torch.bfloat16),
     *EDGE_SHAPES,
+    *DQ_EDGE_SHAPES,
 ])
 def test_flash_bwd_kernels_match_plain(cuda, b, hq, hkv, s, d, causal,
                                        dtype):
@@ -155,6 +169,28 @@ def test_flash_bwd_kernels_match_plain(cuda, b, hq, hkv, s, d, causal,
         assert got.dtype == dtype and got.shape == ref.shape
         assert torch.isfinite(got).all()
         assert _norm_rel(got, ref) <= BWD_NORM_RTOL
+
+
+@pytest.mark.parametrize('causal', [True, False])
+def test_flash_bwd_kernels_are_deterministic(cuda, causal):
+    """Each dq (and dk/dv) element is summed by one thread in a fixed
+    order, with no atomics: two calls on the same inputs agree bit for
+    bit."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, g = (torch.randn((2, 8, 1024, 128), generator=gen,
+                        device=cuda).to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((2, 2, 1024, 128), generator=gen,
+                        device=cuda).to(torch.bfloat16) for _ in range(2))
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                      return_residuals=True)
+    delta = (g.float() * out.float()).sum(-1)
+    first, second = (
+        (fa.flash_attention_bwd_dq(q, k, v, g, lse, delta, causal),
+         *fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal))
+        for _ in range(2))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_flash_attention_grads_match_mha_reference(cuda):

@@ -119,5 +119,5 @@ def test_training_slice_modules_are_covered():
             'skypilot_tpu_torch.train.flops',
             'skypilot_tpu_torch.obs.goodput'} <= mods
     assert sorted(p.name for p in (PORT / 'csrc').glob('*.cu*')) == [
-        'flash_attention_bwd.cu', 'flash_attention_bwd_dkv.cu',
+        'flash_attention_bwd_dkv.cu', 'flash_attention_bwd_dq.cu',
         'flash_attention_fwd.cu', 'sm90_common.cuh']
