@@ -26,7 +26,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
    tokens plus one of 300 (chunked prefill), 32 new tokens each; every
    response checked; kernel launch counts read around this run; prefill
    logits through the kernel held against attention_impl='xla'.
-5. Training: bench-1b at full width and depth (f32 params, bf16 compute,
+5. Paged serving, over the same weights and prompts (PAGED): 64-token
+   pages on the engine API against the dense engine (identical tokens;
+   32 flash launches per prefill group, counted around the paged run),
+   a prefix-hit burst (8 requests sharing a 3-page prefix; the hit
+   counters exact), int8 pages (within half a quantization step plus one
+   bf16 ulp of the bf16 pages; pool bytes), speculation with k = 4
+   (proposed, accepted), and the KV handoff prefill -> bytes -> decode
+   (identical to a monolithic paged run); every hit, int8 and
+   speculative token within LOGITS_RTOL of the argmax of a teacher-forced
+   forward through the kernel; one paged decode call profiled.
+6. Training: bench-1b at full width and depth (f32 params, bf16 compute,
    remat 'none') through Trainer.run at batch 4, seq 4096: 2 untimed and
    8 timed steps, launch counts read around the timed steps (2 forward,
    1 dq and 1 dk/dv launch per layer per step), step time, tokens/s, MFU
@@ -34,7 +44,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    through the kernels against the same step with the backward kernels'
    plain versions (same forward) and against attention_impl='xla', on
    the same weights, and one step traced with torch.profiler.
-6. Result: the kernels JSON line (per kernel also TFLOP/s, ptxas
+7. Result: the kernels JSON line (per kernel also TFLOP/s, ptxas
    registers and spill-store bytes, shared memory per launch), the
    nvidia-smi line, then
    {"ok": true, "device": {...}} as the last line.
@@ -110,6 +120,16 @@ BWD_SHAPES = [(4, 16, 8, 4096, 128, True, 'bfloat16'),
 SERVE = dict(model='llama2-7b', max_seq_len=448, n_slots=8,
              steps_per_call=32, prefill_buckets=(256,), prompt_len=219,
              n_prompts=8, long_prompt_len=300, max_tokens=32)
+# The paged serving phase, over the serving phase's weights and prompts
+# (model and max_seq_len are SERVE's): 64-token pages divide the bucket
+# and max_seq_len, so full backing is 8 * 448/64 + 1 = 57 pages.  The
+# hit burst shares a 192-token (3-page) prefix; the handoff takes 4
+# prompts; the profiled decode call runs with 64-token budgets so the
+# second call is all decode.
+PAGED = dict(model='llama2-7b', max_seq_len=448, n_slots=8,
+             steps_per_call=32, prefill_buckets=(256,), kv_page_size=64,
+             prefix_len=192, tail_len=27, max_tokens=32, spec_k=4,
+             handoff_prompts=4, profile_tokens=64)
 
 
 def log(msg: str) -> None:
@@ -561,7 +581,8 @@ def read_launches() -> dict:
 
 def serving_phase(device, card):
     """llama2-7b through the HTTP app; returns the kernels' launch counts
-    of this run (the counters are zeroed just before it)."""
+    of this run (the counters are zeroed just before it) and what the
+    paged phase reuses: the weights, the model and the prompts."""
     import numpy as np
     import torch
     from skypilot_tpu_torch.inference.engine import DecodeEngine, EngineConfig
@@ -654,7 +675,309 @@ def serving_phase(device, card):
         raise SystemExit('prefill logits through the kernel disagree with '
                          'attention_impl=xla')
     profile_step(engine, prompts, card)
+    ctx = {'cfg': cfg, 'params': params, 'model': model, 'prompts': prompts,
+           'long_prompt': long_prompt,
+           'http_ids': [body['ids'] for _, body in replies]}
+    return counts, ctx
+
+
+def _drive(engine, prompts, max_new, step='step_pipelined'):
+    """Submit every prompt, then step until all finished (drained);
+    returns (streams, wall s, TTFTs s, requests)."""
+    import torch
+    t0 = time.perf_counter()
+    reqs = [engine.submit(p, max_new) for p in prompts]
+    fn = getattr(engine, step)
+    while not all(r.finished_at is not None for r in reqs):
+        fn()
+    if step == 'step_pipelined':
+        engine.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not engine.healthy:
+        raise SystemExit(f'paged engine crashed: {engine.error!r}')
+    return ([r.tokens() for r in reqs], wall,
+            [r.first_token_at - r.submitted_at for r in reqs], reqs)
+
+
+def _p50(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def _counter(name):
+    from skypilot_tpu_torch.server import metrics as metrics_lib
+    total = 0.0
+    for line in metrics_lib.render().splitlines():
+        if line.split('{')[0].split(' ')[0] == name:
+            total += float(line.rsplit(' ', 1)[1])
+    return total
+
+
+def teacher_forced(model, prompts, streams, what):
+    """Each emitted token against one non-decode forward (flash kernel)
+    over prompt + tokens[:-1]: its logit must be within LOGITS_RTOL of
+    the position's max |logit| below the max logit.  A wrong page,
+    position or acceptance count gives tokens far from the argmax; a
+    bf16 argmax flip passes.  Returns (worst slack, exact-argmax count,
+    token count)."""
+    import torch
+    worst, exact, total = 0.0, 0, 0
+    device = next(model.parameters()).device
+    for prompt, toks in zip(prompts, streams):
+        seq = torch.tensor([list(prompt) + toks[:-1]], device=device)
+        with torch.no_grad():
+            logits = model(seq)[0, len(prompt) - 1:]        # [n, V]
+        ids = torch.tensor(toks, device=device)[:, None]
+        got = logits.gather(1, ids)[:, 0]
+        top = logits.max(-1).values
+        slack = (top - got) / logits.abs().max(-1).values
+        if not torch.isfinite(logits).all():
+            raise SystemExit(f'{what}: non-finite teacher-forced logits')
+        worst = max(worst, slack.max().item())
+        exact += int((got == top).sum().item())
+        total += len(toks)
+    log(f'    teacher-forced {what}: {exact}/{total} tokens are the exact '
+        f'argmax, worst (max - logit)/max|logit| {worst:.4f} (gate '
+        f'{LOGITS_RTOL})')
+    if worst > LOGITS_RTOL:
+        raise SystemExit(f'{what}: an emitted token is {worst:.4f} of the '
+                         f'logits\' scale below the argmax')
+    return worst, exact, total
+
+
+def _share_equal(a, b):
+    same = sum(x == y for sa, sb in zip(a, b) for x, y in zip(sa, sb))
+    return same / sum(len(sa) for sa in a)
+
+
+def paged_phase(device, card, ctx):
+    """The paged serving path over the serving phase's weights: (1) bf16
+    pages against the dense engine on the same prompts (identical
+    tokens; the flash launches counted around the paged run), (2) a
+    prefix-hit burst, (3) int8 pages, (4) n-gram speculation, (5) the KV
+    handoff prefill -> bytes -> decode; the hit, int8 and speculative
+    streams held by the teacher-forced gate; then one paged decode call
+    profiled.  Returns the kernels' launch counts of the paged run."""
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch.inference import kv_quant, kv_transfer
+    from skypilot_tpu_torch.inference.engine import DecodeEngine, EngineConfig
+
+    cfg, model = ctx['cfg'], ctx['model']
+    if (PAGED['model'], PAGED['max_seq_len']) != (SERVE['model'],
+                                                  cfg.max_seq_len):
+        raise SystemExit('PAGED must name the serving phase\'s model')
+    prompts = ctx['prompts'] + [ctx['long_prompt']]
+    n_new = PAGED['max_tokens']
+    base = dict(n_slots=PAGED['n_slots'],
+                steps_per_call=PAGED['steps_per_call'],
+                prefill_buckets=PAGED['prefill_buckets'])
+    paged_kw = dict(base, kv_page_size=PAGED['kv_page_size'])
+
+    def engine(**kw):
+        return DecodeEngine(model, EngineConfig(**kw), device=device)
+
+    # (1) bf16 pages vs the dense engine, same prompts, same groups.
+    dense = engine(**base)
+    want, wall_d, ttft_d, _ = _drive(dense, prompts, n_new)
+    groups_d = dense.prefill_groups
+    del dense
+    torch.cuda.empty_cache()
+    paged = engine(**paged_kw)
+    zero_launches()
+    got, wall_p, ttft_p, _ = _drive(paged, prompts, n_new)
+    counts = read_launches()
+    groups = paged.prefill_groups
+    toks = sum(map(len, got))
+    log(f'  (1) bf16 pages, {len(prompts)} prompts ({len(prompts) - 1} x '
+        f'{len(prompts[0])} + 1 x {len(prompts[-1])}), {n_new} new each, '
+        f'on {card}: paged {toks / wall_p:.1f} out-tok/s (wall '
+        f'{wall_p:.3f} s), TTFT p50 {_p50(ttft_p) * 1e3:.1f} ms; dense '
+        f'engine {toks / wall_d:.1f} out-tok/s (wall {wall_d:.3f} s), TTFT '
+        f'p50 {_p50(ttft_d) * 1e3:.1f} ms; prefill groups {groups} (dense '
+        f'{groups_d}); flash launches {counts}; tokens equal to the HTTP '
+        f'serving phase\'s {_share_equal(got, ctx["http_ids"]):.4f}')
+    if got != want:
+        raise SystemExit(f'paged tokens differ from the dense engine\'s: '
+                         f'{_share_equal(got, want):.4f} equal')
+    if groups != groups_d or counts['flash_attention_fwd'] != \
+            cfg.n_layers * groups:
+        raise SystemExit(f'flash launched {counts} over {groups} prefill '
+                         f'groups of {cfg.n_layers} layers')
+    paged._pool_alloc.check_conserved()
+
+    # (2) Prefix cache: a warm request publishes the 3-page prefix, then
+    # a burst of 8 shares it, each with its own tail.
+    rng = np.random.default_rng(SEED + 5)
+    prefix = rng.integers(0, cfg.vocab_size, PAGED['prefix_len']).tolist()
+    tails = [rng.integers(0, cfg.vocab_size, PAGED['tail_len']).tolist()
+             for _ in range(PAGED['n_slots'] + 1)]
+    hit_engine = engine(**paged_kw)
+    _drive(hit_engine, [prefix + tails[0]], n_new)
+    before = {k: _counter(f'skytpu_engine_prefix_cache_{k}_total')
+              for k in ('hits', 'tokens', 'misses')}
+    burst = [prefix + t for t in tails[1:]]
+    hit_toks, wall_h, ttft_h, _ = _drive(hit_engine, burst, n_new)
+    delta = {k: _counter(f'skytpu_engine_prefix_cache_{k}_total') - v
+             for k, v in before.items()}
+    hit_engine._pool_alloc.check_conserved()
+    log(f'  (2) prefix hits: burst of {len(burst)} x ({PAGED["prefix_len"]} '
+        f'shared + {PAGED["tail_len"]}) after one warm request: '
+        f'{sum(map(len, hit_toks)) / wall_h:.1f} out-tok/s (wall '
+        f'{wall_h:.3f} s), TTFT p50 {_p50(ttft_h) * 1e3:.1f} ms (step 1: '
+        f'{_p50(ttft_p) * 1e3:.1f} ms); counters {delta}; free pages '
+        f'{hit_engine._pool_alloc.free_pages} of '
+        f'{hit_engine._pool_alloc.n_pages}')
+    if (delta['hits'] != len(burst) or delta['misses'] != 0 or
+            delta['tokens'] != len(burst) * PAGED['prefix_len']):
+        raise SystemExit(f'prefix-cache counters moved by {delta}')
+    teacher_forced(model, burst, hit_toks, 'prefix-hit streams')
+    del hit_engine
+    torch.cuda.empty_cache()
+
+    # (3) int8 pages on the step-1 prompts; then the first prompt's three
+    # full prompt pages (held by both radix caches) against bf16.
+    quant = engine(**paged_kw, kv_dtype='int8')
+    q_toks, wall_q, ttft_q, _ = _drive(quant, prompts, n_new)
+    n_pages = len(prompts[0]) // PAGED['kv_page_size']
+    matched = [e._radix.match(prompts[0], n_pages) for e in (paged, quant)]
+    if [n for n, _ in matched] != [n_pages, n_pages]:
+        raise SystemExit(f'radix caches hold {matched} of prompt 0')
+    rows_b, rows_q = (torch.tensor(pg, device=device) for _, pg in matched)
+    worst_q = 0.0
+    for (kb, vb), (kq, vq) in zip(paged._cache, quant._cache):
+        for ref, qp in ((kb, kq), (vb, vq)):
+            want_kv = ref[rows_b].float()
+            step = qp.scale[rows_q][..., None]
+            deq = kv_quant.dequantize_kv(qp.data[rows_q], qp.scale[rows_q],
+                                         torch.float32)
+            bound = 0.5 * step + want_kv.abs() * 2.0 ** -7
+            worst_q = max(worst_q, ((deq - want_kv).abs() /
+                                    bound.clamp_min(1e-30)).max().item())
+    for e, (_, pg) in zip((paged, quant), matched):
+        e._pool_alloc.release(pg)
+    bytes_q = sum(t.numel() * t.element_size() for t in quant._wire_leaves())
+    bytes_b = sum(t.numel() * t.element_size() for t in paged._wire_leaves())
+    log(f'  (3) int8 pages: pool {bytes_q / 1e9:.4f} GB vs bf16 '
+        f'{bytes_b / 1e9:.4f} GB (ratio {bytes_q / bytes_b:.5f}, expected '
+        f'{(1 + 4 / cfg.head_dim) / 2:.5f}); prompt-0 pages dequantized vs '
+        f'bf16: worst |d| / (half a step + 1 bf16 ulp) {worst_q:.4f}; '
+        f'{toks / wall_q:.1f} out-tok/s (wall {wall_q:.3f} s), TTFT p50 '
+        f'{_p50(ttft_q) * 1e3:.1f} ms; tokens equal to step 1\'s '
+        f'{_share_equal(q_toks, got):.4f}')
+    if worst_q > 1.0:
+        raise SystemExit('int8 pages off the bf16 pages by more than half a '
+                         'quantization step plus one bf16 ulp')
+    if abs(bytes_q / bytes_b - (1 + 4 / cfg.head_dim) / 2) > 1e-9:
+        raise SystemExit('int8 pool size off its expected ratio')
+    quant._pool_alloc.check_conserved()
+    teacher_forced(model, prompts, q_toks, 'int8 streams')
+    del quant, paged
+    torch.cuda.empty_cache()
+
+    # (4) Speculation, k drafts per verify call.
+    spec = engine(**paged_kw, speculation=PAGED['spec_k'])
+    before = [_counter(f'skytpu_engine_spec_{k}_tokens_total')
+              for k in ('proposed', 'accepted')]
+    s_toks, wall_s, ttft_s, _ = _drive(spec, prompts, n_new, step='step')
+    proposed, accepted = (_counter(f'skytpu_engine_spec_{k}_tokens_total')
+                          - b for k, b in zip(('proposed', 'accepted'),
+                                              before))
+    log(f'  (4) speculation k={PAGED["spec_k"]}: proposed {proposed:.0f}, '
+        f'accepted {accepted:.0f} (acceptance '
+        f'{accepted / max(proposed, 1):.4f}); {toks / wall_s:.1f} '
+        f'out-tok/s (wall {wall_s:.3f} s), TTFT p50 '
+        f'{_p50(ttft_s) * 1e3:.1f} ms; tokens equal to step 1\'s '
+        f'{_share_equal(s_toks, got):.4f}')
+    if proposed <= 0 or not 0 <= accepted <= proposed:
+        raise SystemExit(f'speculation counters: {proposed} {accepted}')
+    teacher_forced(model, prompts, s_toks, 'speculative streams')
+    del spec
+    torch.cuda.empty_cache()
+
+    # (5) Handoff: prefill role -> payload bytes -> decode role, against a
+    # monolithic paged run of the same prompts submitted together.
+    hand = prompts[:PAGED['handoff_prompts']]
+    mono_toks, _, _, _ = _drive(engine(**paged_kw), hand, n_new)
+    torch.cuda.empty_cache()
+    pre, dec = engine(**paged_kw), engine(**paged_kw)
+    reqs = [pre.submit_prefill(p, n_new) for p in hand]
+    while not all(r.finished_at is not None for r in reqs):
+        pre.step_pipelined()
+    pre.drain()
+    firsts = [r.tokens() for r in reqs]
+    t0 = time.perf_counter()
+    exported = [pre.export_result(r) for r in reqs]
+    export_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    payloads = [kv_transfer.serialize(kv_transfer.KVHandoff(
+        prompt_ids=p, first_token=e['first_token'], max_new_tokens=n_new,
+        page_size=PAGED['kv_page_size'], leaves=e['leaves']))
+        for p, e in zip(hand, exported)]
+    ser_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    handoffs = [kv_transfer.deserialize(b) for b in payloads]
+    de_ms = (time.perf_counter() - t0) * 1e3
+    adopted = [dec.submit_adopt(h.prompt_ids, h.first_token, h.leaves,
+                                h.max_new_tokens, page_size=h.page_size)
+               for h in handoffs]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dec._step_adopt()
+    torch.cuda.synchronize()
+    adopt_ms = (time.perf_counter() - t0) * 1e3
+    while not all(r.finished_at is not None for r in adopted):
+        dec.step_pipelined()
+    dec.drain()
+    h_toks = [r.tokens() for r in adopted]
+    mb = sum(map(len, payloads)) / len(payloads) / 1e6
+    log(f'  (5) handoff of {len(hand)} prompts: payload {mb:.3f} MB each; '
+        f'export_result (device -> host) {export_ms:.3f} ms, serialize '
+        f'{ser_ms:.3f} ms, deserialize {de_ms:.3f} ms, adopt (host -> '
+        f'device + scatter, synced) {adopt_ms:.3f} ms, all {len(hand)}')
+    if [f[0] for f in firsts] != [m[0] for m in mono_toks] or \
+            h_toks != mono_toks:
+        raise SystemExit(f'handoff streams differ from the monolithic '
+                         f'paged run: {_share_equal(h_toks, mono_toks):.4f}')
+    del pre, dec, exported, payloads, handoffs
+    torch.cuda.empty_cache()
+    profile_paged_decode(engine(**paged_kw), ctx['prompts'], card)
     return counts
+
+
+def profile_paged_decode(engine, prompts, card):
+    """Where the time goes in paged decode: the second step() of 8
+    requests (all decode: one call of steps_per_call steps) traced with
+    torch.profiler; device time of the page gather/scatter and copy
+    kernels against the GEMMs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    reqs = [engine.submit(p, PAGED['profile_tokens']) for p in prompts]
+    engine.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    if not all(r.finished_at is not None for r in reqs):
+        raise SystemExit('profiled paged decode did not finish its requests')
+    rows = kernel_rows(prof)
+    busy_ms = sum(r[0] for r in rows)
+    kinds = {'gather/scatter': ('index', 'gather', 'scatter'),
+             'gemm': ('gemm', 'nvjet', 'cutlass', 'sm90'),
+             'copy': ('copy', 'Copy')}
+    by_kind = {k: sum(r[0] for r in rows if any(t in r[2] for t in names))
+               for k, names in kinds.items()}
+    log(f'  paged decode profile on {card}: 1 call of '
+        f'{PAGED["steps_per_call"]} steps over {len(prompts)} slots: wall '
+        f'{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms '
+        f'({busy_ms / wall_ms:.1%}); by kind (ms) '
+        f'{ {k: round(v, 3) for k, v in by_kind.items()} }')
+    for dev_ms, count, name in rows[:12]:
+        log(f'    {dev_ms:9.3f} ms  x{count:<6d} {name[:200]}')
 
 
 def kernel_rows(prof):
@@ -956,7 +1279,12 @@ def main() -> int:
                              fwd['at_training_shape']['max_abs_err'])
 
     log(f'[serving] {SERVE}')
-    by_path = {'serving': serving_phase(device, card)}
+    by_path = {}
+    by_path['serving'], serve_ctx = serving_phase(device, card)
+    log(f'[paged] {PAGED}')
+    by_path['paged'] = paged_phase(device, card, serve_ctx)
+    del serve_ctx
+    torch.cuda.empty_cache()
     log(f'[training] {TRAIN}')
     by_path['training'] = training_phase(device, card, smi)
 

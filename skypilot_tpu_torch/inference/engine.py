@@ -1,7 +1,7 @@
-"""Continuous-batching decode engine, dense single-device path (PyTorch).
+"""Continuous-batching decode engine, single-device (PyTorch).
 
-Twin of `skypilot_tpu/inference/engine.py` (mesh=None, unpaged): the same
-host machinery over the same device contract.
+Twin of `skypilot_tpu/inference/engine.py` (mesh=None): the same host
+machinery over the same device contract.
 
 - A fixed pool of decode *slots*; every decode call runs the whole
   [n_slots] batch for `steps_per_call` steps (a Python loop of eager
@@ -29,11 +29,38 @@ _decode_attend): attention masks k_pos > q_pos, and inserts overwrite a
 slot's whole cache, so a reused slot never leaks its previous request's
 KV.
 
-Not in this slice: paged KV / prefix caching, speculation, disaggregated
-prefill/decode, tensor parallelism, `update_params` and the perf gauges.
+Paged KV + prefix caching (`kv_page_size`): the cache becomes a page
+POOL, per layer (k, v) of [n_pages, H, page_size, D], with host-side
+per-slot page tables (inference/paging.py owns the allocator and the
+radix trie).  Admission charges ceil((prompt+max_new)/page) pages;
+requests sharing a page-aligned token prefix reference the cached pages
+(gathered into the chunked-prefill scratch, only the suffix prefills);
+retire donates prompt+generated pages, so multi-turn replays hit.
+Prefill keeps the dense programs (the flash kernel included) and only
+the insert tail scatters rows into the pages; decode scatters and
+gathers through the table inside the model (models/llama.py
+_paged_attend).  Tables upload through pinned copies, only when dirty,
+so paging adds no sync.  `kv_dtype='int8'` stores pages quantized
+(inference/kv_quant.py); `speculation=k` drafts k tokens per slot from
+its own history (`_ngram_continuation`) and verifies them in one S=k+1
+call, greedy and lossless.
+
+Disaggregated prefill/decode (`submit_prefill` / `export_result` /
+`submit_adopt`, paged engines only): a prefill-role request runs the
+ordinary admission with a one-token budget and, at retire, its pages are
+gathered off the pool into new tensors (queued on the stream before the
+pages are released; the caller's thread copies them to the host).  A
+decode-role engine scatters a handoff's pages into its own pool and the
+slot continues from the transferred first token.  Leaves travel in the
+JAX cache tree's order (`_leaf_order`), so a payload crosses between the
+two packages.
+
+Not in this slice: tensor parallelism (`mesh`), `update_params` and the
+perf gauges.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import queue
 import threading
@@ -45,6 +72,8 @@ import torch
 
 from skypilot_tpu_torch import sky_logging
 from skypilot_tpu_torch.device import DeviceLike, device_of, resolve_device
+from skypilot_tpu_torch.inference import kv_quant
+from skypilot_tpu_torch.inference.paging import TRASH_PAGE, PagePool, RadixCache
 from skypilot_tpu_torch.ops.cuda import flash_attention as cuda_fa
 from skypilot_tpu_torch.server import metrics as metrics_lib
 from skypilot_tpu_torch.server import tracing
@@ -66,11 +95,23 @@ class EngineConfig:
     seed: int = 0
     # Admission cap for prompts.  None: anything up to max_seq_len - 1.
     max_prompt_len: Optional[int] = None
-    # Fields of later slices of the port; setting them raises.
+    # Tensor parallelism: refused here (the tensor-parallel serving
+    # slice); the fields keep the JAX engine's config shape.
     mesh: Optional[Any] = None
+    tensor_axis: str = 'tensor'
+    # Paged KV cache: page size in tokens (must divide every prefill
+    # bucket and max_seq_len).  None = the contiguous layout.
     kv_page_size: Optional[int] = None
+    # Page-pool size.  None = full backing (n_slots * max_seq_len /
+    # page_size, + 1 trash page).  Must fit one max-length request.
     kv_pages: Optional[int] = None
+    # Radix prefix cache over the page pool (kv_page_size set).
+    prefix_cache: bool = True
+    # 'bf16' keeps the model dtype; 'int8' quantizes pages at scatter
+    # time (kv_quant.QuantPages).  Requires kv_page_size.
     kv_dtype: str = 'bf16'
+    # Self-speculative decoding: draft length k per slot, 0 = off.
+    # Requires kv_page_size and temperature == 0.0.
     speculation: int = 0
 
 
@@ -90,6 +131,16 @@ class Request:
     # perf_counter stamp of the END of this request's last prefill
     # dispatch: the engine.dispatch span starts here.
     prefill_end_at: Optional[float] = None
+    # Set when a stuck-pool spill demoted this request to a full prefill
+    # (see _spill_stuck_hits): re-matching would re-pin the same pages.
+    no_prefix: bool = False
+    # Disaggregated serving (paged engines only).  export=True marks a
+    # prefill-role request (submit_prefill): one-token budget, and at
+    # retire its pages + first token are staged in `kv_export`.  `adopt`
+    # carries a decode-role request's incoming (first_token, leaves).
+    export: bool = False
+    kv_export: Optional[dict] = None
+    adopt: Optional[tuple] = None
 
     def tokens(self) -> List[int]:
         """Drain: block until the request finishes, return all tokens."""
@@ -102,9 +153,12 @@ class Request:
 
 
 class _Slot:
-    __slots__ = ('request', 'length', 'first_pending', 'done')
+    __slots__ = ('request', 'length', 'first_pending', 'done', 'pages',
+                 'n_shared', 'toks')
 
-    def __init__(self, request: Request, length: int) -> None:
+    def __init__(self, request: Request, length: int,
+                 pages: Optional[List[int]] = None,
+                 n_shared: int = 0) -> None:
         self.request = request
         self.length = length              # prompt len + emitted (host view)
         # True until the prefill-sampled first token has been emitted (it
@@ -113,29 +167,94 @@ class _Slot:
         # Finished (retired); lets a pipelined in-flight call's snapshot
         # tell a handed-off slot's remaining rows from retire-lag garbage.
         self.done = False
+        # Paged engine: the KV pages backing this slot, in logical order;
+        # the first n_shared are prefix-cache pages it never writes.
+        self.pages = pages
+        self.n_shared = n_shared
+        # Emitted tokens (paged): retire donates prompt+generated pages,
+        # and an export needs the sampled first token.
+        self.toks: List[int] = []
 
 
 class _ChunkedPrefill:
     """Host state of one long prompt mid-chunked-prefill: the scratch
-    cache accumulating its K/V and how far into the prompt it is."""
-    __slots__ = ('request', 'scratch', 'offset', 'last_chunk_end')
+    cache accumulating its K/V and how far into the prompt it is.  A
+    prefix-cache hit starts at offset == the matched length with a
+    scratch gathered from the shared pages."""
+    __slots__ = ('request', 'scratch', 'offset', 'last_chunk_end',
+                 'shared_pages')
 
-    def __init__(self, request: Request, scratch) -> None:
+    def __init__(self, request: Request, scratch, offset: int = 0,
+                 shared_pages: Optional[List[int]] = None) -> None:
         self.request = request
         self.scratch = scratch
-        self.offset = 0          # prompt tokens already in the scratch
+        self.offset = offset     # prompt tokens already in the scratch
         # End stamp of the previous chunk dispatch, so the per-chunk spans
         # tile the whole chunked-prefill phase.
         self.last_chunk_end: Optional[float] = None
+        # Prefix-cache pages this request references (ref'd by the
+        # match); the head of its slot's page table at insert time.
+        self.shared_pages = shared_pages or []
+
+
+def _ngram_continuation(hist: List[int], k: int, max_ngram: int = 3,
+                        window: int = 512) -> np.ndarray:
+    """Self-speculative n-gram draft: the k tokens that followed the
+    most recent earlier occurrence of ``hist``'s tail n-gram (longest
+    n first, n = max_ngram..1), zero-padded when the match runs out.
+
+    Pure host arithmetic over the slot's own token history — no second
+    model, no device work.  On repetitive traffic (code, templated
+    text, multi-turn replays) the continuation after a repeated n-gram
+    is usually the same continuation, which is exactly what verify
+    accepts; on incompressible traffic drafts self-reject to m=1 and
+    the engine degrades to plain (correct) decode.  Only the last
+    ``window`` tokens are scanned: a bounded O(window * max_ngram)
+    per slot per step, never proportional to the full context.
+    """
+    out = np.zeros((k,), np.int32)
+    ln = len(hist)
+    if ln < 2:
+        return out
+    lo = max(0, ln - window)
+    for n in range(min(max_ngram, ln - 1), 0, -1):
+        tail = hist[ln - n:]
+        # Most recent earlier occurrence: scan ends before the tail
+        # itself (i + n < ln) so the draft continues PAST the match.
+        for i in range(ln - n - 1, lo - 1, -1):
+            if hist[i:i + n] == tail:
+                # When the match overlaps the tail (a cycling stream —
+                # the case speculation wins hardest on), the observed
+                # continuation is shorter than k; extend it cyclically
+                # instead of zero-padding, so a period-p loop drafts
+                # the whole next k tokens, not just p of them.
+                span = ln - (i + n)
+                for j in range(k):
+                    out[j] = hist[i + n + (j if j < span else j % span)]
+                return out
+    return out
+
+
+def _leaf_order(n_layers: int) -> List[int]:
+    """Layer indices in the JAX cache tree's leaf order: its dict keys
+    `layer_{i}` flatten sorted as strings (layer_0, layer_1, layer_10,
+    ...), so a handoff's leaves line up across the two packages."""
+    return sorted(range(n_layers), key=lambda i: f'layer_{i}')
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    """numpy's name for a torch dtype ('bfloat16', 'float32', 'int8'):
+    the names the JAX engine's messages and the wire format use."""
+    return str(dtype).replace('torch.', '')
 
 
 class DecodeEngine:
     """Slot-based continuous batching over a `models.llama.Llama`.
 
     `model.cfg.max_seq_len` bounds prompt+generation; the per-layer KV
-    cache is [n_slots, n_kv_heads, max_seq_len, head_dim].  The model's
-    parameters must live on `device` (default: the GPU; raises without
-    one).
+    cache is [n_slots, n_kv_heads, max_seq_len, head_dim] (or the page
+    pool under `kv_page_size`).  The model's parameters must live on
+    `device` (default: the GPU; raises without one).
     """
 
     def __init__(self, model, config: EngineConfig = EngineConfig(),
@@ -150,7 +269,6 @@ class DecodeEngine:
             raise ValueError(
                 f'EngineConfig.n_slots must be a positive slot count, '
                 f'got {config.n_slots}')
-        self._validate_config(config)
         # Buckets beyond the cache length can never be inserted; drop them
         # so submit() rejects oversized prompts up front.
         max_len = model.cfg.max_seq_len
@@ -158,6 +276,10 @@ class DecodeEngine:
         if not buckets:
             buckets = (max_len,)
         config = dataclasses.replace(config, prefill_buckets=buckets)
+        if config.mesh is not None:
+            raise ValueError('EngineConfig.mesh: tensor-parallel serving '
+                             'comes with the tensor-parallel serving slice')
+        self._validate_paging(config, max_len)
         self.cfg = config
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(config.seed)
@@ -173,6 +295,38 @@ class DecodeEngine:
         # through chunked prefill, one at a time.
         self._long_q: 'queue.Queue[Request]' = queue.Queue()
         self._chunked: Optional[_ChunkedPrefill] = None
+        # Paged KV cache: host allocator + per-slot page tables + the
+        # radix prefix cache, all loop-thread state; only the table is
+        # shipped to the device (pinned copy, refreshed when dirty).
+        self._paged = config.kv_page_size is not None
+        self._kv_quant = self._paged and config.kv_dtype == 'int8'
+        self._spec_k = config.speculation if self._paged else 0
+        self._page_size = config.kv_page_size
+        self._pages_per_slot = (max_len // config.kv_page_size
+                                if self._paged else 0)
+        self._pool_alloc: Optional[PagePool] = None
+        self._radix: Optional[RadixCache] = None
+        self._page_tables = None        # host np [n_slots, pages_per_slot]
+        self._pt_device = None
+        self._pt_dirty = True
+        # Short prompts pulled off _prefill_q, awaiting page reservation
+        # (head-of-line on allocation failure); prefix hits divert to
+        # _hit_q and ride the chunk machinery.
+        self._ready_q: 'collections.deque' = collections.deque()
+        self._hit_q: 'collections.deque' = collections.deque()
+        # Incoming KV handoffs (decode role): submitted into _adopt_q,
+        # admitted head-of-line from _adopt_ready as slots + pages free.
+        self._adopt_q: 'queue.Queue[Request]' = queue.Queue()
+        self._adopt_ready: 'collections.deque' = collections.deque()
+        if self._paged:
+            n_pages = (config.kv_pages if config.kv_pages is not None
+                       else config.n_slots * self._pages_per_slot + 1)
+            self._pool_alloc = PagePool(n_pages, config.kv_page_size)
+            if config.prefix_cache:
+                self._radix = RadixCache(self._pool_alloc)
+            self._page_tables = np.full(
+                (config.n_slots, self._pages_per_slot), TRASH_PAGE,
+                np.int64)
         # Prompt tokens accepted but not yet prefilled.  Writers hold
         # _submit_lock; the loop's gauge read is a bare int read.
         self._queued_tokens = 0
@@ -189,27 +343,60 @@ class DecodeEngine:
         return self.error is None
 
     @staticmethod
-    def _validate_config(config: EngineConfig) -> None:
-        """Refuse the options whose machinery comes with later slices of
-        the port, naming the slice."""
+    def _validate_paging(config: EngineConfig, max_len: int) -> None:
+        """Reject paging geometry that cannot work, naming the
+        offending values: kv_page_size must divide every prefill bucket
+        and max_seq_len, and the pool must fit at least one max-length
+        request plus the trash page.  kv_dtype and speculation are
+        validated here too: both are properties of the paged
+        substrate.  (The JAX engine's messages, word for word.)"""
+        ps = config.kv_page_size
         if config.kv_dtype not in ('bf16', 'int8'):
             raise ValueError(
-                f"kv_dtype must be 'bf16' or 'int8', got {config.kv_dtype!r}")
-        if config.mesh is not None:
-            raise ValueError('EngineConfig.mesh: tensor-parallel serving '
-                             'comes with the tensor-parallel serving slice')
-        if config.kv_page_size is not None or config.kv_pages is not None:
-            raise ValueError('EngineConfig.kv_page_size/kv_pages: the paged '
-                             'KV cache comes with the paged-KV slice')
-        if config.kv_dtype == 'int8':
-            raise ValueError("EngineConfig.kv_dtype='int8': the int8 page "
-                             'pool comes with the paged-KV slice')
+                f"kv_dtype must be 'bf16' or 'int8', got "
+                f"{config.kv_dtype!r}")
+        if config.kv_dtype == 'int8' and ps is None:
+            raise ValueError(
+                'kv_dtype=int8 quantizes the PAGED pool at scatter '
+                'time; set kv_page_size (the contiguous cache keeps '
+                'the model dtype)')
         if config.speculation < 0:
-            raise ValueError(f'speculation must be a non-negative draft '
-                             f'length, got {config.speculation}')
+            raise ValueError(
+                f'speculation must be a non-negative draft length, '
+                f'got {config.speculation}')
         if config.speculation > 0:
-            raise ValueError('EngineConfig.speculation: speculative decoding '
-                             'comes with the paged-KV slice')
+            if ps is None:
+                raise ValueError(
+                    'speculation requires kv_page_size: rejected draft '
+                    'rows must land in slot-owned/trash pages, not the '
+                    'contiguous cache')
+            if config.temperature != 0.0:
+                raise ValueError(
+                    f'speculation is greedy-only (accept = exact argmax '
+                    f'match, lossless at temperature 0.0); got '
+                    f'temperature={config.temperature}')
+        if ps is None:
+            return
+        if ps <= 0:
+            raise ValueError(
+                f'kv_page_size must be a positive token count, got {ps}')
+        offending = [b for b in config.prefill_buckets if b % ps != 0]
+        if max_len % ps != 0:
+            offending.append(max_len)
+        if offending:
+            raise ValueError(
+                f'kv_page_size={ps} must divide every prefill bucket '
+                f'and max_seq_len; offending values: '
+                f'{sorted(set(offending))} (buckets='
+                f'{config.prefill_buckets}, max_seq_len={max_len})')
+        if config.kv_pages is not None:
+            need = max_len // ps + 1
+            if config.kv_pages < need:
+                raise ValueError(
+                    f'kv_pages={config.kv_pages} cannot hold one '
+                    f'max-length request: need >= {need} '
+                    f'(max_seq_len {max_len} / kv_page_size {ps} '
+                    f'+ 1 trash page)')
 
     # ----- device state ------------------------------------------------------
     def _make_cache(self, n: Optional[int] = None):
@@ -222,16 +409,54 @@ class DecodeEngine:
                  torch.zeros(shape, dtype=mcfg.dtype, device=self.device))
                 for _ in range(mcfg.n_layers)]
 
+    def _pool_shape(self) -> tuple:
+        """One pool leaf: [n_pages, H_kv, page_size, D]."""
+        mcfg = self.model.cfg
+        return (self._pool_alloc.n_pages, mcfg.n_kv_heads, self._page_size,
+                mcfg.head_dim)
+
+    def _pool_leaf(self):
+        """A zeroed pool leaf: a tensor in the model dtype, or a
+        QuantPages of (int8 data, f32 scales) under kv_dtype=int8."""
+        shape = self._pool_shape()
+        if self._kv_quant:
+            return kv_quant.QuantPages(
+                torch.zeros(shape, dtype=torch.int8, device=self.device),
+                torch.zeros(shape[:3], dtype=torch.float32,
+                            device=self.device))
+        return torch.zeros(shape, dtype=self.model.cfg.dtype,
+                           device=self.device)
+
     def _init_cache(self):
         n = self.cfg.n_slots
-        self._cache = self._make_cache()
+        if self._paged:
+            # The PAGE POOL: n_pages x page bytes, sized by kv_pages, not
+            # by n_slots x max_seq_len.  Page 0 is the trash page.
+            self._cache = [(self._pool_leaf(), self._pool_leaf())
+                           for _ in range(self.model.cfg.n_layers)]
+        else:
+            self._cache = self._make_cache()
         self._last_d = torch.zeros((n,), dtype=torch.long, device=self.device)
         self._lens_d = torch.zeros((n,), dtype=torch.long, device=self.device)
 
-    def _h2d(self, arr: np.ndarray) -> torch.Tensor:
-        """Host array -> device without a sync (pinned, non-blocking), so
-        admissions queue behind an in-flight decode call."""
-        t = torch.from_numpy(arr)
+    def _wire_leaves(self) -> List[torch.Tensor]:
+        """The pool's tensors in the JAX cache tree's leaf order: layers
+        by `_leaf_order`, k then v, and under int8 data then scale."""
+        leaves = []
+        for i in _leaf_order(len(self._cache)):
+            for leaf in self._cache[i]:
+                if isinstance(leaf, kv_quant.QuantPages):
+                    leaves += [leaf.data, leaf.scale]
+                else:
+                    leaves.append(leaf)
+        return leaves
+
+    def _h2d(self, arr) -> torch.Tensor:
+        """Host array or CPU tensor -> device without a sync (pinned,
+        non-blocking), so admissions queue behind an in-flight decode
+        call.  pin_memory() copies, so the caller may reuse `arr` at
+        once."""
+        t = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(arr)
         if self.device.type == 'cuda':
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
@@ -248,12 +473,34 @@ class DecodeEngine:
             return draw.reshape(probs.shape[:-1])
         return torch.argmax(logits, dim=-1)
 
+    def _to_pages(self, small: torch.Tensor) -> torch.Tensor:
+        """Dense rows [N, H, L, D] -> page stacks [N, P, H, ps, D], the
+        trailing dims of a pool scatter at a page-table row."""
+        n, h, _, d = small.shape
+        pages = small.transpose(1, 2).reshape(n, self._pages_per_slot,
+                                              self._page_size, h, d)
+        return pages.transpose(2, 3)
+
+    @staticmethod
+    def _scatter_pages(leaf, pages: torch.Tensor, rows: torch.Tensor):
+        """pool_leaf[rows] = pages (quantized on the way in under int8).
+        Trash entries of `rows` take duplicate-index garbage."""
+        if isinstance(leaf, kv_quant.QuantPages):
+            qd, s = kv_quant.quantize_kv(pages)
+            leaf.data[rows] = qd
+            leaf.scale[rows] = s
+        else:
+            leaf[rows] = pages
+
     @torch.no_grad()
     def _prefill_insert(self, big_cache, last_toks, lens, tokens,
-                           lengths, slots, valid):
+                        lengths, slots, valid, pt_rows=None):
         """Fused BATCHED prefill + slot insert: N prompts of one bucket,
         nothing synced.  tokens [N, P], lengths/slots/valid [N].  Padding
-        rows replicate row 0 (`valid`=0)."""
+        rows replicate row 0 (`valid`=0).  Paged (`pt_rows` [N, pages per
+        slot]): the same prefill, then each row's full-length dense cache
+        scatters into the pool at its page-table row; entries past a
+        row's reservation point at the trash page."""
         n, p = tokens.shape
         positions = torch.arange(p, device=self.device)[None, :].expand(n, p)
         logits, small = self.model(tokens, positions, decode=True)
@@ -265,18 +512,24 @@ class DecodeEngine:
         # is unspecified.
         firsts = torch.where(valid.bool(), firsts, firsts[0])
         for (big_k, big_v), (k, v) in zip(big_cache, small):
-            # The prefill cache is already full-length [N, H, max_len, D].
-            big_k[slots] = k
-            big_v[slots] = v
+            if pt_rows is None:
+                # The prefill cache is already full-length [N, H, L, D].
+                big_k[slots] = k
+                big_v[slots] = v
+            else:
+                self._scatter_pages(big_k, self._to_pages(k), pt_rows)
+                self._scatter_pages(big_v, self._to_pages(v), pt_rows)
         last_toks[slots] = firsts
         lens[slots] = lengths
         return big_cache, last_toks, lens
 
     @torch.no_grad()
-    def _decode(self, cache, last_tokens, lengths):
+    def _decode(self, cache, last_tokens, lengths, page_table=None):
         """`steps_per_call` tokens for every slot.  Returns out [T+1,
         n_slots] (row 0 = the incoming last tokens), the cache (updated in
-        place), and the new last tokens and lengths."""
+        place), and the new last tokens and lengths.  With `page_table`
+        the cache is the pool and the model gathers/scatters through the
+        (call-constant) table."""
         max_len = self.model.cfg.max_seq_len
         rows = [last_tokens.clone()]
         last, lens = last_tokens, lengths
@@ -285,11 +538,59 @@ class DecodeEngine:
             # slots being retired (their cache is re-inserted).
             positions = torch.clamp(lens, max=max_len - 1)[:, None]
             logits, _ = self.model(last[:, None], positions, decode=True,
-                                   cache=cache)
+                                   cache=cache, page_table=page_table)
             last = self._sample(logits[:, 0, :])
             rows.append(last)
             lens = lens + 1
         return torch.stack(rows), cache, last, lens
+
+    @torch.no_grad()
+    def _verify(self, pool, page_table, last_tokens, lengths, drafts):
+        """Speculative VERIFY: score every slot's k host-drafted tokens
+        in one S = k+1 call and accept the longest greedy-matching
+        prefix.  g[:, j] is the greedy continuation after the draft
+        prefix up to j; draft d_j is accepted iff d_j == g[:, j-1], and
+        acceptance stops at the first mismatch, so m in [1, k+1] tokens
+        commit per slot (m = 1 is plain decode).  Rejected rows leave
+        K/V garbage strictly at positions >= the new length, written
+        over before the next gather reads them.
+
+        Output rows: [0] = incoming last tokens, [1..k+1] = greedy
+        continuations, [k+2] = m, all in the one fetched tensor."""
+        max_len = self.model.cfg.max_seq_len
+        kk = drafts.shape[1]
+        toks = torch.cat([last_tokens[:, None], drafts], dim=1)  # [B, k+1]
+        positions = torch.clamp(
+            lengths[:, None] + torch.arange(kk + 1, device=self.device),
+            max=max_len - 1)
+        logits, _ = self.model(toks, positions, decode=True, cache=pool,
+                               page_table=page_table)
+        g = torch.argmax(logits, dim=-1)                          # [B, k+1]
+        match = torch.cumprod((drafts == g[:, :kk]).long(), dim=1)
+        m = 1 + match.sum(dim=1)                                  # [B]
+        last = torch.gather(g, 1, (m - 1)[:, None])[:, 0]
+        out = torch.cat([last_tokens[None, :], g.t(), m[None, :]], dim=0)
+        return out, pool, last, lengths + m
+
+    @torch.no_grad()
+    def _gather_prefix(self, pool, pt_row):
+        """Prefix-cache hit: the matched pages gathered into a DENSE
+        scratch cache [1, H, max_len, D] (dequantized under int8), so the
+        rest of the prompt rides the chunked-prefill path from offset =
+        matched length.  Unmatched entries are trash pages: garbage above
+        every query position the suffix uses."""
+        dtype = self.model.cfg.dtype
+
+        def gather(leaf):
+            if isinstance(leaf, kv_quant.QuantPages):
+                g = kv_quant.dequantize_kv(leaf.data[pt_row],
+                                           leaf.scale[pt_row], dtype)
+            else:
+                g = leaf[pt_row]                          # [P, H, ps, D]
+            g = g.transpose(0, 1)                         # [H, P, ps, D]
+            return g.reshape(1, g.shape[0], -1, g.shape[3])
+
+        return [(gather(k), gather(v)) for k, v in pool]
 
     @torch.no_grad()
     def _prefill_chunk(self, scratch, tokens, offset: int):
@@ -304,14 +605,15 @@ class DecodeEngine:
 
     @torch.no_grad()
     def _chunk_insert(self, big_cache, last_toks, lens, scratch, tokens,
-                         length: int, offset: int, total_len: int,
-                         slot: int):
+                      length: int, offset: int, total_len: int,
+                      slot: int, pt_row=None):
         """FINAL chunk + slot insert: run the bucket-padded last chunk
         (`length` valid rows) against the scratch, sample the prompt's
         first token from its last valid row, and copy the scratch into
-        `slot`.  Padding rows write garbage at positions >= total_len
-        (masked until the decode writes overwrite them) or past the cache
-        end (dropped)."""
+        `slot` (paged: scatter it into the pool at `pt_row`; shared
+        prefix pages receive value-identical write-backs).  Padding rows
+        write garbage at positions >= total_len (masked until the decode
+        writes overwrite them) or past the cache end (dropped)."""
         c = tokens.shape[1]
         positions = torch.arange(offset, offset + c,
                                  device=self.device)[None, :]
@@ -319,11 +621,34 @@ class DecodeEngine:
                                      cache=scratch)
         first = self._sample(logits[:, length - 1])               # [1]
         for (big_k, big_v), (k, v) in zip(big_cache, scratch):
-            big_k[slot].copy_(k[0])
-            big_v[slot].copy_(v[0])
+            if pt_row is None:
+                big_k[slot].copy_(k[0])
+                big_v[slot].copy_(v[0])
+            else:
+                self._scatter_pages(big_k, self._to_pages(k)[0], pt_row)
+                self._scatter_pages(big_v, self._to_pages(v)[0], pt_row)
         last_toks[slot] = first[0]
         lens[slot] = total_len
         return big_cache, last_toks, lens
+
+    @torch.no_grad()
+    def _export_pages(self, pt_row) -> List[torch.Tensor]:
+        """Disaggregation export: one slot's pages gathered OFF the pool
+        as new tensors [P, H, ps, D] (scales [P, H, ps]) in wire leaf
+        order.  The pool is only read."""
+        return [leaf[pt_row] for leaf in self._wire_leaves()]
+
+    @torch.no_grad()
+    def _adopt_insert(self, data: List[torch.Tensor], scatter_row,
+                      slot: int, first: int, length: int) -> None:
+        """Disaggregation adopt: scatter a handoff's page stacks (wire
+        leaf order, padded to pages_per_slot rows) into the pool at the
+        request's fresh pages (padding rows target the trash page), and
+        seed the slot's last token and length."""
+        for pool_leaf, data_leaf in zip(self._wire_leaves(), data):
+            pool_leaf[scatter_row] = data_leaf
+        self._last_d[slot] = first
+        self._lens_d[slot] = length
 
     # ----- public API --------------------------------------------------------
     @property
@@ -342,15 +667,18 @@ class DecodeEngine:
         skytpu_engine_queued_prefill_tokens gauge); no device sync."""
         return max(0, self._queued_tokens)
 
-    def submit(self, prompt_ids: List[int],
-               max_new_tokens: int = 64,
-               request_id: Optional[str] = None) -> Request:
+    def _check_prompt(self, prompt_ids: List[int]) -> None:
         limit = self.max_prompt_len
         if len(prompt_ids) > limit:
             raise ValueError(
                 f'prompt len {len(prompt_ids)} exceeds max_prompt_len '
                 f'{limit} (model max_seq_len '
                 f'{self.model.cfg.max_seq_len})')
+
+    def submit(self, prompt_ids: List[int],
+               max_new_tokens: int = 64,
+               request_id: Optional[str] = None) -> Request:
+        self._check_prompt(prompt_ids)
         cache_len = self.model.cfg.max_seq_len
         if len(prompt_ids) + max_new_tokens > cache_len:
             max_new_tokens = cache_len - len(prompt_ids)
@@ -360,6 +688,8 @@ class DecodeEngine:
         return req
 
     def _enqueue(self, req: Request) -> None:
+        """Publish one validated request to the loop thread.  Every flag
+        the loop reads (export, adopt, no_prefix) is set BEFORE this."""
         with self._submit_lock:
             if self.error is not None:
                 raise RuntimeError(
@@ -376,6 +706,145 @@ class DecodeEngine:
                  max_new_tokens: int = 64) -> List[int]:
         """Synchronous helper: submit and wait."""
         return self.submit(prompt_ids, max_new_tokens).tokens()
+
+    # ----- disaggregated prefill/decode --------------------------------------
+    def submit_prefill(self, prompt_ids: List[int],
+                       max_new_tokens: int = 64,
+                       request_id: Optional[str] = None) -> Request:
+        """PREFILL-role admission: the ordinary prefill machinery (fused
+        bucket, chunked, prefix hits), the first token sampled, and the
+        request's pages HELD for export instead of decoding.  It
+        finishes after one emitted token; `export_result` then yields
+        the pages + token.  Admission charges ceil((prompt+1)/page)
+        pages.  `max_new_tokens` is the downstream decode budget and
+        only travels in the payload."""
+        if not self._paged:
+            raise RuntimeError(
+                'disaggregated prefill requires the paged KV cache '
+                '(kv_page_size): pages are the transfer unit')
+        self._check_prompt(prompt_ids)
+        del max_new_tokens     # the decode replica's budget, not this one's
+        req = Request(list(prompt_ids), 1, request_id=request_id)
+        req.export = True
+        self._enqueue(req)
+        return req
+
+    def export_result(self, req: Request) -> dict:
+        """The finished prefill-role request's transferable state:
+        {'first_token', 'prompt_len', 'n_kv_pages', 'leaves'} with
+        leaves as CPU tensors [n_kv_pages, H, page_size, D] (scales
+        [n_kv_pages, H, page_size]) in wire leaf order.  Call only after
+        `req.tokens()` returned; the device->host copy happens HERE, on
+        the caller's thread, never the engine loop's."""
+        if req.kv_export is None:
+            raise RuntimeError(
+                'no export staged for this request (not submitted via '
+                'submit_prefill, not finished, or the engine died '
+                'mid-request)')
+        staged = req.kv_export
+        n_kv = staged['n_kv_pages']
+        if staged['leaves'] is None:
+            raise RuntimeError('export already consumed for this '
+                               'request')
+        leaves = [leaf[:n_kv].cpu() for leaf in staged['leaves']]
+        # Drop the device-side gather now that the host copy exists: it
+        # holds a full slot's worth of KV memory per leaf.
+        staged['leaves'] = None
+        return {'first_token': staged['first_token'],
+                'prompt_len': staged['prompt_len'],
+                'n_kv_pages': n_kv,
+                'leaves': leaves}
+
+    def submit_adopt(self, prompt_ids: List[int], first_token: int,
+                     kv_leaves: List[Any],
+                     max_new_tokens: int = 64,
+                     request_id: Optional[str] = None,
+                     page_size: Optional[int] = None) -> Request:
+        """DECODE-role admission of a KV handoff: the prompt's pages were
+        prefilled elsewhere; adopt them into this engine's pool and
+        continue decoding from the already-sampled first token (emitted
+        through the ordinary row-0 mechanics).  `kv_leaves` are CPU
+        tensors (or numpy arrays) [n_kv_pages, H, page_size, D] in wire
+        leaf order."""
+        if not self._paged:
+            raise RuntimeError(
+                'adopting a KV handoff requires the paged KV cache '
+                '(kv_page_size): pages are the transfer unit')
+        if page_size is not None and page_size != self._page_size:
+            raise ValueError(
+                f'kv handoff page size {page_size} != this engine\'s '
+                f'{self._page_size} — prefill and decode pools must '
+                f'agree on kv_page_size')
+        if not kv_leaves:
+            raise ValueError('kv handoff carries no cache leaves')
+        kv_leaves = [leaf if isinstance(leaf, torch.Tensor)
+                     else torch.from_numpy(np.array(leaf))
+                     for leaf in kv_leaves]
+        n_kv = kv_leaves[0].shape[0]
+        expect = -(-len(prompt_ids) // self._page_size)
+        if n_kv != expect:
+            raise ValueError(
+                f'kv handoff page count {n_kv} does not cover the '
+                f'{len(prompt_ids)}-token prompt (expected {expect} '
+                f'pages of {self._page_size})')
+        if n_kv > self._pages_per_slot:
+            raise ValueError(
+                f'kv handoff of {n_kv} pages exceeds this engine\'s '
+                f'{self._pages_per_slot} pages per slot '
+                f'(max_seq_len {self.model.cfg.max_seq_len})')
+        # The payload must match this engine's pool exactly: leaf count,
+        # per-page shape and dtype.  Rejected HERE it is a 422 to the
+        # pusher; reaching the loop thread it would kill the engine.
+        pool_leaves = self._wire_leaves()
+        if len(kv_leaves) != len(pool_leaves):
+            raise ValueError(
+                f'kv handoff carries {len(kv_leaves)} cache leaves; '
+                f'this engine\'s cache tree has {len(pool_leaves)} '
+                f'(model mismatch between prefill and decode pools)')
+        for i, (leaf, pool_leaf) in enumerate(
+                zip(kv_leaves, pool_leaves)):
+            want_shape = tuple(pool_leaf.shape[1:])
+            if tuple(leaf.shape[1:]) != want_shape or \
+                    leaf.shape[0] != n_kv:
+                raise ValueError(
+                    f'kv handoff leaf {i} has page shape '
+                    f'{tuple(leaf.shape)}; this engine expects '
+                    f'[{n_kv}, {", ".join(map(str, want_shape))}] '
+                    f'(model mismatch between prefill and decode '
+                    f'pools)')
+            if leaf.dtype != pool_leaf.dtype:
+                raise ValueError(
+                    f'kv handoff leaf {i} dtype {_dtype_name(leaf.dtype)} '
+                    f'!= this engine\'s {_dtype_name(pool_leaf.dtype)}')
+        cache_len = self.model.cfg.max_seq_len
+        if len(prompt_ids) + max_new_tokens > cache_len:
+            max_new_tokens = cache_len - len(prompt_ids)
+        if max_new_tokens < 1:
+            raise ValueError(
+                f'prompt of {len(prompt_ids)} tokens leaves no room '
+                f'to decode (max_seq_len {cache_len})')
+        req = Request(list(prompt_ids), max_new_tokens,
+                      request_id=request_id)
+        req.adopt = (int(first_token), kv_leaves)
+        with self._submit_lock:
+            if self.error is not None:
+                raise RuntimeError(
+                    f'decode engine is dead: {self.error!r}')
+            self._adopt_q.put(req)
+        metrics_lib.inc_counter('skytpu_engine_requests_total')
+        return req
+
+    def drain(self) -> None:
+        """Run the pipelined loop until FULLY idle: queues empty, no
+        active or chunk-prefilling request, nothing in flight."""
+        while (self._inflight is not None or
+               not self._prefill_q.empty() or
+               not self._long_q.empty() or
+               not self._adopt_q.empty() or
+               self._ready_q or self._hit_q or self._adopt_ready or
+               self._chunked is not None or
+               any(s is not None for s in self._slots)):
+            self.step_pipelined()
 
     def prewarm(self) -> None:
         """Build the flash-forward kernel before taking traffic (there are
@@ -400,47 +869,168 @@ class DecodeEngine:
                 return b
         raise ValueError(f'prompt len {n} exceeds buckets')
 
+    # ----- paged-KV host bookkeeping -----------------------------------------
+    def _pages_needed(self, req: Request) -> int:
+        """Pages this request is charged at admission: its WHOLE
+        lifetime (prompt + full token budget), so mid-flight growth can
+        never fail."""
+        return -(-(len(req.prompt_ids) + req.max_new_tokens)
+                 // self._page_size)
+
+    def _alloc_pages(self, n: int) -> Optional[List[int]]:
+        """Allocate n pages, LRU-evicting prefix-cache pages if the free
+        list runs short.  None (and no partial allocation) when even
+        eviction cannot cover it: the caller retries once slots
+        retire."""
+        pages = self._pool_alloc.alloc(n)
+        if pages is None and self._radix is not None:
+            freed = self._radix.evict(n - self._pool_alloc.free_pages)
+            if freed:
+                metrics_lib.inc_counter(
+                    'skytpu_engine_prefix_cache_evicted_pages_total',
+                    float(freed))
+            pages = self._pool_alloc.alloc(n)
+        return pages
+
+    def _try_prefix_match(self, req: Request):
+        """Match one request against the radix cache at its COMMIT point
+        (admission / chunk pick), so a burst's later members hit pages its
+        first member published.  A hit refs the matched pages for the
+        request and counts the hit metrics; the match stops one token
+        short of the prompt so a suffix is always left to prefill.
+        Misses are counted by the caller when the request admits."""
+        max_pages = (len(req.prompt_ids) - 1) // self._page_size
+        n, pages = self._radix.match(req.prompt_ids, max_pages)
+        if n:
+            metrics_lib.inc_counter(
+                'skytpu_engine_prefix_cache_hits_total')
+            metrics_lib.inc_counter(
+                'skytpu_engine_prefix_cache_tokens_total',
+                float(n * self._page_size))
+        return n, pages
+
+    def _route_queued(self) -> None:
+        """Drain submitted short prompts into the loop's ready queue
+        (prefix classification happens at admission time)."""
+        while True:
+            try:
+                req = self._prefill_q.get_nowait()
+            except queue.Empty:
+                return
+            self._ready_q.append(req)
+
+    def _pt(self) -> torch.Tensor:
+        """Device copy of the page tables, refreshed only when host
+        bookkeeping changed.  The upload reads a snapshot, never the live
+        host table the loop goes on mutating while the copy is in
+        flight."""
+        if self._pt_dirty or self._pt_device is None:
+            self._pt_device = self._h2d(self._page_tables.copy())
+            self._pt_dirty = False
+        return self._pt_device
+
+    def _pt_row(self, pages: List[int]) -> np.ndarray:
+        row = np.full((self._pages_per_slot,), TRASH_PAGE, np.int64)
+        row[:len(pages)] = pages
+        return row
+
+    def _dispatch_decode(self):
+        """Dispatch one decode (or, under speculation, verify) call;
+        returns its output tensor, not yet synced."""
+        if self._spec_k:
+            out, self._cache, self._last_d, self._lens_d = self._verify(
+                self._cache, self._pt(), self._last_d, self._lens_d,
+                self._h2d(self._propose_drafts()))
+        else:
+            out, self._cache, self._last_d, self._lens_d = self._decode(
+                self._cache, self._last_d, self._lens_d,
+                self._pt() if self._paged else None)
+        return out
+
+    def _propose_drafts(self) -> np.ndarray:
+        """Host-side n-gram drafts [n_slots, k] for the next verify call:
+        each active slot's draft continues the most recent earlier
+        occurrence of its own tail n-gram.  Empty slots draft zeros
+        against all-trash page tables; their counts are never read."""
+        drafts = np.zeros((self.cfg.n_slots, self._spec_k), np.int64)
+        for i, slot in enumerate(self._slots):
+            if slot is None or slot.request is None:
+                continue
+            hist = slot.request.prompt_ids + slot.toks
+            drafts[i] = _ngram_continuation(hist, self._spec_k)
+        return drafts
+
     def _admit_group(self, bucket: int, group) -> None:
-        """Dispatch ONE batched prefill+insert for all (slot, request)
-        pairs of a bucket; does NOT sync: each first token is emitted from
-        row 0 of the next decode call's output.  The group is padded to a
-        power-of-two row count by replicating row 0."""
+        """Dispatch ONE batched prefill+insert for all (slot, request,
+        pages) triples of a bucket (pages None on the unpaged engine);
+        does NOT sync: each first token is emitted from row 0 of the
+        next decode call's output.  The group is padded to a power-of-two
+        row count by replicating row 0."""
         n = len(group)
         padded_n = 1 << (n - 1).bit_length()
         tokens = np.zeros((padded_n, bucket), np.int64)
         lengths = np.zeros((padded_n,), np.int64)
         slots = np.zeros((padded_n,), np.int64)
         valid = np.zeros((padded_n,), np.int64)
-        for j, (slot_id, req) in enumerate(group):
+        pt_rows = (np.full((padded_n, self._pages_per_slot), TRASH_PAGE,
+                           np.int64) if self._paged else None)
+        for j, (slot_id, req, pages) in enumerate(group):
             plen = len(req.prompt_ids)
             tokens[j, :plen] = req.prompt_ids
             lengths[j] = plen
             slots[j] = slot_id
             valid[j] = 1
+            if pages is not None:
+                pt_rows[j, :len(pages)] = pages
         tokens[n:] = tokens[0]
         lengths[n:] = lengths[0]
         slots[n:] = slots[0]
+        if pt_rows is not None:
+            pt_rows[n:] = pt_rows[0]
         t0 = time.perf_counter()
         self._cache, self._last_d, self._lens_d = self._prefill_insert(
             self._cache, self._last_d, self._lens_d, self._h2d(tokens),
-            self._h2d(lengths), self._h2d(slots), self._h2d(valid))
+            self._h2d(lengths), self._h2d(slots), self._h2d(valid),
+            None if pt_rows is None else self._h2d(pt_rows))
         t1 = time.perf_counter()
         self.prefill_groups += 1
-        for slot_id, req in group:
-            self._slots[slot_id] = _Slot(req, len(req.prompt_ids))
+        for j, (slot_id, req, pages) in enumerate(group):
+            self._slots[slot_id] = _Slot(req, len(req.prompt_ids),
+                                         pages=pages)
+            if self._paged:
+                self._page_tables[slot_id] = pt_rows[j]
+                self._pt_dirty = True
+                if self._radix is not None:
+                    # Publish the prompt's full pages at once: concurrent
+                    # requests sharing the prefix hit from here on (the
+                    # writes they gather are queued ahead of them).
+                    n_full = len(req.prompt_ids) // self._page_size
+                    if n_full:
+                        self._radix.insert(
+                            req.prompt_ids[:n_full * self._page_size],
+                            pages[:n_full])
             if req.request_id is not None:
                 # Host-side stamps only (the dispatch is async).
-                tracing.record_span(req.request_id, 'engine.queue_wait',
-                                    req.submitted_at, t0)
+                # Spill-demoted requests recorded queue_wait on their
+                # original hit path: never twice.
+                if not req.no_prefix:
+                    tracing.record_span(req.request_id,
+                                        'engine.queue_wait',
+                                        req.submitted_at, t0)
                 tracing.record_span(req.request_id, 'engine.prefill',
                                     t0, t1, bucket=bucket, slot=slot_id,
                                     group=len(group))
                 req.prefill_end_at = t1
-        n_tokens = sum(len(r.prompt_ids) for _, r in group)
+        n_tokens = sum(len(r.prompt_ids) for _, r, _pg in group)
         with self._submit_lock:
             self._queued_tokens -= n_tokens
         metrics_lib.inc_counter('skytpu_engine_prefill_tokens_total',
                                 float(n_tokens))
+        if self._kv_quant:
+            # Real (non-trash) pages quantized at this insert's scatter.
+            metrics_lib.inc_counter(
+                'skytpu_engine_kv_quant_pages_total',
+                float(sum(len(pg) for _, _r, pg in group)))
 
     def _emit(self, req: Request, tok: int) -> None:
         req.emitted += 1
@@ -467,11 +1057,127 @@ class DecodeEngine:
                 emitted=req.emitted,
                 decode_s=(round(req.finished_at - req.first_token_at, 6)
                           if req.first_token_at is not None else None))
+        if req.export and slot.pages is not None:
+            # Stage the handoff BEFORE the terminating None (a caller
+            # whose tokens() returned may read export_result at once),
+            # and BEFORE this retire's page release: any later scatter
+            # into the freed pages is queued behind the gather.
+            self._dispatch_export(slot)
         req.out.put(None)
+        if slot.pages is not None:
+            self._release_slot_pages(slot)
+            # Point the slot's table at trash so later decode calls cannot
+            # scribble into pages a new owner holds, unless a handoff
+            # successor already owns the row.
+            if self._slots[slot_id] is slot:
+                self._page_tables[slot_id] = TRASH_PAGE
+                self._pt_dirty = True
         # Under handoff a successor may already occupy the index: only
         # clear the mapping when it still points at the finished slot.
         if self._slots[slot_id] is slot:
             self._slots[slot_id] = None
+
+    def _release_slot_pages(self, slot: _Slot) -> None:
+        """Retire-time page bookkeeping: donate the pages covering the
+        finished sequence (prompt + generated tokens whose KV was written:
+        every emitted token but the last fed a later step) to the radix
+        cache, then drop this slot's references."""
+        req = slot.request
+        if self._radix is not None:
+            usable = len(req.prompt_ids) + req.emitted - 1
+            n_full = min(usable // self._page_size, len(slot.pages))
+            if n_full > 0:
+                seq = req.prompt_ids + slot.toks
+                self._radix.insert(seq[:n_full * self._page_size],
+                                   slot.pages[:n_full])
+        self._pool_alloc.release(slot.pages)
+        slot.pages = None
+
+    def _dispatch_export(self, slot: _Slot) -> None:
+        """Stage a prefill-role request's pages for transfer: ONE gather
+        off the pool into new tensors, queued on the stream ahead of this
+        retire's page release.  Only device tensors land on the Request;
+        the HTTP layer copies them to the host on ITS thread."""
+        req = slot.request
+        t0 = time.perf_counter()
+        leaves = self._export_pages(self._h2d(self._pt_row(slot.pages)))
+        t1 = time.perf_counter()
+        n_kv = -(-len(req.prompt_ids) // self._page_size)
+        req.kv_export = {
+            'leaves': leaves,
+            'first_token': int(slot.toks[0]) if slot.toks else 0,
+            'prompt_len': len(req.prompt_ids),
+            'n_kv_pages': n_kv,
+        }
+        metrics_lib.inc_counter('skytpu_engine_kv_exports_total')
+        if req.request_id is not None:
+            tracing.record_span(req.request_id, 'engine.kv_export',
+                                t0, t1, pages=n_kv)
+
+    def _step_adopt(self) -> None:
+        """Admit pending KV-handoff adoptions (decode role) into free
+        slots: allocate the request's full-lifetime pages, scatter the
+        transferred page stacks into them in one call, and seed the
+        slot's last token and length.  Head-of-line on slot or page
+        shortage."""
+        if not self._paged:
+            return
+        while True:
+            try:
+                self._adopt_ready.append(self._adopt_q.get_nowait())
+            except queue.Empty:
+                break
+        while self._adopt_ready:
+            slot_id = next((i for i in range(self.cfg.n_slots)
+                            if self._slots[i] is None), None)
+            if slot_id is None:
+                return
+            req = self._adopt_ready[0]
+            pages = self._alloc_pages(self._pages_needed(req))
+            if pages is None:
+                return
+            self._adopt_ready.popleft()
+            first_token, kv_leaves = req.adopt
+            n_kv = kv_leaves[0].shape[0]
+            t0 = time.perf_counter()
+            # Full-height page stacks (pages_per_slot rows), as the JAX
+            # engine keeps one compiled shape; rows past the transfer are
+            # zeros and land in the trash page.
+            padded = []
+            for leaf in kv_leaves:
+                buf = torch.zeros(
+                    (self._pages_per_slot,) + tuple(leaf.shape[1:]),
+                    dtype=leaf.dtype)
+                buf[:n_kv] = leaf
+                padded.append(self._h2d(buf))
+            scatter_row = np.full((self._pages_per_slot,), TRASH_PAGE,
+                                  np.int64)
+            scatter_row[:n_kv] = pages[:n_kv]
+            self._adopt_insert(padded, self._h2d(scatter_row), slot_id,
+                               first_token, len(req.prompt_ids))
+            t1 = time.perf_counter()
+            self._slots[slot_id] = _Slot(req, len(req.prompt_ids),
+                                         pages=pages)
+            self._page_tables[slot_id] = self._pt_row(pages)
+            self._pt_dirty = True
+            if self._radix is not None:
+                # Adopted prompt pages join the radix cache like locally
+                # prefilled ones (full pages only).
+                n_full = len(req.prompt_ids) // self._page_size
+                if n_full:
+                    self._radix.insert(
+                        req.prompt_ids[:n_full * self._page_size],
+                        pages[:n_full])
+            metrics_lib.inc_counter('skytpu_engine_kv_adopts_total')
+            if self._kv_quant:
+                metrics_lib.inc_counter(
+                    'skytpu_engine_kv_quant_pages_total', float(n_kv))
+            if req.request_id is not None:
+                tracing.record_span(req.request_id, 'engine.queue_wait',
+                                    req.submitted_at, t0)
+                tracing.record_span(req.request_id, 'engine.kv_adopt',
+                                    t0, t1, slot=slot_id, pages=n_kv)
+            req.prefill_end_at = t1
 
     def _admit_free(self, handoff: Optional[List[int]] = None) -> None:
         """Admit queued requests into free slots (grouped per bucket, one
@@ -486,38 +1192,125 @@ class DecodeEngine:
             # chunk-insert, or sustained short traffic starves it.
             free.pop(0)
         by_bucket: Dict[int, list] = {}
-        while free and not self._prefill_q.empty():
-            try:
-                req = self._prefill_q.get_nowait()
-            except queue.Empty:
-                break
-            by_bucket.setdefault(self._bucket(len(req.prompt_ids)),
-                                 []).append((free.pop(0), req))
+        if self._paged:
+            # Prefix-cache routing first, then admission charges PAGES:
+            # a request admits only when its whole lifetime fits the pool
+            # (evicting cached pages as needed).  Head-of-line on
+            # allocation failure: retiring slots free pages in order.
+            self._route_queued()
+            while free and self._ready_q:
+                req = self._ready_q[0]
+                if self._radix is not None and not req.no_prefix:
+                    n, pages = self._try_prefix_match(req)
+                    if n:
+                        # Hit: the suffix prefills through the chunk
+                        # machinery against the gathered prefix.
+                        self._ready_q.popleft()
+                        self._hit_q.append((req, n, pages))
+                        continue
+                pages = self._alloc_pages(self._pages_needed(req))
+                if pages is None:
+                    break
+                self._ready_q.popleft()
+                if self._radix is not None and not req.no_prefix:
+                    # A spill-demoted request already counted its hit.
+                    metrics_lib.inc_counter(
+                        'skytpu_engine_prefix_cache_misses_total')
+                by_bucket.setdefault(
+                    self._bucket(len(req.prompt_ids)), []).append(
+                        (free.pop(0), req, pages))
+        else:
+            while free and not self._prefill_q.empty():
+                try:
+                    req = self._prefill_q.get_nowait()
+                except queue.Empty:
+                    break
+                by_bucket.setdefault(
+                    self._bucket(len(req.prompt_ids)), []).append(
+                        (free.pop(0), req, None))
         for bucket, group in by_bucket.items():
             self._admit_group(bucket, group)
 
     def _final_insert_pending(self) -> bool:
         """True when the active chunked prefill has reached its final
-        chunk and is waiting on a free slot to insert into."""
+        chunk and is waiting on a free slot to insert into (a pending
+        prefix-cache hit counts: its suffix needs a slot just as soon)."""
         cp = self._chunked
         if cp is None:
-            return False
+            return bool(self._hit_q)
         return (len(cp.request.prompt_ids) - cp.offset
                 <= self.cfg.prefill_buckets[-1])
 
-    def _step_chunked(self) -> bool:
-        """Dispatch at most ONE chunk of the active long-prompt prefill
-        (right after the decode dispatch, so decode is delayed by at most
-        one chunk).  Intermediate chunks are largest-bucket-wide; the
-        final chunk pads to the smallest fitting bucket, samples the first
-        token and inserts the scratch into a free slot (waiting for one if
-        none is free).  Returns True if a dispatch was made."""
-        if self._chunked is None:
+    def _start_chunked(self) -> bool:
+        """Activate the next request for the chunk machinery: a pending
+        prefix-cache hit first (its matched pages gather into a seeded
+        scratch and the prefill starts PAST the match), else the next
+        long prompt (itself prefix-matched when the cache is on)."""
+        matched, pages = 0, []
+        if self._hit_q:
+            req, matched, pages = self._hit_q.popleft()
+        else:
             try:
                 req = self._long_q.get_nowait()
             except queue.Empty:
                 return False
+            if self._radix is not None and not req.no_prefix:
+                matched, pages = self._try_prefix_match(req)
+                if not matched:
+                    metrics_lib.inc_counter(
+                        'skytpu_engine_prefix_cache_misses_total')
+        if not matched:
             self._chunked = _ChunkedPrefill(req, self._make_cache(1))
+            return True
+        t0 = time.perf_counter()
+        scratch = self._gather_prefix(self._cache,
+                                      self._h2d(self._pt_row(pages)))
+        t1 = time.perf_counter()
+        offset = matched * self._page_size
+        cp = _ChunkedPrefill(req, scratch, offset=offset,
+                             shared_pages=pages)
+        cp.last_chunk_end = t1
+        self._chunked = cp
+        rid = req.request_id
+        if rid is not None:
+            tracing.record_span(rid, 'engine.queue_wait',
+                                req.submitted_at, t0)
+            tracing.record_span(rid, 'engine.prefix_hit', t0, t1,
+                                cached_tokens=offset, pages=matched)
+        with self._submit_lock:
+            self._queued_tokens -= offset
+        return True
+
+    def _spill_stuck_hits(self) -> None:
+        """Release every pinned prefix match (the active seeded prefill
+        and all waiting hits) and requeue the requests for FULL prefill.
+        Only reachable when a final insert cannot allocate with zero live
+        slots (a pool sized near its floor): progress wins over reuse."""
+        cp = self._chunked
+        if cp is not None and cp.shared_pages:
+            self._pool_alloc.release(cp.shared_pages)
+            # Restart from token zero with a fresh scratch next pick.
+            self._chunked = None
+            cp.request.no_prefix = True
+            self._long_q.put(cp.request)
+            with self._submit_lock:
+                self._queued_tokens += cp.offset
+        while self._hit_q:
+            req, _n, pages = self._hit_q.popleft()
+            self._pool_alloc.release(pages)
+            req.no_prefix = True
+            self._ready_q.appendleft(req)
+
+    def _step_chunked(self) -> bool:
+        """Dispatch at most ONE chunk of the active long-prompt (or
+        prefix-hit) prefill, right after the decode dispatch, so decode is
+        delayed by at most one chunk.  Intermediate chunks are
+        largest-bucket-wide; the final chunk pads to the smallest fitting
+        bucket, samples the first token and inserts the scratch into a
+        free slot (waiting for one if none is free).  Returns True if a
+        dispatch was made."""
+        if self._chunked is None and not self._start_chunked():
+            return False
         cp = self._chunked
         prompt = cp.request.prompt_ids
         rem = len(prompt) - cp.offset
@@ -531,7 +1324,7 @@ class DecodeEngine:
                                              cp.offset)
             t1 = time.perf_counter()
             if rid is not None:
-                if cp.offset == 0:
+                if cp.offset == 0 and not cp.request.no_prefix:
                     tracing.record_span(rid, 'engine.queue_wait',
                                         cp.request.submitted_at, t0)
                 tracing.record_span(
@@ -547,13 +1340,29 @@ class DecodeEngine:
                             if self._slots[i] is None), None)
             if slot_id is None:
                 return False             # all slots busy: retry later
+            pages_all, n_shared, row = None, 0, None
+            if self._paged:
+                n_shared = len(cp.shared_pages)
+                owned = self._alloc_pages(
+                    self._pages_needed(cp.request) - n_shared)
+                if owned is None:
+                    if (self._inflight is None and
+                            all(s is None for s in self._slots)):
+                        # Nothing live can ever free a page: the pool is
+                        # pinned by waiting prefix matches.  Drop them and
+                        # fall back to full prefills.
+                        self._spill_stuck_hits()
+                    return False         # pool short: retry next iter
+                pages_all = cp.shared_pages + owned
+                row = self._pt_row(pages_all)
             bucket = self._bucket(rem)
             t0 = time.perf_counter()
             buf = np.zeros((1, bucket), np.int64)
             buf[0, :rem] = prompt[cp.offset:]
             self._cache, self._last_d, self._lens_d = self._chunk_insert(
                 self._cache, self._last_d, self._lens_d, cp.scratch,
-                self._h2d(buf), rem, cp.offset, len(prompt), slot_id)
+                self._h2d(buf), rem, cp.offset, len(prompt), slot_id,
+                None if row is None else self._h2d(row))
             t1 = time.perf_counter()
             if rid is not None:
                 tracing.record_span(
@@ -563,9 +1372,24 @@ class DecodeEngine:
                     t1, offset=cp.offset, width=bucket, final=True,
                     slot=slot_id)
                 cp.request.prefill_end_at = t1
-            self._slots[slot_id] = _Slot(cp.request, len(prompt))
+            self._slots[slot_id] = _Slot(cp.request, len(prompt),
+                                         pages=pages_all,
+                                         n_shared=n_shared)
+            if self._paged:
+                self._page_tables[slot_id] = row
+                self._pt_dirty = True
+                if self._radix is not None:
+                    n_full = len(prompt) // self._page_size
+                    if n_full:
+                        self._radix.insert(
+                            prompt[:n_full * self._page_size],
+                            pages_all[:n_full])
             self._chunked = None
             done = rem
+            if self._kv_quant:
+                metrics_lib.inc_counter(
+                    'skytpu_engine_kv_quant_pages_total',
+                    float(len(pages_all)))
         with self._submit_lock:
             self._queued_tokens -= done
         metrics_lib.inc_counter('skytpu_engine_prefill_chunks_total')
@@ -577,11 +1401,22 @@ class DecodeEngine:
         """Loop-thread occupancy/queue gauges; skipped when unchanged so
         the idle 1 kHz loop does not hammer the registry lock."""
         sample = (n_active,
-                  self._prefill_q.qsize() + self._long_q.qsize(),
-                  self._queued_tokens)
+                  self._prefill_q.qsize() + self._long_q.qsize() +
+                  len(self._ready_q) + len(self._hit_q) +
+                  self._adopt_q.qsize() + len(self._adopt_ready),
+                  self._queued_tokens,
+                  self._pool_alloc.free_pages if self._paged else -1,
+                  self._radix.fingerprint
+                  if self._radix is not None else None)
         if sample == self._last_gauges:
             return
         self._last_gauges = sample
+        if self._paged:
+            metrics_lib.set_gauge('skytpu_engine_kv_free_pages',
+                                  float(sample[3]))
+        if sample[4] is not None:
+            metrics_lib.set_gauge('skytpu_engine_prefix_fingerprint',
+                                  float(sample[4]))
         metrics_lib.set_gauge('skytpu_engine_active_slots', float(n_active))
         metrics_lib.set_gauge('skytpu_engine_batch_occupancy_ratio',
                               n_active / self.cfg.n_slots)
@@ -589,25 +1424,30 @@ class DecodeEngine:
         metrics_lib.set_gauge(metrics_lib.QUEUED_PREFILL_TOKENS_FAMILY,
                               float(max(sample[2], 0)))
 
-    def _dispatch_decode(self):
-        out, self._cache, self._last_d, self._lens_d = self._decode(
-            self._cache, self._last_d, self._lens_d)
-        return out
-
     def step(self) -> int:
         """One SYNCHRONOUS engine iteration (admit + decode + process).
-        Returns #active slots.  The serving loop uses step_pipelined."""
+        Returns #active slots.  The serving loop uses step_pipelined
+        (or this, under speculation)."""
         self._step_chunked()
+        self._step_adopt()
         self._admit_free()
         active = [i for i in range(self.cfg.n_slots)
                   if self._slots[i] is not None]
         self._sample_gauges(len(active))
         if not active:
             return 0
+        t0 = time.perf_counter()
         out = self._dispatch_decode()
         out = out.cpu().numpy()          # [T+1, B]: the ONE sync per step
+        t1 = time.perf_counter()
         snapshot = {i: self._slots[i] for i in active}
-        self._process_rows(out, snapshot)
+        if self._spec_k:
+            # The last row is the per-slot acceptance count m: rows 1..m
+            # are committed tokens, rows past m rejected drafts.
+            self._process_rows(out[:-1], snapshot, counts=out[-1],
+                               verify_span=(t0, t1))
+        else:
+            self._process_rows(out, snapshot)
         return len(active)
 
     def step_pipelined(self) -> int:
@@ -621,6 +1461,10 @@ class DecodeEngine:
 
         Returns #slots active in the dispatched call plus any chunk
         dispatched (0 = fully idle and nothing in flight)."""
+        if self._spec_k:
+            # Speculation replaces pipelining: drafting call k before call
+            # k-1's tokens land would draft from stale history.
+            return self.step()
         active = [i for i in range(self.cfg.n_slots)
                   if self._slots[i] is not None]
         self._sample_gauges(len(active))
@@ -649,21 +1493,40 @@ class DecodeEngine:
                              slot.request.emitted)
                 if remaining <= rows_to_come:
                     handoff.append(i)
+        self._step_adopt()
         self._admit_free(handoff)
         return len(active) + (1 if chunked else 0)
 
-    def _process_rows(self, out: np.ndarray,
-                      snapshot: Dict[int, _Slot]) -> None:
+    def _process_rows(self, out: np.ndarray, snapshot: Dict[int, _Slot],
+                      counts: Optional[np.ndarray] = None,
+                      verify_span: Optional[tuple] = None) -> None:
         """Emit one decode call's tokens to the slots captured at its
         DISPATCH time.  A slot whose occupant changed since (retired, or
         retired-and-readmitted under pipelining) is skipped by object
         identity: its rows are the bounded garbage of the one-call retire
-        lag, never another request's tokens."""
+        lag, never another request's tokens.
+
+        ``counts`` (verify calls): the per-slot acceptance count m, so
+        only rows 1..m are committed for slot i.  ``verify_span`` is the
+        (dispatch, fetch) bracket of the engine.verify span."""
         now = time.perf_counter()
         emitted = 0
+        spec_proposed = spec_accepted = 0
         for i, slot in snapshot.items():
             if slot.done:
                 continue                 # retired earlier: rows are garbage
+            limit = out.shape[0]
+            if counts is not None:
+                m = int(counts[i])
+                limit = min(m + 1, out.shape[0])
+                spec_proposed += self._spec_k
+                spec_accepted += m - 1
+                rid = slot.request.request_id
+                if rid is not None and verify_span is not None:
+                    tracing.record_span(
+                        rid, 'engine.verify', verify_span[0],
+                        verify_span[1], slot=i,
+                        proposed=self._spec_k, accepted=m - 1)
             start = 0
             if slot.first_pending:
                 slot.first_pending = False
@@ -685,9 +1548,13 @@ class DecodeEngine:
                         ttft_s=round(now - slot.request.submitted_at, 6))
             else:
                 start = 1                # row 0 was emitted last step
-            for t in range(start, out.shape[0]):
+            for t in range(start, limit):
                 tok = int(out[t, i])
                 slot.length += 1
+                if slot.pages is not None:
+                    # Retire donates prompt+generated pages (it needs the
+                    # generated ids), and an export its first token.
+                    slot.toks.append(tok)
                 self._emit(slot.request, tok)
                 emitted += 1
                 if self._finished(slot, tok):
@@ -696,6 +1563,15 @@ class DecodeEngine:
         if emitted:
             metrics_lib.inc_counter('skytpu_engine_decode_tokens_total',
                                     float(emitted))
+        if spec_proposed:
+            metrics_lib.inc_counter(
+                'skytpu_engine_spec_proposed_tokens_total',
+                float(spec_proposed))
+            metrics_lib.inc_counter(
+                'skytpu_engine_spec_accepted_tokens_total',
+                float(spec_accepted))
+            metrics_lib.set_gauge('skytpu_engine_spec_acceptance',
+                                  spec_accepted / spec_proposed)
 
     def _loop(self):
         while not self._stop.is_set():
@@ -728,7 +1604,16 @@ class DecodeEngine:
                         cp, self._chunked = self._chunked, None
                         cp.request.finished_at = time.perf_counter()
                         cp.request.out.put(None)
-                    for pending in (self._prefill_q, self._long_q):
+                    for req in list(self._ready_q) + \
+                            [h[0] for h in self._hit_q] + \
+                            list(self._adopt_ready):
+                        req.finished_at = time.perf_counter()
+                        req.out.put(None)
+                    self._ready_q.clear()
+                    self._hit_q.clear()
+                    self._adopt_ready.clear()
+                    for pending in (self._prefill_q, self._long_q,
+                                    self._adopt_q):
                         while True:
                             try:
                                 req = pending.get_nowait()

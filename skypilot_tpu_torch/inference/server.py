@@ -1,12 +1,14 @@
 """HTTP completions server over the decode engine (PyTorch port).
 
-Twin of `skypilot_tpu/inference/server.py`, monolithic role.  Routes:
+Twin of `skypilot_tpu/inference/server.py` (without `/debug/profile`,
+which comes with the perf plane).  Routes:
 
 - GET  /health        -> 200 while the engine loop is healthy, 503 with
-                         the error once it crashed.
+                         the error once it crashed; both carry the role.
 - GET  /metrics       -> Prometheus exposition: engine TTFT /
                          inter-token-latency histograms, token counters,
-                         occupancy/queue gauges.
+                         occupancy/queue gauges, the paging, prefix-cache,
+                         speculation and handoff counters.
 - POST /v1/completions  {"prompt": "...", "max_tokens": N} or
                         {"prompt_ids": [...], "max_tokens": N}
                         -> {"ids": [...], "text": "...", "usage": {...}}
@@ -15,9 +17,24 @@ Twin of `skypilot_tpu/inference/server.py`, monolithic role.  Routes:
                         max_prompt_len, default max_seq_len - 1); a
                         prompt beyond that limit gets 413 with the limit
                         in the body.
+- POST /v1/kv_adopt     Disaggregated serving: a prefill replica's
+                        KV-handoff payload (inference/kv_transfer.py
+                        format, the JAX server's byte for byte).  The
+                        engine adopts the pages and decodes; the reply
+                        is the /v1/completions JSON, so the prefill
+                        replica relays it verbatim.
 - GET  /debug/requests        -> flight-recorder summaries.
 - GET  /debug/requests/<id>   -> one request's span events + TTFT
                          decomposition (`?format=chrome` for Perfetto).
+
+Roles (`--role`, env SKYTPU_SERVE_ROLE): `monolithic` (default) serves
+each request end to end.  A `prefill` replica, when the serve LB stamps
+X-Skytpu-Decode-Url with decode candidates, runs only the prefill and
+PUSHES the paged KV + first token to the first candidate that accepts
+(bounded timeout; a dead candidate fails over to the next with the same
+payload); if every candidate fails it serves the request monolithically
+(the re-prefill hits its own prefix cache).  A `decode` replica accepts
+/v1/kv_adopt.  Both roles run the full engine.
 
 Every response carries `X-Skytpu-Queued-Prefill-Tokens` (the engine's
 queued-prefill-token backlog) and `X-Skytpu-Request-Id` (honored from the
@@ -27,7 +44,8 @@ Text prompts use a byte-level tokenizer (token id = byte value); real
 deployments pass `prompt_ids` from their own tokenizer.
 
 Run: python -m skypilot_tpu_torch.inference.server --model llama2-7b \
-    --max-seq-len 448  (on the GPU; --device cpu for a CPU run).
+    --max-seq-len 448 --kv-page-size 64  (on the GPU; --device cpu for a
+    CPU run).
 """
 from __future__ import annotations
 
@@ -36,16 +54,16 @@ import asyncio
 import os
 from typing import List
 
+import aiohttp
 from aiohttp import web
 
 from skypilot_tpu_torch import sky_logging
+from skypilot_tpu_torch.inference import kv_transfer
 from skypilot_tpu_torch.inference.engine import DecodeEngine, EngineConfig
 from skypilot_tpu_torch.server import metrics as metrics_lib
 from skypilot_tpu_torch.server import tracing
 
 logger = sky_logging.init_logger(__name__)
-
-ROLE = 'monolithic'
 
 
 def encode_bytes(text: str) -> List[int]:
@@ -61,7 +79,20 @@ def decode_bytes(ids: List[int]) -> str:
 BACKLOG_HEADER = metrics_lib.BACKLOG_HEADER
 
 
-def build_app(engine: DecodeEngine) -> web.Application:
+def build_app(engine: DecodeEngine,
+              role: str = 'monolithic') -> web.Application:
+    # One pooled client session for KV-handoff pushes, created lazily on
+    # the app's own event loop and closed with the app.
+    _state = {'session': None}
+
+    def _session() -> aiohttp.ClientSession:
+        if _state['session'] is None or _state['session'].closed:
+            _state['session'] = aiohttp.ClientSession()
+        return _state['session']
+
+    async def _close_session(_app):
+        if _state['session'] is not None and not _state['session'].closed:
+            await _state['session'].close()
 
     @web.middleware
     async def stamp_backlog(request: web.Request, handler):
@@ -75,14 +106,94 @@ def build_app(engine: DecodeEngine) -> web.Application:
         resp.headers[tracing.TRACE_HEADER] = rid
         return resp
 
-    app = web.Application(middlewares=[stamp_backlog])
+    # aiohttp's default client_max_size is 1 MiB; a KV-handoff payload is
+    # tens to hundreds of MB.
+    max_payload = int(os.environ.get('SKYTPU_SERVE_MAX_PAYLOAD_BYTES',
+                                     str(2 * 1024 ** 3)))
+    app = web.Application(middlewares=[stamp_backlog],
+                          client_max_size=max_payload)
 
     async def health(_request):
         if not engine.healthy:
             return web.json_response(
                 {'status': 'error', 'error': repr(engine.error),
-                 'role': ROLE}, status=503)
-        return web.json_response({'status': 'ok', 'role': ROLE})
+                 'role': role}, status=503)
+        return web.json_response({'status': 'ok', 'role': role})
+
+    def _completion_json(rid, ids, out, req):
+        return {
+            'ids': out,
+            'text': decode_bytes(out),
+            'request_id': rid,
+            'usage': {
+                'prompt_tokens': len(ids),
+                'completion_tokens': len(out),
+                'ttft_ms': round(
+                    (req.first_token_at - req.submitted_at) * 1e3, 2)
+                if req.first_token_at else None,
+            },
+        }
+
+    def _reject_413(rid, ids, e):
+        # Admission rejection: the prompt exceeds max_prompt_len.  413,
+        # not 400: the request was well-formed, just too large.
+        tracing.record_instant(rid, 'server.reject', status=413,
+                               prompt_tokens=len(ids),
+                               max_prompt_len=engine.max_prompt_len)
+        return web.json_response(
+            {'error': str(e), 'max_prompt_len': engine.max_prompt_len},
+            status=413)
+
+    async def _serve_monolithic(ids, max_tokens, rid):
+        try:
+            req = engine.submit(ids, max_tokens, request_id=rid)
+        except ValueError as e:
+            return _reject_413(rid, ids, e)
+        out = await asyncio.get_event_loop().run_in_executor(
+            None, req.tokens)
+        return web.json_response(_completion_json(rid, ids, out, req))
+
+    def _export_payload(req, ids, max_tokens, rid):
+        """Executor-thread half of a handoff: the device->host copy of
+        the gathered pages plus serialization, never on the event loop
+        or the engine loop."""
+        exported = engine.export_result(req)
+        return kv_transfer.serialize(kv_transfer.KVHandoff(
+            prompt_ids=ids,
+            first_token=exported['first_token'],
+            max_new_tokens=max_tokens,
+            page_size=engine.cfg.kv_page_size,
+            leaves=exported['leaves'],
+            request_id=rid))
+
+    async def _serve_prefill_handoff(ids, max_tokens, rid, targets):
+        """Prefill role: run the prefill locally, push the KV pages +
+        first token to a decode candidate, relay its completion.  Every
+        failure falls back one level: next candidate, then monolithic
+        serving on this replica."""
+        loop = asyncio.get_event_loop()
+        try:
+            req = engine.submit_prefill(ids, max_tokens, request_id=rid)
+        except ValueError as e:
+            return _reject_413(rid, ids, e)
+        await loop.run_in_executor(None, req.tokens)
+        if req.kv_export is None:
+            # Engine died mid-prefill; serve the error like any other.
+            return web.json_response(
+                {'error': f'prefill failed: {engine.error!r}'},
+                status=503)
+        payload = await loop.run_in_executor(
+            None, _export_payload, req, ids, max_tokens, rid)
+        body, url = await kv_transfer.push(_session(), targets, payload,
+                                           request_id=rid)
+        if body is not None:
+            body['request_id'] = rid
+            body['disaggregated'] = True
+            body['decode_url'] = url
+            return web.json_response(body)
+        logger.warning(f'every decode candidate failed for {rid}; '
+                       f'serving monolithically')
+        return await _serve_monolithic(ids, max_tokens, rid)
 
     async def completions(request):
         try:
@@ -98,31 +209,37 @@ def build_app(engine: DecodeEngine) -> web.Application:
             ids = encode_bytes(prompt)
         max_tokens = int(body.get('max_tokens', 64))
         rid = request['skytpu_request_id']
+        targets = kv_transfer.parse_decode_targets(
+            request.headers.get(kv_transfer.DECODE_URL_HEADER))
+        if role == 'prefill' and targets and engine.cfg.kv_page_size:
+            return await _serve_prefill_handoff(ids, max_tokens, rid,
+                                                targets)
+        return await _serve_monolithic(ids, max_tokens, rid)
+
+    async def kv_adopt(request):
+        """Decode role: adopt a prefill replica's KV handoff and decode
+        it to completion; the reply is the completions JSON."""
+        raw = await request.read()
+        rid = request['skytpu_request_id']
         try:
-            req = engine.submit(ids, max_tokens, request_id=rid)
+            handoff = kv_transfer.deserialize(raw)
         except ValueError as e:
-            # Admission rejection: the prompt exceeds max_prompt_len.  413,
-            # not 400: the request was well-formed, just too large.
-            tracing.record_instant(rid, 'server.reject', status=413,
-                                   prompt_tokens=len(ids),
-                                   max_prompt_len=engine.max_prompt_len)
-            return web.json_response(
-                {'error': str(e),
-                 'max_prompt_len': engine.max_prompt_len}, status=413)
+            return web.json_response({'error': str(e)}, status=400)
+        try:
+            req = engine.submit_adopt(
+                handoff.prompt_ids, handoff.first_token, handoff.leaves,
+                handoff.max_new_tokens, request_id=rid,
+                page_size=handoff.page_size)
+        except ValueError as e:
+            # Geometry mismatch (page size/count/shape): 422 tells the
+            # pusher to try another replica.
+            return web.json_response({'error': str(e)}, status=422)
+        except RuntimeError as e:
+            return web.json_response({'error': str(e)}, status=503)
         out = await asyncio.get_event_loop().run_in_executor(
             None, req.tokens)
-        return web.json_response({
-            'ids': out,
-            'text': decode_bytes(out),
-            'request_id': rid,
-            'usage': {
-                'prompt_tokens': len(ids),
-                'completion_tokens': len(out),
-                'ttft_ms': round(
-                    (req.first_token_at - req.submitted_at) * 1e3, 2)
-                if req.first_token_at else None,
-            },
-        })
+        return web.json_response(
+            _completion_json(rid, handoff.prompt_ids, out, req))
 
     async def metrics_route(_request):
         return web.Response(text=metrics_lib.render(),
@@ -135,6 +252,8 @@ def build_app(engine: DecodeEngine) -> web.Application:
     app.router.add_get('/debug/requests', debug_requests)
     app.router.add_get('/debug/requests/{request_id}', debug_request)
     app.router.add_post('/v1/completions', completions)
+    app.router.add_post(kv_transfer.ADOPT_ROUTE, kv_adopt)
+    app.on_cleanup.append(_close_session)
     return app
 
 
@@ -152,6 +271,44 @@ def main() -> None:
         help='longest admissible prompt in tokens (0 = model limit, '
         'max_seq_len - 1).  Prompts beyond the largest prefill bucket '
         'are chunked and interleaved with decode.')
+    parser.add_argument(
+        '--kv-page-size', type=int,
+        default=int(os.environ.get('SKYTPU_SERVE_KV_PAGE_SIZE', '0')),
+        help='paged KV cache: page size in tokens (must divide every '
+        'prefill bucket and max_seq_len).  Admission then charges pages '
+        'instead of reserving n_slots x max_seq_len, and shared prompt '
+        'prefixes are prefilled once (--prefix-cache).  0 = the '
+        'contiguous layout.  Env SKYTPU_SERVE_KV_PAGE_SIZE.')
+    parser.add_argument(
+        '--kv-pages', type=int,
+        default=int(os.environ.get('SKYTPU_SERVE_KV_PAGES', '0')),
+        help='page-pool size (with --kv-page-size).  0 = full backing '
+        '(n_slots x max_seq_len / page_size).  Env '
+        'SKYTPU_SERVE_KV_PAGES.')
+    parser.add_argument(
+        '--prefix-cache', type=int, choices=(0, 1),
+        default=int(os.environ.get('SKYTPU_SERVE_PREFIX_CACHE', '1')),
+        help='radix prefix cache over the paged KV pool (needs '
+        '--kv-page-size).  Env SKYTPU_SERVE_PREFIX_CACHE.')
+    parser.add_argument(
+        '--kv-dtype', choices=('bf16', 'int8'),
+        default=os.environ.get('SKYTPU_SERVE_KV_DTYPE', 'bf16'),
+        help='KV-page storage dtype (needs --kv-page-size); int8 '
+        'quantizes pages at scatter time.  Env SKYTPU_SERVE_KV_DTYPE.')
+    parser.add_argument(
+        '--spec-ngram', type=int,
+        default=int(os.environ.get('SKYTPU_SERVE_SPEC_NGRAM', '0')),
+        help='self-speculative n-gram decoding: draft length k per '
+        'verify step (needs --kv-page-size; 0 = off).  Env '
+        'SKYTPU_SERVE_SPEC_NGRAM.')
+    parser.add_argument(
+        '--role', choices=('monolithic', 'prefill', 'decode'),
+        default=os.environ.get('SKYTPU_SERVE_ROLE', 'monolithic'),
+        help='disaggregated serving role (requires --kv-page-size: pages '
+        'are the KV-transfer unit).  `prefill` replicas push the paged '
+        'KV + first token to a decode candidate named by '
+        'X-Skytpu-Decode-Url; `decode` replicas accept /v1/kv_adopt.  '
+        'Env SKYTPU_SERVE_ROLE.')
     parser.add_argument('--device', default='cuda',
                         help='torch device to serve on (cuda or cpu)')
     parser.add_argument('--seed', type=int, default=0,
@@ -178,17 +335,35 @@ def main() -> None:
                    'loading comes with a later slice)')
     gen = torch.Generator(device=device).manual_seed(args.seed)
     model = Llama(cfg, init_params(cfg, device, gen))
+    paged = bool(args.kv_page_size)
     engine = DecodeEngine(
         model,
         EngineConfig(n_slots=args.n_slots,
-                     max_prompt_len=args.max_prompt_len or None),
+                     max_prompt_len=args.max_prompt_len or None,
+                     kv_page_size=args.kv_page_size or None,
+                     kv_pages=args.kv_pages or None,
+                     prefix_cache=bool(args.prefix_cache),
+                     kv_dtype=args.kv_dtype if paged else 'bf16',
+                     speculation=args.spec_ngram if paged else 0),
         device=device)
     engine.prewarm()
     engine.start()
+    if args.role != 'monolithic' and not paged:
+        # A roled replica without paging cannot hand KV off; serve
+        # monolithically rather than advertise a capability it lacks.
+        logger.warning(f'--role {args.role} requires --kv-page-size; '
+                       f'serving monolithically')
+        args.role = 'monolithic'
     logger.info(f'serving {args.model} on :{args.port} '
-                f'({args.n_slots} slots, device={device})')
+                f'({args.n_slots} slots, device={device}, '
+                f'role={args.role}, '
+                f'kv_page_size={args.kv_page_size or "off"}, '
+                f'prefix_cache={bool(args.prefix_cache and paged)}, '
+                f'kv_dtype={args.kv_dtype if paged else "bf16"}, '
+                f'speculation={args.spec_ngram if paged else 0})')
     try:
-        web.run_app(build_app(engine), port=args.port, print=None)
+        web.run_app(build_app(engine, role=args.role), port=args.port,
+                    print=None)
     finally:
         engine.stop()
 

@@ -15,6 +15,13 @@ cache) and S == 1 a decode step (scatter at each row's own position).
 Cache tensors are updated in place: the engine owns them, as the JAX
 engine donates its cache buffers.
 
+With `decode=True` and a `page_table` [B, pages_per_slot], the cache is
+the engine's page POOL instead: per layer (k, v), each [n_pages,
+n_kv_heads, page_size, head_dim] (or a `kv_quant.QuantPages` pair under
+int8 pages), and `_paged_attend` scatters the S new rows into the slot's
+pages and gathers its pages back into position order before attending
+(S == 1 decode, S == k+1 speculative verify).
+
 The non-decode forward is the training forward: differentiable (the
 flash op is an autograd Function over the forward and backward kernels)
 and, with `cfg.remat`, checkpointed per block as the JAX model's
@@ -22,8 +29,8 @@ and, with `cfg.remat`, checkpointed per block as the JAX model's
 also keeps the projection products (`aten.mm`, the counterpart of
 `dots_with_no_batch_dims_saveable`); attention is recomputed under both.
 
-Not in this ported package yet: the one-hot embedding, MoE, the paged
-cache and ring attention.
+Not in this ported package yet: the one-hot embedding, MoE and ring
+attention.
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ from torch import nn
 from torch.utils import checkpoint as checkpoint_lib
 
 from skypilot_tpu_torch.device import DeviceLike, resolve_device
+from skypilot_tpu_torch.inference import kv_quant
 from skypilot_tpu_torch.ops import attention as attn_lib
 
 LayerCache = Tuple[torch.Tensor, torch.Tensor]
@@ -181,7 +189,8 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 decode: bool = False,
-                cache: Optional[LayerCache] = None
+                cache: Optional[LayerCache] = None,
+                page_table: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[LayerCache]]:
         cfg = self.cfg
         b, s, _ = x.shape
@@ -193,7 +202,10 @@ class Attention(nn.Module):
         q = _rope(q, positions, cfg.rope_theta).contiguous()
         k = _rope(k, positions, cfg.rope_theta).contiguous()
         v = v.contiguous()
-        if decode:
+        if decode and page_table is not None:
+            cache, attn_out = self._paged_attend(q, k, v, positions, cache,
+                                                 page_table)
+        elif decode:
             cache, attn_out = self._decode_attend(q, k, v, positions, cache)
         else:
             attn_out = self._attend(q, k, v)
@@ -256,6 +268,70 @@ class Attention(nn.Module):
                                      kv_positions=k_pos)
         return (ck, cv), out
 
+    def _paged_attend(self, q, k, v, positions, pool, page_table):
+        """Attention against the PAGED cache: `pool` is this layer's
+        (k, v) page pool [n_pages, n_kv_heads, page_size, D] and
+        `page_table` [B, pages_per_slot] maps each slot's logical page
+        -> physical page (shared prefix pages included).  Each call
+        scatters its S rows into the slot's OWN pages (shared pages end
+        at the match boundary and writes land past it), then gathers the
+        slot's pages back into position order and attends exactly like
+        the dense path: same shapes, same masks.
+
+        S == 1 is the decode step; S > 1 is speculative verify (k drafts
+        plus the committed last token, every row written before the
+        gather).  Rejected draft rows leave garbage past the accepted
+        length, unread under the causal mask until overwritten.
+
+        Under int8 pages (`kv_quant.QuantPages`) rows are quantized at
+        scatter time and dequantized in the gather.
+        """
+        if pool is None:
+            raise ValueError(
+                'paged attention is the steady-state decode path: the '
+                'engine supplies the page pool as the cache')
+        ck, cv = pool
+        quant = isinstance(ck, kv_quant.QuantPages)
+        ps = (ck.data if quant else ck).shape[2]
+        b = q.shape[0]
+        n_logical = page_table.shape[1] * ps
+        page_ids = torch.gather(page_table, 1, positions // ps)   # [B, S]
+        off = positions % ps                                      # [B, S]
+
+        # Write this call's K/V rows at (page, in-page offset).  The two
+        # advanced indices around a slice put [B, S] first, so the rows
+        # go in as [B, S, H, D].  Distinct live slots never share their
+        # write pages; inactive slots all point at the trash page
+        # (duplicate-index garbage the masks keep unread).
+        def scatter(leaf, rows):
+            rows = rows.transpose(1, 2)                   # [B, S, H, D]
+            if quant:
+                qd, s = kv_quant.quantize_kv(rows)
+                leaf.data[page_ids, :, off, :] = qd
+                leaf.scale[page_ids, :, off] = s
+            else:
+                leaf[page_ids, :, off, :] = rows
+
+        scatter(ck, k)
+        scatter(cv, v)
+
+        def gather(leaf):
+            if quant:
+                g = kv_quant.dequantize_kv(leaf.data[page_table],
+                                           leaf.scale[page_table],
+                                           self.cfg.dtype)  # [B, P, H, ps, D]
+            else:
+                g = leaf[page_table]                        # [B, P, H, ps, D]
+            g = g.transpose(1, 2)                           # [B, H, P, ps, D]
+            return g.reshape(b, g.shape[1], n_logical, g.shape[4])
+
+        k_pos = torch.arange(n_logical, device=q.device)[None, :].expand(
+            b, n_logical)
+        out = attn_lib.mha_reference(q, gather(ck), gather(cv), causal=True,
+                                     segment_positions=positions,
+                                     kv_positions=k_pos)
+        return pool, out
+
 
 class MLP(nn.Module):
 
@@ -282,8 +358,10 @@ class Block(nn.Module):
                                 cfg.param_dtype)
         self.mlp = MLP(cfg)
 
-    def forward(self, x, positions, decode=False, cache=None):
-        h, cache = self.attn(self.attn_norm(x), positions, decode, cache)
+    def forward(self, x, positions, decode=False, cache=None,
+                page_table=None):
+        h, cache = self.attn(self.attn_norm(x), positions, decode, cache,
+                             page_table)
         x = x + h
         x = x + self.mlp(self.mlp_norm(x))
         return x, cache
@@ -326,9 +404,11 @@ class Llama(nn.Module):
     def forward(self, tokens: torch.Tensor,
                 positions: Optional[torch.Tensor] = None,
                 decode: bool = False,
-                cache: Optional[List[LayerCache]] = None):
+                cache: Optional[List[LayerCache]] = None,
+                page_table: Optional[torch.Tensor] = None):
         """tokens [B, S] -> f32 logits [B, S, V]; with decode=True returns
-        (logits, cache), the cache being a list of per-layer (k, v)."""
+        (logits, cache), the cache being a list of per-layer (k, v) (the
+        page pool when `page_table` is given)."""
         cfg = self.cfg
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)
@@ -343,7 +423,8 @@ class Llama(nn.Module):
                     context_fn=_REMAT_CONTEXTS[cfg.remat_policy])
             else:
                 x, layer_cache = layer(x, positions, decode,
-                                       None if cache is None else cache[i])
+                                       None if cache is None else cache[i],
+                                       page_table)
             new_cache.append(layer_cache)
         x = self.final_norm(x)
         if cfg.tie_embeddings:

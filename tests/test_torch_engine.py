@@ -195,11 +195,19 @@ def test_engine_pipelined_threaded_loop(models):
 
 
 def test_engine_refuses_later_slice_options(models):
+    """Tensor parallelism (`mesh`) is still a later slice; the paged
+    options (pages, pool size, prefix cache, int8 pages, speculation)
+    are accepted now."""
     model, _ = models
-    for kw in ({'kv_page_size': 16}, {'speculation': 2},
-               {'mesh': object()}):
-        with pytest.raises(ValueError, match='slice'):
-            _engine(model, **kw)
+    with pytest.raises(ValueError, match='tensor-parallel serving slice'):
+        _engine(model, mesh=object())
+    for kw in ({'kv_page_size': 8}, {'kv_page_size': 8, 'kv_pages': 17},
+               {'kv_page_size': 8, 'prefix_cache': False},
+               {'kv_page_size': 8, 'kv_dtype': 'int8'},
+               {'kv_page_size': 8, 'speculation': 2}):
+        engine = _engine(model, prefill_buckets=(8, 16), **kw)
+        assert engine._paged and engine.cfg.kv_page_size == kw[
+            'kv_page_size']
 
 
 def test_engine_temperature_sampling_is_seeded(models):

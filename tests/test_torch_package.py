@@ -14,7 +14,7 @@ import torch
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / 'skypilot_tpu_torch'
 COPIED = ['sky_logging.py', 'utils/timeline.py', 'server/metrics.py',
-          'server/tracing.py']
+          'server/tracing.py', 'inference/paging.py']
 
 
 def _port_modules():
@@ -121,3 +121,20 @@ def test_training_slice_modules_are_covered():
     assert sorted(p.name for p in (PORT / 'csrc').glob('*.cu*')) == [
         'flash_attention_bwd_dkv.cu', 'flash_attention_bwd_dq.cu',
         'flash_attention_fwd.cu', 'sm90_common.cuh']
+
+
+def test_paged_serving_slice_modules_are_covered():
+    """The isolation checks above walk every module of the port; the
+    paged serving slice's modules are among them, and its wire-format
+    module keeps the JAX package's constants."""
+    mods = set(_port_modules())
+    assert {'skypilot_tpu_torch.inference.paging',
+            'skypilot_tpu_torch.inference.kv_quant',
+            'skypilot_tpu_torch.inference.kv_transfer',
+            'skypilot_tpu_torch.inference.engine',
+            'skypilot_tpu_torch.inference.server'} <= mods
+    text = (PORT / 'inference' / 'kv_transfer.py').read_text()
+    for const in ("_MAGIC = b'SKVT1'", 'VERSION = 1',
+                  "DECODE_URL_HEADER = 'X-Skytpu-Decode-Url'",
+                  "ADOPT_ROUTE = '/v1/kv_adopt'"):
+        assert const in text
