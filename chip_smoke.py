@@ -14,7 +14,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
 3. Kernels: each kernel against its plain PyTorch version on the card:
    the forward at the serving path's shapes, then the forward, dq and
    dk/dv at the training path's (bench-1b, llama-250m, llama2-7b, a
-   non-causal, a ragged fp16 case, S=32 and S=320); then CUDA-event
+   non-causal, a ragged fp16 case, S=32 and S=320, the RL loop's S=36
+   and S=8 at head_dim 64); then CUDA-event
    times of each kernel (and its TFLOP/s), its plain version and the
    library call (SDPA; beside its backward also the port's dq + dk/dv
    sum), next to the roofline bound, at the llama2-7b prefill
@@ -25,18 +26,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
    a seed) behind the port's HTTP app on a local port, 8 prompts of 219
    tokens plus one of 300 (chunked prefill), 32 new tokens each; every
    response checked; kernel launch counts read around this run; prefill
-   logits through the kernel held against attention_impl='xla'.
-5. Paged serving, over the same weights and prompts (PAGED): 64-token
-   pages on the engine API against the dense engine (identical tokens;
-   32 flash launches per prefill group, counted around the paged run),
+   logits through the kernel held against attention_impl='xla'.  The
+   engine's decode call is a CUDA graph (captured at prewarm).
+5. Paged serving, over the same weights and prompts (PAGED): the dense
+   and the 64-token-paged engine on the engine API, each with its decode
+   call as a CUDA graph and eager (identical tokens all four ways; out-
+   tok/s, TTFT p50 and one profiled decode call each; 32 flash launches
+   per prefill group, counted around the paged graph run),
    a prefix-hit burst (8 requests sharing a 3-page prefix; the hit
    counters exact), int8 pages (within half a quantization step plus one
    bf16 ulp of the bf16 pages; pool bytes), speculation with k = 4
    (proposed, accepted), and the KV handoff prefill -> bytes -> decode
    (identical to a monolithic paged run); every hit, int8 and
    speculative token within LOGITS_RTOL of the argmax of a teacher-forced
-   forward through the kernel; one paged decode call profiled.
-6. Training: bench-1b at full width and depth (f32 params, bf16 compute,
+   forward through the kernel.
+6. Checkpoint: the serving weights saved through the port's
+   CheckpointManager, restored by the server's build_model with
+   --checkpoint and --param-dtype bfloat16 and served over HTTP (tokens
+   equal to the in-memory model's); then a sentinel lm_head installed
+   with update_params mid-request under the graph (every later token a
+   sentinel, none before).
+7. Training: bench-1b at full width and depth (f32 params, bf16 compute,
    remat 'none') through Trainer.run at batch 4, seq 4096: 2 untimed and
    8 timed steps, launch counts read around the timed steps (2 forward,
    1 dq and 1 dk/dv launch per layer per step), step time, tokens/s, MFU
@@ -44,7 +54,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
    through the kernels against the same step with the backward kernels'
    plain versions (same forward) and against attention_impl='xla', on
    the same weights, and one step traced with torch.profiler.
-7. Result: the kernels JSON line (per kernel also TFLOP/s, ptxas
+8. RL (RL, examples/train_rl_reinforce.yaml): llama-250m at full width
+   and depth, 3 iterations of rollout (the engine's graph, temperature
+   1) -> REINFORCE step (forward, dq, dk/dv kernels) -> update_params,
+   exact launches per iteration, finite losses, the engine's params
+   bit-equal to the learner's, one step's gradients against the plain
+   backward; then the three kernels timed at the REINFORCE shape.
+9. Result: the kernels JSON line (per kernel also TFLOP/s, ptxas
    registers and spill-store bytes, shared memory per launch), the
    nvidia-smi line, then
    {"ok": true, "device": {...}} as the last line.
@@ -56,6 +72,7 @@ from __future__ import annotations
 
 import asyncio
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -108,15 +125,18 @@ TRAIN = dict(model='bench-1b', batch=4, seq=4096, warm_steps=2,
              timed_steps=8, grad_batch=1, warmup_steps=5, total_steps=1000)
 # (b, hq, hkv, s, d, causal, dtype) of the backward check: bench-1b's
 # training shape first (it is also the timed one), llama-250m, llama2-7b
-# (MHA), a non-causal and a ragged fp16 case, and S shorter than one
-# tile and past a multiple of the 128-row tiles.
+# (MHA), a non-causal and a ragged fp16 case, S shorter than one tile
+# and past a multiple of the 128-row tiles, and the RL loop's shapes
+# (its REINFORCE step over 4 + 32 tokens, its rollout's prefill bucket).
 BWD_SHAPES = [(4, 16, 8, 4096, 128, True, 'bfloat16'),
               (8, 16, 8, 2048, 64, True, 'bfloat16'),
               (2, 32, 32, 512, 128, True, 'bfloat16'),
               (2, 16, 8, 1024, 128, False, 'bfloat16'),
               (2, 8, 2, 96, 64, True, 'float16'),
               (1, 4, 2, 32, 128, True, 'bfloat16'),
-              (1, 4, 2, 320, 128, True, 'bfloat16')]
+              (1, 4, 2, 320, 128, True, 'bfloat16'),
+              (8, 16, 8, 36, 64, True, 'bfloat16'),
+              (8, 16, 8, 8, 64, True, 'bfloat16')]
 SERVE = dict(model='llama2-7b', max_seq_len=448, n_slots=8,
              steps_per_call=32, prefill_buckets=(256,), prompt_len=219,
              n_prompts=8, long_prompt_len=300, max_tokens=32)
@@ -129,7 +149,17 @@ SERVE = dict(model='llama2-7b', max_seq_len=448, n_slots=8,
 PAGED = dict(model='llama2-7b', max_seq_len=448, n_slots=8,
              steps_per_call=32, prefill_buckets=(256,), kv_page_size=64,
              prefix_len=192, tail_len=27, max_tokens=32, spec_k=4,
-             handoff_prompts=4, profile_tokens=64)
+             handoff_prompts=4)
+# The RL loop of examples/train_rl_reinforce.yaml: llama-250m at full
+# width and depth (f32 params, as the recipe's), 8 copies of one prompt,
+# 32 sampled tokens at temperature 1 on the engine (its decode call a
+# CUDA graph), Adam at 1e-5 with kl_coef 0.02 on the learner's own copy
+# of the params, update_params after every step; 3 iterations.
+RL = dict(model='llama-250m', prompt=(1, 2, 3, 4), n_prompts=8, max_new=32,
+          n_slots=8, steps_per_call=16, prefill_buckets=(8,),
+          temperature=1.0, seed=0, lr=1e-5, kl_coef=0.02, iterations=3)
+# (b, hq, hkv, s, d) of the REINFORCE step's attention (timed).
+RL_SHAPE = (8, 16, 8, 36, 64)
 
 
 def log(msg: str) -> None:
@@ -542,6 +572,17 @@ async def _post_all(port, bodies):
         return await asyncio.gather(*(one(b) for b in bodies))
 
 
+def _forget_app_handlers() -> None:
+    """aiohttp caches each app's middleware-wrapped handlers in a
+    module-level LRU (keyed by handler and app), which keeps a closed
+    app's engine, with its model and KV cache, alive; clear it once an
+    app is done (where this aiohttp has that cache)."""
+    from aiohttp import web_app
+    cached = getattr(web_app, '_cached_build_middleware', None)
+    if cached is not None:
+        cached.cache_clear()
+
+
 async def _serve_and_post(engine, batches):
     """Start the port's HTTP app on a local port, POST each batch of
     bodies concurrently (batch after batch), stop the app."""
@@ -562,6 +603,38 @@ async def _serve_and_post(engine, batches):
         return results
     finally:
         await runner.cleanup()
+        _forget_app_handlers()
+
+
+async def _serve_queued(engine, bodies):
+    """Start the port's HTTP app on a local port, POST every body
+    concurrently, and start the engine's loop only once all of them are
+    queued, so admission is what `_drive` gives (one group per bucket,
+    chunked prompts after); returns (wall s from the loop's start,
+    replies in body order)."""
+    from aiohttp import web
+    from skypilot_tpu_torch.inference.server import build_app
+
+    runner = web.AppRunner(build_app(engine))
+    await runner.setup()
+    port = _free_port()
+    site = web.TCPSite(runner, '127.0.0.1', port)
+    await site.start()
+    try:
+        posted = asyncio.ensure_future(_post_all(port, bodies))
+        while (engine._prefill_q.qsize() + engine._long_q.qsize() <
+               len(bodies)):
+            if posted.done():
+                break            # a reply before the loop ran: an error
+            await asyncio.sleep(0.005)
+        t0 = time.perf_counter()
+        engine.start()
+        replies = await posted
+        return time.perf_counter() - t0, replies
+    finally:
+        engine.stop()
+        await runner.cleanup()
+        _forget_app_handlers()
 
 
 KERNEL_NAMES = ('flash_attention_fwd', 'flash_attention_bwd_dq',
@@ -751,13 +824,14 @@ def _share_equal(a, b):
 
 
 def paged_phase(device, card, ctx):
-    """The paged serving path over the serving phase's weights: (1) bf16
-    pages against the dense engine on the same prompts (identical
-    tokens; the flash launches counted around the paged run), (2) a
-    prefix-hit burst, (3) int8 pages, (4) n-gram speculation, (5) the KV
-    handoff prefill -> bytes -> decode; the hit, int8 and speculative
-    streams held by the teacher-forced gate; then one paged decode call
-    profiled.  Returns the kernels' launch counts of the paged run."""
+    """The paged serving path over the serving phase's weights: (1) the
+    dense and the bf16-paged engine, each with the decode call as a CUDA
+    graph and eager, on the same prompts (identical tokens all four
+    ways; one decode call of each profiled; the flash launches counted
+    around the paged graph run), (2) a prefix-hit burst, (3) int8 pages,
+    (4) n-gram speculation, (5) the KV handoff prefill -> bytes ->
+    decode; the hit, int8 and speculative streams held by the teacher-
+    forced gate.  Returns the kernels' launch counts of the paged run."""
     import numpy as np
     import torch
     from skypilot_tpu_torch.inference import kv_quant, kv_transfer
@@ -774,29 +848,72 @@ def paged_phase(device, card, ctx):
                 prefill_buckets=PAGED['prefill_buckets'])
     paged_kw = dict(base, kv_page_size=PAGED['kv_page_size'])
 
-    def engine(**kw):
-        return DecodeEngine(model, EngineConfig(**kw), device=device)
+    def engine(eager=False, **kw):
+        return DecodeEngine(model, EngineConfig(**kw), device=device,
+                            _eager_decode=eager)
 
-    # (1) bf16 pages vs the dense engine, same prompts, same groups.
-    dense = engine(**base)
-    want, wall_d, ttft_d, _ = _drive(dense, prompts, n_new)
-    groups_d = dense.prefill_groups
-    del dense
-    torch.cuda.empty_cache()
-    paged = engine(**paged_kw)
-    zero_launches()
-    got, wall_p, ttft_p, _ = _drive(paged, prompts, n_new)
-    counts = read_launches()
-    groups = paged.prefill_groups
-    toks = sum(map(len, got))
-    log(f'  (1) bf16 pages, {len(prompts)} prompts ({len(prompts) - 1} x '
-        f'{len(prompts[0])} + 1 x {len(prompts[-1])}), {n_new} new each, '
-        f'on {card}: paged {toks / wall_p:.1f} out-tok/s (wall '
-        f'{wall_p:.3f} s), TTFT p50 {_p50(ttft_p) * 1e3:.1f} ms; dense '
-        f'engine {toks / wall_d:.1f} out-tok/s (wall {wall_d:.3f} s), TTFT '
-        f'p50 {_p50(ttft_d) * 1e3:.1f} ms; prefill groups {groups} (dense '
-        f'{groups_d}); flash launches {counts}; tokens equal to the HTTP '
-        f'serving phase\'s {_share_equal(got, ctx["http_ids"]):.4f}')
+    # (1) The dense and the bf16-paged engine, each with its decode call
+    # replayed as a CUDA graph and run eagerly, on the same prompts.  One
+    # decode call of each is profiled first, over prompts of the same
+    # shape that share no prefix with them (no prefix hits later).  The
+    # flash launches are counted around the paged graph run.
+    rng = np.random.default_rng(SEED + 7)
+    profile_prompts = [rng.integers(0, cfg.vocab_size, len(p)).tolist()
+                       for p in ctx['prompts']]
+    runs = {}
+    for name, kw in (('dense', base), ('paged', paged_kw)):
+        for eager in (False, True):
+            e = engine(eager=eager, **kw)
+            t0 = time.perf_counter()
+            e.prewarm()
+            prewarm_s = time.perf_counter() - t0
+            if (e._decode_call.graph is None) != eager:
+                raise SystemExit(f'{name} engine: decode graph '
+                                 f'{e._decode_call.graph} with eager={eager}')
+            prof = profile_decode_call(e, profile_prompts)
+            groups_before = e.prefill_groups
+            if name == 'paged' and not eager:
+                zero_launches()
+            toks_, wall_, ttft_, _ = _drive(e, prompts, n_new)
+            if name == 'paged' and not eager:
+                counts = read_launches()
+            runs[name, eager] = dict(
+                toks=toks_, wall=wall_, ttft=ttft_,
+                groups=e.prefill_groups - groups_before,
+                prewarm_s=prewarm_s, **prof)
+            if name == 'paged' and not eager:
+                paged = e            # (3) reads its radix cache and pool
+            else:
+                del e
+            torch.cuda.empty_cache()
+    toks = sum(map(len, runs['dense', False]['toks']))
+    for (name, eager), r in runs.items():
+        how = 'eager' if eager else 'graph'
+        log(f'  (1) {name} {how}: {len(prompts)} prompts ({len(prompts) - 1} '
+            f'x {len(prompts[0])} + 1 x {len(prompts[-1])}), {n_new} new '
+            f'each, on {card}: {toks / r["wall"]:.1f} out-tok/s (wall '
+            f'{r["wall"]:.3f} s), TTFT p50 {_p50(r["ttft"]) * 1e3:.1f} ms, '
+            f'prefill groups {r["groups"]}, prewarm {r["prewarm_s"]:.2f} s; '
+            f'one profiled decode call of {PAGED["steps_per_call"]} steps '
+            f'over {len(ctx["prompts"])} slots: wall {r["wall_ms"]:.1f} ms, '
+            f'device busy {r["busy_ms"]:.1f} ms ({r["busy_share"]:.1%}), '
+            f'{r["kernels"]} kernels; by kind (ms) {r["by_kind"]}')
+        for dev_ms, count, kname in r['top']:
+            log(f'      {dev_ms:9.3f} ms  x{count:<6d} {kname[:160]}')
+    want = runs['dense', False]['toks']
+    got = runs['paged', False]['toks']
+    groups, groups_d = runs['paged', False]['groups'], runs['dense', False][
+        'groups']
+    log(f'  (1) flash launches of the paged graph run {counts}; tokens '
+        f'equal to the HTTP serving phase\'s '
+        f'{_share_equal(want, ctx["http_ids"]):.4f}')
+    for name in ('dense', 'paged'):
+        graph_toks, eager_toks = (runs[name, eager]['toks']
+                                  for eager in (False, True))
+        if graph_toks != eager_toks:
+            raise SystemExit(f'{name} graph decode differs from eager: '
+                             f'{_share_equal(graph_toks, eager_toks):.4f} '
+                             f'equal')
     if got != want:
         raise SystemExit(f'paged tokens differ from the dense engine\'s: '
                          f'{_share_equal(got, want):.4f} equal')
@@ -805,6 +922,13 @@ def paged_phase(device, card, ctx):
         raise SystemExit(f'flash launched {counts} over {groups} prefill '
                          f'groups of {cfg.n_layers} layers')
     paged._pool_alloc.check_conserved()
+    ctx['dense_toks'] = want
+    ctx['graph_runs'] = {f'{name}_{"eager" if eager else "graph"}': {
+        'out_tok_s': toks / r['wall'], 'ttft_p50_ms': _p50(r['ttft']) * 1e3,
+        'decode_call_wall_ms': r['wall_ms'], 'decode_call_busy_ms':
+        r['busy_ms'], 'busy_share': r['busy_share']}
+        for (name, eager), r in runs.items()}
+    ttft_p = runs['paged', False]['ttft']
 
     # (2) Prefix cache: a warm request publishes the 3-page prefix, then
     # a burst of 8 shares it, each with its own tail.
@@ -941,19 +1065,21 @@ def paged_phase(device, card, ctx):
                          f'paged run: {_share_equal(h_toks, mono_toks):.4f}')
     del pre, dec, exported, payloads, handoffs
     torch.cuda.empty_cache()
-    profile_paged_decode(engine(**paged_kw), ctx['prompts'], card)
     return counts
 
 
-def profile_paged_decode(engine, prompts, card):
-    """Where the time goes in paged decode: the second step() of 8
-    requests (all decode: one call of steps_per_call steps) traced with
-    torch.profiler; device time of the page gather/scatter and copy
-    kernels against the GEMMs."""
+def profile_decode_call(engine, prompts):
+    """Where the time goes in one decode call: the second step() of
+    len(prompts) requests with budgets of two calls (so that step is
+    all decode: one call of steps_per_call steps), traced with
+    torch.profiler.  Returns its wall and device busy time, the busy
+    share, the kernel count, device time by kind (gather/scatter, GEMM,
+    copy) and the largest kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    reqs = [engine.submit(p, PAGED['profile_tokens']) for p in prompts]
+    reqs = [engine.submit(p, 2 * engine.cfg.steps_per_call)
+            for p in prompts]
     engine.step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -963,21 +1089,22 @@ def profile_paged_decode(engine, prompts, card):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     if not all(r.finished_at is not None for r in reqs):
-        raise SystemExit('profiled paged decode did not finish its requests')
+        raise SystemExit('the profiled decode call did not finish its '
+                         'requests')
+    for r in reqs:
+        r.tokens()
     rows = kernel_rows(prof)
     busy_ms = sum(r[0] for r in rows)
     kinds = {'gather/scatter': ('index', 'gather', 'scatter'),
              'gemm': ('gemm', 'nvjet', 'cutlass', 'sm90'),
              'copy': ('copy', 'Copy')}
-    by_kind = {k: sum(r[0] for r in rows if any(t in r[2] for t in names))
+    by_kind = {k: round(sum(r[0] for r in rows
+                            if any(t in r[2] for t in names)), 3)
                for k, names in kinds.items()}
-    log(f'  paged decode profile on {card}: 1 call of '
-        f'{PAGED["steps_per_call"]} steps over {len(prompts)} slots: wall '
-        f'{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms '
-        f'({busy_ms / wall_ms:.1%}); by kind (ms) '
-        f'{ {k: round(v, 3) for k, v in by_kind.items()} }')
-    for dev_ms, count, name in rows[:12]:
-        log(f'    {dev_ms:9.3f} ms  x{count:<6d} {name[:200]}')
+    return {'wall_ms': wall_ms, 'busy_ms': busy_ms,
+            'busy_share': busy_ms / wall_ms,
+            'kernels': sum(r[1] for r in rows), 'by_kind': by_kind,
+            'top': rows[:8]}
 
 
 def kernel_rows(prof):
@@ -1022,6 +1149,115 @@ def profile_step(engine, prompts, card):
         f'{flash_ms:.3f} ms')
     for dev_ms, count, name in rows[:10]:
         log(f'    {dev_ms:9.3f} ms  x{count:<6d} {name[:90]}')
+
+
+def checkpoint_phase(device, card, ctx):
+    """Serving a trained checkpoint, and a weight swap under the graph:
+    the serving phase's llama2-7b weights saved through the port's
+    CheckpointManager (under build/, removed after), restored by the
+    server's `build_model` with --checkpoint and --param-dtype bfloat16,
+    served through the HTTP app (the engine's decode call a CUDA graph):
+    its greedy tokens on the serving prompts must equal the in-memory
+    model's (the dense graph engine of the paged phase).  Then, on that
+    engine, a sentinel lm_head installed mid-request with
+    update_params.  Returns the kernels' launch counts of the served
+    run."""
+    import shutil
+    import torch
+    from skypilot_tpu_torch.inference import server
+    from skypilot_tpu_torch.inference.engine import DecodeEngine, EngineConfig
+    from skypilot_tpu_torch.train.checkpoint import CheckpointManager
+
+    cfg, model = ctx['cfg'], ctx['model']
+    directory = os.path.join(REPO, 'build', 'chip_smoke_checkpoint')
+    shutil.rmtree(directory, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        CheckpointManager(directory).save(0, model)
+        save_s = time.perf_counter() - t0
+        size_gb = sum(os.path.getsize(os.path.join(d, f))
+                      for d, _, fs in os.walk(directory) for f in fs) / 1e9
+        args = server.parse_args([
+            '--model', SERVE['model'], '--max-seq-len',
+            str(SERVE['max_seq_len']), '--checkpoint', directory,
+            '--param-dtype', 'bfloat16', '--device', str(device)])
+        t0 = time.perf_counter()
+        restored = server.build_model(args)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    same = all(torch.equal(t, restored.state_dict()[name])
+               for name, t in model.state_dict().items())
+    log(f'  saved {size_gb:.3f} GB in {save_s:.2f} s; build_model '
+        f'(--checkpoint, --param-dtype bfloat16) restored it in '
+        f'{load_s:.2f} s; params bit-equal to the in-memory model: {same}')
+    if not same or restored.cfg.param_dtype != torch.bfloat16:
+        raise SystemExit('the restored checkpoint differs from the weights '
+                         'it was saved from')
+    engine = DecodeEngine(restored, EngineConfig(
+        n_slots=SERVE['n_slots'], steps_per_call=SERVE['steps_per_call'],
+        prefill_buckets=SERVE['prefill_buckets']), device=device)
+    engine.prewarm()
+    prompts = ctx['prompts'] + [ctx['long_prompt']]
+    bodies = [{'prompt_ids': p, 'max_tokens': SERVE['max_tokens']}
+              for p in prompts]
+    zero_launches()
+    wall, replies = asyncio.run(_serve_queued(engine, bodies))
+    counts = read_launches()
+    if not engine.healthy:
+        raise SystemExit(f'engine crashed: {engine.error!r}')
+    if any(status != 200 for status, _ in replies):
+        raise SystemExit(f'checkpoint serving failed: {replies}')
+    if counts['flash_attention_fwd'] != cfg.n_layers * engine.prefill_groups:
+        raise SystemExit(f'flash launched {counts} over '
+                         f'{engine.prefill_groups} prefill groups of '
+                         f'{cfg.n_layers} layers')
+    ids = [body['ids'] for _, body in replies]
+    ttfts = sorted(body['usage']['ttft_ms'] for _, body in replies)
+    log(f'  served the checkpoint over HTTP on {card}: '
+        f'{sum(map(len, ids)) / wall:.1f} out-tok/s (wall {wall:.3f} s), '
+        f'TTFT p50 {ttfts[len(ttfts) // 2]:.1f} ms; flash launches '
+        f'{counts}; tokens equal to the in-memory model\'s '
+        f'{_share_equal(ids, ctx["dense_toks"]):.4f}')
+    if ids != ctx['dense_toks']:
+        raise SystemExit('the checkpoint serves other tokens than the '
+                         'in-memory model')
+
+    # Swap under the graph: budgets of three calls; after the first
+    # call, a sentinel lm_head (zeros but +-5 rows at two ids, so only
+    # they can be the argmax) is installed.
+    sentinels = (100, 200)
+    n_new = 3 * SERVE['steps_per_call']
+    reqs = [engine.submit(p, n_new) for p in ctx['prompts']]
+    engine.step()
+    before = [r.emitted for r in reqs]
+    head = torch.zeros_like(restored.lm_head.weight)
+    head[sentinels[0]] = 5.0
+    head[sentinels[1]] = -5.0
+    t0 = time.perf_counter()
+    engine.update_params({**restored.state_dict(), 'lm_head.weight': head})
+    torch.cuda.synchronize()
+    swap_ms = (time.perf_counter() - t0) * 1e3
+    while not all(r.finished_at is not None for r in reqs):
+        engine.step()
+    streams = [r.tokens() for r in reqs]
+    after_ok = all(set(t[n:]) <= set(sentinels)
+                   for t, n in zip(streams, before))
+    before_ok = all(not set(t[:n]) <= set(sentinels)
+                    for t, n in zip(streams, before))
+    log(f'  swap under the graph: {len(reqs)} requests of {n_new} tokens, '
+        f'{before[0]} emitted each before the install; update_params of '
+        f'the whole state dict ({cfg.num_params() / 1e9:.2f}B params) '
+        f'{swap_ms:.1f} ms (staged + installed, synced); every later token '
+        f'a sentinel: {after_ok}; none before: {before_ok}')
+    if not (after_ok and before_ok and all(len(t) == n_new
+                                           for t in streams)):
+        raise SystemExit('the swap under the graph did not take effect at '
+                         'the dispatch boundary')
+    del engine, restored
+    torch.cuda.empty_cache()
+    return counts
 
 
 def training_phase(device, card, smi):
@@ -1119,19 +1355,28 @@ def _grad_diff(grads, ref):
     return rels, worst, total.item()
 
 
-def grad_check(model, cfg, tokens):
-    """One step's loss and per-tensor gradients through the kernels vs
-    (a) the same model with the attention backward through the kernels'
-    plain versions on the same CUDA tensors, and (b) attention_impl=
-    'xla', on the same (trained) weights."""
+def loss_and_grads(model, loss_of):
+    """(loss, {name: gradient}) of `loss_of(model)` by autograd."""
+    import torch
+    names, params = zip(*model.named_parameters())
+    loss = loss_of(model)
+    grads = torch.autograd.grad(loss, params)
+    return loss.item(), dict(zip(names, grads))
+
+
+def kernel_vs_plain_grads(model, loss_of):
+    """One step's loss and per-tensor gradients of `loss_of(model)`
+    through the kernels, and the same step with the attention backward
+    through the kernels' plain versions on the same CUDA tensors (same
+    forward kernel).  Returns (loss, grads, plain loss, plain grads,
+    per call [dq, dk, dv] norm-rel of the kernels vs the plain versions
+    on each attention backward's own inputs, first layer first)."""
     import torch
     from unittest import mock
-    from skypilot_tpu_torch.models.llama import Llama
     from skypilot_tpu_torch.ops import attention as attn_lib
     from skypilot_tpu_torch.ops.cuda import flash_attention as fa
-    from skypilot_tpu_torch.train.trainer import lm_loss
 
-    per_call = []   # (dq, dk, dv) norm-rel, kernels vs plain, last layer first
+    per_call = []
 
     class PlainBackward(torch.autograd.Function):
         """The forward kernel, then `flash_attention_bwd_reference`; the
@@ -1155,23 +1400,34 @@ def grad_check(model, cfg, tokens):
                              zip(fa.flash_attention_bwd(*args), plain)])
             return (*plain, None)
 
-    def loss_and_grads(m):
-        names, params = zip(*m.named_parameters())
-        loss = lm_loss(m(tokens), tokens)
-        grads = torch.autograd.grad(loss, params)
-        return loss.item(), dict(zip(names, grads))
-
-    loss_f, grads_f = loss_and_grads(model)
+    loss_f, grads_f = loss_and_grads(model, loss_of)
     with mock.patch.object(attn_lib, 'flash_attention',
                            lambda q, k, v, causal=True, block_size=512:
                            PlainBackward.apply(q, k, v, causal)):
-        loss_p, grads_p = loss_and_grads(model)
+        loss_p, grads_p = loss_and_grads(model, loss_of)
+    return loss_f, grads_f, loss_p, grads_p, per_call[::-1]
+
+
+def grad_check(model, cfg, tokens):
+    """One step's loss and per-tensor gradients through the kernels vs
+    (a) the same model with the attention backward through the kernels'
+    plain versions on the same CUDA tensors, and (b) attention_impl=
+    'xla', on the same (trained) weights."""
+    import torch
+    from skypilot_tpu_torch.models.llama import Llama
+    from skypilot_tpu_torch.train.trainer import lm_loss
+
+    def loss_of(m):
+        return lm_loss(m(tokens), tokens)
+
+    loss_f, grads_f, loss_p, grads_p, per_call = kernel_vs_plain_grads(
+        model, loss_of)
     if len(per_call) != cfg.n_layers:
         raise SystemExit(f'the plain-backward path ran {len(per_call)} '
                          f'attention backwards for {cfg.n_layers} layers')
     xla = Llama(dataclasses.replace(cfg, attention_impl='xla'),
                 model.state_dict()).requires_grad_(True)
-    loss_x, grads_x = loss_and_grads(xla)
+    loss_x, grads_x = loss_and_grads(xla, loss_of)
     del xla
     rels_p, worst_p, total_p = _grad_diff(grads_f, grads_p)
     _, worst_x, total_x = _grad_diff(grads_f, grads_x)
@@ -1179,7 +1435,6 @@ def grad_check(model, cfg, tokens):
     per_layer = [max(r for n, r in rels_p.items()
                      if n.startswith(f'layers.{i}.'))
                  for i in range(cfg.n_layers)]
-    per_call = per_call[::-1]
     log(f'  gradients at batch {tokens.shape[0]}, kernels vs plain '
         f'backward: loss {loss_f:.6f} vs {loss_p:.6f}; global norm-rel '
         f'{total_p:.3e}; worst tensors '
@@ -1238,6 +1493,209 @@ def profile_train_step(trainer, tokens, card):
         log(f'    {dev_ms:9.3f} ms  x{count:<6d} {name[:90]}')
 
 
+def rl_kernel_times(device):
+    """CUDA-event times of the forward, dq and dk/dv kernels at the
+    REINFORCE step's shape (RL_SHAPE, causal bf16), of their plain
+    versions and of SDPA (forward; backward: one call for dq, dk and
+    dv), beside the bounds.  Returns {kind: numbers}."""
+    import torch
+    import torch.nn.functional as F
+    from skypilot_tpu_torch.ops.cuda import flash_attention as fa
+
+    b, hq, hkv, s, d = RL_SHAPE
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    q, g = (torch.randn((b, hq, s, d), generator=gen,
+                        device=device).to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((b, hkv, s, d), generator=gen,
+                        device=device).to(torch.bfloat16) for _ in range(2))
+    out, lse = fa.flash_attention_fwd(q, k, v, return_residuals=True)
+    delta = (g.float() * out.float()).sum(-1)
+    calls = {
+        'fwd': (lambda: fa.flash_attention_fwd(q, k, v,
+                                               return_residuals=True),
+                lambda: fa.flash_attention_fwd_reference(
+                    q, k, v, return_residuals=True)),
+        'dq': (lambda: fa.flash_attention_bwd_dq(q, k, v, g, lse, delta),
+               lambda: fa.flash_attention_bwd_dq_reference(q, k, v, g, lse,
+                                                           delta)),
+        'dkv': (lambda: fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta),
+                lambda: fa.flash_attention_bwd_dkv_reference(
+                    q, k, v, g, lse, delta)),
+    }
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                              enable_gqa=True)
+    lib_bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(
+        sdpa_out, leaves, g, retain_graph=True))
+    with torch.no_grad():
+        lib_fwd_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True))
+    times = {}
+    for kind, (kernel, plain) in calls.items():
+        if kind == 'fwd':
+            bound_ms, bound_by, flops, nbytes = attention_bound(
+                b, hq, hkv, s, d, True)
+        else:
+            bound_ms, bound_by, flops, nbytes = bwd_bound(kind, b, hq, hkv,
+                                                          s, d, True)
+        times[kind] = {'ms': cuda_time_ms(kernel),
+                       'plain_ms': cuda_time_ms(plain),
+                       'bound_ms': bound_ms, 'bound_by': bound_by,
+                       'library_ms': lib_fwd_ms if kind == 'fwd'
+                       else lib_bwd_ms,
+                       'shape': [b, hq, hkv, s, d, True, 'bfloat16']}
+        t = times[kind]
+        log(f'  timing {kind} at the REINFORCE shape b={b} hq={hq} '
+            f'hkv={hkv} s={s} d={d} causal bf16: kernel {t["ms"]:.4f} ms, '
+            f'plain {t["plain_ms"]:.4f} ms, sdpa '
+            f'{"forward" if kind == "fwd" else "backward (dq+dk+dv)"} '
+            f'{t["library_ms"]:.4f} ms, bound {bound_ms:.6f} ms '
+            f'({bound_by}: {flops / 1e6:.1f} MFLOP, {nbytes / 1e6:.3f} MB)')
+    return times
+
+
+def rl_phase(device, card):
+    """The RL loop (RL): rollout on the engine -> one REINFORCE step on
+    the learner -> update_params, RL['iterations'] times, with exact
+    flash launches per iteration (the rollout's one prefill group; the
+    step's forward, dq and dk/dv per layer), finite losses, and the
+    engine's params bit-equal to the learner's after the last swap; then
+    one step's gradients through the kernels against the same step
+    through the backward kernels' plain versions.  Returns the kernels'
+    launch counts of the loop."""
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch.inference.engine import DecodeEngine, EngineConfig
+    from skypilot_tpu_torch.models.llama import LLAMA_CONFIGS, Llama, init_params
+    from skypilot_tpu_torch.train import rl
+
+    cfg = LLAMA_CONFIGS[RL['model']]
+    t0 = time.perf_counter()
+    params = init_params(cfg, device,
+                         torch.Generator(device=device).manual_seed(SEED))
+    learner = Llama(cfg, {k: v.clone() for k, v in params.items()})
+    engine = DecodeEngine(Llama(cfg, params), EngineConfig(
+        n_slots=RL['n_slots'], steps_per_call=RL['steps_per_call'],
+        prefill_buckets=RL['prefill_buckets'],
+        temperature=RL['temperature'], seed=RL['seed']), device=device)
+    engine.prewarm()
+    torch.cuda.synchronize()
+    if engine._decode_call.graph is None:
+        raise SystemExit('the RL engine decodes without its graph')
+    step = rl.make_reinforce_step(
+        learner, torch.optim.Adam(learner.parameters(), lr=RL['lr']),
+        kl_coef=RL['kl_coef'])
+    log(f'  {RL["model"]}: {cfg.num_params() / 1e9:.3f}B params f32, '
+        f'{cfg.n_layers} layers, dim {cfg.dim}, heads {cfg.n_heads}/'
+        f'{cfg.n_kv_heads} x {cfg.head_dim}; engine and learner built and '
+        f'the decode graph captured in {time.perf_counter() - t0:.2f} s')
+
+    def reward(prompt, sampled):
+        # The recipe's reward, the share of distinct sampled ids, is 1.0
+        # on every row of a random model's 32 samples from 32000 ids: it
+        # whitens to zero advantages and a zero gradient.  The share of
+        # even ids differs from row to row.
+        return sum(t % 2 == 0 for t in sampled) / max(len(sampled), 1)
+
+    prompts = [list(RL['prompt'])] * RL['n_prompts']
+    n = cfg.n_layers
+    want_rollout = {'flash_attention_fwd': n, 'flash_attention_bwd_dq': 0,
+                    'flash_attention_bwd_dkv': 0}
+    want_step = dict.fromkeys(KERNEL_NAMES, n)
+    losses, rows = [], []
+    zero_launches()
+    for it in range(RL['iterations']):
+        c0, t0 = read_launches(), time.perf_counter()
+        batch = rl.rollout(engine, prompts, RL['max_new'], reward)
+        torch.cuda.synchronize()
+        c1, t1 = read_launches(), time.perf_counter()
+        loss = step(*batch)
+        torch.cuda.synchronize()
+        c2, t2 = read_launches(), time.perf_counter()
+        engine.update_params(learner.state_dict())
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        got_rollout = {k: c1[k] - c0[k] for k in KERNEL_NAMES}
+        got_step = {k: c2[k] - c1[k] for k in KERNEL_NAMES}
+        toks, _, plens, tlens = batch
+        raw = np.mean([reward(p, list(t[pl:tl])) for p, t, pl, tl
+                       in zip(prompts, toks, plens, tlens)])
+        losses.append(loss.item())
+        rows.append((t1 - t0, t2 - t1, t3 - t2))
+        log(f'  iteration {it}: tokens {tuple(toks.shape)}, loss '
+            f'{losses[-1]:+.6f}, mean reward {raw:.4f}; rollout '
+            f'{(t1 - t0) * 1e3:.1f} ms, REINFORCE step {(t2 - t1) * 1e3:.1f} '
+            f'ms, update_params {(t3 - t2) * 1e3:.1f} ms (each synced) on '
+            f'{card}; launches rollout {got_rollout}, step {got_step}')
+        if got_rollout != want_rollout or got_step != want_step:
+            raise SystemExit(f'RL launches: rollout {got_rollout} (want '
+                             f'{want_rollout}), step {got_step} (want '
+                             f'{want_step})')
+    counts = read_launches()
+    served = engine.model.state_dict()
+    same = all(torch.equal(served[k], t)
+               for k, t in learner.state_dict().items())
+    log(f'  {RL["iterations"]} iterations: losses {losses}; engine params '
+        f'bit-equal to the learner\'s after the last swap: {same}')
+    if not all(map(math.isfinite, losses)) or not same:
+        raise SystemExit('RL: a non-finite loss, or the engine serves other '
+                         'params than the learner\'s')
+
+    # The last iteration's step (its tokens and advantages): gradients
+    # through the kernels against the same step through the backward
+    # kernels' plain versions, and the plain backward against
+    # attention_impl='xla' (two bf16 formulations without the kernels'
+    # backward: the comparison's noise floor).
+    toks, adv, plens, tlens = (torch.as_tensor(x, device=device)
+                               for x in batch)
+    toks = toks.long()
+
+    def loss_of(m):
+        return rl.reinforce_loss(m(toks), toks, adv, plens, tlens)
+
+    loss_f, grads_f, loss_p, grads_p, per_call = kernel_vs_plain_grads(
+        learner, loss_of)
+    xla = Llama(dataclasses.replace(cfg, attention_impl='xla'),
+                learner.state_dict()).requires_grad_(True)
+    _, grads_x = loss_and_grads(xla, loss_of)
+    rels, worst_p, total_p = _grad_diff(grads_f, grads_p)
+    _, worst_x, total_x = _grad_diff(grads_p, grads_x)
+    per_layer = [max(r for k, r in rels.items()
+                     if k.startswith(f'layers.{i}.')) for i in range(n)]
+    log(f'  REINFORCE gradients at {tuple(toks.shape)}, kernels vs plain '
+        f'backward: loss {loss_f:.6f} vs {loss_p:.6f}; global norm-rel '
+        f'{total_p:.3e}; worst tensors '
+        f'{[(k, round(r, 6)) for k, r in worst_p]}; plain backward vs '
+        f'xla: global {total_x:.3e}, worst '
+        f'{[(k, round(r, 6)) for k, r in worst_x]}')
+    log(f'    worst tensor per layer (0..{n - 1}) '
+        f'{[float(f"{r:.2e}") for r in per_layer]}; one attention '
+        f'backward per layer on its own inputs, max of dq/dk/dv '
+        f'{[float(f"{max(r):.2e}") for r in per_call]}')
+    # Per-tensor GRAD_PLAIN_RTOL does not hold here: over 16 bf16 layers
+    # and 288 tokens the two backward paths' rounding drifts apart by
+    # ~1e-3 per layer the gradient travels back (1.5e-2 at layer 0 while
+    # every attention backward on its own inputs agrees within 1e-4, and
+    # plain vs xla differ by more; PERF.md, Findings).  Gated: each
+    # call within BWD_NORM_RTOL, every tensor within GRAD_NORM_RTOL, and
+    # the whole gradient no further from the plain backward's than that
+    # is from xla's.
+    if (len(per_call) != n or not math.isfinite(loss_f) or
+            max(map(max, per_call)) > BWD_NORM_RTOL or
+            worst_p[0][1] > GRAD_NORM_RTOL or total_p > total_x):
+        raise SystemExit('REINFORCE gradients through the backward kernels '
+                         'disagree with their plain versions')
+    del grads_f, grads_p, grads_x
+    iteration = [sum(r) for r in rows]
+    log(f'  RL iteration time (ms) {[round(x * 1e3, 1) for x in iteration]}'
+        f': rollout {[round(r[0] * 1e3, 1) for r in rows]}, step '
+        f'{[round(r[1] * 1e3, 1) for r in rows]}, swap '
+        f'{[round(r[2] * 1e3, 1) for r in rows]}')
+    del engine, learner, xla
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1283,16 +1741,27 @@ def main() -> int:
     by_path['serving'], serve_ctx = serving_phase(device, card)
     log(f'[paged] {PAGED}')
     by_path['paged'] = paged_phase(device, card, serve_ctx)
+    log('[checkpoint] the serving weights through CheckpointManager, '
+        'served with --checkpoint --param-dtype bfloat16; a swap under the '
+        'graph')
+    by_path['checkpoint'] = checkpoint_phase(device, card, serve_ctx)
     del serve_ctx
+    # Collect what the serving phases left in reference cycles before the
+    # training phase reads its peak memory.
+    gc.collect()
     torch.cuda.empty_cache()
     log(f'[training] {TRAIN}')
     by_path['training'] = training_phase(device, card, smi)
+    log(f'[rl] {RL}')
+    by_path['rl'] = rl_phase(device, card)
+    at_rl_shape = rl_kernel_times(device)
 
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'tflops',
             'registers', 'smem_bytes', 'spill_bytes')
     rows = []
-    for entry in (fwd, dq, dkv):
+    for entry, kind in ((fwd, 'fwd'), (dq, 'dq'), (dkv, 'dkv')):
+        entry['at_rl_shape'] = at_rl_shape[kind]
         # ptxas of the timed instantiation (bf16, head_dim 128); shared
         # memory as the profiler saw the timed launch.  None where the
         # library was reused from an earlier build (no ptxas output).

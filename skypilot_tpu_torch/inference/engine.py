@@ -4,8 +4,15 @@ Twin of `skypilot_tpu/inference/engine.py` (mesh=None): the same host
 machinery over the same device contract.
 
 - A fixed pool of decode *slots*; every decode call runs the whole
-  [n_slots] batch for `steps_per_call` steps (a Python loop of eager
-  steps on the device; CUDA graphs are later work).
+  [n_slots] batch for `steps_per_call` steps.  On a CUDA device the call
+  is ONE captured CUDA graph (`_DecodeCall`, the counterpart of the JAX
+  engine's compiled `lax.scan`), captured at `prewarm()` or at the
+  first decode call and replayed from then on; a capture that fails
+  raises.  The graph reads and writes fixed buffers (`_last_d`,
+  `_lens_d`, the cache or page pool, the device page table, its output
+  rows) at the addresses it captured, so none of them is ever rebound:
+  results are copied back into them.  On the CPU the same call object
+  runs its body directly over the same buffers.
 - ONE device->host sync per step: last tokens and lengths live on the
   device, prefill+insert samples each prompt's first token on the device,
   and the decode call returns a fresh [T+1, n_slots] tensor whose row 0 is
@@ -20,9 +27,9 @@ machinery over the same device contract.
   between decode calls; the final chunk samples the first token and
   copies the scratch into the request's slot.
 - The cache, `last` and `lens` are updated in place: the engine owns
-  them, as the JAX engine donates their buffers.  Every decode call's
-  output is a new tensor, so the pipelined loop reads call k-1's rows
-  while call k runs.
+  them, as the JAX engine donates their buffers.  Every decode call
+  returns a clone of the call's output rows, so the pipelined loop reads
+  call k-1's rows after call k has overwritten the buffer.
 
 Slot safety relies on the model cache's invariant (models/llama.py
 _decode_attend): attention masks k_pos > q_pos, and inserts overwrite a
@@ -55,8 +62,17 @@ slot continues from the transferred first token.  Leaves travel in the
 JAX cache tree's order (`_leaf_order`), so a payload crosses between the
 two packages.
 
-Not in this slice: tensor parallelism (`mesh`), `update_params` and the
-perf gauges.
+Weight swaps (`update_params`, the RL rollout/update alternation): the
+new state dict is copied onto the device at once (never aliased: an
+optimizer goes on updating the caller's tensors in place), and the loop
+copies it INTO the served parameters at its next dispatch boundary, on
+its own stream, so calls already queued finish on the old values and
+the captured graph, which reads the parameters at their addresses, sees
+the new ones from the next call on.  The staged copy is dropped after
+the next sync, bounding the double buffer to one loop iteration.
+
+Not in this slice: tensor parallelism (`mesh`), a captured speculative
+verify and the perf gauges.
 """
 from __future__ import annotations
 
@@ -65,7 +81,7 @@ import dataclasses
 import queue
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -248,6 +264,60 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).replace('torch.', '')
 
 
+class _DecodeCall:
+    """One decode call (`steps_per_call` steps over every slot) as ONE
+    object over fixed buffers: the engine's `_last_d` and `_lens_d`, its
+    cache or page pool, its device page table, and the output rows
+    [T+1, n_slots].  With `use_graph` (CUDA) the body is captured once as
+    a CUDA graph and each call replays it; otherwise each call runs the
+    body.  A call returns a clone of the output rows: the next call
+    writes the same buffer while the pipelined loop still has to read
+    this call's rows.  It keeps no reference to its engine (the engine
+    holds it; a cycle would keep a dead engine's cache and model alive
+    until the garbage collector ran)."""
+
+    def __init__(self, engine: 'DecodeEngine', use_graph: bool) -> None:
+        self.out = torch.zeros((engine.cfg.steps_per_call + 1,
+                                engine.cfg.n_slots), dtype=torch.long,
+                               device=engine.device)
+        self.graph = self._capture(engine) if use_graph else None
+
+    def _capture(self, eng: 'DecodeEngine'):
+        dev = eng.device
+        # Warm up on a side stream (lazy kernel loading, library handles)
+        # with one step, then restore what it advanced: the slots' last
+        # tokens and lengths and the sampler's generator.  Its K/V writes
+        # land at positions >= each slot's length, which the next real
+        # step overwrites before any query reads them.
+        saved = (eng._last_d.clone(), eng._lens_d.clone(),
+                 eng._gen.get_state())
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            eng._decode(self.out, n_steps=1)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        eng._last_d.copy_(saved[0])
+        eng._lens_d.copy_(saved[1])
+        eng._gen.set_state(saved[2])
+        graph = torch.cuda.CUDAGraph()
+        # Temperature sampling draws from the engine's own generator:
+        # registered, each replay draws fresh numbers and advances it.
+        graph.register_generator_state(eng._gen)
+        # thread_local: the server's executor threads may touch the
+        # device (export copies) while the loop thread captures.
+        with torch.cuda.graph(graph, capture_error_mode='thread_local'):
+            eng._decode(self.out)
+        return graph
+
+    def __call__(self, engine: 'DecodeEngine') -> torch.Tensor:
+        """One call on `engine`, the engine it was built for."""
+        if self.graph is not None:
+            self.graph.replay()
+        else:
+            engine._decode(self.out)
+        return self.out.clone()
+
+
 class DecodeEngine:
     """Slot-based continuous batching over a `models.llama.Llama`.
 
@@ -255,10 +325,13 @@ class DecodeEngine:
     cache is [n_slots, n_kv_heads, max_seq_len, head_dim] (or the page
     pool under `kv_page_size`).  The model's parameters must live on
     `device` (default: the GPU; raises without one).
+
+    `_eager_decode` (private) runs the decode call's body without the
+    CUDA graph on the card: only for comparing the two.
     """
 
     def __init__(self, model, config: EngineConfig = EngineConfig(),
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, _eager_decode: bool = False):
         self.device = resolve_device(device)
         params_on = device_of(model)
         if params_on is not None and params_on != self.device:
@@ -307,7 +380,7 @@ class DecodeEngine:
         self._pool_alloc: Optional[PagePool] = None
         self._radix: Optional[RadixCache] = None
         self._page_tables = None        # host np [n_slots, pages_per_slot]
-        self._pt_device = None
+        self._pt_device = None          # its device copy, one fixed tensor
         self._pt_dirty = True
         # Short prompts pulled off _prefill_q, awaiting page reservation
         # (head-of-line on allocation failure); prefix hits divert to
@@ -332,6 +405,16 @@ class DecodeEngine:
         self._queued_tokens = 0
         # Batched prefill dispatches so far (one per admission group).
         self.prefill_groups = 0
+        # The decode call (built at prewarm() or the first decode), and
+        # the private switch that keeps it eager on the card.
+        self._decode_call: Optional[_DecodeCall] = None
+        self._eager_decode = _eager_decode
+        # Double-buffered weight swap: update_params stages a copy here;
+        # the loop installs it at its next dispatch boundary and drops
+        # the staged copy once the install's copies have run.
+        self._params_lock = threading.Lock()
+        self._staged_params: Optional[tuple] = None
+        self._retiring_params: List[Any] = []
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._last_gauges: Optional[tuple] = None
@@ -436,6 +519,9 @@ class DecodeEngine:
                            for _ in range(self.model.cfg.n_layers)]
         else:
             self._cache = self._make_cache()
+        if self._paged:
+            self._pt_device = torch.full(self._page_tables.shape, TRASH_PAGE,
+                                         dtype=torch.long, device=self.device)
         self._last_d = torch.zeros((n,), dtype=torch.long, device=self.device)
         self._lens_d = torch.zeros((n,), dtype=torch.long, device=self.device)
 
@@ -461,6 +547,15 @@ class DecodeEngine:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t.to(self.device)
 
+    def _h2d_into(self, dst: torch.Tensor, arr: np.ndarray) -> None:
+        """`_h2d` into an existing device tensor (one the decode graph
+        reads at its address)."""
+        t = torch.from_numpy(arr)
+        if self.device.type == 'cuda':
+            dst.copy_(t.pin_memory(), non_blocking=True)
+        else:
+            dst.copy_(t)
+
     # ----- device compute ----------------------------------------------------
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         """logits [..., V] f32 -> token ids [...] (greedy at temperature
@@ -468,9 +563,12 @@ class DecodeEngine:
         temp = self.cfg.temperature
         if temp > 0.0:
             probs = torch.softmax(logits / temp, dim=-1)
-            flat = probs.reshape(-1, probs.shape[-1])
-            draw = torch.multinomial(flat, 1, generator=self._gen)
-            return draw.reshape(probs.shape[:-1])
+            # torch.multinomial's one-sample draw, argmax(p / q) with q ~
+            # Exp(1) (the same numbers from the same generator state),
+            # without its validity checks, which read values back to the
+            # host and so cannot be captured in the decode graph.
+            q = torch.empty_like(probs).exponential_(1.0, generator=self._gen)
+            return torch.argmax(probs / q, dim=-1)
         return torch.argmax(logits, dim=-1)
 
     def _to_pages(self, small: torch.Tensor) -> torch.Tensor:
@@ -524,25 +622,28 @@ class DecodeEngine:
         return big_cache, last_toks, lens
 
     @torch.no_grad()
-    def _decode(self, cache, last_tokens, lengths, page_table=None):
-        """`steps_per_call` tokens for every slot.  Returns out [T+1,
-        n_slots] (row 0 = the incoming last tokens), the cache (updated in
-        place), and the new last tokens and lengths.  With `page_table`
-        the cache is the pool and the model gathers/scatters through the
-        (call-constant) table."""
+    def _decode(self, out: torch.Tensor, n_steps: Optional[int] = None):
+        """The decode call's body (`_DecodeCall`): `n_steps` (default
+        `steps_per_call`) tokens for every slot, all in place over the
+        engine's fixed buffers.  out[0] = the incoming last tokens,
+        out[t] = step t's tokens; the cache (paged: the pool, through the
+        call-constant `_pt_device`) takes each step's K/V, and `_last_d`
+        and `_lens_d` are advanced by copying back into them."""
         max_len = self.model.cfg.max_seq_len
-        rows = [last_tokens.clone()]
-        last, lens = last_tokens, lengths
-        for _ in range(self.cfg.steps_per_call):
+        page_table = self._pt_device if self._paged else None
+        last, lens = self._last_d, self._lens_d
+        out[0].copy_(last)
+        for t in range(n_steps or self.cfg.steps_per_call):
             # Clamp writes for slots running past the cap: confined to
             # slots being retired (their cache is re-inserted).
             positions = torch.clamp(lens, max=max_len - 1)[:, None]
             logits, _ = self.model(last[:, None], positions, decode=True,
-                                   cache=cache, page_table=page_table)
+                                   cache=self._cache, page_table=page_table)
             last = self._sample(logits[:, 0, :])
-            rows.append(last)
+            out[t + 1].copy_(last)
             lens = lens + 1
-        return torch.stack(rows), cache, last, lens
+        self._last_d.copy_(last)
+        self._lens_d.copy_(lens)
 
     @torch.no_grad()
     def _verify(self, pool, page_table, last_tokens, lengths, drafts):
@@ -846,11 +947,106 @@ class DecodeEngine:
                any(s is not None for s in self._slots)):
             self.step_pipelined()
 
+    # ----- weights lifecycle -------------------------------------------------
+    def _stage(self, params: Mapping[str, torch.Tensor]) -> tuple:
+        """A copy of `params` on the engine's device in the served dtypes,
+        after checking that it names exactly the model's tensors at their
+        shapes.  Always a copy, never an alias: an RL learner's optimizer
+        goes on updating the caller's tensors in place.  The copies queue
+        on the caller's stream; returns (tensors, an event after them on
+        the card, else None)."""
+        served = self.model.state_dict(keep_vars=True)
+        missing = sorted(set(served) - set(params))
+        extra = sorted(set(params) - set(served))
+        if missing or extra:
+            raise ValueError(f'update_params: the new state dict lacks '
+                             f'{missing} and has unknown {extra}')
+        bad = [f'{name} {tuple(params[name].shape)} (served '
+               f'{tuple(t.shape)})' for name, t in served.items()
+               if params[name].shape != t.shape]
+        if bad:
+            raise ValueError(f'update_params: wrong shapes: {bad}')
+        with torch.no_grad():
+            staged = {name: params[name].detach().to(
+                device=self.device, dtype=t.dtype, copy=True)
+                for name, t in served.items()}
+        ready = None
+        if self.device.type == 'cuda':
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+        return staged, ready
+
+    def update_params(self, params: Mapping[str, torch.Tensor]) -> None:
+        """Swap the served weights WITHOUT draining (rolling weight
+        refresh, the RL rollout/update alternation): double-buffered
+        in-flight swap.  `params` is a state dict as `Llama(cfg, params)`
+        takes it, on any device; a missing key, an extra key or a wrong
+        shape is refused.  It is STAGED (copied onto the device) here,
+        overlapping with live serving, and INSTALLED by the loop at its
+        next dispatch boundary: copied into the served parameters' own
+        storage (which the captured decode call reads), so every
+        dispatch sees exactly one set of weights.  Calls already in
+        flight finish on the old values (they are queued ahead of the
+        copies); the first dispatch after the install, mid-request
+        included, samples from the new weights.
+
+        Called with no loop thread running (manual step()/RL
+        alternation), the caller IS the dispatcher, so the install
+        happens before this returns."""
+        staged = self._stage(params)
+        with self._params_lock:
+            # Re-staged before install: the never-served copy's only
+            # reference drops here and it frees at once.
+            self._staged_params = staged
+        if self._thread is None or not self._thread.is_alive():
+            self._install_staged()
+
+    def _install_staged(self) -> None:
+        """Dispatch-boundary half of update_params: copy the staged
+        tensors into the served parameters on the engine's stream (after
+        the staging copies, which may have queued on another stream);
+        the staged copy joins the retiring list until the next sync."""
+        with self._params_lock:
+            staged, self._staged_params = self._staged_params, None
+        if staged is None:
+            return
+        tensors, ready = staged
+        stream = None
+        if ready is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(ready)
+        with torch.no_grad():
+            for name, param in self.model.state_dict(keep_vars=True).items():
+                param.copy_(tensors[name])
+        if stream is not None:
+            # Freed early (nothing in flight), the memory is reused only
+            # once this stream has run the copies.
+            for t in tensors.values():
+                t.record_stream(stream)
+        self._retiring_params.append(tensors)
+        if self._inflight is None:
+            self._release_retiring()
+
+    def _release_retiring(self) -> None:
+        """Drop the engine's references to installed staged copies.
+        Called right after the step's sync (which waits for the install's
+        copies, queued before it) or, with nothing in flight, at the
+        install itself: the double buffer lasts at most one loop
+        iteration."""
+        if self._retiring_params:
+            self._retiring_params = []
+
     def prewarm(self) -> None:
-        """Build the flash-forward kernel before taking traffic (there are
-        no shapes to compile ahead: PyTorch runs eagerly)."""
+        """Build the flash-forward kernel and the decode call (on the
+        card: capture its CUDA graph) before taking traffic."""
         if self.device.type == 'cuda':
             cuda_fa.build()
+        if not self._spec_k and self._decode_call is None:
+            self._decode_call = self._new_decode_call()
+
+    def _new_decode_call(self) -> _DecodeCall:
+        return _DecodeCall(self, use_graph=(self.device.type == 'cuda' and
+                                            not self._eager_decode))
 
     def start(self):
         self._thread = threading.Thread(target=self._loop,
@@ -920,12 +1116,13 @@ class DecodeEngine:
             self._ready_q.append(req)
 
     def _pt(self) -> torch.Tensor:
-        """Device copy of the page tables, refreshed only when host
-        bookkeeping changed.  The upload reads a snapshot, never the live
-        host table the loop goes on mutating while the copy is in
-        flight."""
-        if self._pt_dirty or self._pt_device is None:
-            self._pt_device = self._h2d(self._page_tables.copy())
+        """Device copy of the page tables: one tensor for the engine's
+        life (the decode graph reads it at its address), refreshed in
+        place only when host bookkeeping changed.  The upload reads a
+        snapshot, never the live host table the loop goes on mutating
+        while the copy is in flight."""
+        if self._pt_dirty:
+            self._h2d_into(self._pt_device, self._page_tables.copy())
             self._pt_dirty = False
         return self._pt_device
 
@@ -942,9 +1139,11 @@ class DecodeEngine:
                 self._cache, self._pt(), self._last_d, self._lens_d,
                 self._h2d(self._propose_drafts()))
         else:
-            out, self._cache, self._last_d, self._lens_d = self._decode(
-                self._cache, self._last_d, self._lens_d,
-                self._pt() if self._paged else None)
+            if self._decode_call is None:
+                self._decode_call = self._new_decode_call()
+            if self._paged:
+                self._pt()
+            out = self._decode_call(self)
         return out
 
     def _propose_drafts(self) -> np.ndarray:
@@ -1428,6 +1627,7 @@ class DecodeEngine:
         """One SYNCHRONOUS engine iteration (admit + decode + process).
         Returns #active slots.  The serving loop uses step_pipelined
         (or this, under speculation)."""
+        self._install_staged()
         self._step_chunked()
         self._step_adopt()
         self._admit_free()
@@ -1435,6 +1635,7 @@ class DecodeEngine:
                   if self._slots[i] is not None]
         self._sample_gauges(len(active))
         if not active:
+            self._release_retiring()
             return 0
         t0 = time.perf_counter()
         out = self._dispatch_decode()
@@ -1448,6 +1649,7 @@ class DecodeEngine:
                                verify_span=(t0, t1))
         else:
             self._process_rows(out, snapshot)
+        self._release_retiring()
         return len(active)
 
     def step_pipelined(self) -> int:
@@ -1459,12 +1661,18 @@ class DecodeEngine:
         prompt's chunked prefill dispatches at most one chunk per
         iteration, right behind the decode call.
 
+        Staged weight swaps install at the TOP of the iteration, the
+        dispatch boundary: the call dispatched below and everything after
+        it run the new weights, and the staged copy is dropped right
+        after the in-flight sync.
+
         Returns #slots active in the dispatched call plus any chunk
         dispatched (0 = fully idle and nothing in flight)."""
         if self._spec_k:
             # Speculation replaces pipelining: drafting call k before call
             # k-1's tokens land would draft from stale history.
             return self.step()
+        self._install_staged()
         active = [i for i in range(self.cfg.n_slots)
                   if self._slots[i] is not None]
         self._sample_gauges(len(active))
@@ -1479,6 +1687,7 @@ class DecodeEngine:
             # The ONE fetch per step, one call late: syncs call k-1 while
             # call k runs.
             self._process_rows(out_prev.cpu().numpy(), snapshot)
+        self._release_retiring()
         self._inflight = dispatched
         # Slots whose occupant will PROVABLY finish inside the call just
         # dispatched hand off to a successor with zero garbage calls.

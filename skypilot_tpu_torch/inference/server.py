@@ -43,21 +43,26 @@ request, minted otherwise), which keys the request's span events.
 Text prompts use a byte-level tokenizer (token id = byte value); real
 deployments pass `prompt_ids` from their own tokenizer.
 
+Weights: `--checkpoint DIR` restores the latest step a port trainer
+saved there (inference/weights.py), cast to `--param-dtype`; without it
+the replica serves random weights from `--seed`.
+
 Run: python -m skypilot_tpu_torch.inference.server --model llama2-7b \
-    --max-seq-len 448 --kv-page-size 64  (on the GPU; --device cpu for a
-    CPU run).
+    --max-seq-len 448 --checkpoint DIR --param-dtype bfloat16 \
+    --kv-page-size 64  (on the GPU; --device cpu for a CPU run).
 """
 from __future__ import annotations
 
 import argparse
 import asyncio
 import os
-from typing import List
+from typing import List, Optional
 
 import aiohttp
 from aiohttp import web
 
 from skypilot_tpu_torch import sky_logging
+from skypilot_tpu_torch.device import device_of
 from skypilot_tpu_torch.inference import kv_transfer
 from skypilot_tpu_torch.inference.engine import DecodeEngine, EngineConfig
 from skypilot_tpu_torch.server import metrics as metrics_lib
@@ -257,7 +262,8 @@ def build_app(engine: DecodeEngine,
     return app
 
 
-def main() -> None:
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    """The server's flags (`argv` None: the command line)."""
     parser = argparse.ArgumentParser()
     parser.add_argument('--model', default='bench-600m')
     parser.add_argument('--port', type=int,
@@ -313,28 +319,59 @@ def main() -> None:
                         help='torch device to serve on (cuda or cpu)')
     parser.add_argument('--seed', type=int, default=0,
                         help='seed of the random weights')
-    args = parser.parse_args()
+    parser.add_argument(
+        '--checkpoint', default=None,
+        help='checkpoint directory written by the port\'s '
+        'train/checkpoint.py (step_<n>/state.pt; a local path): restores '
+        'trained params (the latest step) instead of random init')
+    parser.add_argument(
+        '--param-dtype', choices=['float32', 'bfloat16'], default=None,
+        help='dtype the params are held in (restored params are cast; '
+        'random ones made in it).  bfloat16 halves device memory.  '
+        'Default: the model config\'s (float32)')
+    args = parser.parse_args(argv)
     if args.max_prompt_len < 0:
         # A negative cap would 413 every request while /health stays
         # green: refuse at startup instead of serving a dead replica.
         parser.error(f'--max-prompt-len must be >= 0, '
                      f'got {args.max_prompt_len}')
+    return args
 
+
+def build_model(args: argparse.Namespace):
+    """The served model: `args.model` at `--max-seq-len`, its params
+    restored from `--checkpoint` (the latest step) or, without one,
+    random from `--seed`, held in `--param-dtype`, on `--device`."""
     import dataclasses
 
     import torch
 
     from skypilot_tpu_torch.device import resolve_device
+    from skypilot_tpu_torch.inference.weights import load_serving_params
     from skypilot_tpu_torch.models.llama import (LLAMA_CONFIGS, Llama,
                                                  init_params)
 
     device = resolve_device(args.device)
     cfg = dataclasses.replace(LLAMA_CONFIGS[args.model],
                               max_seq_len=args.max_seq_len)
-    logger.warning('serving RANDOM-INIT params (demo mode; checkpoint '
-                   'loading comes with a later slice)')
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    model = Llama(cfg, init_params(cfg, device, gen))
+    if args.param_dtype:
+        cfg = dataclasses.replace(cfg,
+                                  param_dtype=getattr(torch, args.param_dtype))
+    if args.checkpoint:
+        params = load_serving_params(args.checkpoint, dtype=cfg.param_dtype,
+                                     device=device)
+    else:
+        logger.warning('no --checkpoint given: serving RANDOM-INIT params '
+                       '(demo mode)')
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        params = init_params(cfg, device, gen)
+    return Llama(cfg, params)
+
+
+def main(argv: Optional[List[str]] = None) -> None:
+    args = parse_args(argv)
+    model = build_model(args)
+    device = device_of(model)
     paged = bool(args.kv_page_size)
     engine = DecodeEngine(
         model,

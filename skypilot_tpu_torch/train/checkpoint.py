@@ -33,6 +33,10 @@ class CheckpointManager:
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f'step_{step}')
 
+    def state_path(self, step: int) -> str:
+        """The file holding step `step`'s state."""
+        return os.path.join(self._path(step), _STATE_FILE)
+
     def all_steps(self) -> List[int]:
         steps = []
         for name in os.listdir(self.directory):
@@ -65,8 +69,8 @@ class CheckpointManager:
     def restore(self, step: int, target: Any) -> Any:
         """Load step `step` into `target` (its `load_state_dict`) and
         return it."""
-        state = torch.load(os.path.join(self._path(step), _STATE_FILE),
-                           map_location=target.device, weights_only=True)
+        state = torch.load(self.state_path(step), map_location=target.device,
+                           weights_only=True)
         target.load_state_dict(state)
         return target
 

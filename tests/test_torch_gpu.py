@@ -1,8 +1,10 @@
 """GPU-only checks of the PyTorch port: the hand-written flash-attention
 kernels (forward, dq, dk/dv) against their plain versions, the autograd
 op against autograd through `mha_reference`, the engine's kernel path
-against attention_impl='xla', and a narrow model trained through the
-kernels, on the card.  Marked `gpu`; each test asks the
+against attention_impl='xla', a narrow model trained through the
+kernels, the engine's decode call as a CUDA graph against its eager
+body (dense and paged, greedy and sampled) and a weight swap under the
+graph, on the card.  Marked `gpu`; each test asks the
 `cuda` fixture, which skips when there is no CUDA device.  No JAX here,
 so the file runs where only the port is installed:
 
@@ -47,6 +49,10 @@ EDGE_SHAPES = [
     (1, 4, 2, 192, 128, False, torch.bfloat16),
     (1, 4, 2, 96, 128, True, torch.float16),
 ]
+# The RL loop's shapes (llama-250m: 16 query heads over 8 kv heads of 64,
+# causal bf16, batch 8): the rollout's prefill bucket S=8, and REINFORCE
+# steps over prompt + sampled tokens, S=36 and a shorter ragged S=33.
+RL_SHAPES = [(8, 16, 8, s, 64, True, torch.bfloat16) for s in (8, 33, 36)]
 
 
 @pytest.mark.parametrize('b,hq,hkv,s,d,causal,dtype', [
@@ -56,6 +62,7 @@ EDGE_SHAPES = [
     (2, 32, 8, 96, 64, True, torch.float16),
     (1, 4, 4, 512, 64, False, torch.bfloat16),
     *EDGE_SHAPES,
+    *RL_SHAPES,
     # A single row: forward only, since with one key the softmax is
     # constant and dq, dk are 0 up to rounding (no relative error).
     (2, 4, 2, 1, 128, True, torch.bfloat16),
@@ -142,6 +149,7 @@ DQ_EDGE_SHAPES = [
     (1, 2, 2, 32, 128, True, torch.bfloat16),
     *EDGE_SHAPES,
     *DQ_EDGE_SHAPES,
+    *RL_SHAPES,
 ])
 def test_flash_bwd_kernels_match_plain(cuda, b, hq, hkv, s, d, causal,
                                        dtype):
@@ -269,3 +277,81 @@ def test_narrow_model_trains_through_kernels(cuda):
     assert [c.launches - b for c, b in zip(counters, before)] == [
         3 * 2 * cfg.n_layers, 3 * cfg.n_layers, 3 * cfg.n_layers]
     assert all(torch.isfinite(torch.tensor(losses))) and losses[-1] < losses[0]
+
+
+def _narrow_engine(cuda, eager=False, **kw):
+    """A narrow llama2-shaped model (MHA, head_dim 128, bf16) and an
+    engine over it: on the card its decode call is a CUDA graph unless
+    `eager` (the private switch kept for this comparison)."""
+    cfg = LlamaConfig(vocab_size=512, dim=256, n_layers=2, n_heads=2,
+                      n_kv_heads=2, ffn_dim=688, rope_theta=10000.0,
+                      max_seq_len=128, dtype=torch.bfloat16,
+                      param_dtype=torch.bfloat16)
+    params = init_params(cfg, cuda,
+                         torch.Generator(device=cuda).manual_seed(0))
+    config = dict(n_slots=4, prefill_buckets=(16, 32), steps_per_call=4)
+    config.update(kw)
+    return DecodeEngine(Llama(cfg, params), EngineConfig(**config),
+                        device=cuda, _eager_decode=eager)
+
+
+def _serve(engine, prompts, n_new):
+    reqs = [engine.submit(p, n_new) for p in prompts]
+    for _ in range(200):
+        engine.step_pipelined()
+        if all(r.finished_at is not None for r in reqs):
+            engine.drain()
+            return [r.tokens() for r in reqs]
+    raise AssertionError('requests did not finish')
+
+
+_GRAPH_PROMPTS = ([1, 5, 9, 200, 7], list(range(40, 70)), [3] * 12,
+                  list(range(100, 140)), [7, 7, 8])
+
+
+@pytest.mark.parametrize('paged', [False, True])
+@pytest.mark.parametrize('temperature', [0.0, 1.0])
+def test_graph_decode_matches_eager(cuda, paged, temperature):
+    """The decode call replayed as a CUDA graph gives the eager body's
+    tokens (five prompts over four slots, a chunked one among them): the
+    same kernels on the same buffers, and at temperature 1 the same
+    draws, since the graph advances the engine's registered generator."""
+    kw = dict(temperature=temperature, seed=3)
+    if paged:
+        kw['kv_page_size'] = 16
+    graph = _narrow_engine(cuda, **kw)
+    graph.prewarm()
+    assert graph._decode_call.graph is not None
+    eager = _narrow_engine(cuda, eager=True, **kw)
+    eager.prewarm()
+    assert eager._decode_call.graph is None
+    assert (_serve(graph, _GRAPH_PROMPTS, 10) ==
+            _serve(eager, _GRAPH_PROMPTS, 10))
+
+
+@pytest.mark.parametrize('paged', [False, True])
+def test_sentinel_swap_under_the_graph(cuda, paged):
+    """A sentinel lm_head installed mid-request: the graph reads the
+    parameters at their captured addresses, so every token of a call
+    dispatched after the install is a sentinel and none before is."""
+    sentinels = (100, 200)
+    engine = _narrow_engine(cuda, n_slots=1, steps_per_call=2,
+                            kv_page_size=16 if paged else None)
+    req = engine.submit([1, 5, 9, 200, 7], 12)
+    for _ in range(3):
+        engine.step()
+    emitted = req.emitted
+    assert engine._decode_call.graph is not None and emitted
+    params = engine.model.state_dict()
+    head = torch.zeros_like(params['lm_head.weight'])
+    head[sentinels[0]] = 5.0
+    head[sentinels[1]] = -5.0
+    engine.update_params({**params, 'lm_head.weight': head})
+    for _ in range(20):
+        engine.step()
+        if req.finished_at is not None:
+            break
+    toks = req.tokens()
+    assert len(toks) == 12
+    assert set(toks[emitted:]) <= set(sentinels)
+    assert not set(toks[:emitted]) <= set(sentinels)

@@ -138,3 +138,12 @@ def test_paged_serving_slice_modules_are_covered():
                   "DECODE_URL_HEADER = 'X-Skytpu-Decode-Url'",
                   "ADOPT_ROUTE = '/v1/kv_adopt'"):
         assert const in text
+
+
+def test_weights_and_rl_slice_modules_are_covered():
+    """The isolation checks above walk every module of the port; the
+    weights-lifecycle and RL slice's modules are among them."""
+    mods = set(_port_modules())
+    assert {'skypilot_tpu_torch.inference.weights',
+            'skypilot_tpu_torch.train.rl',
+            'skypilot_tpu_torch.train.checkpoint'} <= mods

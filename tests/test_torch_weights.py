@@ -1,0 +1,146 @@
+"""Serving trained checkpoints in the port (`inference/weights.py`, the
+server's `--checkpoint` / `--param-dtype`): JAX `tiny` weights carried
+across with `params_from_jax`, saved as a port `TrainState` by the
+port's `CheckpointManager`, restored leaf-exact, and served with the
+JAX engine's greedy tokens on the same weights.  f32 compute on both
+sides so greedy argmax is not at the mercy of bf16 rounding."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from flax.core import meta
+
+from skypilot_tpu.inference import engine as jax_engine
+from skypilot_tpu.models import llama as jl
+from skypilot_tpu_torch.inference import server as torch_server
+from skypilot_tpu_torch.inference.engine import DecodeEngine, EngineConfig
+from skypilot_tpu_torch.inference.weights import load_serving_params
+from skypilot_tpu_torch.models import llama as tl
+from skypilot_tpu_torch.models.convert import params_from_jax
+from skypilot_tpu_torch.train import trainer as tt
+from skypilot_tpu_torch.train.checkpoint import CheckpointManager
+
+torch.set_num_threads(1)
+
+CFG_J = dataclasses.replace(jl.LLAMA_CONFIGS['tiny'], dtype=jnp.float32)
+CFG_T = dataclasses.replace(tl.LLAMA_CONFIGS['tiny'], dtype=torch.float32)
+ENGINE_KW = dict(n_slots=2, prefill_buckets=(8, 16), steps_per_call=4)
+PROMPTS = [[5, 17, 3, 42, 9], [7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 200]]
+
+
+class _ParamsOnly:
+    """A params-only checkpoint: `state_dict()` is the tensors alone."""
+
+    def __init__(self, tensors):
+        self.tensors = tensors
+
+    def state_dict(self):
+        return self.tensors
+
+
+@pytest.fixture(scope='module')
+def saved(tmp_path_factory):
+    """(JAX model, JAX params, port params, checkpoint dir): the JAX
+    weights saved as a full TrainState at step 3, after a params-only
+    step 1 of other weights."""
+    model_j = jl.Llama(CFG_J)
+    params_j = meta.unbox(jax.jit(model_j.init)(
+        jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))['params'])
+    params_t = params_from_jax(jax.tree.map(np.asarray, params_j))
+    directory = str(tmp_path_factory.mktemp('ckpt'))
+    mgr = CheckpointManager(directory)
+    mgr.save(1, _ParamsOnly({k: torch.zeros_like(v)
+                             for k, v in params_t.items()}))
+    model = tl.Llama(CFG_T, {k: v.clone() for k, v in params_t.items()})
+    mgr.save(3, tt.make_train_state(model, tt.TrainConfig()))
+    return model_j, params_j, params_t, directory
+
+
+def _run(engine, reqs, limit=400):
+    for _ in range(limit):
+        engine.step()
+        if all(r.finished_at is not None for r in reqs):
+            return [r.tokens() for r in reqs]
+    raise AssertionError('requests did not finish')
+
+
+def test_load_restores_train_state_leaf_exact(saved):
+    _, _, params_t, directory = saved
+    got = load_serving_params(directory, device='cpu')       # latest: 3
+    assert sorted(got) == sorted(params_t)
+    for name, want in params_t.items():
+        assert got[name].dtype == want.dtype
+        torch.testing.assert_close(got[name], want, rtol=0, atol=0)
+    # An explicit step reads that step: the params-only zeros.
+    first = load_serving_params(directory, step=1, device='cpu')
+    assert list(first) == list(params_t)
+    assert all(not t.any() for t in first.values())
+
+
+def test_restored_checkpoint_serves_jax_greedy_tokens(saved):
+    model_j, params_j, _, directory = saved
+    model = tl.Llama(CFG_T, load_serving_params(directory, device='cpu'))
+    engine = DecodeEngine(model, EngineConfig(**ENGINE_KW), device='cpu')
+    got = _run(engine, [engine.submit(p, 8) for p in PROMPTS])
+    ref = jax_engine.DecodeEngine(model_j, params_j,
+                                  jax_engine.EngineConfig(**ENGINE_KW))
+    reqs = [ref.submit(p, 8) for p in PROMPTS]
+    for _ in range(400):
+        ref.step()
+        if all(r.finished_at is not None for r in reqs):
+            break
+    assert got == [r.tokens() for r in reqs]
+
+
+def test_dtype_casts_floating_tensors_only(tmp_path):
+    tensors = {'w': torch.randn(3, 4), 'ids': torch.arange(5),
+               'mask': torch.tensor([True, False])}
+    CheckpointManager(str(tmp_path)).save(0, _ParamsOnly(tensors))
+    got = load_serving_params(str(tmp_path), dtype=torch.bfloat16,
+                              device='cpu')
+    assert got['w'].dtype == torch.bfloat16
+    torch.testing.assert_close(got['w'], tensors['w'].to(torch.bfloat16),
+                               rtol=0, atol=0)
+    assert got['ids'].dtype == torch.int64
+    assert torch.equal(got['ids'], tensors['ids'])
+    assert got['mask'].dtype == torch.bool
+
+
+def test_missing_steps_and_buckets_raise(tmp_path):
+    with pytest.raises(FileNotFoundError, match='no checkpoint steps'):
+        load_serving_params(str(tmp_path), device='cpu')
+    with pytest.raises(FileNotFoundError, match='no checkpoint directory'):
+        load_serving_params(str(tmp_path / 'absent'), device='cpu')
+    with pytest.raises(ValueError, match='storage slice'):
+        load_serving_params('gs://bucket/run-1', device='cpu')
+
+
+@pytest.mark.parametrize('param_dtype', [None, 'float32', 'bfloat16'])
+def test_server_builds_the_checkpointed_model(saved, param_dtype):
+    _, _, params_t, directory = saved
+    argv = ['--model', 'tiny', '--device', 'cpu', '--max-seq-len', '128',
+            '--checkpoint', directory]
+    if param_dtype:
+        argv += ['--param-dtype', param_dtype]
+    model = torch_server.build_model(torch_server.parse_args(argv))
+    want_dtype = getattr(torch, param_dtype or 'float32')
+    assert model.cfg.param_dtype == want_dtype
+    assert model.cfg.max_seq_len == 128
+    got = model.state_dict()
+    assert sorted(got) == sorted(params_t)
+    for name, want in params_t.items():
+        torch.testing.assert_close(got[name], want.to(want_dtype), rtol=0,
+                                   atol=0)
+
+
+def test_server_without_checkpoint_serves_seeded_random_weights():
+    argv = ['--model', 'tiny', '--device', 'cpu', '--param-dtype',
+            'bfloat16', '--seed', '4']
+    a, b = (torch_server.build_model(torch_server.parse_args(argv))
+            for _ in range(2))
+    for (name, x), y in zip(a.state_dict().items(), b.state_dict().values()):
+        assert x.dtype == torch.bfloat16, name
+        assert torch.equal(x, y), name
