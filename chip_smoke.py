@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases, each fatal on failure (non-zero exit, no result line):
+Phases, each fatal on failure (non-zero exit, no result line), each
+followed by its seconds:
 
 1. Device: the card's name, and name + power limit from nvidia-smi.
 2. Build: nvcc compiles every kernel source in skypilot_tpu_torch/csrc/
@@ -21,7 +22,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    sum), next to the roofline bound, at the llama2-7b prefill
    shape (forward, also with the L2 flushed before each call) and the
    bench-1b training shape (forward, dq, dk/dv), and one profiled launch
-   of each (registers per thread and shared memory as launched).
+   of each (registers per thread and shared memory as launched); the
+   same times at the MoE prefill shape (forward) and the MoE training
+   shape (forward, dq, dk/dv; GQA group 4).
 4. Serving: llama2-7b at full width and depth (bf16 random weights from
    a seed) behind the port's HTTP app on a local port, 8 prompts of 219
    tokens plus one of 300 (chunked prefill), 32 new tokens each; every
@@ -46,23 +49,44 @@ Phases, each fatal on failure (non-zero exit, no result line):
    equal to the in-memory model's); then a sentinel lm_head installed
    with update_params mid-request under the graph (every later token a
    sentinel, none before).
-7. Training: bench-1b at full width and depth (f32 params, bf16 compute,
+7. MoE serving (MOE_SERVE, examples/train_moe_expert_parallel.yaml:20):
+   llama3-1b with 8 experts at full width and depth (6.873B params,
+   bf16 from a seed) on the engine API with the serving phase's traffic,
+   dense with the decode call as a graph and eagerly, and paged (64-
+   token pages) as a graph: tokens identical all three ways, exactly 16
+   flash launches per prefill group, every id in the vocabulary; out-
+   tok/s, TTFT p50, prewarm seconds and one profiled decode call each;
+   the share of (token, expert) choices the prefill group drops at
+   capacity; the prefill logits through the kernel held against
+   attention_impl='xla' on the tokens whose routing agrees in every
+   layer (the share that flips is printed, not gated).
+8. Training: bench-1b at full width and depth (f32 params, bf16 compute,
    remat 'none') through Trainer.run at batch 4, seq 4096: 2 untimed and
    8 timed steps, launch counts read around the timed steps (2 forward,
    1 dq and 1 dk/dv launch per layer per step), step time, tokens/s, MFU
    and peak memory; then one step's loss and gradients at batch 1
    through the kernels against the same step with the backward kernels'
    plain versions (same forward) and against attention_impl='xla', on
-   the same weights, and one step traced with torch.profiler.
-8. RL (RL, examples/train_rl_reinforce.yaml): llama-250m at full width
+   the same weights, and one step traced with torch.profiler.  Then
+   the MoE model (MOE_TRAIN) at full width, 4 of its 16 layers, remat
+   'none', batch 2 x 2048, 2 untimed and 4 timed steps, the same launch
+   counts and numbers (MFU counts all experts, 6N, as the JAX package
+   does), and its gradients against the plain backward; against xla
+   reported only (its rounding may flip a routing choice).
+9. RL (RL, examples/train_rl_reinforce.yaml): llama-250m at full width
    and depth, 3 iterations of rollout (the engine's graph, temperature
    1) -> REINFORCE step (forward, dq, dk/dv kernels) -> update_params,
    exact launches per iteration, finite losses, the engine's params
    bit-equal to the learner's, one step's gradients against the plain
    backward; then the three kernels timed at the REINFORCE shape.
-9. Result: the kernels JSON line (per kernel also TFLOP/s, ptxas
-   registers and spill-store bytes, shared memory per launch), the
-   nvidia-smi line, then
+10. Zoo (ZOO): bert-tiny (B=32, S=512) and resnet50 (B=64, 224 x 224 x 3
+   NHWC), a train-mode forward and a backward each, timed; finite
+   gradients, ResNet's running averages updated, bf16 logits within
+   ZOO_LOGITS_RTOL of the same weights in f32.
+11. Result: the kernels JSON line (per kernel also TFLOP/s, ptxas
+   registers and spill-store bytes, shared memory per launch; launches
+   by path: serving, paged, checkpoint, moe_serving, training,
+   moe_training, rl), the nvidia-smi line, then
    {"ok": true, "device": {...}} as the last line.
 
 Needs one CUDA device; exits non-zero without one and imports nothing of
@@ -123,11 +147,16 @@ GRAD_GLOBAL_RTOL = 1e-2
 LOSS_RTOL = 1e-2
 TRAIN = dict(model='bench-1b', batch=4, seq=4096, warm_steps=2,
              timed_steps=8, grad_batch=1, warmup_steps=5, total_steps=1000)
+# (b, hq, hkv, s, d) of the MoE paths' attention (MOE_SERVE, MOE_TRAIN):
+# the serving prefill (8 prompts in the 256 bucket) and the training step.
+MOE_PREFILL_SHAPE = (8, 32, 8, 256, 64)
+MOE_TRAIN_SHAPE = (2, 32, 8, 2048, 64)
 # (b, hq, hkv, s, d, causal, dtype) of the backward check: bench-1b's
 # training shape first (it is also the timed one), llama-250m, llama2-7b
 # (MHA), a non-causal and a ragged fp16 case, S shorter than one tile
-# and past a multiple of the 128-row tiles, and the RL loop's shapes
-# (its REINFORCE step over 4 + 32 tokens, its rollout's prefill bucket).
+# and past a multiple of the 128-row tiles, the RL loop's shapes (its
+# REINFORCE step over 4 + 32 tokens, its rollout's prefill bucket) and
+# the MoE training step's (GQA group 4).
 BWD_SHAPES = [(4, 16, 8, 4096, 128, True, 'bfloat16'),
               (8, 16, 8, 2048, 64, True, 'bfloat16'),
               (2, 32, 32, 512, 128, True, 'bfloat16'),
@@ -136,7 +165,8 @@ BWD_SHAPES = [(4, 16, 8, 4096, 128, True, 'bfloat16'),
               (1, 4, 2, 32, 128, True, 'bfloat16'),
               (1, 4, 2, 320, 128, True, 'bfloat16'),
               (8, 16, 8, 36, 64, True, 'bfloat16'),
-              (8, 16, 8, 8, 64, True, 'bfloat16')]
+              (8, 16, 8, 8, 64, True, 'bfloat16'),
+              (*MOE_TRAIN_SHAPE, True, 'bfloat16')]
 SERVE = dict(model='llama2-7b', max_seq_len=448, n_slots=8,
              steps_per_call=32, prefill_buckets=(256,), prompt_len=219,
              n_prompts=8, long_prompt_len=300, max_tokens=32)
@@ -160,6 +190,30 @@ RL = dict(model='llama-250m', prompt=(1, 2, 3, 4), n_prompts=8, max_new=32,
           temperature=1.0, seed=0, lr=1e-5, kl_coef=0.02, iterations=3)
 # (b, hq, hkv, s, d) of the REINFORCE step's attention (timed).
 RL_SHAPE = (8, 16, 8, 36, 64)
+# The MoE configuration of examples/train_moe_expert_parallel.yaml:20,
+# llama3-1b with 8 experts (top-2, capacity factor 1.25): 32 query heads
+# over 8 kv heads of 64 (a GQA group of 4).  Served whole (6.873B params,
+# 13.75 GB in bf16) with SERVE's engine and traffic, dense (graph and
+# eager) and 64-token-paged (graph).
+MOE_SERVE = dict(model='llama3-1b', n_experts=8, max_seq_len=448,
+                 n_slots=8, steps_per_call=32, prefill_buckets=(256,),
+                 kv_page_size=64, prompt_len=219, n_prompts=8,
+                 long_prompt_len=300, max_tokens=32)
+# Trained at full width with n_layers cut 16 -> 4: the whole model's f32
+# AdamW state would be 110 GB; 4 layers are 1.915B params, ~30.6 GB.
+# The config's own remat (policy 'none'), f32 params, bf16 compute; batch
+# 2 x 2048, one card's share of the recipe's 16 x 2048.
+MOE_TRAIN = dict(model='llama3-1b', n_experts=8, n_layers=4, batch=2,
+                 seq=2048, warm_steps=2, timed_steps=4, grad_batch=1,
+                 warmup_steps=5, total_steps=1000)
+# The zoo's models on the card: bert-tiny at B=32, S=512 and resnet50 at
+# B=64 on 224 x 224 x 3 NHWC, each a train-mode forward and a backward.
+ZOO = dict(encoder='bert-tiny', enc_batch=32, enc_seq=512,
+           resnet='resnet50', res_batch=64, res_hw=224, warm_steps=2,
+           timed_steps=5)
+# The zoo's bf16-compute logits against the same weights in f32 compute,
+# relative to the f32 logits' max |logit|.
+ZOO_LOGITS_RTOL = 5e-2
 
 
 def log(msg: str) -> None:
@@ -491,6 +545,7 @@ def kernel_phase(device):
               for b in (1, 8) for s in (32, 64, 128, 256, 512)]
     shapes += [(4, 12, 4, 256, 128, True, torch.bfloat16),  # bench-600m
                (4, 32, 8, 256, 64, True, torch.bfloat16),   # llama3-1b
+               (*MOE_PREFILL_SHAPE, True, torch.bfloat16),  # MoE prefill
                (2, 32, 32, 256, 128, False, torch.bfloat16),  # non-causal
                (2, 8, 2, 96, 64, True, torch.float16)]      # ragged, fp16
     max_err = 0.0
@@ -1260,31 +1315,35 @@ def checkpoint_phase(device, card, ctx):
     return counts
 
 
-def training_phase(device, card, smi):
-    """bench-1b through Trainer.run: 2 untimed steps, then the timed
-    steps with every launch counter zeroed just before and read just
-    after.  Returns the launch counts of the timed run."""
+def training_phase(device, card, smi, spec=TRAIN):
+    """A model through Trainer.run (`spec`: TRAIN, bench-1b, or
+    MOE_TRAIN): 2 untimed steps, then the timed steps with every launch
+    counter zeroed just before and read just after; then the gradient
+    check and one profiled step.  Returns the launch counts of the timed
+    run."""
     import torch
     from skypilot_tpu_torch.models.llama import LLAMA_CONFIGS, Llama, init_params
     from skypilot_tpu_torch.train import flops as flops_lib
     from skypilot_tpu_torch.train.trainer import TrainConfig, Trainer
 
-    cfg = LLAMA_CONFIGS[TRAIN['model']]
-    batch, seq, steps = TRAIN['batch'], TRAIN['seq'], TRAIN['timed_steps']
+    cfg = dataclasses.replace(LLAMA_CONFIGS[spec['model']], **{
+        k: spec[k] for k in ('n_experts', 'n_layers') if k in spec})
+    batch, seq, steps = spec['batch'], spec['seq'], spec['timed_steps']
     t0 = time.perf_counter()
     model = Llama(cfg, init_params(
         cfg, device, torch.Generator(device=device).manual_seed(SEED)))
-    trainer = Trainer(model, TrainConfig(warmup_steps=TRAIN['warmup_steps'],
-                                         total_steps=TRAIN['total_steps']),
+    trainer = Trainer(model, TrainConfig(warmup_steps=spec['warmup_steps'],
+                                         total_steps=spec['total_steps']),
                       device=device)
     tokens = torch.randint(
         0, cfg.vocab_size, (batch, seq), device=device,
         generator=torch.Generator(device=device).manual_seed(SEED + 2))
     torch.cuda.synchronize()
-    log(f'  {TRAIN["model"]}: {cfg.num_params() / 1e9:.3f}B params f32, '
+    log(f'  {spec["model"]}: {cfg.num_params() / 1e9:.3f}B params f32, '
         f'{cfg.n_layers} layers, dim {cfg.dim}, heads {cfg.n_heads}/'
-        f'{cfg.n_kv_heads} x {cfg.head_dim}, compute {cfg.dtype}, remat '
-        f'{cfg.remat_policy!r}; init {time.perf_counter() - t0:.1f} s')
+        f'{cfg.n_kv_heads} x {cfg.head_dim}, experts {cfg.n_experts}, '
+        f'compute {cfg.dtype}, remat {cfg.remat}/{cfg.remat_policy!r}; '
+        f'init {time.perf_counter() - t0:.1f} s')
 
     # Per-step metrics stay on the device; they are read after the run.
     step_metrics = []
@@ -1297,10 +1356,10 @@ def training_phase(device, card, smi):
 
     trainer.train_step = recording_step
     t0 = time.perf_counter()
-    trainer.run(iter([tokens] * TRAIN['warm_steps']), TRAIN['warm_steps'],
-                log_every=TRAIN['warm_steps'])
+    trainer.run(iter([tokens] * spec['warm_steps']), spec['warm_steps'],
+                log_every=spec['warm_steps'])
     torch.cuda.synchronize()
-    log(f'  {TRAIN["warm_steps"]} untimed steps: '
+    log(f'  {spec["warm_steps"]} untimed steps: '
         f'{time.perf_counter() - t0:.2f} s')
 
     torch.cuda.reset_peak_memory_stats()
@@ -1324,7 +1383,7 @@ def training_phase(device, card, smi):
         f'{mfu:.2f}% of 989 TFLOP/s ({flops_per_token / 1e9:.3f} GFLOP/'
         f'token), peak memory {peak_gb:.2f} GB; trainer tokens/s '
         f'{out["tokens_per_s"]:.0f}')
-    log(f'  loss per step ({TRAIN["warm_steps"]} untimed, then timed) '
+    log(f'  loss per step ({spec["warm_steps"]} untimed, then timed) '
         f'{[round(x, 4) for x in losses]}; grad norm '
         f'{[round(x, 3) for x in norms]}; launches {counts}')
     want = {'flash_attention_fwd': 2 * cfg.n_layers * steps,
@@ -1337,9 +1396,14 @@ def training_phase(device, card, smi):
     if not all(map(math.isfinite, losses + norms)):
         raise SystemExit(f'non-finite training loss or grad norm: {losses} '
                          f'{norms}')
-    grad_check(trainer.model, cfg, tokens[:TRAIN['grad_batch']])
+    # The xla path is a gate for a dense model; for MoE it is reported
+    # only: its rounding can flip a near-tied routing choice.
+    grad_check(trainer.model, cfg, tokens[:spec['grad_batch']],
+               gate_xla=cfg.n_experts == 0)
     trainer.train_step = train_step
     profile_train_step(trainer, tokens, card)
+    del trainer, model
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -1408,11 +1472,12 @@ def kernel_vs_plain_grads(model, loss_of):
     return loss_f, grads_f, loss_p, grads_p, per_call[::-1]
 
 
-def grad_check(model, cfg, tokens):
+def grad_check(model, cfg, tokens, gate_xla=True):
     """One step's loss and per-tensor gradients through the kernels vs
     (a) the same model with the attention backward through the kernels'
-    plain versions on the same CUDA tensors, and (b) attention_impl=
-    'xla', on the same (trained) weights."""
+    plain versions on the same CUDA tensors (the same forward, so the
+    same routing), and (b) attention_impl='xla', on the same (trained)
+    weights; (b) gates only with `gate_xla`."""
     import torch
     from skypilot_tpu_torch.models.llama import Llama
     from skypilot_tpu_torch.train.trainer import lm_loss
@@ -1453,8 +1518,9 @@ def grad_check(model, cfg, tokens):
             max(map(max, per_call)) <= BWD_NORM_RTOL):
         raise SystemExit('training gradients through the backward kernels '
                          'disagree with their plain versions')
-    if (abs(loss_f - loss_x) > LOSS_RTOL * abs(loss_x) or
-            worst_x[0][1] > GRAD_NORM_RTOL or total_x > GRAD_GLOBAL_RTOL):
+    if gate_xla and (abs(loss_f - loss_x) > LOSS_RTOL * abs(loss_x) or
+                     worst_x[0][1] > GRAD_NORM_RTOL or
+                     total_x > GRAD_GLOBAL_RTOL):
         raise SystemExit('training gradients through the kernels disagree '
                          'with attention_impl=xla')
     del grads_f, grads_p, grads_x
@@ -1493,16 +1559,16 @@ def profile_train_step(trainer, tokens, card):
         log(f'    {dev_ms:9.3f} ms  x{count:<6d} {name[:90]}')
 
 
-def rl_kernel_times(device):
-    """CUDA-event times of the forward, dq and dk/dv kernels at the
-    REINFORCE step's shape (RL_SHAPE, causal bf16), of their plain
-    versions and of SDPA (forward; backward: one call for dq, dk and
-    dv), beside the bounds.  Returns {kind: numbers}."""
+def kernel_times(device, shape, label, kinds=('fwd', 'dq', 'dkv')):
+    """CUDA-event times of the forward, dq and dk/dv kernels (`kinds`)
+    at `shape` (b, hq, hkv, s, d; causal bf16), of their plain versions
+    and of SDPA (forward; backward: one call for dq, dk and dv), beside
+    the bounds.  Returns {kind: numbers}."""
     import torch
     import torch.nn.functional as F
     from skypilot_tpu_torch.ops.cuda import flash_attention as fa
 
-    b, hq, hkv, s, d = RL_SHAPE
+    b, hq, hkv, s, d = shape
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
     q, g = (torch.randn((b, hq, s, d), generator=gen,
                         device=device).to(torch.bfloat16) for _ in range(2))
@@ -1527,11 +1593,13 @@ def rl_kernel_times(device):
                                               enable_gqa=True)
     lib_bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(
         sdpa_out, leaves, g, retain_graph=True))
+    del sdpa_out, leaves
     with torch.no_grad():
         lib_fwd_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True))
     times = {}
-    for kind, (kernel, plain) in calls.items():
+    for kind in kinds:
+        kernel, plain = calls[kind]
         if kind == 'fwd':
             bound_ms, bound_by, flops, nbytes = attention_bound(
                 b, hq, hkv, s, d, True)
@@ -1545,12 +1613,16 @@ def rl_kernel_times(device):
                        else lib_bwd_ms,
                        'shape': [b, hq, hkv, s, d, True, 'bfloat16']}
         t = times[kind]
-        log(f'  timing {kind} at the REINFORCE shape b={b} hq={hq} '
-            f'hkv={hkv} s={s} d={d} causal bf16: kernel {t["ms"]:.4f} ms, '
-            f'plain {t["plain_ms"]:.4f} ms, sdpa '
+        t['tflops'] = flops / t['ms'] / 1e9
+        log(f'  timing {kind} at the {label} shape b={b} hq={hq} '
+            f'hkv={hkv} s={s} d={d} causal bf16: kernel {t["ms"]:.4f} ms '
+            f'({t["tflops"]:.1f} TFLOP/s), plain {t["plain_ms"]:.4f} ms, sdpa '
             f'{"forward" if kind == "fwd" else "backward (dq+dk+dv)"} '
             f'{t["library_ms"]:.4f} ms, bound {bound_ms:.6f} ms '
-            f'({bound_by}: {flops / 1e6:.1f} MFLOP, {nbytes / 1e6:.3f} MB)')
+            f'({bound_by}: {flops / 1e6:.1f} MFLOP, {nbytes / 1e6:.3f} MB), '
+            f'{bound_ms / t["ms"]:.1%} of bound')
+    del q, k, v, g, out, lse, delta
+    torch.cuda.empty_cache()
     return times
 
 
@@ -1696,6 +1768,275 @@ def rl_phase(device, card):
     return counts
 
 
+def moe_routing(model, tokens):
+    """Per layer, which experts each token chose and which of those kept
+    a slot, in one serving prefill of `tokens` (model(tokens,
+    decode=True), as the engine's prefill runs it): hooks on every
+    MoEMLP redo its routing on the input it was given.  Returns (logits,
+    [(chosen, kept) [B, S, E] bool per layer])."""
+    import torch
+    from skypilot_tpu_torch.models import moe
+
+    routes = []
+
+    def hook(module, args, _out):
+        probs = torch.softmax(module.router(args[0]), dim=-1)
+        s, k = probs.shape[1], module.top_k
+        kept, _ = moe.top_k_dispatch(probs, k, moe.capacity_of(
+            s, module.n_experts, k, module.capacity_factor))
+        # With 2*S slots per expert nothing drops: the choices alone.
+        chosen, _ = moe.top_k_dispatch(probs, k, 2 * s)
+        routes.append((chosen.sum(-1) > 0, kept.sum(-1) > 0))
+
+    handles = [layer.moe_mlp.register_forward_hook(hook)
+               for layer in model.layers]
+    try:
+        with torch.no_grad():
+            logits, _ = model(tokens, decode=True)
+    finally:
+        for h in handles:
+            h.remove()
+    return logits, routes
+
+
+def moe_serving_phase(device, card):
+    """llama3-1b with 8 experts at full width and depth (bf16 weights from
+    a seed) on the engine API, SERVE's traffic: dense with the decode
+    call as a CUDA graph and eagerly, and 64-token-paged as a graph;
+    tokens identical all three ways, the flash launches of each run
+    exactly 16 per prefill group, every token in the vocabulary; the
+    prefill group's drop share at capacity; and the prefill logits
+    through the kernel held against attention_impl='xla' on the tokens
+    whose routing agrees in every layer.  Returns the kernels' launch
+    counts of the three runs."""
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch.inference.engine import DecodeEngine, EngineConfig
+    from skypilot_tpu_torch.models import moe
+    from skypilot_tpu_torch.models.llama import LLAMA_CONFIGS, Llama, init_params
+
+    spec = MOE_SERVE
+    cfg = dataclasses.replace(LLAMA_CONFIGS[spec['model']],
+                              n_experts=spec['n_experts'],
+                              max_seq_len=spec['max_seq_len'],
+                              param_dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    params = init_params(cfg, device,
+                         torch.Generator(device=device).manual_seed(SEED))
+    model = Llama(cfg, params)
+    torch.cuda.synchronize()
+    log(f'  {spec["model"]} x {cfg.n_experts} experts: '
+        f'{cfg.num_params() / 1e9:.3f}B params bf16, {cfg.n_layers} layers, '
+        f'dim {cfg.dim}, heads {cfg.n_heads}/{cfg.n_kv_heads} x '
+        f'{cfg.head_dim}, top-{cfg.moe_top_k}, capacity factor '
+        f'{cfg.moe_capacity_factor}; init {time.perf_counter() - t0:.1f} s')
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, spec['prompt_len']).tolist()
+               for _ in range(spec['n_prompts'])]
+    prompts.append(rng.integers(0, cfg.vocab_size,
+                                spec['long_prompt_len']).tolist())
+    profile_prompts = [rng.integers(0, cfg.vocab_size,
+                                    spec['prompt_len']).tolist()
+                       for _ in range(spec['n_prompts'])]
+    n_new = spec['max_tokens']
+    base = dict(n_slots=spec['n_slots'],
+                steps_per_call=spec['steps_per_call'],
+                prefill_buckets=spec['prefill_buckets'])
+    runs, counts = {}, dict.fromkeys(KERNEL_NAMES, 0)
+    for name, eager, kw in (('dense_graph', False, base),
+                            ('dense_eager', True, base),
+                            ('paged_graph', False,
+                             dict(base, kv_page_size=spec['kv_page_size']))):
+        e = DecodeEngine(model, EngineConfig(**kw), device=device,
+                         _eager_decode=eager)
+        t0 = time.perf_counter()
+        e.prewarm()
+        prewarm_s = time.perf_counter() - t0
+        if (e._decode_call.graph is None) != eager:
+            raise SystemExit(f'MoE {name}: decode graph '
+                             f'{e._decode_call.graph} with eager={eager}')
+        prof = profile_decode_call(e, profile_prompts)
+        groups_before = e.prefill_groups
+        zero_launches()
+        toks, wall, ttft, _ = _drive(e, prompts, n_new)
+        got = read_launches()
+        groups = e.prefill_groups - groups_before
+        want = cfg.n_layers * groups
+        if groups < 1 or got['flash_attention_fwd'] != want:
+            raise SystemExit(f'MoE {name}: flash launched {got} over '
+                             f'{groups} prefill groups of {cfg.n_layers} '
+                             f'layers')
+        if e._paged:
+            e._pool_alloc.check_conserved()
+        for key in KERNEL_NAMES:
+            counts[key] += got[key]
+        runs[name] = dict(toks=toks, wall=wall, ttft=ttft, groups=groups,
+                          prewarm_s=prewarm_s, **prof)
+        del e
+        torch.cuda.empty_cache()
+    out_toks = sum(map(len, runs['dense_graph']['toks']))
+    for name, r in runs.items():
+        log(f'  {name}: {len(prompts)} prompts ({len(prompts) - 1} x '
+            f'{len(prompts[0])} + 1 x {len(prompts[-1])}), {n_new} new each, '
+            f'on {card}: {out_toks / r["wall"]:.1f} out-tok/s (wall '
+            f'{r["wall"]:.3f} s), TTFT p50 {_p50(r["ttft"]) * 1e3:.1f} ms, '
+            f'prefill groups {r["groups"]}, prewarm {r["prewarm_s"]:.2f} s; '
+            f'one profiled decode call of {spec["steps_per_call"]} steps '
+            f'over {len(profile_prompts)} slots: wall {r["wall_ms"]:.1f} ms, '
+            f'device busy {r["busy_ms"]:.1f} ms ({r["busy_share"]:.1%}), '
+            f'{r["kernels"]} kernels; by kind (ms) {r["by_kind"]}')
+        for dev_ms, count, kname in r['top']:
+            log(f'      {dev_ms:9.3f} ms  x{count:<6d} {kname[:160]}')
+    want_toks = runs['dense_graph']['toks']
+    for name, r in runs.items():
+        if r['toks'] != want_toks:
+            raise SystemExit(f'MoE {name} tokens differ from dense_graph\'s: '
+                             f'{_share_equal(r["toks"], want_toks):.4f} '
+                             f'equal')
+    if not all(len(t) == n_new and all(0 <= i < cfg.vocab_size for i in t)
+               for t in want_toks):
+        raise SystemExit('MoE: a stream is short or holds an id outside '
+                         'the vocabulary')
+
+    # The prefill group as the engine runs it (8 prompts, zero-padded to
+    # the bucket): the share of (token, expert) choices dropped at
+    # capacity; then the same prefill through attention_impl='xla'.
+    bucket, plen = spec['prefill_buckets'][0], spec['prompt_len']
+    toks = torch.zeros((spec['n_prompts'], bucket), dtype=torch.long,
+                       device=device)
+    toks[:, :plen] = torch.tensor(prompts[:spec['n_prompts']])
+    got, routes = moe_routing(model, toks)
+    xla = Llama(dataclasses.replace(cfg, attention_impl='xla'), params)
+    want, routes_x = moe_routing(xla, toks)
+    del xla
+    chosen = sum(c[:, :plen].sum().item() for c, _ in routes)
+    kept = sum(k[:, :plen].sum().item() for _, k in routes)
+    chosen_all = sum(c.sum().item() for c, _ in routes)
+    kept_all = sum(k.sum().item() for _, k in routes)
+    # A token is held to the gate if the two paths chose and kept the
+    # same experts for it in every layer.
+    same = torch.ones(toks.shape, dtype=torch.bool, device=device)
+    for (c, k), (cx, kx) in zip(routes, routes_x):
+        same &= ((c == cx) & (k == kx)).all(-1)
+    held = same[:, :plen]
+    got, want = got[:, :plen][held], want[:, :plen][held]
+    n_held = int(held.sum().item())
+    flip_share = 1 - n_held / held.numel()
+    rows_flipped = int((~held).any(-1).sum().item())
+    err = (got - want).abs().max().item() if n_held else float('nan')
+    scale = want.abs().max().item() if n_held else float('nan')
+    drop_share = 1 - kept / chosen
+    capacity = moe.capacity_of(bucket, cfg.n_experts, cfg.moe_top_k,
+                               cfg.moe_capacity_factor)
+    log(f'  prefill group ({spec["n_prompts"]} x {plen} in the {bucket} '
+        f'bucket, capacity {capacity} per expert and row): dropped at '
+        f'capacity {drop_share:.4%} of the '
+        f'prompt tokens\' (token, expert) choices ({chosen - kept:.0f} of '
+        f'{chosen:.0f}), {1 - kept_all / chosen_all:.4%} with the padding')
+    log(f'  prefill logits flash vs xla: routing differs for {flip_share:.4%} '
+        f'of the prompt tokens ({held.numel() - n_held} of {held.numel()}; '
+        f'{rows_flipped} of {held.shape[0]} prompts hold one); on the other '
+        f'{n_held}: max_abs_err {err:.4f} of max |logit| {scale:.3f} (rel '
+        f'{err / scale:.2e}, gate {LOGITS_RTOL})')
+    if not (n_held and torch.isfinite(got).all() and
+            err <= LOGITS_RTOL * scale):
+        raise SystemExit('MoE prefill logits through the kernel disagree with '
+                         'attention_impl=xla on the tokens routed alike')
+    del model, params, got, want, routes, routes_x
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def zoo_phase(device, card):
+    """bert-tiny and resnet50 (ZOO) on the card: each a train-mode
+    forward and a backward (ResNet's running averages updated), timed
+    over ZOO['timed_steps'] after ZOO['warm_steps']; gates: finite
+    gradients, every running average moved, and the bf16-compute logits
+    within ZOO_LOGITS_RTOL of the max |logit| of the same weights and
+    running averages in f32 compute.  ResNet is held there at
+    train=False: in train mode each BatchNorm renormalizes by its batch's
+    statistics, and at random initialization that amplifies bf16's
+    rounding with depth in the JAX model as much (its train-mode gap is
+    printed, not gated)."""
+    import torch
+    import torch.nn.functional as F
+    from skypilot_tpu_torch.models import encoder, resnet
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    enc_cfg = encoder.ENCODER_CONFIGS[ZOO['encoder']]
+    res_cfg = resnet.RESNET_CONFIGS[ZOO['resnet']]
+    cases = {
+        ZOO['encoder']: (
+            enc_cfg, lambda cfg, p: encoder.EncoderClassifier(cfg, p),
+            encoder.init_params(enc_cfg, device, gen),
+            torch.randint(0, enc_cfg.vocab_size,
+                          (ZOO['enc_batch'], ZOO['enc_seq']), device=device,
+                          generator=gen), {}),
+        ZOO['resnet']: (
+            res_cfg, lambda cfg, p: resnet.ResNet(cfg, p),
+            resnet.init_params(res_cfg, device, gen),
+            torch.randn((ZOO['res_batch'], ZOO['res_hw'], ZOO['res_hw'], 3),
+                        device=device, generator=gen), {'train': True}),
+    }
+    for name, (cfg, build, state, x, kw) in cases.items():
+        labels = torch.randint(0, cfg.num_classes, (x.shape[0],),
+                               device=device, generator=gen)
+        model = build(cfg, state).requires_grad_(True)
+        before = {k: v.clone() for k, v in model.state_dict().items()
+                  if k.endswith(('.mean', '.var'))}
+
+        def step():
+            model.zero_grad(set_to_none=True)
+            logits = model(x, **kw)
+            F.cross_entropy(logits, labels).backward()
+            return logits
+
+        for _ in range(ZOO['warm_steps']):
+            step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(ZOO['timed_steps']):
+            logits = step()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / ZOO['timed_steps'] * 1e3
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        finite = all(bool(torch.isfinite(p.grad).all())
+                     for p in model.parameters())
+        moved = [k for k, v in before.items()
+                 if not torch.equal(v, model.state_dict()[k])]
+        # The same weights and running averages in f32 compute.
+        f32 = build(dataclasses.replace(cfg, dtype=torch.float32),
+                    {k: v.detach().clone()
+                     for k, v in model.state_dict().items()})
+        held = {'train': False} if kw else {}
+        with torch.no_grad():
+            got, want = model(x, **held), f32(x, **held)
+            train_gap = None
+            if kw:
+                want_t = f32(x, **kw)
+                train_gap = ((logits.detach() - want_t).abs().max() /
+                             want_t.abs().max()).item()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f'  {name}: {n_params / 1e6:.2f}M params, input '
+            f'{tuple(x.shape)}; train-mode forward + backward {step_ms:.2f} '
+            f'ms per step on {card} (peak {peak_gb:.2f} GB); gradients '
+            f'finite {finite}; running averages moved {len(moved)} of '
+            f'{len(before)}; bf16 vs f32 logits {held or "(no modes)"} '
+            f'max_abs_err {err:.4f} of max |logit| {scale:.4f} (gate '
+            f'{ZOO_LOGITS_RTOL}); train-mode gap (not gated) {train_gap}')
+        if not (finite and err <= ZOO_LOGITS_RTOL * scale and
+                len(moved) == len(before)):
+            raise SystemExit(f'zoo {name}: non-finite gradients, bf16 logits '
+                             f'off the f32 ones, or running averages not '
+                             f'updated')
+        del model, f32, state, logits, got, want
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1727,34 +2068,58 @@ def main() -> int:
     if spills or 'setmaxnreg ignored' in build_log:
         raise SystemExit(f'ptxas spilled ({spills}) or ignored setmaxnreg')
 
+    def phase(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f'[{label}] done in {time.perf_counter() - t0:.1f} s')
+        return out
+
     log(f'[kernels] forward vs plain version (out |d| <= {OUT_ATOL} + '
         f'{OUT_RTOL}*|ref|, lse |d| <= {LSE_ATOL})')
-    fwd = kernel_phase(device)
+    fwd = phase('kernels', kernel_phase, device)
     log(f'[kernels] at the training shapes: forward as above, dq and dk/dv '
         f'vs plain versions (||d|| / ||ref|| <= {BWD_NORM_RTOL})')
-    dq, dkv, fwd['at_training_shape'] = bwd_kernel_phase(device)
+    dq, dkv, fwd['at_training_shape'] = phase('kernels', bwd_kernel_phase,
+                                              device)
     fwd['max_abs_err'] = max(fwd['max_abs_err'],
                              fwd['at_training_shape']['max_abs_err'])
+    log('[kernels] at the MoE shapes: prefill (forward), training '
+        '(forward, dq, dk/dv)')
+    at_moe_prefill = phase('kernels', kernel_times, device,
+                           MOE_PREFILL_SHAPE, 'MoE prefill', ('fwd',))
+    at_moe_train = phase('kernels', kernel_times, device, MOE_TRAIN_SHAPE,
+                         'MoE training')
 
     log(f'[serving] {SERVE}')
     by_path = {}
-    by_path['serving'], serve_ctx = serving_phase(device, card)
+    by_path['serving'], serve_ctx = phase('serving', serving_phase, device,
+                                          card)
     log(f'[paged] {PAGED}')
-    by_path['paged'] = paged_phase(device, card, serve_ctx)
+    by_path['paged'] = phase('paged', paged_phase, device, card, serve_ctx)
     log('[checkpoint] the serving weights through CheckpointManager, '
         'served with --checkpoint --param-dtype bfloat16; a swap under the '
         'graph')
-    by_path['checkpoint'] = checkpoint_phase(device, card, serve_ctx)
+    by_path['checkpoint'] = phase('checkpoint', checkpoint_phase, device,
+                                  card, serve_ctx)
     del serve_ctx
     # Collect what the serving phases left in reference cycles before the
-    # training phase reads its peak memory.
+    # next phases read their peak memory.
     gc.collect()
     torch.cuda.empty_cache()
+    log(f'[moe_serving] {MOE_SERVE}')
+    by_path['moe_serving'] = phase('moe_serving', moe_serving_phase, device,
+                                   card)
     log(f'[training] {TRAIN}')
-    by_path['training'] = training_phase(device, card, smi)
+    by_path['training'] = phase('training', training_phase, device, card,
+                                smi)
+    log(f'[moe_training] {MOE_TRAIN}')
+    by_path['moe_training'] = phase('moe_training', training_phase, device,
+                                    card, smi, MOE_TRAIN)
     log(f'[rl] {RL}')
-    by_path['rl'] = rl_phase(device, card)
-    at_rl_shape = rl_kernel_times(device)
+    by_path['rl'] = phase('rl', rl_phase, device, card)
+    at_rl_shape = kernel_times(device, RL_SHAPE, 'REINFORCE')
+    log(f'[zoo] {ZOO}')
+    phase('zoo', zoo_phase, device, card)
 
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'tflops',
@@ -1762,6 +2127,9 @@ def main() -> int:
     rows = []
     for entry, kind in ((fwd, 'fwd'), (dq, 'dq'), (dkv, 'dkv')):
         entry['at_rl_shape'] = at_rl_shape[kind]
+        entry['at_moe_training_shape'] = at_moe_train[kind]
+        if kind == 'fwd':
+            entry['at_moe_prefill_shape'] = at_moe_prefill[kind]
         # ptxas of the timed instantiation (bf16, head_dim 128); shared
         # memory as the profiler saw the timed launch.  None where the
         # library was reused from an earlier build (no ptxas output).

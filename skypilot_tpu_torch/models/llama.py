@@ -29,7 +29,15 @@ and, with `cfg.remat`, checkpointed per block as the JAX model's
 also keeps the projection products (`aten.mm`, the counterpart of
 `dots_with_no_batch_dims_saveable`); attention is recomputed under both.
 
-Not in this ported package yet: the one-hot embedding, MoE and ring
+With `n_experts > 0` every block's MLP is the top-k mixture of experts
+of `models/moe.py` (`moe_mlp` in place of `mlp`, as in the Flax tree);
+`forward(..., return_aux=True)` also returns each MoE layer's
+load-balancing loss, the counterpart of applying the Flax model with
+`intermediates` mutable.  Under remat the expert products (`bmm`, a
+batch dimension) are recomputed under both policies, as
+`dots_with_no_batch_dims_saveable` does not save them.
+
+Not in this ported package yet: the one-hot embedding and ring
 attention.
 """
 from __future__ import annotations
@@ -67,7 +75,7 @@ class LlamaConfig:
     remat: bool = True                   # checkpoint each block (training)
     remat_policy: str = 'none'           # 'none' | 'dots'
     attention_impl: str = 'flash'        # 'flash' | 'xla' ('ring' later)
-    n_experts: int = 0                   # MoE: not in this slice
+    n_experts: int = 0                   # MoE (models/moe.py) if > 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
 
@@ -144,17 +152,20 @@ def _param(shape, dtype) -> nn.Parameter:
 
 
 class Dense(nn.Module):
-    """Bias-free projection, weight [out, in]; input and weight are cast
-    to the compute dtype at use (Flax Dense's dtype/param_dtype split)."""
+    """Projection, weight [out, in], bias-free unless `bias`; input and
+    params are cast to the compute dtype at use (Flax Dense's
+    dtype/param_dtype split)."""
 
     def __init__(self, in_features: int, out_features: int, dtype,
-                 param_dtype) -> None:
+                 param_dtype, bias: bool = False) -> None:
         super().__init__()
         self.dtype = dtype
         self.weight = _param((out_features, in_features), param_dtype)
+        self.bias = _param((out_features,), param_dtype) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
 
 
 class RMSNorm(nn.Module):
@@ -356,15 +367,31 @@ class Block(nn.Module):
         self.attn = Attention(cfg)
         self.mlp_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype,
                                 cfg.param_dtype)
-        self.mlp = MLP(cfg)
+        self.is_moe = cfg.n_experts > 0
+        if self.is_moe:
+            from skypilot_tpu_torch.models.moe import MoEMLP
+            self.moe_mlp = MoEMLP(
+                cfg.dim, cfg.ffn_dim, cfg.n_experts, top_k=cfg.moe_top_k,
+                capacity_factor=cfg.moe_capacity_factor, dtype=cfg.dtype,
+                param_dtype=cfg.param_dtype)
+        else:
+            self.mlp = MLP(cfg)
 
     def forward(self, x, positions, decode=False, cache=None,
-                page_table=None):
+                page_table=None, return_aux=False):
+        """-> (x, cache, aux): aux is the MoE layer's load-balancing loss
+        when `return_aux` is set, else None."""
         h, cache = self.attn(self.attn_norm(x), positions, decode, cache,
                              page_table)
         x = x + h
-        x = x + self.mlp(self.mlp_norm(x))
-        return x, cache
+        h, aux = self.mlp_norm(x), None
+        if self.is_moe:
+            h = self.moe_mlp(h, return_aux=return_aux)
+            if return_aux:
+                h, aux = h
+        else:
+            h = self.mlp(h)
+        return x + h, cache, aux
 
 
 class Llama(nn.Module):
@@ -381,8 +408,6 @@ class Llama(nn.Module):
                 f'attention_impl {cfg.attention_impl!r}: this package has '
                 f"'flash' and 'xla' (ring attention comes with the "
                 f'context-parallel port)')
-        if cfg.n_experts > 0:
-            raise ValueError('MoE comes with the model-zoo port')
         if cfg.remat_policy not in ('none', 'dots'):
             raise ValueError(f'remat_policy {cfg.remat_policy!r} not in '
                              f"('none', 'dots')")
@@ -405,34 +430,45 @@ class Llama(nn.Module):
                 positions: Optional[torch.Tensor] = None,
                 decode: bool = False,
                 cache: Optional[List[LayerCache]] = None,
-                page_table: Optional[torch.Tensor] = None):
+                page_table: Optional[torch.Tensor] = None,
+                return_aux: bool = False):
         """tokens [B, S] -> f32 logits [B, S, V]; with decode=True returns
         (logits, cache), the cache being a list of per-layer (k, v) (the
-        page pool when `page_table` is given)."""
+        page pool when `page_table` is given).  `return_aux` appends the
+        list of the MoE layers' load-balancing losses (empty for a dense
+        model) to what is returned: (logits, aux) or (logits, cache,
+        aux)."""
         cfg = self.cfg
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)
             positions = positions[None, :].expand(tokens.shape)
         x = F.embedding(tokens, self.embed.weight).to(cfg.dtype)
         new_cache: List[LayerCache] = []
+        aux: List[torch.Tensor] = []
         remat = cfg.remat and not decode and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
             if remat:
-                x, layer_cache = checkpoint_lib.checkpoint(
-                    layer, x, positions, use_reentrant=False,
+                x, layer_cache, layer_aux = checkpoint_lib.checkpoint(
+                    layer, x, positions, return_aux=return_aux,
+                    use_reentrant=False,
                     context_fn=_REMAT_CONTEXTS[cfg.remat_policy])
             else:
-                x, layer_cache = layer(x, positions, decode,
-                                       None if cache is None else cache[i],
-                                       page_table)
+                x, layer_cache, layer_aux = layer(
+                    x, positions, decode, None if cache is None else cache[i],
+                    page_table, return_aux)
             new_cache.append(layer_cache)
+            if layer_aux is not None:
+                aux.append(layer_aux)
         x = self.final_norm(x)
         if cfg.tie_embeddings:
             logits = F.linear(x, self.embed.weight.to(cfg.dtype))
         else:
             logits = self.lm_head(x)
         logits = logits.float()
-        return (logits, new_cache) if decode else logits
+        if decode:
+            return (logits, new_cache, aux) if return_aux else (logits,
+                                                                new_cache)
+        return (logits, aux) if return_aux else logits
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -452,14 +488,14 @@ _REMAT_CONTEXTS = {
 }
 
 
-def _lecun_normal(shape, fan_in: int, cfg: LlamaConfig, device,
+def _lecun_normal(shape, fan_in: int, dtype, device,
                   generator) -> torch.Tensor:
     """Flax lecun_normal: truncated normal at +-2 std, std corrected for
     the truncation (1/sqrt(fan_in) / .8796...)."""
     std = (1.0 / fan_in)**0.5 / .87962566103423978
     w = torch.empty(shape, dtype=torch.float32, device=device)
     nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
-    return w.to(cfg.param_dtype)
+    return w.to(dtype)
 
 
 def init_params(cfg: LlamaConfig, device: DeviceLike = None,
@@ -475,7 +511,8 @@ def init_params(cfg: LlamaConfig, device: DeviceLike = None,
     d, hd, f = cfg.dim, cfg.head_dim, cfg.ffn_dim
 
     def dense(n_in, n_out):
-        return _lecun_normal((n_out, n_in), n_in, cfg, device, generator)
+        return _lecun_normal((n_out, n_in), n_in, cfg.param_dtype, device,
+                             generator)
 
     embed = torch.empty((cfg.vocab_size, d), dtype=torch.float32,
                         device=device)
@@ -492,9 +529,19 @@ def init_params(cfg: LlamaConfig, device: DeviceLike = None,
         params[p + 'attn.o_proj.weight'] = dense(cfg.n_heads * hd, d)
         params[p + 'mlp_norm.scale'] = torch.ones(
             d, dtype=cfg.param_dtype, device=device)
-        params[p + 'mlp.gate_proj.weight'] = dense(d, f)
-        params[p + 'mlp.up_proj.weight'] = dense(d, f)
-        params[p + 'mlp.down_proj.weight'] = dense(f, d)
+        if cfg.n_experts > 0:
+            # Flax's lecun_normal over a 3-D kernel counts the expert
+            # axis into the fan-in: d*e for [E, D, F], f*e for [E, F, D].
+            e = cfg.n_experts
+            params[p + 'moe_mlp.router.weight'] = dense(d, e)
+            for name, shape in (('w_gate', (e, d, f)), ('w_up', (e, d, f)),
+                                ('w_down', (e, f, d))):
+                params[p + 'moe_mlp.' + name] = _lecun_normal(
+                    shape, shape[1] * e, cfg.param_dtype, device, generator)
+        else:
+            params[p + 'mlp.gate_proj.weight'] = dense(d, f)
+            params[p + 'mlp.up_proj.weight'] = dense(d, f)
+            params[p + 'mlp.down_proj.weight'] = dense(f, d)
     params['final_norm.scale'] = torch.ones(d, dtype=cfg.param_dtype,
                                             device=device)
     if not cfg.tie_embeddings:

@@ -53,6 +53,11 @@ EDGE_SHAPES = [
 # causal bf16, batch 8): the rollout's prefill bucket S=8, and REINFORCE
 # steps over prompt + sampled tokens, S=36 and a shorter ragged S=33.
 RL_SHAPES = [(8, 16, 8, s, 64, True, torch.bfloat16) for s in (8, 33, 36)]
+# The MoE model's (llama3-1b with 8 experts: 32 query heads over 8 kv
+# heads of 64, a GQA group of 4): its serving prefill (8 prompts in the
+# 256 bucket) and its training step (batch 2 of 2048).
+MOE_SHAPES = [(8, 32, 8, 256, 64, True, torch.bfloat16),
+              (2, 32, 8, 2048, 64, True, torch.bfloat16)]
 
 
 @pytest.mark.parametrize('b,hq,hkv,s,d,causal,dtype', [
@@ -63,6 +68,7 @@ RL_SHAPES = [(8, 16, 8, s, 64, True, torch.bfloat16) for s in (8, 33, 36)]
     (1, 4, 4, 512, 64, False, torch.bfloat16),
     *EDGE_SHAPES,
     *RL_SHAPES,
+    *MOE_SHAPES,
     # A single row: forward only, since with one key the softmax is
     # constant and dq, dk are 0 up to rounding (no relative error).
     (2, 4, 2, 1, 128, True, torch.bfloat16),
@@ -150,6 +156,7 @@ DQ_EDGE_SHAPES = [
     *EDGE_SHAPES,
     *DQ_EDGE_SHAPES,
     *RL_SHAPES,
+    MOE_SHAPES[1],
 ])
 def test_flash_bwd_kernels_match_plain(cuda, b, hq, hkv, s, d, causal,
                                        dtype):
@@ -279,14 +286,15 @@ def test_narrow_model_trains_through_kernels(cuda):
     assert all(torch.isfinite(torch.tensor(losses))) and losses[-1] < losses[0]
 
 
-def _narrow_engine(cuda, eager=False, **kw):
-    """A narrow llama2-shaped model (MHA, head_dim 128, bf16) and an
-    engine over it: on the card its decode call is a CUDA graph unless
-    `eager` (the private switch kept for this comparison)."""
+def _narrow_engine(cuda, eager=False, n_experts=0, **kw):
+    """A narrow llama2-shaped model (MHA, head_dim 128, bf16; with
+    `n_experts`, top-2 MoE blocks) and an engine over it: on the card its
+    decode call is a CUDA graph unless `eager` (the private switch kept
+    for this comparison)."""
     cfg = LlamaConfig(vocab_size=512, dim=256, n_layers=2, n_heads=2,
                       n_kv_heads=2, ffn_dim=688, rope_theta=10000.0,
                       max_seq_len=128, dtype=torch.bfloat16,
-                      param_dtype=torch.bfloat16)
+                      param_dtype=torch.bfloat16, n_experts=n_experts)
     params = init_params(cfg, cuda,
                          torch.Generator(device=cuda).manual_seed(0))
     config = dict(n_slots=4, prefill_buckets=(16, 32), steps_per_call=4)
@@ -309,14 +317,17 @@ _GRAPH_PROMPTS = ([1, 5, 9, 200, 7], list(range(40, 70)), [3] * 12,
                   list(range(100, 140)), [7, 7, 8])
 
 
+@pytest.mark.parametrize('n_experts', [0, 8])
 @pytest.mark.parametrize('paged', [False, True])
 @pytest.mark.parametrize('temperature', [0.0, 1.0])
-def test_graph_decode_matches_eager(cuda, paged, temperature):
+def test_graph_decode_matches_eager(cuda, paged, temperature, n_experts):
     """The decode call replayed as a CUDA graph gives the eager body's
     tokens (five prompts over four slots, a chunked one among them): the
     same kernels on the same buffers, and at temperature 1 the same
-    draws, since the graph advances the engine's registered generator."""
-    kw = dict(temperature=temperature, seed=3)
+    draws, since the graph advances the engine's registered generator.
+    A MoE model captures too: its routing reads nothing back to the
+    host."""
+    kw = dict(temperature=temperature, seed=3, n_experts=n_experts)
     if paged:
         kw['kv_page_size'] = 16
     graph = _narrow_engine(cuda, **kw)

@@ -147,3 +147,17 @@ def test_weights_and_rl_slice_modules_are_covered():
     assert {'skypilot_tpu_torch.inference.weights',
             'skypilot_tpu_torch.train.rl',
             'skypilot_tpu_torch.train.checkpoint'} <= mods
+
+
+def test_model_zoo_slice_modules_are_covered():
+    """The isolation checks above walk every module of the port; the
+    model zoo's modules are among them, and the package exports them."""
+    mods = set(_port_modules())
+    assert {'skypilot_tpu_torch.models.moe',
+            'skypilot_tpu_torch.models.encoder',
+            'skypilot_tpu_torch.models.resnet',
+            'skypilot_tpu_torch.models.convert'} <= mods
+    from skypilot_tpu_torch import models
+    for name in ('MoEMLP', 'EncoderClassifier', 'ENCODER_CONFIGS',
+                 'ResNet', 'RESNET_CONFIGS'):
+        assert name in models.__all__ and hasattr(models, name)
