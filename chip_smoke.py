@@ -30,16 +30,33 @@ followed by its seconds:
    tokens plus one of 300 (chunked prefill), 32 new tokens each; every
    response checked; kernel launch counts read around this run; prefill
    logits through the kernel held against attention_impl='xla'.  The
-   engine's decode call is a CUDA graph (captured at prewarm).
+   engine's decode call is a CUDA graph (captured at prewarm).  The perf
+   plane: the burst is served twice, first under a PROFILE_MS
+   /debug/profile capture (200, its artifact fetched through the
+   artifact route, its trace holding the flash forward kernel and the
+   decode graph's kernels; a second capture sent meanwhile gets 409;
+   the burst's rate under the capture printed), then alone, the
+   measured run: the live gauges read from /metrics (skytpu_engine_mfu,
+   _hbm_bytes_per_token, _arith_intensity) within PERF_GAUGE_RTOL of the
+   cost model at its measured rate and mean context, with
+   perf_snapshot() and the decode roofline printed; then the strict
+   recompile sentinel tripped by a decode call built after prewarm.
+   From here through the MoE serving phase SKYTPU_STRICT_RECOMPILE=1:
+   every engine is prewarmed, and its traffic must build nothing (no
+   counted build, no perf.recompile event).
 5. Paged serving, over the same weights and prompts (PAGED): the dense
    and the 64-token-paged engine on the engine API, each with its decode
    call as a CUDA graph and eager (identical tokens all four ways; out-
-   tok/s, TTFT p50 and one profiled decode call each; 32 flash launches
-   per prefill group, counted around the paged graph run),
+   tok/s, TTFT p50 and one profiled decode call each, its decode-only
+   rate as a share of the cost model's roofline; 32 flash launches per
+   prefill group, counted around the paged graph run),
    a prefix-hit burst (8 requests sharing a 3-page prefix; the hit
    counters exact), int8 pages (within half a quantization step plus one
-   bf16 ulp of the bf16 pages; pool bytes), speculation with k = 4
-   (proposed, accepted), and the KV handoff prefill -> bytes -> decode
+   bf16 ulp of the bf16 pages; pool bytes, whose int8/bf16 ratio the cost
+   model's bytes per position must equal), speculation with k = 4 on bf16
+   and int8 pages, the verify call as a CUDA graph and eager (identical
+   tokens and acceptance counters; CUDA-event ms per verify call, capture
+   seconds, out-tok/s), and the KV handoff prefill -> bytes -> decode
    (identical to a monolithic paged run); every hit, int8 and
    speculative token within LOGITS_RTOL of the argmax of a teacher-forced
    forward through the kernel.
@@ -83,6 +100,9 @@ followed by its seconds:
    NHWC), a train-mode forward and a backward each, timed; finite
    gradients, ResNet's running averages updated, bf16 logits within
    ZOO_LOGITS_RTOL of the same weights in f32.
+   After the MoE serving phase the build telemetry's counts and seconds
+   (kernel build, decode and verify captures) are printed and the
+   sentinel disarmed.
 11. Result: the kernels JSON line (per kernel also TFLOP/s, ptxas
    registers and spill-store bytes, shared memory per launch; launches
    by path: serving, paged, checkpoint, moe_serving, training,
@@ -214,6 +234,17 @@ ZOO = dict(encoder='bert-tiny', enc_batch=32, enc_seq=512,
 # The zoo's bf16-compute logits against the same weights in f32 compute,
 # relative to the f32 logits' max |logit|.
 ZOO_LOGITS_RTOL = 5e-2
+# The live perf gauges (skytpu_engine_mfu, _hbm_bytes_per_token,
+# _arith_intensity) against the cost model evaluated at the serving
+# burst's rate and mean context measured here: the engine's window and
+# this script's wall clock bracket the same burst up to a few ms of the
+# loop's stop, and the engine weights every token's context as this
+# script does.
+PERF_GAUGE_RTOL = 5e-2
+# The /debug/profile window opened over the serving burst (ms), and the
+# verify calls timed per speculative engine.
+PROFILE_MS = 500
+VERIFY_TIMED_CALLS = 10
 
 
 def log(msg: str) -> None:
@@ -638,9 +669,26 @@ def _forget_app_handlers() -> None:
         cached.cache_clear()
 
 
-async def _serve_and_post(engine, batches):
-    """Start the port's HTTP app on a local port, POST each batch of
-    bodies concurrently (batch after batch), stop the app."""
+async def _get(session, url):
+    async with session.get(url) as resp:
+        if resp.content_type == 'application/json':
+            return resp.status, await resp.json()
+        return resp.status, await resp.text()
+
+
+async def _serve_measured(engine, warm, burst):
+    """Start the port's HTTP app on a local port (the engine's loop
+    already running) and POST the warm batch.  Then the burst twice:
+    first under a PROFILE_MS /debug/profile capture opened just before
+    it, with a second capture sent while the first is open; then alone,
+    bracketed by perf_reset_window() under a window longer than the run.
+    After its last reply the loop is stopped and the window closed (one
+    _sample_perf), then /metrics and the capture's artifact are read
+    over HTTP.  Returns (warm replies, the profiled burst's (wall s,
+    replies), the measured burst's (wall s, replies), the second
+    capture's status, the first's reply and client-side wall s, its
+    artifact bytes, the /metrics text)."""
+    import aiohttp
     from aiohttp import web
     from skypilot_tpu_torch.inference.server import build_app
 
@@ -649,14 +697,46 @@ async def _serve_and_post(engine, batches):
     port = _free_port()
     site = web.TCPSite(runner, '127.0.0.1', port)
     await site.start()
+    base = f'http://127.0.0.1:{port}'
+    timeout = aiohttp.ClientTimeout(total=900)
     try:
-        results = []
-        for bodies in batches:
+        warm_replies = await _post_all(port, warm)
+        async with aiohttp.ClientSession(timeout=timeout) as session:
+            t_prof = time.perf_counter()
+            first = asyncio.ensure_future(_get(
+                session, f'{base}/debug/profile?duration_ms={PROFILE_MS}'))
+            await asyncio.sleep(0.1)
+            second_status, _ = await _get(
+                session, f'{base}/debug/profile?duration_ms=10')
             t0 = time.perf_counter()
-            replies = await _post_all(port, bodies)
-            results.append((time.perf_counter() - t0, replies))
-        return results
+            profiled = await _post_all(port, burst)
+            profiled_wall = time.perf_counter() - t0
+            status, doc = await first
+            prof_wall = time.perf_counter() - t_prof
+            if status != 200:
+                raise SystemExit(f'/debug/profile failed: {status} {doc}')
+            engine.perf_window_s = 1e9
+            t0 = time.perf_counter()
+            engine.perf_reset_window()
+            replies = await _post_all(port, burst)
+            wall = time.perf_counter() - t0
+            engine.stop()
+            engine.perf_window_s = 0.0
+            engine._sample_perf()
+            _, metrics_text = await _get(session, f'{base}/metrics')
+        # The artifact's bytes as stored (a .json.gz may be served with
+        # Content-Encoding: gzip, which the client would undo).
+        async with aiohttp.ClientSession(timeout=timeout,
+                                         auto_decompress=False) as raw:
+            async with raw.get(f'{base}/debug/profile/artifact/'
+                               f'{doc["artifact"]}') as resp:
+                if resp.status != 200:
+                    raise SystemExit(f'artifact route: {resp.status}')
+                artifact = await resp.read()
+        return (warm_replies, (profiled_wall, profiled), (wall, replies),
+                second_status, doc, prof_wall, artifact, metrics_text)
     finally:
+        engine.stop()
         await runner.cleanup()
         _forget_app_handlers()
 
@@ -744,23 +824,26 @@ def serving_phase(device, card):
              for p in prompts + [long_prompt]]
 
     torch.cuda.reset_peak_memory_stats()
+    builds = builds_now()
     zero_launches()
     groups_before = engine.prefill_groups
     engine.start()
     try:
-        (_, warm_replies), (wall, replies) = asyncio.run(
-            _serve_and_post(engine, [warm, burst]))
+        (warm_replies, (prof_burst_wall, prof_replies), (wall, replies),
+         busy_status, prof, prof_wall, artifact, metrics_text) = \
+            asyncio.run(_serve_measured(engine, warm, burst))
     finally:
         engine.stop()
     counts = read_launches()
+    check_no_builds(builds, 'the HTTP serving engine')
     launches = counts['flash_attention_fwd']
     groups = engine.prefill_groups - groups_before
     if not engine.healthy:
         raise SystemExit(f'engine crashed: {engine.error!r}')
-    for status, body in warm_replies + replies:
+    for status, body in warm_replies + prof_replies + replies:
         if status != 200:
             raise SystemExit(f'request failed: {status} {body}')
-    for (status, body), req in zip(replies, burst):
+    for (status, body), req in zip(prof_replies + replies, burst + burst):
         if len(body['ids']) != n_new:
             raise SystemExit(f'{len(body["ids"])} ids for a request of '
                              f'{n_new}: {body}')
@@ -778,7 +861,15 @@ def serving_phase(device, card):
         f'{out_toks / wall:.1f} out-tok/s, TTFT ms p50 '
         f'{ttfts[len(ttfts) // 2]:.1f} max {ttfts[-1]:.1f}, peak memory '
         f'{peak_gb:.2f} GB; flash launches {launches} over {groups} '
-        f'prefill groups')
+        f'prefill groups of both bursts')
+    prof_ttfts = sorted(body['usage']['ttft_ms'] for _, body in prof_replies)
+    log(f'  the same burst under the {PROFILE_MS} ms /debug/profile window '
+        f'(served before it): wall {prof_burst_wall:.3f} s, '
+        f'{out_toks / prof_burst_wall:.1f} out-tok/s, TTFT ms p50 '
+        f'{prof_ttfts[len(prof_ttfts) // 2]:.1f} max {prof_ttfts[-1]:.1f}')
+    check_gauges(engine, cfg, burst, replies, wall, metrics_text, card)
+    check_profile(prof, busy_status, prof_wall, artifact, card)
+    trip_sentinel(engine)
 
     # Kernel vs plain attention on the serving path itself: prefill
     # logits of two prompts through attention_impl 'flash' and 'xla'
@@ -809,10 +900,161 @@ def serving_phase(device, card):
     return counts, ctx
 
 
+def builds_now():
+    """(builds counted by the port's compile telemetry, perf.recompile
+    events recorded) so far: the kernel library's nvcc build and every
+    decode / verify call object (on the card: its CUDA graph capture)."""
+    from skypilot_tpu_torch.perf import compile_telemetry
+    from skypilot_tpu_torch.server import tracing
+    return (_counter('skytpu_engine_xla_compile_total'),
+            len(tracing.events_for(compile_telemetry.SENTINEL_REQUEST_ID)))
+
+
+def check_no_builds(before, what):
+    """Fail if anything was built, or a post-warmup build recorded, since
+    `before` (builds_now()): every engine here is prewarmed, so its
+    traffic must build nothing (SKYTPU_STRICT_RECOMPILE=1 would also
+    have raised inside the engine loop)."""
+    after = builds_now()
+    if after != before:
+        raise SystemExit(f'{what}: builds/sentinel events went from '
+                         f'{before} to {after} after prewarm()')
+
+
+def trip_sentinel(engine):
+    """The strict sentinel trips: a decode call built on the prewarmed,
+    armed engine raises the post-warmup error before any capture, and
+    records perf.recompile under the sentinel's request id."""
+    from skypilot_tpu_torch.perf import compile_telemetry
+    from skypilot_tpu_torch.server import tracing
+    events = len(tracing.events_for(compile_telemetry.SENTINEL_REQUEST_ID))
+    try:
+        engine._new_decode_call()
+    except RuntimeError as e:
+        if 'post-warmup decode build' not in str(e):
+            raise
+        got = tracing.events_for(compile_telemetry.SENTINEL_REQUEST_ID)
+        if len(got) != events + 1 or got[-1]['name'] != 'perf.recompile':
+            raise SystemExit(f'no perf.recompile event recorded: {got}')
+        log(f'  sentinel (SKYTPU_STRICT_RECOMPILE='
+            f'{os.environ.get(compile_telemetry.STRICT_ENV)}, armed '
+            f'{compile_telemetry.armed()}): a decode call built after '
+            f'prewarm raised "{str(e)[:70]}..."; event '
+            f'{got[-1]["attrs"]}')
+        return
+    raise SystemExit('a decode call built after prewarm() did not trip the '
+                     'strict recompile sentinel')
+
+
+def _gauges(text):
+    """The three perf gauges of a /metrics exposition text."""
+    names = ('skytpu_engine_mfu', 'skytpu_engine_hbm_bytes_per_token',
+             'skytpu_engine_arith_intensity')
+    out = {}
+    for line in text.splitlines():
+        name = line.split(' ')[0]
+        if name in names:
+            out[name] = float(line.rsplit(' ', 1)[1])
+    if set(out) != set(names):
+        raise SystemExit(f'/metrics lacks perf gauges: {sorted(out)}')
+    return out
+
+
+def check_gauges(engine, cfg, burst, replies, wall, metrics_text, card):
+    """The live gauges read from /metrics against the cost model at the
+    burst's rate (its tokens over this script's wall clock) and mean
+    context (each emitted token's context: its prompt plus the tokens up
+    to it, as the engine weights it), within PERF_GAUGE_RTOL; the byte
+    terms at the engine's token-weighted occupancy.  Prints the snapshot
+    and the decode roofline at full occupancy."""
+    cm = engine.perf_cost_model
+    snap = engine.perf_snapshot()
+    gauges = _gauges(metrics_text)
+    n_toks = sum(len(body['ids']) for _, body in replies)
+    ctx_sum = sum(len(req['prompt_ids']) * len(body['ids']) +
+                  len(body['ids']) * (len(body['ids']) + 1) / 2
+                  for req, (_, body) in zip(burst, replies))
+    rate, mean_ctx = n_toks / wall, ctx_sum / n_toks
+    occ = snap['mean_occupancy']
+    want = {'skytpu_engine_mfu': cm.mfu(rate, mean_ctx),
+            'skytpu_engine_hbm_bytes_per_token':
+                cm.decode_hbm_bytes_per_token(mean_ctx, occ),
+            'skytpu_engine_arith_intensity': cm.arith_intensity(mean_ctx,
+                                                                occ)}
+    n_slots = engine.cfg.n_slots
+    roof = cm.roofline_decode_tokens_per_s(mean_ctx, n_slots)
+    log(f'  perf gauges on {card}: cost model {cm}; perf_snapshot '
+        f'{snap}; burst {n_toks} tokens in {wall:.4f} s = {rate:.2f} '
+        f'tok/s at mean context {mean_ctx:.2f}')
+    for name, value in gauges.items():
+        log(f'    {name}: /metrics {value:.6g}, cost model at the measured '
+            f'rate {want[name]:.6g} (rel {value / want[name] - 1:+.4f}, gate '
+            f'{PERF_GAUGE_RTOL})')
+    log(f'    decode roofline at occupancy {n_slots}, context '
+        f'{mean_ctx:.1f}: {roof:.1f} tok/s (compute bound '
+        f'{PEAK_BF16_FLOPS / cm.decode_flops_per_token(mean_ctx):.0f}); '
+        f'bytes/token {cm.decode_hbm_bytes_per_token(mean_ctx, n_slots):.6g}'
+        f', intensity {cm.arith_intensity(mean_ctx, n_slots):.4f} FLOP/B; '
+        f'kv_bytes_per_pos {cm.kv_bytes_per_pos():.0f}; burst rate '
+        f'{rate / roof:.2%} of it')
+    if not 1.0 <= occ <= n_slots:
+        raise SystemExit(f'mean occupancy {occ} outside [1, {n_slots}]')
+    for name, value in gauges.items():
+        if abs(value / want[name] - 1) > PERF_GAUGE_RTOL:
+            raise SystemExit(f'{name} {value} is off the cost model\'s '
+                             f'{want[name]} by more than {PERF_GAUGE_RTOL}')
+
+
+def check_profile(doc, busy_status, wall, artifact, card):
+    """The /debug/profile capture over the serving burst: 200 with a
+    summary, 409 for the capture sent while it was open, the artifact
+    fetched whole through the artifact route, and its gunzipped chrome
+    trace holding the flash forward kernel (by symbol) and kernels of
+    the decode graph: a graph replay is one launch, so its kernels share
+    one correlation id, where every eager launch has its own (the
+    cudaGraphLaunch call itself may precede the window or miss the
+    trace, so it is counted, not required)."""
+    import collections
+    import gzip
+    if busy_status != 409:
+        raise SystemExit(f'a capture sent while one was open got '
+                         f'{busy_status}, not 409')
+    if len(artifact) != doc['size_bytes']:
+        raise SystemExit(f'artifact of {len(artifact)} bytes, summary says '
+                         f'{doc["size_bytes"]}')
+    raw = gzip.decompress(artifact)
+    events = json.loads(raw)['traceEvents']
+    kernels = [e for e in events if e.get('cat') == 'kernel']
+    flash = [e for e in kernels
+             if KERNEL_SYMBOLS['flash_attention_fwd'] in e['name']]
+    graph_launches = [e for e in events
+                      if e.get('name', '').startswith('cudaGraphLaunch')]
+    per_launch = collections.Counter(e['args']['correlation']
+                                     for e in kernels)
+    in_graph = sum(n for n in per_launch.values() if n > 1)
+    largest = max(per_launch.values(), default=0)
+    cats = sorted({e.get('cat', '') for e in events})
+    log(f'  /debug/profile on {card}: {PROFILE_MS} ms window, summary '
+        f'{ {k: v for k, v in doc.items() if k != "retained"} }, client '
+        f'wall {wall * 1e3:.1f} ms; artifact {len(artifact)} bytes gzipped '
+        f'({len(raw)} raw), {len(events)} events, {len(kernels)} kernels, '
+        f'{len(flash)} flash forward launches, {in_graph} kernels of graph '
+        f'replays (the largest replay {largest}; cudaGraphLaunch calls in '
+        f'the trace {len(graph_launches)}); categories {cats}; a second '
+        f'capture meanwhile: {busy_status}')
+    if not flash or largest < 2:
+        log(f'    a kernel event: {kernels[:1]}; graph-named events: '
+            f'{sorted({e.get("name") for e in events if "raph" in e.get("name", "")})}')
+        raise SystemExit('the profile artifact lacks the flash forward '
+                         'kernel or the decode graph\'s kernels')
+
+
 def _drive(engine, prompts, max_new, step='step_pipelined'):
-    """Submit every prompt, then step until all finished (drained);
-    returns (streams, wall s, TTFTs s, requests)."""
+    """Submit every prompt, then step until all finished (drained),
+    checking that nothing was built meanwhile; returns (streams, wall s,
+    TTFTs s, requests)."""
     import torch
+    builds = builds_now()
     t0 = time.perf_counter()
     reqs = [engine.submit(p, max_new) for p in prompts]
     fn = getattr(engine, step)
@@ -824,6 +1066,7 @@ def _drive(engine, prompts, max_new, step='step_pipelined'):
     wall = time.perf_counter() - t0
     if not engine.healthy:
         raise SystemExit(f'paged engine crashed: {engine.error!r}')
+    check_no_builds(builds, 'an engine API run')
     return ([r.tokens() for r in reqs], wall,
             [r.first_token_at - r.submitted_at for r in reqs], reqs)
 
@@ -904,8 +1147,12 @@ def paged_phase(device, card, ctx):
     paged_kw = dict(base, kv_page_size=PAGED['kv_page_size'])
 
     def engine(eager=False, **kw):
-        return DecodeEngine(model, EngineConfig(**kw), device=device,
-                            _eager_decode=eager)
+        """A prewarmed engine over the phase's model: its one call built
+        (on the card, captured) and the recompile sentinel armed."""
+        e = DecodeEngine(model, EngineConfig(**kw), device=device,
+                         _eager_decode=eager)
+        e.prewarm()
+        return e
 
     # (1) The dense and the bf16-paged engine, each with its decode call
     # replayed as a CUDA graph and run eagerly, on the same prompts.  One
@@ -918,14 +1165,26 @@ def paged_phase(device, card, ctx):
     runs = {}
     for name, kw in (('dense', base), ('paged', paged_kw)):
         for eager in (False, True):
-            e = engine(eager=eager, **kw)
             t0 = time.perf_counter()
-            e.prewarm()
+            e = engine(eager=eager, **kw)
             prewarm_s = time.perf_counter() - t0
             if (e._decode_call.graph is None) != eager:
                 raise SystemExit(f'{name} engine: decode graph '
                                  f'{e._decode_call.graph} with eager={eager}')
+            builds = builds_now()
             prof = profile_decode_call(e, profile_prompts)
+            check_no_builds(builds, f'{name} profiled decode call')
+            # The profiled call decodes steps_per_call tokens for each
+            # slot at contexts just past the first call's: prompt + one
+            # call + half the second.
+            steps = PAGED['steps_per_call']
+            ctx_p = len(profile_prompts[0]) + steps + (steps + 1) / 2
+            prof['decode_tok_s'] = (len(profile_prompts) * steps /
+                                    prof['wall_ms'] * 1e3)
+            prof['roofline_tok_s'] = \
+                e.perf_cost_model.roofline_decode_tokens_per_s(
+                    ctx_p, len(profile_prompts))
+            prof['roofline_ctx'] = ctx_p
             groups_before = e.prefill_groups
             if name == 'paged' and not eager:
                 zero_launches()
@@ -948,11 +1207,16 @@ def paged_phase(device, card, ctx):
             f'x {len(prompts[0])} + 1 x {len(prompts[-1])}), {n_new} new '
             f'each, on {card}: {toks / r["wall"]:.1f} out-tok/s (wall '
             f'{r["wall"]:.3f} s), TTFT p50 {_p50(r["ttft"]) * 1e3:.1f} ms, '
-            f'prefill groups {r["groups"]}, prewarm {r["prewarm_s"]:.2f} s; '
-            f'one profiled decode call of {PAGED["steps_per_call"]} steps '
-            f'over {len(ctx["prompts"])} slots: wall {r["wall_ms"]:.1f} ms, '
-            f'device busy {r["busy_ms"]:.1f} ms ({r["busy_share"]:.1%}), '
-            f'{r["kernels"]} kernels; by kind (ms) {r["by_kind"]}')
+            f'prefill groups {r["groups"]}, build + prewarm '
+            f'{r["prewarm_s"]:.2f} s; one profiled decode call of '
+            f'{PAGED["steps_per_call"]} steps over {len(ctx["prompts"])} '
+            f'slots: wall {r["wall_ms"]:.1f} ms, device busy '
+            f'{r["busy_ms"]:.1f} ms ({r["busy_share"]:.1%}), {r["kernels"]} '
+            f'kernels; by kind (ms) {r["by_kind"]}; decode-only '
+            f'{r["decode_tok_s"]:.1f} tok/s = '
+            f'{r["decode_tok_s"] / r["roofline_tok_s"]:.2%} of the cost '
+            f'model\'s roofline {r["roofline_tok_s"]:.1f} tok/s (occupancy '
+            f'{len(ctx["prompts"])}, context {r["roofline_ctx"]:.1f})')
         for dev_ms, count, kname in r['top']:
             log(f'      {dev_ms:9.3f} ms  x{count:<6d} {kname[:160]}')
     want = runs['dense', False]['toks']
@@ -981,7 +1245,8 @@ def paged_phase(device, card, ctx):
     ctx['graph_runs'] = {f'{name}_{"eager" if eager else "graph"}': {
         'out_tok_s': toks / r['wall'], 'ttft_p50_ms': _p50(r['ttft']) * 1e3,
         'decode_call_wall_ms': r['wall_ms'], 'decode_call_busy_ms':
-        r['busy_ms'], 'busy_share': r['busy_share']}
+        r['busy_ms'], 'busy_share': r['busy_share'],
+        'decode_roofline_share': r['decode_tok_s'] / r['roofline_tok_s']}
         for (name, eager), r in runs.items()}
     ttft_p = runs['paged', False]['ttft']
 
@@ -1049,30 +1314,78 @@ def paged_phase(device, card, ctx):
                          'quantization step plus one bf16 ulp')
     if abs(bytes_q / bytes_b - (1 + 4 / cfg.head_dim) / 2) > 1e-9:
         raise SystemExit('int8 pool size off its expected ratio')
+    kv_q, kv_b = (e.perf_cost_model.kv_bytes_per_pos() for e in (quant, paged))
+    log(f'  (3) cost model kv_bytes_per_pos int8 {kv_q:.0f} / bf16 '
+        f'{kv_b:.0f} = {kv_q / kv_b:.6f}; pool bytes ratio '
+        f'{bytes_q / bytes_b:.6f}')
+    if abs(kv_q / kv_b - bytes_q / bytes_b) > 1e-12:
+        raise SystemExit('the cost model\'s int8/bf16 bytes per position '
+                         'differ from the pools\' byte ratio')
     quant._pool_alloc.check_conserved()
     teacher_forced(model, prompts, q_toks, 'int8 streams')
     del quant, paged
     torch.cuda.empty_cache()
 
-    # (4) Speculation, k drafts per verify call.
-    spec = engine(**paged_kw, speculation=PAGED['spec_k'])
-    before = [_counter(f'skytpu_engine_spec_{k}_tokens_total')
-              for k in ('proposed', 'accepted')]
-    s_toks, wall_s, ttft_s, _ = _drive(spec, prompts, n_new, step='step')
-    proposed, accepted = (_counter(f'skytpu_engine_spec_{k}_tokens_total')
-                          - b for k, b in zip(('proposed', 'accepted'),
-                                              before))
-    log(f'  (4) speculation k={PAGED["spec_k"]}: proposed {proposed:.0f}, '
-        f'accepted {accepted:.0f} (acceptance '
-        f'{accepted / max(proposed, 1):.4f}); {toks / wall_s:.1f} '
-        f'out-tok/s (wall {wall_s:.3f} s), TTFT p50 '
-        f'{_p50(ttft_s) * 1e3:.1f} ms; tokens equal to step 1\'s '
-        f'{_share_equal(s_toks, got):.4f}')
-    if proposed <= 0 or not 0 <= accepted <= proposed:
-        raise SystemExit(f'speculation counters: {proposed} {accepted}')
-    teacher_forced(model, prompts, s_toks, 'speculative streams')
-    del spec
-    torch.cuda.empty_cache()
+    # (4) Speculation, k drafts per verify call: the verify as one CUDA
+    # graph (captured at prewarm) and eager, on the bf16 and int8 pools.
+    from skypilot_tpu_torch.perf import compile_telemetry
+    spec_runs = {}
+    for kv in ('bf16', 'int8'):
+        for eager in (False, True):
+            captured = compile_telemetry.summary().get('verify', (0, 0.0))
+            t0 = time.perf_counter()
+            spec = engine(eager=eager, speculation=PAGED['spec_k'],
+                          kv_dtype=kv, **paged_kw)
+            prewarm_s = time.perf_counter() - t0
+            capture_s = (compile_telemetry.summary()['verify'][1] -
+                         captured[1])
+            if spec._decode_call is not None or \
+                    (spec._verify_call.graph is None) != eager:
+                raise SystemExit(f'speculative engine ({kv}, eager={eager}): '
+                                 f'verify graph {spec._verify_call.graph}')
+            before = [_counter(f'skytpu_engine_spec_{k}_tokens_total')
+                      for k in ('proposed', 'accepted')]
+            s_toks, wall_s, ttft_s, _ = _drive(spec, prompts, n_new,
+                                               step='step')
+            counts_s = [_counter(f'skytpu_engine_spec_{k}_tokens_total') - b
+                        for k, b in zip(('proposed', 'accepted'), before)]
+            spec_runs[kv, eager] = dict(
+                toks=s_toks, wall=wall_s, ttft=ttft_s, counts=counts_s,
+                prewarm_s=prewarm_s, capture_s=capture_s,
+                verify_ms=verify_call_ms(spec))
+            del spec
+            torch.cuda.empty_cache()
+    paged_tok_s = toks / runs['paged', False]['wall']
+    for (kv, eager), r in spec_runs.items():
+        proposed, accepted = r['counts']
+        log(f'  (4) speculation k={PAGED["spec_k"]}, {kv} pages, verify '
+            f'{"eager" if eager else "graph"}: proposed {proposed:.0f}, '
+            f'accepted {accepted:.0f} (acceptance '
+            f'{accepted / max(proposed, 1):.4f}); {toks / r["wall"]:.1f} '
+            f'out-tok/s (wall {r["wall"]:.3f} s; the paged graph engine '
+            f'without speculation {paged_tok_s:.1f}), TTFT p50 '
+            f'{_p50(r["ttft"]) * 1e3:.1f} ms; one verify call '
+            f'{r["verify_ms"]:.3f} ms (CUDA events over '
+            f'{VERIFY_TIMED_CALLS}); build + prewarm {r["prewarm_s"]:.2f} s '
+            f'of which the verify call {r["capture_s"]:.3f} s; tokens equal '
+            f'to step 1\'s {_share_equal(r["toks"], got):.4f}')
+    for kv in ('bf16', 'int8'):
+        graph_r, eager_r = spec_runs[kv, False], spec_runs[kv, True]
+        proposed, accepted = graph_r['counts']
+        if proposed <= 0 or not 0 <= accepted <= proposed:
+            raise SystemExit(f'speculation counters ({kv}): {proposed} '
+                             f'{accepted}')
+        if graph_r['toks'] != eager_r['toks'] or \
+                graph_r['counts'] != eager_r['counts']:
+            raise SystemExit(
+                f'{kv} graph verify differs from eager: tokens '
+                f'{_share_equal(graph_r["toks"], eager_r["toks"]):.4f} '
+                f'equal, counters {graph_r["counts"]} vs {eager_r["counts"]}')
+        teacher_forced(model, prompts, graph_r['toks'],
+                       f'speculative streams ({kv} pages)')
+    ctx['spec_runs'] = {f'{kv}_{"eager" if eager else "graph"}': {
+        'out_tok_s': toks / r['wall'], 'verify_ms': r['verify_ms'],
+        'capture_s': r['capture_s']} for (kv, eager), r in spec_runs.items()}
 
     # (5) Handoff: prefill role -> payload bytes -> decode role, against a
     # monolithic paged run of the same prompts submitted together.
@@ -1080,6 +1393,7 @@ def paged_phase(device, card, ctx):
     mono_toks, _, _, _ = _drive(engine(**paged_kw), hand, n_new)
     torch.cuda.empty_cache()
     pre, dec = engine(**paged_kw), engine(**paged_kw)
+    builds = builds_now()
     reqs = [pre.submit_prefill(p, n_new) for p in hand]
     while not all(r.finished_at is not None for r in reqs):
         pre.step_pipelined()
@@ -1109,6 +1423,7 @@ def paged_phase(device, card, ctx):
         dec.step_pipelined()
     dec.drain()
     h_toks = [r.tokens() for r in adopted]
+    check_no_builds(builds, 'the handoff engines')
     mb = sum(map(len, payloads)) / len(payloads) / 1e6
     log(f'  (5) handoff of {len(hand)} prompts: payload {mb:.3f} MB each; '
         f'export_result (device -> host) {export_ms:.3f} ms, serialize '
@@ -1121,6 +1436,29 @@ def paged_phase(device, card, ctx):
     del pre, dec, exported, payloads, handoffs
     torch.cuda.empty_cache()
     return counts
+
+
+def verify_call_ms(engine):
+    """CUDA-event time of one verify call (the drafts' pinned copy, the
+    graph's replay or the eager body, the rows' clone) on the idle
+    engine, over VERIFY_TIMED_CALLS calls after two: the same shapes as
+    under traffic (every slot, S = k+1, the whole page table)."""
+    import numpy as np
+    import torch
+    drafts = np.zeros((engine.cfg.n_slots, engine._spec_k), np.int64)
+    call = engine._verify_call
+    engine._pt()              # every slot retired: an all-trash table
+    for _ in range(2):
+        call(engine, drafts)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(VERIFY_TIMED_CALLS):
+        call(engine, drafts)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / VERIFY_TIMED_CALLS
 
 
 def profile_decode_call(engine, prompts):
@@ -1254,6 +1592,7 @@ def checkpoint_phase(device, card, ctx):
         n_slots=SERVE['n_slots'], steps_per_call=SERVE['steps_per_call'],
         prefill_buckets=SERVE['prefill_buckets']), device=device)
     engine.prewarm()
+    builds = builds_now()
     prompts = ctx['prompts'] + [ctx['long_prompt']]
     bodies = [{'prompt_ids': p, 'max_tokens': SERVE['max_tokens']}
               for p in prompts]
@@ -1297,6 +1636,7 @@ def checkpoint_phase(device, card, ctx):
     while not all(r.finished_at is not None for r in reqs):
         engine.step()
     streams = [r.tokens() for r in reqs]
+    check_no_builds(builds, 'the checkpoint engine')
     after_ok = all(set(t[n:]) <= set(sentinels)
                    for t, n in zip(streams, before))
     before_ok = all(not set(t[:n]) <= set(sentinels)
@@ -1855,11 +2195,13 @@ def moe_serving_phase(device, card):
         if (e._decode_call.graph is None) != eager:
             raise SystemExit(f'MoE {name}: decode graph '
                              f'{e._decode_call.graph} with eager={eager}')
+        builds = builds_now()
         prof = profile_decode_call(e, profile_prompts)
         groups_before = e.prefill_groups
         zero_launches()
         toks, wall, ttft, _ = _drive(e, prompts, n_new)
         got = read_launches()
+        check_no_builds(builds, f'MoE {name}')
         groups = e.prefill_groups - groups_before
         want = cfg.n_layers * groups
         if groups < 1 or got['flash_attention_fwd'] != want:
@@ -2090,6 +2432,13 @@ def main() -> int:
     at_moe_train = phase('kernels', kernel_times, device, MOE_TRAIN_SHAPE,
                          'MoE training')
 
+    from skypilot_tpu_torch.perf import compile_telemetry
+    log(f'[build] compile telemetry {compile_telemetry.summary()} '
+        f'(kind: (builds, s))')
+    # Every serving phase below runs under the strict recompile sentinel:
+    # each engine's prewarm() captures its call and arms it, so a build
+    # under traffic raises inside the engine loop (and fails the phase).
+    os.environ[compile_telemetry.STRICT_ENV] = '1'
     log(f'[serving] {SERVE}')
     by_path = {}
     by_path['serving'], serve_ctx = phase('serving', serving_phase, device,
@@ -2109,6 +2458,11 @@ def main() -> int:
     log(f'[moe_serving] {MOE_SERVE}')
     by_path['moe_serving'] = phase('moe_serving', moe_serving_phase, device,
                                    card)
+    log(f'[sentinel] every serving engine built nothing after prewarm() '
+        f'under {compile_telemetry.STRICT_ENV}=1; builds so far (kind: '
+        f'(builds, s)) {compile_telemetry.summary()}')
+    del os.environ[compile_telemetry.STRICT_ENV]
+    compile_telemetry.disarm()
     log(f'[training] {TRAIN}')
     by_path['training'] = phase('training', training_phase, device, card,
                                 smi)

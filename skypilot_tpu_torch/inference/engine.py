@@ -71,13 +71,28 @@ the captured graph, which reads the parameters at their addresses, sees
 the new ones from the next call on.  The staged copy is dropped after
 the next sync, bounding the double buffer to one loop iteration.
 
-Not in this slice: tensor parallelism (`mesh`), a captured speculative
-verify and the perf gauges.
+Speculative verify (`speculation=k`): one S = k+1 call over every slot,
+held as a call object over fixed buffers like the decode call
+(`_VerifyCall`: a device draft buffer filled by a pinned copy before
+each call, the page table, the pool, `_last_d`, `_lens_d` and its output
+rows), captured as one CUDA graph at `prewarm()` on the card.
+
+Perf plane (`perf/`): `_process_rows` accumulates, per emitted token, its
+context length and its call's batch size; the loop folds them through
+the static cost model (`perf_cost_model`) into the live MFU, bytes/token
+and intensity gauges every `perf_window_s` (host arithmetic only: no
+added sync).  Every call object's build counts as a compile
+(`perf/compile_telemetry.py`); `prewarm()` on the card arms the
+recompile sentinel once the kernels are built and every call the engine
+uses is captured.
+
+Not in this slice: tensor parallelism (`mesh`).
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import os
 import queue
 import threading
 import time
@@ -91,8 +106,12 @@ from skypilot_tpu_torch.device import DeviceLike, device_of, resolve_device
 from skypilot_tpu_torch.inference import kv_quant
 from skypilot_tpu_torch.inference.paging import TRASH_PAGE, PagePool, RadixCache
 from skypilot_tpu_torch.ops.cuda import flash_attention as cuda_fa
+from skypilot_tpu_torch.perf import compile_telemetry
+from skypilot_tpu_torch.perf import cost_model as cost_model_lib
+from skypilot_tpu_torch.perf import profiler as profiler_lib
 from skypilot_tpu_torch.server import metrics as metrics_lib
 from skypilot_tpu_torch.server import tracing
+from skypilot_tpu_torch.train import flops as flops_lib
 
 logger = sky_logging.init_logger(__name__)
 
@@ -264,37 +283,56 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).replace('torch.', '')
 
 
-class _DecodeCall:
-    """One decode call (`steps_per_call` steps over every slot) as ONE
-    object over fixed buffers: the engine's `_last_d` and `_lens_d`, its
-    cache or page pool, its device page table, and the output rows
-    [T+1, n_slots].  With `use_graph` (CUDA) the body is captured once as
-    a CUDA graph and each call replays it; otherwise each call runs the
-    body.  A call returns a clone of the output rows: the next call
-    writes the same buffer while the pipelined loop still has to read
-    this call's rows.  It keeps no reference to its engine (the engine
-    holds it; a cycle would keep a dead engine's cache and model alive
-    until the garbage collector ran)."""
+class _GraphCall:
+    """One device call of the engine as ONE object over fixed buffers:
+    the engine's `_last_d` and `_lens_d`, its cache or page pool, its
+    device page table, and the call's own output rows (and inputs).
+    With `use_graph` (CUDA) the body is captured once as a CUDA graph and
+    each call replays it; otherwise each call runs the body.  A call
+    returns a clone of the output rows: the next call writes the same
+    buffer while the pipelined loop still has to read this call's rows.
+    Building it is the port's "compile" (`compile_telemetry.compiling`),
+    and a capture holds the profiler's TRACE_LOCK, so no profiler window
+    traces a graph mid-capture.  It keeps no reference to its engine (the
+    engine holds it; a cycle would keep a dead engine's cache and model
+    alive until the garbage collector ran)."""
+    kind = ''
 
-    def __init__(self, engine: 'DecodeEngine', use_graph: bool) -> None:
-        self.out = torch.zeros((engine.cfg.steps_per_call + 1,
-                                engine.cfg.n_slots), dtype=torch.long,
-                               device=engine.device)
-        self.graph = self._capture(engine) if use_graph else None
+    def __init__(self, engine: 'DecodeEngine', use_graph: bool,
+                 rows: int) -> None:
+        kv = (engine.cfg.kv_dtype if engine._paged
+              else _dtype_name(engine.model.cfg.dtype))
+        shapes = (f'{self.kind} out=[{rows}, {engine.cfg.n_slots}] '
+                  f'k={engine._spec_k} paged={engine._paged} kv={kv} '
+                  f'graph={use_graph}')
+        with compile_telemetry.compiling(self.kind, shapes):
+            self.out = torch.zeros((rows, engine.cfg.n_slots),
+                                   dtype=torch.long, device=engine.device)
+            self._buffers(engine)
+            self.graph = None
+            if use_graph:
+                with profiler_lib.TRACE_LOCK:
+                    self.graph = self._capture(engine)
+
+    def _buffers(self, engine: 'DecodeEngine') -> None:
+        """Allocate the call's fixed input buffers (none by default)."""
+
+    def _body(self, engine: 'DecodeEngine', warmup: bool = False) -> None:
+        raise NotImplementedError
 
     def _capture(self, eng: 'DecodeEngine'):
         dev = eng.device
         # Warm up on a side stream (lazy kernel loading, library handles)
-        # with one step, then restore what it advanced: the slots' last
+        # with one call, then restore what it advanced: the slots' last
         # tokens and lengths and the sampler's generator.  Its K/V writes
         # land at positions >= each slot's length, which the next real
-        # step overwrites before any query reads them.
+        # call overwrites before any query reads them.
         saved = (eng._last_d.clone(), eng._lens_d.clone(),
                  eng._gen.get_state())
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            eng._decode(self.out, n_steps=1)
+            self._body(eng, warmup=True)
         torch.cuda.current_stream(dev).wait_stream(side)
         eng._last_d.copy_(saved[0])
         eng._lens_d.copy_(saved[1])
@@ -306,7 +344,7 @@ class _DecodeCall:
         # thread_local: the server's executor threads may touch the
         # device (export copies) while the loop thread captures.
         with torch.cuda.graph(graph, capture_error_mode='thread_local'):
-            eng._decode(self.out)
+            self._body(eng)
         return graph
 
     def __call__(self, engine: 'DecodeEngine') -> torch.Tensor:
@@ -314,8 +352,45 @@ class _DecodeCall:
         if self.graph is not None:
             self.graph.replay()
         else:
-            engine._decode(self.out)
+            self._body(engine)
         return self.out.clone()
+
+
+class _DecodeCall(_GraphCall):
+    """The decode call: `steps_per_call` steps over every slot, output
+    rows [T+1, n_slots] (the counterpart of the JAX engine's compiled
+    `lax.scan`)."""
+    kind = 'decode'
+
+    def __init__(self, engine: 'DecodeEngine', use_graph: bool) -> None:
+        super().__init__(engine, use_graph, engine.cfg.steps_per_call + 1)
+
+    def _body(self, engine, warmup=False):
+        engine._decode(self.out, n_steps=1 if warmup else None)
+
+
+class _VerifyCall(_GraphCall):
+    """The speculative verify call: every slot's k drafts scored in one
+    S = k+1 step, output rows [k+3, n_slots].  Its drafts [n_slots, k]
+    live in a fixed device buffer, filled by a pinned non-blocking copy
+    before each call (the graph reads them at their address)."""
+    kind = 'verify'
+
+    def __init__(self, engine: 'DecodeEngine', use_graph: bool) -> None:
+        super().__init__(engine, use_graph, engine._spec_k + 3)
+
+    def _buffers(self, engine):
+        self.drafts = torch.zeros((engine.cfg.n_slots, engine._spec_k),
+                                  dtype=torch.long, device=engine.device)
+
+    def _body(self, engine, warmup=False):
+        engine._verify(self.out, self.drafts)
+
+    def __call__(self, engine: 'DecodeEngine',
+                 drafts: np.ndarray) -> torch.Tensor:
+        """One verify of `drafts` [n_slots, k] (host) on `engine`."""
+        engine._h2d_into(self.drafts, drafts)
+        return super().__call__(engine)
 
 
 class DecodeEngine:
@@ -326,8 +401,8 @@ class DecodeEngine:
     pool under `kv_page_size`).  The model's parameters must live on
     `device` (default: the GPU; raises without one).
 
-    `_eager_decode` (private) runs the decode call's body without the
-    CUDA graph on the card: only for comparing the two.
+    `_eager_decode` (private) runs the decode (and verify) call's body
+    without the CUDA graph on the card: only for comparing the two.
     """
 
     def __init__(self, model, config: EngineConfig = EngineConfig(),
@@ -405,9 +480,11 @@ class DecodeEngine:
         self._queued_tokens = 0
         # Batched prefill dispatches so far (one per admission group).
         self.prefill_groups = 0
-        # The decode call (built at prewarm() or the first decode), and
-        # the private switch that keeps it eager on the card.
+        # The decode call, or under speculation the verify call (built at
+        # prewarm() or the first dispatch), and the private switch that
+        # keeps them eager on the card.
         self._decode_call: Optional[_DecodeCall] = None
+        self._verify_call: Optional[_VerifyCall] = None
         self._eager_decode = _eager_decode
         # Double-buffered weight swap: update_params stages a copy here;
         # the loop installs it at its next dispatch boundary and drops
@@ -418,12 +495,66 @@ class DecodeEngine:
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self._last_gauges: Optional[tuple] = None
+        # Device-cost attribution (perf/): the loop thread folds these
+        # host-side accumulators into the live MFU / bytes-per-token
+        # gauges: token count, token-weighted context length and
+        # token-weighted batch occupancy, all written by _process_rows.
+        self._perf_tokens = 0
+        self._perf_ctx_sum = 0
+        self._perf_occ_sum = 0
+        self._perf_window: Optional[tuple] = None
+        self._perf_last: Optional[dict] = None
+        # Minimum attribution window; benchmarks/tests shrink or grow
+        # it to bracket exactly their measured region.
+        self.perf_window_s = float(
+            os.environ.get('SKYTPU_PERF_WINDOW_S', '0.5'))
         self.error: Optional[BaseException] = None
         self._init_cache()
+        # The static cost model, built once the cache or pool exists.
+        # from_engine_state reads only tensor METADATA (the pool's
+        # declared dtype is how int8 pages land as a bytes/token drop),
+        # never values: no device sync.
+        self._cost_model = cost_model_lib.EngineCostModel.from_engine_state(
+            model.cfg, model.parameters(),
+            [t for layer in self._cache for t in layer],
+            chip=flops_lib.chip_kind(self.device),
+            kv_dtype=config.kv_dtype if self._paged else None)
 
     @property
     def healthy(self) -> bool:
         return self.error is None
+
+    @property
+    def perf_cost_model(self) -> cost_model_lib.EngineCostModel:
+        """The static per-dispatch cost model behind the live gauges."""
+        return self._cost_model
+
+    def perf_snapshot(self) -> Optional[dict]:
+        """Last perf-gauge sample the loop thread computed (mfu,
+        hbm_bytes_per_token, arith_intensity, tokens_per_s,
+        mean_context, mean_occupancy): None until the first non-idle
+        attribution window closes."""
+        return dict(self._perf_last) if self._perf_last else None
+
+    def perf_reset_window(self) -> None:
+        """Restart the attribution window so the next sample covers
+        only what follows (benchmarks bracket their measured region
+        with this).  The start is stamped HERE, not lazily at the next
+        loop sample: step()'s sample point sits after _admit_free, so a
+        lazy stamp would exclude the first admission's prefill dispatch
+        from the window while any wall-clock bracket around the region
+        includes it, a systematic rate skew on short regions."""
+        self._perf_window = (time.perf_counter(), self._perf_tokens,
+                             self._perf_ctx_sum, self._perf_occ_sum)
+
+    def arm_recompile_sentinel(self) -> None:
+        """Declare warmup complete: every build of a call object or the
+        kernel library from here on records a perf.recompile
+        flight-recorder event, and SKYTPU_STRICT_RECOMPILE=1 escalates
+        it to a hard failure in the building call.  prewarm() arms on
+        the card, where it captures every call; on the CPU (nothing
+        captured) callers opt in here once their calls are built."""
+        compile_telemetry.arm()
 
     @staticmethod
     def _validate_paging(config: EngineConfig, max_len: int) -> None:
@@ -646,32 +777,38 @@ class DecodeEngine:
         self._lens_d.copy_(lens)
 
     @torch.no_grad()
-    def _verify(self, pool, page_table, last_tokens, lengths, drafts):
-        """Speculative VERIFY: score every slot's k host-drafted tokens
+    def _verify(self, out: torch.Tensor, drafts: torch.Tensor) -> None:
+        """The verify call's body (`_VerifyCall`), speculative VERIFY:
+        score every slot's k host-drafted tokens (`drafts` [n_slots, k])
         in one S = k+1 call and accept the longest greedy-matching
         prefix.  g[:, j] is the greedy continuation after the draft
         prefix up to j; draft d_j is accepted iff d_j == g[:, j-1], and
         acceptance stops at the first mismatch, so m in [1, k+1] tokens
         commit per slot (m = 1 is plain decode).  Rejected rows leave
         K/V garbage strictly at positions >= the new length, written
-        over before the next gather reads them.
+        over before the next gather reads them.  All in place over the
+        engine's fixed buffers: the pool through the call-constant
+        `_pt_device`, and `_last_d` / `_lens_d` advanced by copies.
 
         Output rows: [0] = incoming last tokens, [1..k+1] = greedy
-        continuations, [k+2] = m, all in the one fetched tensor."""
+        continuations, [k+2] = m."""
         max_len = self.model.cfg.max_seq_len
         kk = drafts.shape[1]
-        toks = torch.cat([last_tokens[:, None], drafts], dim=1)  # [B, k+1]
+        last, lens = self._last_d, self._lens_d
+        toks = torch.cat([last[:, None], drafts], dim=1)         # [B, k+1]
         positions = torch.clamp(
-            lengths[:, None] + torch.arange(kk + 1, device=self.device),
+            lens[:, None] + torch.arange(kk + 1, device=self.device),
             max=max_len - 1)
-        logits, _ = self.model(toks, positions, decode=True, cache=pool,
-                               page_table=page_table)
+        logits, _ = self.model(toks, positions, decode=True,
+                               cache=self._cache, page_table=self._pt_device)
         g = torch.argmax(logits, dim=-1)                          # [B, k+1]
         match = torch.cumprod((drafts == g[:, :kk]).long(), dim=1)
         m = 1 + match.sum(dim=1)                                  # [B]
-        last = torch.gather(g, 1, (m - 1)[:, None])[:, 0]
-        out = torch.cat([last_tokens[None, :], g.t(), m[None, :]], dim=0)
-        return out, pool, last, lengths + m
+        out[0].copy_(last)
+        out[1:kk + 2].copy_(g.t())
+        out[kk + 2].copy_(m)
+        self._last_d.copy_(torch.gather(g, 1, (m - 1)[:, None])[:, 0])
+        self._lens_d.add_(m)
 
     @torch.no_grad()
     def _gather_prefix(self, pool, pt_row):
@@ -1037,16 +1174,32 @@ class DecodeEngine:
             self._retiring_params = []
 
     def prewarm(self) -> None:
-        """Build the flash-forward kernel and the decode call (on the
-        card: capture its CUDA graph) before taking traffic."""
+        """Build the flash-forward kernel and the engine's call (the
+        decode call, or under speculation the verify call; on the card:
+        capture its CUDA graph) before taking traffic.  On the card it
+        then arms the recompile sentinel: every call the engine will use
+        is built, so a later build is a mid-traffic stall.  On the CPU
+        nothing is captured and it does not arm, as the JAX engine's
+        lazy-compile path does not (arm_recompile_sentinel())."""
+        with compile_telemetry.warmup():
+            if self.device.type == 'cuda':
+                cuda_fa.build()
+            if self._spec_k:
+                if self._verify_call is None:
+                    self._verify_call = self._new_verify_call()
+            elif self._decode_call is None:
+                self._decode_call = self._new_decode_call()
         if self.device.type == 'cuda':
-            cuda_fa.build()
-        if not self._spec_k and self._decode_call is None:
-            self._decode_call = self._new_decode_call()
+            compile_telemetry.arm()
+
+    def _use_graph(self) -> bool:
+        return self.device.type == 'cuda' and not self._eager_decode
 
     def _new_decode_call(self) -> _DecodeCall:
-        return _DecodeCall(self, use_graph=(self.device.type == 'cuda' and
-                                            not self._eager_decode))
+        return _DecodeCall(self, use_graph=self._use_graph())
+
+    def _new_verify_call(self) -> _VerifyCall:
+        return _VerifyCall(self, use_graph=self._use_graph())
 
     def start(self):
         self._thread = threading.Thread(target=self._loop,
@@ -1134,17 +1287,15 @@ class DecodeEngine:
     def _dispatch_decode(self):
         """Dispatch one decode (or, under speculation, verify) call;
         returns its output tensor, not yet synced."""
+        if self._paged:
+            self._pt()
         if self._spec_k:
-            out, self._cache, self._last_d, self._lens_d = self._verify(
-                self._cache, self._pt(), self._last_d, self._lens_d,
-                self._h2d(self._propose_drafts()))
-        else:
-            if self._decode_call is None:
-                self._decode_call = self._new_decode_call()
-            if self._paged:
-                self._pt()
-            out = self._decode_call(self)
-        return out
+            if self._verify_call is None:
+                self._verify_call = self._new_verify_call()
+            return self._verify_call(self, self._propose_drafts())
+        if self._decode_call is None:
+            self._decode_call = self._new_decode_call()
+        return self._decode_call(self)
 
     def _propose_drafts(self) -> np.ndarray:
         """Host-side n-gram drafts [n_slots, k] for the next verify call:
@@ -1596,9 +1747,55 @@ class DecodeEngine:
                                 float(done))
         return True
 
+    def _sample_perf(self) -> None:
+        """Loop-thread device-cost gauges (perf/cost_model.py): pure
+        host arithmetic over _process_rows' emit accumulators; no device
+        state is touched, so attribution adds ZERO syncs (test-enforced).
+        Windowed at perf_window_s so the idle 1 kHz loop does not
+        recompute rates every millisecond."""
+        cm = self._cost_model
+        now = time.perf_counter()
+        if self._perf_window is None:
+            self._perf_window = (now, self._perf_tokens,
+                                 self._perf_ctx_sum, self._perf_occ_sum)
+            return
+        t0, tok0, ctx0, occ0 = self._perf_window
+        if now - t0 < self.perf_window_s:
+            return
+        d_tok = self._perf_tokens - tok0
+        self._perf_window = (now, self._perf_tokens, self._perf_ctx_sum,
+                             self._perf_occ_sum)
+        if d_tok <= 0:
+            # Idle window: utilization is genuinely zero; the modeled
+            # bytes/intensity gauges keep their last value (they
+            # describe the workload shape, not the rate).
+            if self._perf_last is not None and self._perf_last['mfu']:
+                self._perf_last = dict(self._perf_last, mfu=0.0)
+                metrics_lib.set_gauge('skytpu_engine_mfu', 0.0)
+            return
+        rate = d_tok / (now - t0)
+        # Token-weighted means over the window: each emitted token
+        # contributed its slot's context length and its call's batch
+        # size.
+        mean_ctx = (self._perf_ctx_sum - ctx0) / d_tok
+        mean_occ = max(1.0, (self._perf_occ_sum - occ0) / d_tok)
+        mfu = cm.mfu(rate, mean_ctx)
+        hbm_bytes = cm.decode_hbm_bytes_per_token(mean_ctx, mean_occ)
+        intensity = cm.arith_intensity(mean_ctx, mean_occ)
+        self._perf_last = {
+            'mfu': mfu, 'hbm_bytes_per_token': hbm_bytes,
+            'arith_intensity': intensity, 'tokens_per_s': rate,
+            'mean_context': mean_ctx, 'mean_occupancy': mean_occ,
+        }
+        metrics_lib.set_gauge('skytpu_engine_mfu', mfu)
+        metrics_lib.set_gauge('skytpu_engine_hbm_bytes_per_token',
+                              hbm_bytes)
+        metrics_lib.set_gauge('skytpu_engine_arith_intensity', intensity)
+
     def _sample_gauges(self, n_active: int) -> None:
         """Loop-thread occupancy/queue gauges; skipped when unchanged so
         the idle 1 kHz loop does not hammer the registry lock."""
+        self._sample_perf()
         sample = (n_active,
                   self._prefill_q.qsize() + self._long_q.qsize() +
                   len(self._ready_q) + len(self._hit_q) +
@@ -1760,6 +1957,12 @@ class DecodeEngine:
             for t in range(start, limit):
                 tok = int(out[t, i])
                 slot.length += 1
+                # Device-cost attribution: this token's context length
+                # and call batch size (token-weighted accumulators
+                # _sample_perf folds into the live gauges).
+                self._perf_tokens += 1
+                self._perf_ctx_sum += slot.length
+                self._perf_occ_sum += len(snapshot)
                 if slot.pages is not None:
                     # Retire donates prompt+generated pages (it needs the
                     # generated ids), and an export its first token.

@@ -1,7 +1,6 @@
 """HTTP completions server over the decode engine (PyTorch port).
 
-Twin of `skypilot_tpu/inference/server.py` (without `/debug/profile`,
-which comes with the perf plane).  Routes:
+Twin of `skypilot_tpu/inference/server.py`.  Routes:
 
 - GET  /health        -> 200 while the engine loop is healthy, 503 with
                          the error once it crashed; both carry the role.
@@ -26,6 +25,17 @@ which comes with the perf plane).  Routes:
 - GET  /debug/requests        -> flight-recorder summaries.
 - GET  /debug/requests/<id>   -> one request's span events + TTFT
                          decomposition (`?format=chrome` for Perfetto).
+- GET  /debug/profile?duration_ms=N  -> a torch.profiler window of N ms
+                         (default 500) over the whole process, the
+                         engine's kernels and graph replays included;
+                         the reply names the gzipped chrome trace
+                         (perf/profiler.py).  400 for a duration that is
+                         not a positive number, 409 while another capture
+                         (or a CUDA graph capture) holds the profiler.
+- GET  /debug/profile/artifact/<path> -> that trace, while retained
+                         (SKYTPU_PROFILE_RETAIN, under SKYTPU_PROFILE_DIR
+                         or a private tmpdir removed at shutdown); 404
+                         for a missing file or a path leaving the store.
 
 Roles (`--role`, env SKYTPU_SERVE_ROLE): `monolithic` (default) serves
 each request end to end.  A `prefill` replica, when the serve LB stamps
@@ -65,6 +75,7 @@ from skypilot_tpu_torch import sky_logging
 from skypilot_tpu_torch.device import device_of
 from skypilot_tpu_torch.inference import kv_transfer
 from skypilot_tpu_torch.inference.engine import DecodeEngine, EngineConfig
+from skypilot_tpu_torch.perf import profiler as profiler_lib
 from skypilot_tpu_torch.server import metrics as metrics_lib
 from skypilot_tpu_torch.server import tracing
 
@@ -250,15 +261,57 @@ def build_app(engine: DecodeEngine,
         return web.Response(text=metrics_lib.render(),
                             content_type='text/plain')
 
+    # On-demand profiler capture (perf/profiler.py): artifacts live
+    # under a retention-bounded store, wholly removed at shutdown so
+    # long-lived replicas never grow disk without bound.
+    profile_store = profiler_lib.ProfileStore()
+
+    async def debug_profile(request):
+        try:
+            duration_ms = float(request.query.get('duration_ms', '500'))
+        except ValueError:
+            return web.json_response(
+                {'error': 'duration_ms must be a number'}, status=400)
+        if not duration_ms > 0:
+            return web.json_response(
+                {'error': 'duration_ms must be positive'}, status=400)
+        rid = request['skytpu_request_id']
+        loop = asyncio.get_event_loop()
+        try:
+            # Executor thread: capture() sleeps for the whole window.
+            summary = await loop.run_in_executor(
+                None, profile_store.capture, duration_ms, rid)
+        except profiler_lib.CaptureBusy as e:
+            return web.json_response({'error': str(e)}, status=409)
+        summary['role'] = role
+        return web.json_response(summary)
+
+    async def debug_profile_artifact(request):
+        try:
+            path = profile_store.artifact_path(
+                request.match_info['tail'])
+        except (ValueError, FileNotFoundError) as e:
+            return web.json_response({'error': str(e)}, status=404)
+        return web.FileResponse(path)
+
+    async def _cleanup_profiles(_app):
+        profile_store.cleanup()
+
     debug_requests, debug_request = tracing.make_debug_handlers()
 
     app.router.add_get('/health', health)
     app.router.add_get('/metrics', metrics_route)
     app.router.add_get('/debug/requests', debug_requests)
     app.router.add_get('/debug/requests/{request_id}', debug_request)
+    app.router.add_get('/debug/profile', debug_profile)
+    app.router.add_get('/debug/profile/artifact/{tail:.+}',
+                       debug_profile_artifact)
     app.router.add_post('/v1/completions', completions)
     app.router.add_post(kv_transfer.ADOPT_ROUTE, kv_adopt)
     app.on_cleanup.append(_close_session)
+    app.on_cleanup.append(_cleanup_profiles)
+    # Tests and embedders reach the store for retention assertions.
+    app['skytpu_profile_store'] = profile_store
     return app
 
 

@@ -26,6 +26,10 @@ PyTorch's current stream.  `block_size` keeps the TPU wrappers' contract
 (S must divide min(block_size, S)); the CUDA kernels pick their own tiles
 and mask the ragged edge themselves.
 
+The library's build is the one `nvcc` site of the port: it runs inside
+`perf.compile_telemetry.compiling('kernel_build', ...)`, so it counts as
+a compile and, after the recompile sentinel is armed, as a hazard.
+
 CPU tensors take each kernel's plain PyTorch version (`*_reference`); a
 CUDA tensor always launches the kernel or raises.  Each kernel's wrapper
 counts its launches in `.launches`.
@@ -43,6 +47,8 @@ import threading
 from typing import List, Optional, Tuple
 
 import torch
+
+from skypilot_tpu_torch.perf import compile_telemetry
 
 _NEG_INF = -1e30
 _PKG_DIR = pathlib.Path(__file__).resolve().parents[2]
@@ -115,7 +121,10 @@ class _Library:
             # Build in a private directory, then rename the library: a
             # concurrent build in another process never loads a
             # half-written file.
-            with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            shapes = (f'nvcc sm_90a: {", ".join(p.name for p in srcs)} -> '
+                      f'{out.name}')
+            with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp, \
+                    compile_telemetry.compiling('kernel_build', shapes):
                 self.build_log = self._compile_and_link(
                     srcs, pathlib.Path(tmp), out)
         lib = ctypes.CDLL(str(out))

@@ -3,14 +3,23 @@ kernels (forward, dq, dk/dv) against their plain versions, the autograd
 op against autograd through `mha_reference`, the engine's kernel path
 against attention_impl='xla', a narrow model trained through the
 kernels, the engine's decode call as a CUDA graph against its eager
-body (dense and paged, greedy and sampled) and a weight swap under the
-graph, on the card.  Marked `gpu`; each test asks the
+body (dense and paged, greedy and sampled), the speculative verify as
+a CUDA graph against its eager body (bf16 and int8 pages, a MoE model),
+no build after prewarm() under the strict recompile sentinel, a
+profiler window that holds the flash kernel launched by the engine's
+loop thread, and a weight swap under the graph, on the card.  Marked
+`gpu`; each test asks the
 `cuda` fixture, which skips when there is no CUDA device.  No JAX here,
 so the file runs where only the port is installed:
 
     python -m pytest tests/test_torch_gpu.py -m gpu
 """
+import collections
 import dataclasses
+import gzip
+import json
+import threading
+import time
 
 import pytest
 import torch
@@ -18,6 +27,10 @@ import torch
 from skypilot_tpu_torch.inference.engine import DecodeEngine, EngineConfig
 from skypilot_tpu_torch.models.llama import LlamaConfig, Llama, init_params
 from skypilot_tpu_torch.ops.cuda import flash_attention as fa
+from skypilot_tpu_torch.perf import compile_telemetry
+from skypilot_tpu_torch.perf import profiler as profiler_lib
+from skypilot_tpu_torch.server import metrics as metrics_lib
+from skypilot_tpu_torch.server import tracing
 
 pytestmark = pytest.mark.gpu
 
@@ -366,3 +379,93 @@ def test_sentinel_swap_under_the_graph(cuda, paged):
     assert len(toks) == 12
     assert set(toks[emitted:]) <= set(sentinels)
     assert not set(toks[:emitted]) <= set(sentinels)
+
+
+def _spec_counts():
+    text = metrics_lib.render()
+    return [sum(float(line.rsplit(' ', 1)[1]) for line in text.splitlines()
+                if line.startswith(f'skytpu_engine_spec_{k}_tokens_total'))
+            for k in ('proposed', 'accepted')]
+
+
+@pytest.mark.parametrize('kv_dtype,n_experts', [('bf16', 0), ('int8', 0),
+                                                ('bf16', 8)],
+                         ids=['bf16', 'int8', 'moe'])
+def test_graph_verify_matches_eager(cuda, kv_dtype, n_experts):
+    """The speculative verify replayed as a CUDA graph (captured at
+    prewarm(), over its fixed draft buffer) gives the eager body's tokens
+    and acceptance counts: bf16 and int8 pages, and a MoE model whose
+    S = k+1 capacity is a Python int."""
+    kw = dict(kv_page_size=16, speculation=4, kv_dtype=kv_dtype,
+              n_experts=n_experts)
+    runs = []
+    for eager in (False, True):
+        engine = _narrow_engine(cuda, eager=eager, **kw)
+        engine.prewarm()
+        assert engine._decode_call is None
+        assert (engine._verify_call.graph is None) == eager
+        before = _spec_counts()
+        toks = _serve(engine, _GRAPH_PROMPTS, 10)
+        runs.append((toks, [a - b for a, b in zip(_spec_counts(), before)]))
+    assert runs[0] == runs[1]
+    assert runs[0][1][0] > 0
+
+
+def test_no_build_after_prewarm_under_the_strict_sentinel(cuda, monkeypatch):
+    """prewarm() captures every call an engine uses and arms the
+    sentinel: dense, paged and speculative traffic then builds nothing,
+    while a call built after it raises the post-warmup error before any
+    capture starts."""
+    monkeypatch.setenv(compile_telemetry.STRICT_ENV, '1')
+    tracing.reset_for_tests()
+    try:
+        for kw in ({}, dict(kv_page_size=16),
+                   dict(kv_page_size=16, speculation=4)):
+            engine = _narrow_engine(cuda, **kw)
+            engine.prewarm()
+            assert compile_telemetry.armed()
+            before = compile_telemetry.summary()
+            _serve(engine, _GRAPH_PROMPTS, 10)
+            assert compile_telemetry.summary() == before
+        assert not tracing.events_for(compile_telemetry.SENTINEL_REQUEST_ID)
+        with pytest.raises(RuntimeError, match='post-warmup verify build'):
+            engine._new_verify_call()
+        assert tracing.events_for(compile_telemetry.SENTINEL_REQUEST_ID)
+    finally:
+        compile_telemetry.reset_for_tests()
+        tracing.reset_for_tests()
+
+
+def test_profile_window_holds_the_loop_threads_kernels(cuda, tmp_path):
+    """A profiler window opened on another thread while the engine's loop
+    thread serves: the gzipped chrome trace holds the flash forward
+    kernel of the prefill and the decode graph's kernels."""
+    store = profiler_lib.ProfileStore(root=str(tmp_path))
+    engine = _narrow_engine(cuda)
+    engine.prewarm()
+    engine.start()
+    summary = {}
+    try:
+        th = threading.Thread(
+            target=lambda: summary.update(store.capture(2000.0)))
+        th.start()
+        time.sleep(0.3)
+        reqs = [engine.submit(p, 10) for p in _GRAPH_PROMPTS]
+        deadline = time.time() + 60
+        while (not all(r.finished_at is not None for r in reqs) and
+               time.time() < deadline):
+            time.sleep(0.01)
+        th.join(60)
+        assert not th.is_alive()
+        assert all(r.finished_at is not None for r in reqs)
+    finally:
+        engine.stop()
+    with gzip.open(store.artifact_path(summary['artifact'])) as f:
+        events = json.load(f)['traceEvents']
+    kernels = [e for e in events if e.get('cat') == 'kernel']
+    assert any('fa_fwd_kernel' in e['name'] for e in kernels)
+    # A graph replay is one launch: its kernels share a correlation id,
+    # where each eager launch has its own.
+    per_launch = collections.Counter(e['args']['correlation']
+                                     for e in kernels)
+    assert max(per_launch.values()) > 1

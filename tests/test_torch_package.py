@@ -161,3 +161,18 @@ def test_model_zoo_slice_modules_are_covered():
     for name in ('MoEMLP', 'EncoderClassifier', 'ENCODER_CONFIGS',
                  'ResNet', 'RESNET_CONFIGS'):
         assert name in models.__all__ and hasattr(models, name)
+
+
+def test_perf_slice_modules_are_covered():
+    """The isolation checks above walk every module of the port; the perf
+    plane's modules are among them, the package exports them, and the
+    bandwidth table holds the card's entry and the nominal CPU one, no
+    TPU chip."""
+    mods = set(_port_modules())
+    assert {'skypilot_tpu_torch.perf',
+            'skypilot_tpu_torch.perf.cost_model',
+            'skypilot_tpu_torch.perf.compile_telemetry',
+            'skypilot_tpu_torch.perf.profiler'} <= mods
+    from skypilot_tpu_torch import perf
+    assert perf.__all__ == ['compile_telemetry', 'cost_model', 'profiler']
+    assert perf.cost_model.HBM_GBPS == {'h100': 3350.0, 'cpu': 100.0}

@@ -165,6 +165,45 @@ def test_spec_off_engine_exports_no_spec_counters(ref):
     assert counter('skytpu_engine_spec_proposed_tokens_total') == 0
 
 
+@pytest.mark.parametrize('kv_dtype', ['bf16', 'int8'])
+def test_verify_call_keeps_its_buffers(ref, kv_dtype):
+    """The verify call object (the card's CUDA graph, its body on the
+    CPU) reads and writes fixed buffers: `_last_d`, `_lens_d`, its draft
+    buffer and output rows, the pool and the page table keep their
+    storage across steps, each call hands out a clone of its rows, and
+    prewarm() builds the one call the engine uses (nothing after), with
+    the JAX engine's tokens."""
+    _, _, model, jax_streams = ref
+    engine = make_engine(model, speculation=4, kv_dtype=kv_dtype)
+    engine.prewarm()
+    call = engine._verify_call
+    assert engine._decode_call is None and call.graph is None
+    assert tuple(call.out.shape) == (4 + 3, ENGINE_KW['n_slots'])
+    pool = [t for layer in engine._cache for leaf in layer
+            for t in ((leaf.data, leaf.scale) if kv_dtype == 'int8'
+                      else (leaf,))]
+    fixed = [engine._last_d, engine._lens_d, engine._pt_device, call.out,
+             call.drafts] + pool
+    ptrs = [t.data_ptr() for t in fixed]
+    builds = counter('skytpu_engine_xla_compile_total')
+    outs = []
+
+    def spy(eng, drafts):
+        out = call(eng, drafts)
+        assert out.data_ptr() != call.out.data_ptr()
+        outs.append(out)
+        return out
+
+    engine._verify_call = spy
+    prompts = [prompt_of(7, 75), prompt_of(30, 76)]
+    got = run(engine, [engine.submit(p, 10) for p in prompts])
+    assert len(outs) >= 3
+    assert [t.data_ptr() for t in fixed] == ptrs
+    assert counter('skytpu_engine_xla_compile_total') == builds
+    assert got == jax_streams(prompts, 10, kv_dtype=kv_dtype,
+                              speculation=4)
+
+
 def test_spec_one_fetch_per_step(ref, monkeypatch):
     """Drafts ship host->device inside the dispatch and the acceptance
     counts ride the token fetch: one `.cpu()` per active step, no
