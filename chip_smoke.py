@@ -66,6 +66,26 @@ followed by its seconds:
    equal to the in-memory model's); then a sentinel lm_head installed
    with update_params mid-request under the graph (every later token a
    sentinel, none before).
+6b. Tensor-parallel serving (TENSOR), over the serving weights and
+   prompts: (a) two gloo ranks on cuda:0 print which of all_reduce,
+   broadcast and all_gather_into_tensor gloo runs on bf16, f32 and int8
+   CUDA tensors (those the phase's model runs must work); (b) llama2-7b
+   at full width over tensor=2, both ranks on the one card, each holding
+   its slices from the same seed: the first-step logits of the 8 prompts
+   bit-identical to one device computing the same arithmetic (o/down as
+   bf16 half products added in bf16) and within LOGITS_RTOL of the plain
+   one-device model (relative to its max |logit|; one device's
+   flash-vs-xla distance printed beside it), then
+   the dense and the 64-token-paged engine
+   (eager: gloo syncs the host) on the serving cell's traffic, every
+   rank's tokens equal to rank 0's, greedy agreement with the one-device
+   engine printed, 32 flash launches per prefill group on rank 0; (c)
+   the model cut to 4 layers in f32 (attention_impl 'xla'): tokens
+   identical to the one-device engine; (d) tensor=1 over a one-rank NCCL
+   group in this process: the decode call a CUDA graph with its
+   collectives, tokens identical to the mesh-free engine; (e) the flash
+   forward at one rank's prefill shape (TP_SHAPE) against its plain
+   version, timed beside its bound.  Each rank's peak memory printed.
 7. MoE serving (MOE_SERVE, examples/train_moe_expert_parallel.yaml:20):
    llama3-1b with 8 experts at full width and depth (6.873B params,
    bf16 from a seed) on the engine API with the serving phase's traffic,
@@ -105,8 +125,9 @@ followed by its seconds:
    sentinel disarmed.
 11. Result: the kernels JSON line (per kernel also TFLOP/s, ptxas
    registers and spill-store bytes, shared memory per launch; launches
-   by path: serving, paged, checkpoint, moe_serving, training,
-   moe_training, rl), the nvidia-smi line, then
+   by path: serving, paged, checkpoint, tensor_serving (rank 0 of (b)
+   and (d)), moe_serving, training, moe_training, rl), the nvidia-smi
+   line, then
    {"ok": true, "device": {...}} as the last line.
 
 Needs one CUDA device; exits non-zero without one and imports nothing of
@@ -241,6 +262,24 @@ ZOO_LOGITS_RTOL = 5e-2
 # loop's stop, and the engine weights every token's context as this
 # script does.
 PERF_GAUGE_RTOL = 5e-2
+# Tensor-parallel serving on the one card: the serving cell's model and
+# traffic over tensor=2 with both ranks on cuda:0 over gloo (eager calls:
+# a correctness run, its rate is gloo's host staging), dense and 64-token
+# paged; then cut to 4 of 32 layers in f32; then tensor=1 over NCCL.
+TENSOR = dict(model='llama2-7b', tensor=2, max_seq_len=448, n_slots=8,
+              steps_per_call=32, prefill_buckets=(256,), kv_page_size=64,
+              max_tokens=32, f32_layers=4)
+# (b, hq, hkv, s, d) of one rank's prefill attention at tensor=2: 8
+# prompts in the 256 bucket over 16 of llama2-7b's 32 heads.
+TP_SHAPE = (8, 16, 16, 256, 128)
+# tensor=2 first-step logits (bf16) must be bit-identical to one device
+# computing the same arithmetic (each o/down product as two bf16 half
+# products added in bf16; every other op is the same kernel on the same
+# values).  Against the plain one-device model the o/down sums round
+# otherwise (two bf16 partials added, not one f32 accumulator rounded
+# once), a flip in a few of layer 0's outputs that 32 random layers carry
+# to the noise floor of two correct bf16 computations (one device's
+# flash vs xla, printed beside it): that comparison takes LOGITS_RTOL.
 # The /debug/profile window opened over the serving burst (ms), and the
 # verify calls timed per speculative engine.
 PROFILE_MS = 500
@@ -1655,6 +1694,328 @@ def checkpoint_phase(device, card, ctx):
     return counts
 
 
+# ----- tensor-parallel serving ------------------------------------------------
+def tp_probe(_):
+    """In each rank of a gloo pool on cuda:0: which collectives gloo runs
+    on CUDA tensors, per dtype; {'dtype op': result or the error}."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    rank, out = dist.get_rank(), {}
+    for dtype in (torch.bfloat16, torch.float32, torch.int8):
+        for op in ('all_reduce', 'broadcast', 'all_gather_into_tensor'):
+            x = torch.full((4,), rank + 1, dtype=dtype, device='cuda')
+            try:
+                if op == 'all_reduce':
+                    dist.all_reduce(x)
+                    got, want = x.tolist(), [3] * 4
+                elif op == 'broadcast':
+                    dist.broadcast(x, 0)
+                    got, want = x.tolist(), [1] * 4
+                else:
+                    y = x.new_empty((8,))
+                    dist.all_gather_into_tensor(y, x)
+                    got, want = y.tolist(), [1] * 4 + [2] * 4
+                out[f'{str(dtype)[6:]} {op}'] = ('ok' if got == want
+                                                 else f'wrong: {got}')
+            except Exception as e:  # pylint: disable=broad-except
+                out[f'{str(dtype)[6:]} {op}'] = f'fails: {e!r}'[:160]
+    return out
+
+
+def _tp_traffic(engine, prompts, n_new):
+    """Rank 0: prewarm (every rank), then every prompt at once on the
+    pipelined loop, drained; (streams, wall s).  Other ranks follow;
+    (their streams, None)."""
+    import torch
+    if not engine.leader:
+        return [r.tokens() for r in engine.follow(record=True)], None
+    try:
+        engine.prewarm()
+        t0 = time.perf_counter()
+        reqs = [engine.submit(p, n_new) for p in prompts]
+        while not all(r.finished_at is not None for r in reqs):
+            engine.step_pipelined()
+        engine.drain()
+        torch.cuda.synchronize()
+        return [r.tokens() for r in reqs], time.perf_counter() - t0
+    finally:
+        engine.close()
+
+
+def tp_rank(prompts, logits_tokens, logits_at):
+    """One rank of TENSOR's gloo pair on cuda:0: (b) llama2-7b bf16 from
+    SEED, this rank's slices: the first-step logits of `logits_tokens`
+    at `logits_at`, then the dense and the paged engine over `prompts`
+    (prewarmed; flash launches counted around them on rank 0); (c) the
+    4-layer f32 model's dense tokens.  Returns what the caller checks."""
+    import torch
+    from skypilot_tpu_torch.inference.engine import DecodeEngine, EngineConfig
+    from skypilot_tpu_torch.models.llama import LLAMA_CONFIGS, Llama, init_params
+    from skypilot_tpu_torch.parallel.mesh import build_serve_mesh
+
+    t = TENSOR['tensor']
+    cfg = dataclasses.replace(LLAMA_CONFIGS[TENSOR['model']],
+                              max_seq_len=TENSOR['max_seq_len'],
+                              param_dtype=torch.bfloat16)
+    mesh = build_serve_mesh(t, cfg.n_heads, cfg.n_kv_heads,
+                            devices=['cuda:0'] * t, backend='gloo')
+    out = {'rank': mesh.rank}
+
+    def build(c):
+        gen = torch.Generator(device=mesh.device).manual_seed(SEED)
+        return Llama(c, init_params(c, mesh.device, gen, mesh=mesh), mesh)
+
+    def engine(model, **kw):
+        return DecodeEngine(model, EngineConfig(
+            n_slots=TENSOR['n_slots'], steps_per_call=TENSOR['steps_per_call'],
+            prefill_buckets=TENSOR['prefill_buckets'], mesh=mesh, **kw))
+
+    t0 = time.perf_counter()
+    model = build(cfg)
+    torch.cuda.synchronize()
+    out['init_s'] = time.perf_counter() - t0
+    with torch.no_grad():
+        logits = model(torch.tensor(logits_tokens, device=mesh.device),
+                       logits_at=torch.tensor(logits_at, device=mesh.device))
+    out['logits'] = logits[:, 0].cpu()
+    zero_launches()
+    groups = 0
+    for name, kw in (('dense', {}), ('paged', {'kv_page_size':
+                                               TENSOR['kv_page_size']})):
+        e = engine(model, **kw)
+        out[name], out[name + '_wall'] = _tp_traffic(e, prompts,
+                                                     TENSOR['max_tokens'])
+        groups += e.prefill_groups
+        del e
+    out['launches'], out['groups'] = read_launches(), groups
+    del model
+    torch.cuda.empty_cache()
+    cfg4 = dataclasses.replace(cfg, n_layers=TENSOR['f32_layers'],
+                               dtype=torch.float32, param_dtype=torch.float32,
+                               attention_impl='xla')
+    out['f32'], _ = _tp_traffic(engine(build(cfg4)), prompts,
+                                TENSOR['max_tokens'])
+    out['peak_gb'] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def _halves_product(dense, t):
+    """A forward for one device's row-parallel projection `dense` with
+    tensor=t's arithmetic: the product of each of the t slices of the
+    input dim in the compute dtype, the slices added in that dtype in
+    rank order."""
+    import torch.nn.functional as F
+
+    def forward(x):
+        x, w = x.to(dense.dtype), dense.weight.to(dense.dtype)
+        k = w.shape[1] // t
+        acc = None
+        for r in range(t):
+            part = F.linear(x[..., r * k:(r + 1) * k].contiguous(),
+                            w[:, r * k:(r + 1) * k].contiguous())
+            acc = part if acc is None else acc + part
+        return acc
+    return forward
+
+
+def tensor_serving_phase(device, card, ctx):
+    """Tensor-parallel serving (TENSOR) on the one card: (a) which
+    collectives gloo runs on CUDA tensors (a failing one the model needs
+    fails the phase); (b) llama2-7b at full width over tensor=2, both
+    ranks on cuda:0 over gloo, dense and paged on the engine API with the
+    serving cell's traffic: first-step logits bit-identical to one
+    device computing the same arithmetic and within LOGITS_RTOL of the
+    plain one-device model, greedy agreement with the one-device engine
+    printed; (c) the model cut to 4 layers in f32
+    (attention_impl 'xla': the kernel takes bf16/fp16): tokens identical
+    to the one-device engine; (d) tensor=1 over a one-rank NCCL group in
+    this process, over the serving weights: the decode call captured as a
+    CUDA graph with its collectives, tokens identical to the mesh-free
+    engine; (e) the flash forward at the per-rank prefill shape against
+    its plain version, timed beside its bound.  Returns (rank 0's launch
+    counts over (b) and (d), the (e) numbers)."""
+    import torch
+    from skypilot_tpu_torch.inference.engine import DecodeEngine, EngineConfig
+    from skypilot_tpu_torch.models.llama import Llama, init_params
+    from skypilot_tpu_torch.ops.cuda import flash_attention as fa
+    from skypilot_tpu_torch.parallel import group as group_lib
+    from skypilot_tpu_torch.parallel.mesh import build_serve_mesh
+
+    cfg, model = ctx['cfg'], ctx['model']
+    if (TENSOR['model'], TENSOR['max_seq_len']) != (SERVE['model'],
+                                                    cfg.max_seq_len):
+        raise SystemExit('TENSOR must name the serving phase\'s model')
+    t = TENSOR['tensor']
+    prompts = ctx['prompts'] + [ctx['long_prompt']]
+    n_new = TENSOR['max_tokens']
+    bucket = TENSOR['prefill_buckets'][0]
+    logits_tokens = [p + [0] * (bucket - len(p)) for p in ctx['prompts']]
+    logits_at = [len(p) - 1 for p in ctx['prompts']]
+    xla = Llama(dataclasses.replace(cfg, attention_impl='xla'),
+                ctx['params'])
+
+    def first_logits(m):
+        with torch.no_grad():
+            return m(torch.tensor(logits_tokens, device=device),
+                     logits_at=torch.tensor(logits_at,
+                                            device=device))[:, 0].cpu()
+
+    want_logits, floor_logits = first_logits(model), first_logits(xla)
+    del xla
+    rows = [m for layer in model.layers
+            for m in (layer.attn.o_proj, layer.mlp.down_proj)]
+    for dense in rows:
+        dense.forward = _halves_product(dense, t)
+    try:
+        same_math_logits = first_logits(model)
+    finally:
+        for dense in rows:
+            del dense.forward
+    # (c)'s one-device reference: the same 4-layer f32 draw from SEED.
+    cfg4 = dataclasses.replace(cfg, n_layers=TENSOR['f32_layers'],
+                               dtype=torch.float32, param_dtype=torch.float32,
+                               attention_impl='xla')
+    one = DecodeEngine(Llama(cfg4, init_params(
+        cfg4, device, torch.Generator(device=device).manual_seed(SEED))),
+        EngineConfig(n_slots=TENSOR['n_slots'],
+                     steps_per_call=TENSOR['steps_per_call'],
+                     prefill_buckets=TENSOR['prefill_buckets']),
+        device=device)
+    one.prewarm()
+    want_f32, _, _, _ = _drive(one, prompts, n_new)
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a)-(c): two ranks on cuda:0 over gloo.  The kernel library is
+    # built already (the ranks only load it).
+    t0 = time.perf_counter()
+    with group_lib.RankPool(t, 'gloo', timeout_s=120) as pool:
+        probe = pool.run(tp_probe, None, timeout_s=300)[0]
+        spawn_s = time.perf_counter() - t0
+        log(f'  (a) gloo over CUDA tensors, {t} ranks on cuda:0 (pool up '
+            f'and probed in {spawn_s:.1f} s):')
+        for key, result in probe.items():
+            log(f'    {key}: {result}')
+        needed = ('bfloat16 all_reduce', 'float32 all_reduce',
+                  'float32 all_gather_into_tensor')
+        if any(probe[key] != 'ok' for key in needed):
+            raise SystemExit(f'gloo refuses a collective the sharded model '
+                             f'needs on CUDA tensors: {probe}')
+        ranks = pool.run(tp_rank, prompts, logits_tokens, logits_at,
+                         timeout_s=900)
+    lead = ranks[0]
+    for r in ranks:
+        log(f'    rank {r["rank"]}: init {r["init_s"]:.1f} s, peak memory '
+            f'{r["peak_gb"]:.2f} GB')
+        for key in ('dense', 'paged', 'f32'):
+            if r[key] != lead[key]:
+                raise SystemExit(f'rank {r["rank"]} emitted other {key} '
+                                 f'tokens than rank 0')
+    got_logits = lead['logits']
+    scale = want_logits.abs().max().item()
+
+    def rel(a, b):
+        return (a - b).abs().max().item() / scale
+
+    err, err_same, floor = (rel(got_logits, want_logits),
+                            rel(got_logits, same_math_logits),
+                            rel(floor_logits, want_logits))
+    agree = (got_logits.argmax(-1) == want_logits.argmax(-1)).float().mean()
+    out_toks = sum(map(len, lead['dense']))
+    log(f'  (b) {TENSOR["model"]} bf16 tensor={t} over gloo on one card: '
+        f'first-step logits (max |logit| {scale:.3f}) against one device '
+        f'computing the same arithmetic: rel {err_same:.2e} (gate 0, '
+        f'bit-identical); against the one-device model: rel {err:.2e} '
+        f'(gate {LOGITS_RTOL}; one device\'s flash vs xla on the same '
+        f'prompts: {floor:.2e}), argmax agreement {agree.item():.4f}; '
+        f'greedy tokens equal to the one-device engine\'s: dense '
+        f'{_share_equal(lead["dense"], ctx["dense_toks"]):.4f}, paged '
+        f'{_share_equal(lead["paged"], ctx["dense_toks"]):.4f}, dense = '
+        f'paged {_share_equal(lead["dense"], lead["paged"]):.4f} (not '
+        f'gated); out-tok/s dense {out_toks / lead["dense_wall"]:.1f}, '
+        f'paged {out_toks / lead["paged_wall"]:.1f} (eager calls, gloo '
+        f'staging every collective through the host: not a tensor-'
+        f'parallel rate); rank 0 flash launches {lead["launches"]} over '
+        f'{lead["groups"]} prefill groups')
+    if not (torch.isfinite(got_logits).all() and
+            torch.equal(got_logits, same_math_logits) and
+            err <= LOGITS_RTOL):
+        raise SystemExit('tensor=2 first-step logits disagree with the '
+                         'one-device model')
+    if lead['launches']['flash_attention_fwd'] != cfg.n_layers * \
+            lead['groups']:
+        raise SystemExit(f'rank 0 launched flash {lead["launches"]} over '
+                         f'{lead["groups"]} prefill groups')
+    log(f'  (c) {TENSOR["f32_layers"]} of {cfg.n_layers} layers in f32, '
+        f'tensor={t}: tokens equal to the one-device engine\'s '
+        f'{_share_equal(lead["f32"], want_f32):.4f}')
+    if lead['f32'] != want_f32:
+        raise SystemExit('f32 tensor=2 tokens differ from one device')
+
+    # (d) tensor=1 over a real NCCL group: this process is its one rank,
+    # and the serving weights are its (whole) slices.
+    group_lib.join(0, 1, group_lib.free_port(), 'nccl', timeout_s=300)
+    try:
+        mesh = build_serve_mesh(1, cfg.n_heads, cfg.n_kv_heads)
+        tp1 = DecodeEngine(Llama(cfg, ctx['params'], mesh), EngineConfig(
+            n_slots=TENSOR['n_slots'], steps_per_call=TENSOR['steps_per_call'],
+            prefill_buckets=TENSOR['prefill_buckets'], mesh=mesh))
+        t0 = time.perf_counter()
+        tp1.prewarm()
+        prewarm_s = time.perf_counter() - t0
+        if tp1._decode_call.graph is None:
+            raise SystemExit('tensor=1 over NCCL did not capture its graph')
+        zero_launches()
+        toks1, wall1, ttft1, _ = _drive(tp1, prompts, n_new)
+        counts1 = read_launches()
+        groups1 = tp1.prefill_groups
+        tp1.close()
+        del tp1
+    finally:
+        group_lib.leave()
+    log(f'  (d) tensor=1 over NCCL, decode call a CUDA graph with its '
+        f'collectives (prewarm {prewarm_s:.1f} s): tokens equal to the '
+        f'mesh-free engine\'s {_share_equal(toks1, ctx["dense_toks"]):.4f}; '
+        f'{out_toks / wall1:.1f} out-tok/s, TTFT p50 '
+        f'{_p50(ttft1) * 1e3:.1f} ms; flash launches {counts1} over '
+        f'{groups1} prefill groups')
+    if toks1 != ctx['dense_toks']:
+        raise SystemExit('tensor=1 over NCCL emits other tokens than the '
+                         'mesh-free engine')
+    if counts1['flash_attention_fwd'] != cfg.n_layers * groups1:
+        raise SystemExit(f'flash launched {counts1} over {groups1} groups')
+
+    # (e) the forward at one rank's prefill shape.
+    b, hq, hkv, s, d = TP_SHAPE
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    q = torch.randn((b, hq, s, d), generator=gen,
+                    device=device).to(torch.bfloat16)
+    k, v = (torch.randn((b, hkv, s, d), generator=gen,
+                        device=device).to(torch.bfloat16) for _ in range(2))
+    got, lse = fa.flash_attention_fwd(q, k, v, return_residuals=True)
+    ref, ref_lse = fa.flash_attention_fwd_reference(q, k, v,
+                                                    return_residuals=True)
+    diff = (got.float() - ref.float()).abs()
+    lse_err = (lse - ref_lse).abs().max().item()
+    log(f'  (e) flash_fwd at the tensor={t} per-rank prefill shape '
+        f'{TP_SHAPE}: out max_abs_err {diff.max().item():.3e}, lse '
+        f'{lse_err:.3e}')
+    if not (bool((diff <= OUT_ATOL + OUT_RTOL * ref.float().abs()).all())
+            and lse_err <= LSE_ATOL):
+        raise SystemExit('flash forward disagrees with its plain version at '
+                         'the per-rank shape')
+    times = kernel_times(device, TP_SHAPE, f'tensor={t} per-rank prefill',
+                         ('fwd',))['fwd']
+    times['max_abs_err'] = diff.max().item()
+    del q, k, v, got, ref
+    torch.cuda.empty_cache()
+    counts = {name: lead['launches'][name] + counts1[name]
+              for name in KERNEL_NAMES}
+    return counts, times
+
+
 def training_phase(device, card, smi, spec=TRAIN):
     """A model through Trainer.run (`spec`: TRAIN, bench-1b, or
     MOE_TRAIN): 2 untimed steps, then the timed steps with every launch
@@ -2450,6 +2811,11 @@ def main() -> int:
         'graph')
     by_path['checkpoint'] = phase('checkpoint', checkpoint_phase, device,
                                   card, serve_ctx)
+    log(f'[tensor_serving] {TENSOR}')
+    by_path['tensor_serving'], fwd['at_tensor_rank_shape'] = phase(
+        'tensor_serving', tensor_serving_phase, device, card, serve_ctx)
+    fwd['max_abs_err'] = max(fwd['max_abs_err'],
+                             fwd['at_tensor_rank_shape']['max_abs_err'])
     del serve_ctx
     # Collect what the serving phases left in reference cycles before the
     # next phases read their peak memory.

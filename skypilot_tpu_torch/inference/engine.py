@@ -86,7 +86,29 @@ added sync).  Every call object's build counts as a compile
 recompile sentinel once the kernels are built and every call the engine
 uses is captured.
 
-Not in this slice: tensor parallelism (`mesh`).
+Tensor parallelism (`EngineConfig(mesh=...)`, a `parallel.mesh.RankMesh`
+from `build_serve_mesh`; the model built over the same mesh): one engine
+per rank, each holding its slices of the weights and the KV cache (the
+dense cache [n_slots, n_kv_heads/t, L, D], the page pool, the int8 scales
+and the chunk scratch over kv heads; page tables and every host-synced
+tensor whole on every rank).  The ranks must issue the same device calls
+in the same order, so only rank 0 takes requests (`submit*`,
+`update_params`, the HTTP server): they wait in an inbox, and at the top
+of each `step()` / `step_pipelined()` / `prewarm()` rank 0 broadcasts one
+fixed-shape int64 control header over the mesh's gloo control group (the
+action; how many requests it admits, their prompt ids and budgets; a
+staged weight swap), then the ids and any handed-off pages; a swap's
+weights follow over the device group, one whole tensor at a time.  The other ranks run `follow()`: they apply the same changes and
+run the same action, so their schedulers take the same decisions (none is
+taken from the wall clock).  Every rank samples from the same whole
+logits with the same seeded generator, so every rank emits the same
+tokens.  A weight swap travels whole and each rank keeps its slice; an
+export gathers every rank's kv heads into the usual full-head payload,
+and an adopt scatters one back, so handoffs cross between tensor degrees
+and between the two packages.  Under an NCCL group the decode and verify
+calls are CUDA graphs as on one device; under gloo they run eagerly
+(gloo syncs the host in every collective, which a graph cannot capture).
+`close()` ends the followers.
 """
 from __future__ import annotations
 
@@ -100,12 +122,15 @@ from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from skypilot_tpu_torch import sky_logging
 from skypilot_tpu_torch.device import DeviceLike, device_of, resolve_device
 from skypilot_tpu_torch.inference import kv_quant
 from skypilot_tpu_torch.inference.paging import TRASH_PAGE, PagePool, RadixCache
 from skypilot_tpu_torch.ops.cuda import flash_attention as cuda_fa
+from skypilot_tpu_torch.parallel import group as group_lib
+from skypilot_tpu_torch.parallel import sharding
 from skypilot_tpu_torch.perf import compile_telemetry
 from skypilot_tpu_torch.perf import cost_model as cost_model_lib
 from skypilot_tpu_torch.perf import profiler as profiler_lib
@@ -114,6 +139,22 @@ from skypilot_tpu_torch.server import tracing
 from skypilot_tpu_torch.train import flops as flops_lib
 
 logger = sky_logging.init_logger(__name__)
+
+# Rank 0's control header under a mesh: [action, requests, prompt ids,
+# swap], the action one of these.
+_ACT_APPLY, _ACT_STEP, _ACT_PIPELINED, _ACT_PREWARM, _ACT_STOP = range(5)
+# Per announced request: (route, prompt_len, max_new_tokens, first_token,
+# n_kv_pages), the route one of these.
+_ROUTE_SERVE, _ROUTE_PREFILL, _ROUTE_ADOPT = range(3)
+_META = 5
+
+
+class _Discard:
+    """The token queue of a request a follower runs for no one."""
+
+    @staticmethod
+    def put(_tok) -> None:
+        pass
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,8 +171,10 @@ class EngineConfig:
     seed: int = 0
     # Admission cap for prompts.  None: anything up to max_seq_len - 1.
     max_prompt_len: Optional[int] = None
-    # Tensor parallelism: refused here (the tensor-parallel serving
-    # slice); the fields keep the JAX engine's config shape.
+    # Tensor parallelism: this rank's `parallel.mesh.RankMesh` (from
+    # build_serve_mesh; the model must be built over it).  None = one
+    # device.  Under a gloo group the decode and verify calls run eagerly:
+    # gloo syncs the host in every collective, so no CUDA graph.
     mesh: Optional[Any] = None
     tensor_axis: str = 'tensor'
     # Paged KV cache: page size in tokens (must divide every prefill
@@ -185,6 +228,13 @@ class Request:
             if t is None:
                 return toks
             toks.append(t)
+
+
+def _fail_requests(reqs) -> None:
+    """End requests that will get no more tokens (their streams close)."""
+    for req in reqs:
+        req.finished_at = time.perf_counter()
+        req.out.put(None)
 
 
 class _Slot:
@@ -407,6 +457,8 @@ class DecodeEngine:
 
     def __init__(self, model, config: EngineConfig = EngineConfig(),
                  device: DeviceLike = None, _eager_decode: bool = False):
+        if device is None and config.mesh is not None:
+            device = config.mesh.device
         self.device = resolve_device(device)
         params_on = device_of(model)
         if params_on is not None and params_on != self.device:
@@ -424,11 +476,18 @@ class DecodeEngine:
         if not buckets:
             buckets = (max_len,)
         config = dataclasses.replace(config, prefill_buckets=buckets)
-        if config.mesh is not None:
-            raise ValueError('EngineConfig.mesh: tensor-parallel serving '
-                             'comes with the tensor-parallel serving slice')
         self._validate_paging(config, max_len)
         self.cfg = config
+        self._mesh = config.mesh
+        # Tensor-parallel state: the degree, this rank's kv heads, rank
+        # 0's control channel and its inbox of requests not yet announced.
+        self._tp = 1
+        self._n_kv = model.cfg.n_kv_heads
+        self._control: Optional[group_lib.Control] = None
+        self._inbox: List[Request] = []
+        self._group_closed = False
+        if self._mesh is not None:
+            self._setup_mesh()
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(config.seed)
         self._prefill_q: 'queue.Queue[Request]' = queue.Queue()
@@ -517,12 +576,205 @@ class DecodeEngine:
         self._cost_model = cost_model_lib.EngineCostModel.from_engine_state(
             model.cfg, model.parameters(),
             [t for layer in self._cache for t in layer],
+            n_chips=self._mesh.size if self._mesh is not None else 1,
             chip=flops_lib.chip_kind(self.device),
-            kv_dtype=config.kv_dtype if self._paged else None)
+            kv_dtype=config.kv_dtype if self._paged else None,
+            param_bytes=self._global_param_bytes())
 
     @property
     def healthy(self) -> bool:
         return self.error is None
+
+    @property
+    def leader(self) -> bool:
+        """True on the rank that takes requests: rank 0 of a mesh, or the
+        one device's engine."""
+        return self._mesh is None or self._mesh.rank == 0
+
+    # ----- tensor parallelism ------------------------------------------------
+    def _setup_mesh(self) -> None:
+        """Check the mesh against the model (validated degree, the model
+        built over this mesh) and set up the rank's view: its kv heads and
+        the control channel."""
+        from skypilot_tpu_torch.parallel import mesh as mesh_lib
+        mesh, mcfg = self._mesh, self.model.cfg
+        if getattr(self.model, 'mesh', None) is not mesh:
+            raise ValueError(
+                'EngineConfig.mesh: build the model over the same mesh '
+                '(Llama(cfg, params, mesh), params this rank\'s slices)')
+        if self.cfg.tensor_axis != 'tensor':
+            raise ValueError(f'tensor_axis {self.cfg.tensor_axis!r}: the '
+                             f"port's models shard over 'tensor'")
+        self._tp = int(mesh.shape['tensor'])
+        mesh_lib.validate_tensor_parallel(self._tp, n_heads=mcfg.n_heads,
+                                          n_kv_heads=mcfg.n_kv_heads)
+        self._n_kv = mcfg.n_kv_heads // self._tp
+        self._control = group_lib.Control(mesh)
+        if mesh.backend == 'gloo' and self.device.type == 'cuda':
+            logger.info('tensor-parallel engine over gloo: the decode and '
+                        'verify calls run eagerly (gloo syncs the host in '
+                        'every collective, which a CUDA graph cannot '
+                        'capture)')
+
+    def _global_param_bytes(self) -> Optional[int]:
+        """Under a mesh, the bytes of the WHOLE weights (each rank's slice
+        times the number of slices), as the JAX cost model reads its
+        global arrays; None on one device."""
+        if self._mesh is None:
+            return None
+        from skypilot_tpu_torch.models.llama import param_shapes
+        shapes = param_shapes(self.model.cfg)
+        return sum(
+            t.numel() * t.element_size() * sharding.shard_factor(
+                sharding.param_spec(name, shapes[name], self._mesh.shape),
+                self._mesh.shape)
+            for name, t in self.model.named_parameters())
+
+    def _check_leader(self, what: str) -> None:
+        if not self.leader:
+            raise RuntimeError(
+                f'{what}: rank {self._mesh.rank} of a tensor-parallel '
+                f'engine follows rank 0 (call follow()); only rank 0 takes '
+                f'requests and runs the loop')
+
+    def _lead(self, action: int) -> None:
+        """Rank 0 of a mesh, at a dispatch boundary: announce `action` and
+        what changed since the last announcement (the inbox's requests, a
+        staged weight swap), then apply it here as every follower does.
+        A no-op on one device."""
+        if self._mesh is None:
+            return
+        self._check_leader('step')
+        if self._group_closed:
+            raise RuntimeError('the followers of this engine have stopped '
+                               '(close())')
+        with self._submit_lock:
+            reqs, self._inbox = self._inbox, []
+        with self._params_lock:
+            swap, self._staged_params = self._staged_params, None
+        meta = np.zeros((len(reqs), _META), np.int64)
+        for j, req in enumerate(reqs):
+            route = (_ROUTE_ADOPT if req.adopt is not None else
+                     _ROUTE_PREFILL if req.export else _ROUTE_SERVE)
+            first = req.adopt[0] if req.adopt is not None else 0
+            n_kv = (req.adopt[1][0].shape[0] if req.adopt is not None
+                    else 0)
+            meta[j] = (route, len(req.prompt_ids), req.max_new_tokens,
+                       first, n_kv)
+        ids = [i for req in reqs for i in req.prompt_ids]
+        ctl = self._control
+        try:
+            ctl.send_header([action, len(reqs), len(ids), swap is not None])
+            if reqs:
+                ctl.send_ints(np.concatenate(
+                    [meta.ravel(), np.asarray(ids, np.int64)]))
+            for req in reqs:
+                if req.adopt is not None:
+                    for leaf in req.adopt[1]:
+                        ctl.send_tensor(leaf)
+        except BaseException:
+            # A follower is gone (or the group timed out): these requests
+            # left the inbox and reached no queue, so end them here.
+            _fail_requests(reqs)
+            raise
+        self._apply(reqs, swap)
+
+    def follow(self, record: bool = False) -> List[Request]:
+        """A follower rank's loop: take rank 0's announcements, apply
+        them and run the same action, until rank 0 closes.  With `record`
+        it returns the requests it ran (their tokens are rank 0's), else
+        their tokens go nowhere."""
+        if self._mesh is None or self.leader:
+            raise RuntimeError('follow() runs on ranks 1.. of a '
+                               'tensor-parallel engine')
+        ctl, seen = self._control, []
+        while True:
+            action, n_req, n_ids, swap = (int(v) for v in
+                                          ctl.recv_header()[:4])
+            reqs = []
+            if n_req:
+                flat = ctl.recv_ints(n_req * _META + n_ids)
+                meta = flat[:n_req * _META].reshape(n_req, _META)
+                ids, off = flat[n_req * _META:], 0
+                for route, plen, max_new, first, n_kv in meta.tolist():
+                    req = Request(ids[off:off + plen].tolist(), max_new)
+                    off += plen
+                    req.export = route == _ROUTE_PREFILL
+                    if route == _ROUTE_ADOPT:
+                        req.adopt = (first, [
+                            ctl.recv_tensor((n_kv,) + shape, dtype)
+                            for shape, dtype in self._wire_page_shapes()])
+                    if not record:
+                        req.out = _Discard()
+                    reqs.append(req)
+            with self._submit_lock:
+                self._queued_tokens += sum(len(r.prompt_ids) for r in reqs
+                                           if r.adopt is None)
+            self._apply(reqs, bool(swap))
+            if record:
+                seen += reqs
+            if action == _ACT_STOP:
+                return seen
+            if action == _ACT_STEP:
+                self._step()
+            elif action == _ACT_PIPELINED:
+                self._step_pipelined()
+            elif action == _ACT_PREWARM:
+                self._prewarm()
+
+    def _apply(self, reqs: List[Request], swap) -> None:
+        """Every rank: queue the announced requests (in announcement
+        order) and install an announced swap (rank 0 passes its staged
+        weights, the followers True)."""
+        for req in reqs:
+            self._route(req)
+        if swap:
+            self._install_broadcast(swap if self.leader else None)
+
+    def _install_broadcast(self, staged) -> None:
+        """Install a weight swap on every rank: rank 0 broadcasts each
+        whole tensor of its staged copy over the mesh's device group, one
+        tensor at a time, and each rank copies its slice into the served
+        parameter.  The staged tree stays in rank 0's host memory, so a
+        card holds one whole tensor at a time, never the whole tree."""
+        from skypilot_tpu_torch.models.llama import param_shapes
+        shapes = param_shapes(self.model.cfg)
+        group = self.model.tp.group
+        with torch.no_grad():
+            for name, param in self.model.state_dict(
+                    keep_vars=True).items():
+                if self.leader:
+                    full = staged[0][name].to(self.device)
+                else:
+                    full = torch.empty(shapes[name], dtype=param.dtype,
+                                       device=self.device)
+                dist.broadcast(full, src=0, group=group)
+                spec = sharding.param_spec(name, shapes[name],
+                                           self._mesh.shape)
+                param.copy_(sharding.local_slice(full, spec, self._mesh))
+
+    def _wire_page_shapes(self) -> List[tuple]:
+        """(per-page shape, dtype) of each wire leaf as a handoff carries
+        it: every kv head (this rank's times the degree)."""
+        out = []
+        for leaf in self._wire_leaves():
+            shape = list(leaf.shape[1:])
+            shape[0] *= self._tp
+            out.append((tuple(shape), leaf.dtype))
+        return out
+
+    def close(self) -> None:
+        """`stop()`, and under a mesh end the followers' `follow()` (rank
+        0; the engine takes no more steps after)."""
+        self.stop()
+        if self._mesh is None or not self.leader or self._group_closed:
+            return
+        if self._thread is not None and self._thread.is_alive():
+            raise RuntimeError('the engine loop did not stop')
+        try:
+            self._lead(_ACT_STOP)
+        finally:
+            self._group_closed = True
 
     @property
     def perf_cost_model(self) -> cost_model_lib.EngineCostModel:
@@ -618,15 +870,16 @@ class DecodeEngine:
         engine's slots; n=1: the chunked-prefill scratch)."""
         mcfg = self.model.cfg
         n = self.cfg.n_slots if n is None else n
-        shape = (n, mcfg.n_kv_heads, mcfg.max_seq_len, mcfg.head_dim)
+        shape = (n, self._n_kv, mcfg.max_seq_len, mcfg.head_dim)
         return [(torch.zeros(shape, dtype=mcfg.dtype, device=self.device),
                  torch.zeros(shape, dtype=mcfg.dtype, device=self.device))
                 for _ in range(mcfg.n_layers)]
 
     def _pool_shape(self) -> tuple:
-        """One pool leaf: [n_pages, H_kv, page_size, D]."""
+        """One pool leaf: [n_pages, H_kv, page_size, D] (this rank's kv
+        heads under a mesh)."""
         mcfg = self.model.cfg
-        return (self._pool_alloc.n_pages, mcfg.n_kv_heads, self._page_size,
+        return (self._pool_alloc.n_pages, self._n_kv, self._page_size,
                 mcfg.head_dim)
 
     def _pool_leaf(self):
@@ -732,9 +985,9 @@ class DecodeEngine:
         row's reservation point at the trash page."""
         n, p = tokens.shape
         positions = torch.arange(p, device=self.device)[None, :].expand(n, p)
-        logits, small = self.model(tokens, positions, decode=True)
-        idx = (lengths - 1)[:, None, None].expand(n, 1, logits.shape[-1])
-        last = torch.gather(logits, 1, idx)[:, 0]                 # [N, V]
+        logits, small = self.model(tokens, positions, decode=True,
+                                   logits_at=lengths - 1)
+        last = logits[:, 0]                                       # [N, V]
         firsts = self._sample(last)                               # [N]
         # Padding rows replicate row 0, so their duplicate scatter writes
         # must carry row 0's VALUE too: which duplicate-index write wins
@@ -838,7 +1091,9 @@ class DecodeEngine:
         c = tokens.shape[1]
         positions = torch.arange(offset, offset + c,
                                  device=self.device)[None, :]
-        self.model(tokens, positions, decode=True, cache=scratch)
+        # Its logits go unused: computed at one position only.
+        self.model(tokens, positions, decode=True, cache=scratch,
+                   logits_at=torch.full((1,), c - 1, device=self.device))
         return scratch
 
     @torch.no_grad()
@@ -855,9 +1110,10 @@ class DecodeEngine:
         c = tokens.shape[1]
         positions = torch.arange(offset, offset + c,
                                  device=self.device)[None, :]
-        logits, scratch = self.model(tokens, positions, decode=True,
-                                     cache=scratch)
-        first = self._sample(logits[:, length - 1])               # [1]
+        logits, scratch = self.model(
+            tokens, positions, decode=True, cache=scratch,
+            logits_at=torch.full((1,), length - 1, device=self.device))
+        first = self._sample(logits[:, 0])                        # [1]
         for (big_k, big_v), (k, v) in zip(big_cache, scratch):
             if pt_row is None:
                 big_k[slot].copy_(k[0])
@@ -873,8 +1129,13 @@ class DecodeEngine:
     def _export_pages(self, pt_row) -> List[torch.Tensor]:
         """Disaggregation export: one slot's pages gathered OFF the pool
         as new tensors [P, H, ps, D] (scales [P, H, ps]) in wire leaf
-        order.  The pool is only read."""
-        return [leaf[pt_row] for leaf in self._wire_leaves()]
+        order.  The pool is only read.  Under a mesh every rank's kv
+        heads are gathered (on every rank): the payload has them all."""
+        leaves = [leaf[pt_row] for leaf in self._wire_leaves()]
+        if self._mesh is not None:
+            group = self.model.tp.group
+            leaves = [sharding.gather_dim(leaf, 1, group) for leaf in leaves]
+        return leaves
 
     @torch.no_grad()
     def _adopt_insert(self, data: List[torch.Tensor], scatter_row,
@@ -916,6 +1177,7 @@ class DecodeEngine:
     def submit(self, prompt_ids: List[int],
                max_new_tokens: int = 64,
                request_id: Optional[str] = None) -> Request:
+        self._check_leader('submit')
         self._check_prompt(prompt_ids)
         cache_len = self.model.cfg.max_seq_len
         if len(prompt_ids) + max_new_tokens > cache_len:
@@ -927,18 +1189,30 @@ class DecodeEngine:
 
     def _enqueue(self, req: Request) -> None:
         """Publish one validated request to the loop thread.  Every flag
-        the loop reads (export, adopt, no_prefix) is set BEFORE this."""
+        the loop reads (export, adopt, no_prefix) is set BEFORE this.
+        Under a mesh it waits in the inbox until rank 0 announces it."""
         with self._submit_lock:
             if self.error is not None:
                 raise RuntimeError(
                     f'decode engine is dead: {self.error!r}')
-            # Prompts beyond the largest bucket take the chunked path.
-            if len(req.prompt_ids) > self.cfg.prefill_buckets[-1]:
-                self._long_q.put(req)
+            if self._mesh is not None:
+                self._inbox.append(req)
             else:
-                self._prefill_q.put(req)
-            self._queued_tokens += len(req.prompt_ids)
+                self._route(req)
+            if req.adopt is None:
+                self._queued_tokens += len(req.prompt_ids)
         metrics_lib.inc_counter('skytpu_engine_requests_total')
+
+    def _route(self, req: Request) -> None:
+        """Queue a request for the loop: handoffs to adopt, prompts
+        beyond the largest bucket to the chunked path, the rest to
+        prefill."""
+        if req.adopt is not None:
+            self._adopt_q.put(req)
+        elif len(req.prompt_ids) > self.cfg.prefill_buckets[-1]:
+            self._long_q.put(req)
+        else:
+            self._prefill_q.put(req)
 
     def generate(self, prompt_ids: List[int],
                  max_new_tokens: int = 64) -> List[int]:
@@ -956,6 +1230,7 @@ class DecodeEngine:
         the pages + token.  Admission charges ceil((prompt+1)/page)
         pages.  `max_new_tokens` is the downstream decode budget and
         only travels in the payload."""
+        self._check_leader('submit_prefill')
         if not self._paged:
             raise RuntimeError(
                 'disaggregated prefill requires the paged KV cache '
@@ -1003,7 +1278,8 @@ class DecodeEngine:
         continue decoding from the already-sampled first token (emitted
         through the ordinary row-0 mechanics).  `kv_leaves` are CPU
         tensors (or numpy arrays) [n_kv_pages, H, page_size, D] in wire
-        leaf order."""
+        leaf order, every kv head (under a mesh too)."""
+        self._check_leader('submit_adopt')
         if not self._paged:
             raise RuntimeError(
                 'adopting a KV handoff requires the paged KV cache '
@@ -1033,15 +1309,14 @@ class DecodeEngine:
         # The payload must match this engine's pool exactly: leaf count,
         # per-page shape and dtype.  Rejected HERE it is a 422 to the
         # pusher; reaching the loop thread it would kill the engine.
-        pool_leaves = self._wire_leaves()
+        pool_leaves = self._wire_page_shapes()
         if len(kv_leaves) != len(pool_leaves):
             raise ValueError(
                 f'kv handoff carries {len(kv_leaves)} cache leaves; '
                 f'this engine\'s cache tree has {len(pool_leaves)} '
                 f'(model mismatch between prefill and decode pools)')
-        for i, (leaf, pool_leaf) in enumerate(
+        for i, (leaf, (want_shape, want_dtype)) in enumerate(
                 zip(kv_leaves, pool_leaves)):
-            want_shape = tuple(pool_leaf.shape[1:])
             if tuple(leaf.shape[1:]) != want_shape or \
                     leaf.shape[0] != n_kv:
                 raise ValueError(
@@ -1050,10 +1325,10 @@ class DecodeEngine:
                     f'[{n_kv}, {", ".join(map(str, want_shape))}] '
                     f'(model mismatch between prefill and decode '
                     f'pools)')
-            if leaf.dtype != pool_leaf.dtype:
+            if leaf.dtype != want_dtype:
                 raise ValueError(
                     f'kv handoff leaf {i} dtype {_dtype_name(leaf.dtype)} '
-                    f'!= this engine\'s {_dtype_name(pool_leaf.dtype)}')
+                    f'!= this engine\'s {_dtype_name(want_dtype)}')
         cache_len = self.model.cfg.max_seq_len
         if len(prompt_ids) + max_new_tokens > cache_len:
             max_new_tokens = cache_len - len(prompt_ids)
@@ -1064,12 +1339,7 @@ class DecodeEngine:
         req = Request(list(prompt_ids), max_new_tokens,
                       request_id=request_id)
         req.adopt = (int(first_token), kv_leaves)
-        with self._submit_lock:
-            if self.error is not None:
-                raise RuntimeError(
-                    f'decode engine is dead: {self.error!r}')
-            self._adopt_q.put(req)
-        metrics_lib.inc_counter('skytpu_engine_requests_total')
+        self._enqueue(req)
         return req
 
     def drain(self) -> None:
@@ -1091,22 +1361,31 @@ class DecodeEngine:
         shapes.  Always a copy, never an alias: an RL learner's optimizer
         goes on updating the caller's tensors in place.  The copies queue
         on the caller's stream; returns (tensors, an event after them on
-        the card, else None)."""
+        the card, else None).  Under a mesh the WHOLE tree is staged in
+        host memory: it travels to every rank, one tensor at a time, at the
+        install (`_install_broadcast`)."""
         served = self.model.state_dict(keep_vars=True)
         missing = sorted(set(served) - set(params))
         extra = sorted(set(params) - set(served))
         if missing or extra:
             raise ValueError(f'update_params: the new state dict lacks '
                              f'{missing} and has unknown {extra}')
+        shapes = {name: tuple(t.shape) for name, t in served.items()}
+        target = self.device
+        if self._mesh is not None:
+            from skypilot_tpu_torch.models.llama import param_shapes
+            shapes, target = param_shapes(self.model.cfg), 'cpu'
         bad = [f'{name} {tuple(params[name].shape)} (served '
-               f'{tuple(t.shape)})' for name, t in served.items()
-               if params[name].shape != t.shape]
+               f'{shapes[name]})' for name in served
+               if tuple(params[name].shape) != shapes[name]]
         if bad:
             raise ValueError(f'update_params: wrong shapes: {bad}')
         with torch.no_grad():
             staged = {name: params[name].detach().to(
-                device=self.device, dtype=t.dtype, copy=True)
+                device=target, dtype=t.dtype, copy=True)
                 for name, t in served.items()}
+        if self._mesh is not None:
+            return staged, None
         ready = None
         if self.device.type == 'cuda':
             ready = torch.cuda.Event()
@@ -1129,20 +1408,32 @@ class DecodeEngine:
 
         Called with no loop thread running (manual step()/RL
         alternation), the caller IS the dispatcher, so the install
-        happens before this returns."""
+        happens before this returns.
+
+        Under a mesh (rank 0 only) `params` is the whole tree; rank 0's
+        next announcement carries it to every rank, which keeps its
+        slices."""
+        self._check_leader('update_params')
         staged = self._stage(params)
         with self._params_lock:
             # Re-staged before install: the never-served copy's only
             # reference drops here and it frees at once.
             self._staged_params = staged
         if self._thread is None or not self._thread.is_alive():
-            self._install_staged()
+            if self._mesh is not None:
+                self._lead(_ACT_APPLY)
+            else:
+                self._install_staged()
 
     def _install_staged(self) -> None:
         """Dispatch-boundary half of update_params: copy the staged
         tensors into the served parameters on the engine's stream (after
         the staging copies, which may have queued on another stream);
-        the staged copy joins the retiring list until the next sync."""
+        the staged copy joins the retiring list until the next sync.
+        Under a mesh swaps install through rank 0's announcements
+        (`_install_broadcast`), never here."""
+        if self._mesh is not None:
+            return
         with self._params_lock:
             staged, self._staged_params = self._staged_params, None
         if staged is None:
@@ -1180,7 +1471,12 @@ class DecodeEngine:
         then arms the recompile sentinel: every call the engine will use
         is built, so a later build is a mid-traffic stall.  On the CPU
         nothing is captured and it does not arm, as the JAX engine's
-        lazy-compile path does not (arm_recompile_sentinel())."""
+        lazy-compile path does not (arm_recompile_sentinel()).  Under a
+        mesh rank 0 has every rank prewarm."""
+        self._lead(_ACT_PREWARM)
+        self._prewarm()
+
+    def _prewarm(self) -> None:
         with compile_telemetry.warmup():
             if self.device.type == 'cuda':
                 cuda_fa.build()
@@ -1193,7 +1489,9 @@ class DecodeEngine:
             compile_telemetry.arm()
 
     def _use_graph(self) -> bool:
-        return self.device.type == 'cuda' and not self._eager_decode
+        gloo = self._mesh is not None and self._mesh.backend == 'gloo'
+        return (self.device.type == 'cuda' and not self._eager_decode and
+                not gloo)
 
     def _new_decode_call(self) -> _DecodeCall:
         return _DecodeCall(self, use_graph=self._use_graph())
@@ -1202,6 +1500,7 @@ class DecodeEngine:
         return _VerifyCall(self, use_graph=self._use_graph())
 
     def start(self):
+        self._check_leader('start')
         self._thread = threading.Thread(target=self._loop,
                                         name='decode-engine', daemon=True)
         self._thread.start()
@@ -1489,6 +1788,11 @@ class DecodeEngine:
             self._adopt_ready.popleft()
             first_token, kv_leaves = req.adopt
             n_kv = kv_leaves[0].shape[0]
+            if self._mesh is not None:
+                # The payload holds every kv head: keep this rank's.
+                r = self.model.tp.rank
+                kv_leaves = [leaf.narrow(1, r * self._n_kv, self._n_kv)
+                             for leaf in kv_leaves]
             t0 = time.perf_counter()
             # Full-height page stacks (pages_per_slot rows), as the JAX
             # engine keeps one compiled shape; rows past the transfer are
@@ -1824,6 +2128,10 @@ class DecodeEngine:
         """One SYNCHRONOUS engine iteration (admit + decode + process).
         Returns #active slots.  The serving loop uses step_pipelined
         (or this, under speculation)."""
+        self._lead(_ACT_STEP)
+        return self._step()
+
+    def _step(self) -> int:
         self._install_staged()
         self._step_chunked()
         self._step_adopt()
@@ -1869,6 +2177,10 @@ class DecodeEngine:
             # Speculation replaces pipelining: drafting call k before call
             # k-1's tokens land would draft from stale history.
             return self.step()
+        self._lead(_ACT_PIPELINED)
+        return self._step_pipelined()
+
+    def _step_pipelined(self) -> int:
         self._install_staged()
         active = [i for i in range(self.cfg.n_slots)
                   if self._slots[i] is not None]
@@ -2033,6 +2345,9 @@ class DecodeEngine:
                                 break
                             req.finished_at = time.perf_counter()
                             req.out.put(None)
+                    # Under a mesh: submitted, not yet announced.
+                    _fail_requests(self._inbox)
+                    self._inbox = []
                     self._queued_tokens = 0
                 return
             if n == 0:

@@ -18,6 +18,11 @@ is LAYER-MAJOR: all of leaf 0's pages (``[n_pages, heads, page_size,
 head_dim]``, C-contiguous), then leaf 1's, in the JAX cache tree's leaf
 order (the engine's `_leaf_order`).
 
+A tensor-parallel engine's payload is the same: its export gathers
+every rank's kv heads, and its adopt keeps each rank's heads of a
+payload (inference/engine.py), so a payload crosses between tensor
+degrees as it crosses between the packages.
+
 Leaves here are CPU tensors.  bf16 has no numpy dtype without the
 `ml_dtypes` package, so a bf16 leaf is written as its raw 2-byte bits
 under the dtype name 'bfloat16' (the name the JAX side writes) and read

@@ -57,6 +57,15 @@ Weights: `--checkpoint DIR` restores the latest step a port trainer
 saved there (inference/weights.py), cast to `--param-dtype`; without it
 the replica serves random weights from `--seed`.
 
+Tensor parallelism: `--tensor N` (env SKYTPU_SERVE_TENSOR, which a serve
+spec's `tensor_parallel` sets) serves one replica over N ranks, weights
+and KV sharded over heads.  This process is rank 0 and serves HTTP; it
+spawns ranks 1..N-1 itself (`parallel/group.py`), each building the same
+model's slices (from `--seed` or its slices of `--checkpoint`) and
+following rank 0's engine.  On CUDA the ranks take cuda:0..N-1 over NCCL,
+and a machine with fewer cards exits non-zero; `--device cpu` runs gloo
+ranks on the CPU.
+
 Run: python -m skypilot_tpu_torch.inference.server --model llama2-7b \
     --max-seq-len 448 --checkpoint DIR --param-dtype bfloat16 \
     --kv-page-size 64  (on the GPU; --device cpu for a CPU run).
@@ -331,6 +340,15 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         'max_seq_len - 1).  Prompts beyond the largest prefill bucket '
         'are chunked and interleaved with decode.')
     parser.add_argument(
+        '--tensor', type=int,
+        default=int(os.environ.get('SKYTPU_SERVE_TENSOR', '1')),
+        help='tensor-parallel degree: shard weights and KV cache over '
+        'this many ranks (must divide the model\'s head counts; 1 = one '
+        'device).  On CUDA it needs that many cards (cuda:0..N-1, NCCL); '
+        'with --device cpu the ranks are gloo processes on the CPU.  '
+        'Serve specs set it via service.tensor_parallel, which arrives '
+        'here as SKYTPU_SERVE_TENSOR.')
+    parser.add_argument(
         '--kv-page-size', type=int,
         default=int(os.environ.get('SKYTPU_SERVE_KV_PAGE_SIZE', '0')),
         help='paged KV cache: page size in tokens (must divide every '
@@ -388,54 +406,129 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         # green: refuse at startup instead of serving a dead replica.
         parser.error(f'--max-prompt-len must be >= 0, '
                      f'got {args.max_prompt_len}')
+    if args.tensor < 1:
+        parser.error(f'--tensor must be >= 1, got {args.tensor}')
     return args
 
 
-def build_model(args: argparse.Namespace):
-    """The served model: `args.model` at `--max-seq-len`, its params
-    restored from `--checkpoint` (the latest step) or, without one,
-    random from `--seed`, held in `--param-dtype`, on `--device`."""
+def model_config(args: argparse.Namespace):
+    """`args.model`'s config at `--max-seq-len` and `--param-dtype`."""
     import dataclasses
 
     import torch
 
-    from skypilot_tpu_torch.device import resolve_device
-    from skypilot_tpu_torch.inference.weights import load_serving_params
-    from skypilot_tpu_torch.models.llama import (LLAMA_CONFIGS, Llama,
-                                                 init_params)
+    from skypilot_tpu_torch.models.llama import LLAMA_CONFIGS
 
-    device = resolve_device(args.device)
     cfg = dataclasses.replace(LLAMA_CONFIGS[args.model],
                               max_seq_len=args.max_seq_len)
     if args.param_dtype:
         cfg = dataclasses.replace(cfg,
                                   param_dtype=getattr(torch, args.param_dtype))
+    return cfg
+
+
+def build_model(args: argparse.Namespace, mesh=None):
+    """The served model: `args.model` at `--max-seq-len`, its params
+    restored from `--checkpoint` (the latest step) or, without one,
+    random from `--seed`, held in `--param-dtype`, on `--device` (under a
+    `mesh`: this rank's slices, on its device)."""
+    import torch
+
+    from skypilot_tpu_torch.device import resolve_device
+    from skypilot_tpu_torch.inference.weights import load_serving_params
+    from skypilot_tpu_torch.models.llama import Llama, init_params
+
+    device = resolve_device(args.device if mesh is None else mesh.device)
+    cfg = model_config(args)
     if args.checkpoint:
         params = load_serving_params(args.checkpoint, dtype=cfg.param_dtype,
-                                     device=device)
+                                     device=device, mesh=mesh)
     else:
         logger.warning('no --checkpoint given: serving RANDOM-INIT params '
                        '(demo mode)')
         gen = torch.Generator(device=device).manual_seed(args.seed)
-        params = init_params(cfg, device, gen)
-    return Llama(cfg, params)
+        params = init_params(cfg, device, gen, mesh=mesh)
+    return Llama(cfg, params, mesh)
+
+
+def _mesh_devices(args: argparse.Namespace):
+    """(devices, backend) of `--tensor` ranks on `--device`: the CPU over
+    gloo, else cuda:0..N-1 over NCCL; exits when the machine has fewer
+    cards than ranks, or the model's heads do not split N ways."""
+    import torch
+
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+
+    cfg = model_config(args)
+    try:
+        mesh_lib.plan_serve_mesh(args.tensor, tensor=args.tensor,
+                                 n_heads=cfg.n_heads,
+                                 n_kv_heads=cfg.n_kv_heads)
+    except ValueError as e:
+        raise SystemExit(f'--tensor {args.tensor}: {e}') from None
+    if torch.device(args.device).type == 'cpu':
+        return ['cpu'] * args.tensor, 'gloo'
+    n_cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n_cards < args.tensor:
+        raise SystemExit(
+            f'--tensor {args.tensor} needs {args.tensor} CUDA devices (one '
+            f'rank per card, NCCL); this machine has {n_cards}')
+    return [f'cuda:{i}' for i in range(args.tensor)], 'nccl'
+
+
+def _serve_mesh(args: argparse.Namespace, devices, backend):
+    from skypilot_tpu_torch.parallel import mesh as mesh_lib
+    cfg = model_config(args)
+    return mesh_lib.build_serve_mesh(args.tensor, n_heads=cfg.n_heads,
+                                     n_kv_heads=cfg.n_kv_heads,
+                                     devices=devices, backend=backend)
+
+
+def engine_config(args: argparse.Namespace, mesh=None) -> EngineConfig:
+    paged = bool(args.kv_page_size)
+    return EngineConfig(n_slots=args.n_slots, mesh=mesh,
+                        max_prompt_len=args.max_prompt_len or None,
+                        kv_page_size=args.kv_page_size or None,
+                        kv_pages=args.kv_pages or None,
+                        prefix_cache=bool(args.prefix_cache),
+                        kv_dtype=args.kv_dtype if paged else 'bf16',
+                        speculation=args.spec_ngram if paged else 0)
+
+
+def _follower(argv: List[str], devices, backend) -> None:
+    """Ranks 1..N-1 of a `--tensor N` replica: the same model's slices
+    and engine, following rank 0's until it closes."""
+    args = parse_args(argv)
+    mesh = _serve_mesh(args, devices, backend)
+    engine = DecodeEngine(build_model(args, mesh), engine_config(args, mesh))
+    engine.follow()
 
 
 def main(argv: Optional[List[str]] = None) -> None:
+    import sys
+
+    from skypilot_tpu_torch.parallel import group as group_lib
+
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
-    model = build_model(args)
+    followers = mesh = None
+    if args.tensor > 1:
+        devices, backend = _mesh_devices(args)
+        followers = group_lib.Followers(args.tensor, backend, _follower,
+                                        (argv, devices, backend))
+        mesh = _serve_mesh(args, devices, backend)
+    try:
+        _serve(args, mesh)
+    finally:
+        if followers is not None:
+            followers.close()
+
+
+def _serve(args: argparse.Namespace, mesh) -> None:
+    model = build_model(args, mesh)
     device = device_of(model)
     paged = bool(args.kv_page_size)
-    engine = DecodeEngine(
-        model,
-        EngineConfig(n_slots=args.n_slots,
-                     max_prompt_len=args.max_prompt_len or None,
-                     kv_page_size=args.kv_page_size or None,
-                     kv_pages=args.kv_pages or None,
-                     prefix_cache=bool(args.prefix_cache),
-                     kv_dtype=args.kv_dtype if paged else 'bf16',
-                     speculation=args.spec_ngram if paged else 0),
-        device=device)
+    engine = DecodeEngine(model, engine_config(args, mesh), device=device)
     engine.prewarm()
     engine.start()
     if args.role != 'monolithic' and not paged:
@@ -450,12 +543,13 @@ def main(argv: Optional[List[str]] = None) -> None:
                 f'kv_page_size={args.kv_page_size or "off"}, '
                 f'prefix_cache={bool(args.prefix_cache and paged)}, '
                 f'kv_dtype={args.kv_dtype if paged else "bf16"}, '
-                f'speculation={args.spec_ngram if paged else 0})')
+                f'speculation={args.spec_ngram if paged else 0}, '
+                f'tensor={args.tensor})')
     try:
         web.run_app(build_app(engine, role=args.role), port=args.port,
                     print=None)
     finally:
-        engine.stop()
+        engine.close()
 
 
 if __name__ == '__main__':

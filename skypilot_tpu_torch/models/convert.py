@@ -18,6 +18,10 @@ are accepted) and returns the dict `Llama(cfg, params)` loads:
 
 No q/k permutation: the JAX RoPE rotates split halves, and so does the
 port, so head layouts carry over unchanged.
+
+`shard_params(full, mesh)` carries a whole state dict (this function's
+output, or the port's own `init_params`) onto a tensor-parallel rank:
+its slices, as `Llama(cfg, params, mesh)` loads them.
 """
 from __future__ import annotations
 
@@ -83,6 +87,20 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             for proj in ('gate_proj', 'up_proj', 'down_proj'):
                 out[p + f'mlp.{proj}.weight'] = _linear(
                     layer['mlp'][proj]['kernel'])
+    return out
+
+
+def shard_params(full: Mapping[str, torch.Tensor],
+                 mesh) -> Dict[str, torch.Tensor]:
+    """This rank's slices of a whole Llama state dict on `mesh`
+    (`parallel/sharding.py` PARAM_AXES through the rules), copied onto the
+    mesh's device; `full` is only read."""
+    from skypilot_tpu_torch.parallel import sharding
+    out = {}
+    for name, t in full.items():
+        spec = sharding.param_spec(name, t.shape, mesh.shape)
+        out[name] = sharding.local_slice(t, spec, mesh).to(
+            mesh.device, copy=True).contiguous()
     return out
 
 

@@ -37,8 +37,23 @@ load-balancing loss, the counterpart of applying the Flax model with
 batch dimension) are recomputed under both policies, as
 `dots_with_no_batch_dims_saveable` does not save them.
 
-Not in this ported package yet: the one-hot embedding and ring
-attention.
+Tensor parallelism (`Llama(cfg, params, mesh)`, `mesh` a
+`parallel.mesh.RankMesh`): each rank of the mesh's tensor group holds its
+slices (`parallel/sharding.py` PARAM_AXES, the Flax annotations'
+counterpart): q/k/v and gate/up column-parallel over its n_heads/t,
+n_kv_heads/t and ffn/t, o/down row-parallel, their partial products
+summed over the group in the compute dtype; the embedding and the
+lm_head (tied or not) over vocab/t rows.  The embedding lookup is a
+masked gather of the rank's own rows, summed over the group (the
+counterpart of the JAX model's `OneHotEmbed`: exact, every other rank
+adds zeros), and the logits are gathered whole on every rank before
+anyone samples.  A dim the degree
+does not divide (ffn, vocab) stays whole on every rank.  Attention, the
+dense and the paged cache run on the rank's kv heads unchanged.  A
+mixture-of-experts model under a mesh waits for the expert-parallel
+layout.
+
+Not in this ported package yet: ring attention.
 """
 from __future__ import annotations
 
@@ -47,6 +62,7 @@ import functools
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint as checkpoint_lib
@@ -54,6 +70,7 @@ from torch.utils import checkpoint as checkpoint_lib
 from skypilot_tpu_torch.device import DeviceLike, resolve_device
 from skypilot_tpu_torch.inference import kv_quant
 from skypilot_tpu_torch.ops import attention as attn_lib
+from skypilot_tpu_torch.parallel import sharding
 
 LayerCache = Tuple[torch.Tensor, torch.Tensor]
 
@@ -154,18 +171,52 @@ def _param(shape, dtype) -> nn.Parameter:
 class Dense(nn.Module):
     """Projection, weight [out, in], bias-free unless `bias`; input and
     params are cast to the compute dtype at use (Flax Dense's
-    dtype/param_dtype split)."""
+    dtype/param_dtype split).  With `reduce_group` it is row-parallel: its
+    input dim is this rank's shard and the partial products are summed
+    over the group."""
 
     def __init__(self, in_features: int, out_features: int, dtype,
-                 param_dtype, bias: bool = False) -> None:
+                 param_dtype, bias: bool = False,
+                 reduce_group: Any = None) -> None:
         super().__init__()
         self.dtype = dtype
         self.weight = _param((out_features, in_features), param_dtype)
         self.bias = _param((out_features,), param_dtype) if bias else None
+        self.reduce_group = reduce_group
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(self.dtype)
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
+        x, w = x.to(self.dtype), self.weight.to(self.dtype)
+        if self.reduce_group is None:
+            return F.linear(x, w, bias)
+        y = sharding.row_parallel_linear(x, w, self.reduce_group)
+        return y if bias is None else y + bias
+
+
+class TensorShards:
+    """Where a tensor-parallel Llama splits on `mesh`: the tensor group,
+    its size `t` and this rank's index; attention heads always split (the
+    degree is validated against both head counts), ffn and vocab only
+    where the degree divides them."""
+
+    def __init__(self, cfg: 'LlamaConfig', mesh) -> None:
+        from skypilot_tpu_torch.parallel import mesh as mesh_lib
+        self.t = mesh.shape['tensor']
+        mesh_lib.validate_tensor_parallel(self.t, n_heads=cfg.n_heads,
+                                          n_kv_heads=cfg.n_kv_heads)
+        self.group = mesh.group('tensor')
+        self.rank = mesh.coordinate('tensor')
+
+        def split(name, shape):
+            return sharding.splits_over(
+                sharding.param_spec(name, shape, mesh.shape)[0], 'tensor')
+
+        self.ffn = split('layers.0.mlp.gate_proj.weight',
+                         (cfg.ffn_dim, cfg.dim))
+        self.vocab = split('embed.weight', (cfg.vocab_size, cfg.dim))
+
+    def part(self, n: int, split: bool = True) -> int:
+        return n // self.t if split else n
 
 
 class RMSNorm(nn.Module):
@@ -185,18 +236,23 @@ class RMSNorm(nn.Module):
 
 class Attention(nn.Module):
 
-    def __init__(self, cfg: LlamaConfig) -> None:
+    def __init__(self, cfg: LlamaConfig,
+                 tp: Optional[TensorShards] = None) -> None:
         super().__init__()
         self.cfg = cfg
         hd = cfg.head_dim
-        self.q_proj = Dense(cfg.dim, cfg.n_heads * hd, cfg.dtype,
+        # This rank's heads (all of them without a mesh).
+        self.n_heads = tp.part(cfg.n_heads) if tp else cfg.n_heads
+        self.n_kv_heads = tp.part(cfg.n_kv_heads) if tp else cfg.n_kv_heads
+        self.q_proj = Dense(cfg.dim, self.n_heads * hd, cfg.dtype,
                             cfg.param_dtype)
-        self.k_proj = Dense(cfg.dim, cfg.n_kv_heads * hd, cfg.dtype,
+        self.k_proj = Dense(cfg.dim, self.n_kv_heads * hd, cfg.dtype,
                             cfg.param_dtype)
-        self.v_proj = Dense(cfg.dim, cfg.n_kv_heads * hd, cfg.dtype,
+        self.v_proj = Dense(cfg.dim, self.n_kv_heads * hd, cfg.dtype,
                             cfg.param_dtype)
-        self.o_proj = Dense(cfg.n_heads * hd, cfg.dim, cfg.dtype,
-                            cfg.param_dtype)
+        self.o_proj = Dense(self.n_heads * hd, cfg.dim, cfg.dtype,
+                            cfg.param_dtype,
+                            reduce_group=tp.group if tp else None)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor,
                 decode: bool = False,
@@ -207,9 +263,9 @@ class Attention(nn.Module):
         b, s, _ = x.shape
         hd = cfg.head_dim
         # [B, S, H*D] -> [B, H, S, D]
-        q = self.q_proj(x).view(b, s, cfg.n_heads, hd).transpose(1, 2)
-        k = self.k_proj(x).view(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
-        v = self.v_proj(x).view(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
+        q = self.q_proj(x).view(b, s, self.n_heads, hd).transpose(1, 2)
+        k = self.k_proj(x).view(b, s, self.n_kv_heads, hd).transpose(1, 2)
+        v = self.v_proj(x).view(b, s, self.n_kv_heads, hd).transpose(1, 2)
         q = _rope(q, positions, cfg.rope_theta).contiguous()
         k = _rope(k, positions, cfg.rope_theta).contiguous()
         v = v.contiguous()
@@ -220,7 +276,7 @@ class Attention(nn.Module):
             cache, attn_out = self._decode_attend(q, k, v, positions, cache)
         else:
             attn_out = self._attend(q, k, v)
-        out = attn_out.transpose(1, 2).reshape(b, s, cfg.n_heads * hd)
+        out = attn_out.transpose(1, 2).reshape(b, s, self.n_heads * hd)
         return self.o_proj(out), cache
 
     def _attend(self, q, k, v):
@@ -245,7 +301,7 @@ class Attention(nn.Module):
         if cache is None:
             # Fresh prefill: prompts are left-aligned, so the prompt
             # occupies cache[:S]; attend causally over the prompt itself.
-            shape = (b, cfg.n_kv_heads, max_len, cfg.head_dim)
+            shape = (b, self.n_kv_heads, max_len, cfg.head_dim)
             ck = k.new_zeros(shape)
             cv = v.new_zeros(shape)
             ck[:, :, :s] = k
@@ -346,13 +402,15 @@ class Attention(nn.Module):
 
 class MLP(nn.Module):
 
-    def __init__(self, cfg: LlamaConfig) -> None:
+    def __init__(self, cfg: LlamaConfig,
+                 tp: Optional[TensorShards] = None) -> None:
         super().__init__()
-        self.gate_proj = Dense(cfg.dim, cfg.ffn_dim, cfg.dtype,
-                               cfg.param_dtype)
-        self.up_proj = Dense(cfg.dim, cfg.ffn_dim, cfg.dtype, cfg.param_dtype)
-        self.down_proj = Dense(cfg.ffn_dim, cfg.dim, cfg.dtype,
-                               cfg.param_dtype)
+        split = tp is not None and tp.ffn
+        ffn = tp.part(cfg.ffn_dim) if split else cfg.ffn_dim
+        self.gate_proj = Dense(cfg.dim, ffn, cfg.dtype, cfg.param_dtype)
+        self.up_proj = Dense(cfg.dim, ffn, cfg.dtype, cfg.param_dtype)
+        self.down_proj = Dense(ffn, cfg.dim, cfg.dtype, cfg.param_dtype,
+                               reduce_group=tp.group if split else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -360,11 +418,12 @@ class MLP(nn.Module):
 
 class Block(nn.Module):
 
-    def __init__(self, cfg: LlamaConfig) -> None:
+    def __init__(self, cfg: LlamaConfig,
+                 tp: Optional[TensorShards] = None) -> None:
         super().__init__()
         self.attn_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype,
                                  cfg.param_dtype)
-        self.attn = Attention(cfg)
+        self.attn = Attention(cfg, tp)
         self.mlp_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype,
                                 cfg.param_dtype)
         self.is_moe = cfg.n_experts > 0
@@ -375,7 +434,7 @@ class Block(nn.Module):
                 capacity_factor=cfg.moe_capacity_factor, dtype=cfg.dtype,
                 param_dtype=cfg.param_dtype)
         else:
-            self.mlp = MLP(cfg)
+            self.mlp = MLP(cfg, tp)
 
     def forward(self, x, positions, decode=False, cache=None,
                 page_table=None, return_aux=False):
@@ -398,11 +457,19 @@ class Llama(nn.Module):
     """The decoder over a given parameter dict (`init_params` or
     `models/convert.py`); the tensors are adopted, not copied, so two
     modules built over one dict (e.g. attention_impl 'flash' and 'xla')
-    share their weights."""
+    share their weights.  Under a `mesh` the dict holds this rank's
+    slices (`init_params(..., mesh=)`, `convert.shard_params`,
+    `load_serving_params(..., mesh=)`)."""
 
     def __init__(self, cfg: LlamaConfig,
-                 params: Mapping[str, torch.Tensor]) -> None:
+                 params: Mapping[str, torch.Tensor],
+                 mesh: Any = None) -> None:
         super().__init__()
+        if mesh is not None and cfg.n_experts > 0:
+            raise ValueError(
+                'a mixture-of-experts Llama under a mesh waits for the '
+                'expert-parallel slice of the port (its experts over the '
+                "'expert' axis); serve it on one device")
         if cfg.attention_impl not in ('flash', 'xla'):
             raise ValueError(
                 f'attention_impl {cfg.attention_impl!r}: this package has '
@@ -412,14 +479,18 @@ class Llama(nn.Module):
             raise ValueError(f'remat_policy {cfg.remat_policy!r} not in '
                              f"('none', 'dots')")
         self.cfg = cfg
-        self.embed = nn.Embedding(cfg.vocab_size, cfg.dim, device='meta',
+        self.mesh = mesh
+        self.tp = TensorShards(cfg, mesh) if mesh is not None else None
+        vocab = (self.tp.part(cfg.vocab_size, self.tp.vocab) if self.tp
+                 else cfg.vocab_size)
+        self.embed = nn.Embedding(vocab, cfg.dim, device='meta',
                                   dtype=cfg.param_dtype)
-        self.layers = nn.ModuleList(Block(cfg) for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(Block(cfg, self.tp)
+                                    for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype,
                                   cfg.param_dtype)
         if not cfg.tie_embeddings:
-            self.lm_head = Dense(cfg.dim, cfg.vocab_size, cfg.dtype,
-                                 cfg.param_dtype)
+            self.lm_head = Dense(cfg.dim, vocab, cfg.dtype, cfg.param_dtype)
         self.load_state_dict(params, strict=True, assign=True)
         # Serving needs no gradient; a trainer turns them on for the model
         # it trains (load_state_dict(assign=True) keeps the module's
@@ -431,18 +502,21 @@ class Llama(nn.Module):
                 decode: bool = False,
                 cache: Optional[List[LayerCache]] = None,
                 page_table: Optional[torch.Tensor] = None,
-                return_aux: bool = False):
+                return_aux: bool = False,
+                logits_at: Optional[torch.Tensor] = None):
         """tokens [B, S] -> f32 logits [B, S, V]; with decode=True returns
         (logits, cache), the cache being a list of per-layer (k, v) (the
         page pool when `page_table` is given).  `return_aux` appends the
         list of the MoE layers' load-balancing losses (empty for a dense
         model) to what is returned: (logits, aux) or (logits, cache,
-        aux)."""
+        aux).  `logits_at` [B] names one position per row: the logits
+        are computed there only, [B, 1, V] (a prefill samples from its
+        last prompt position)."""
         cfg = self.cfg
         if positions is None:
             positions = torch.arange(tokens.shape[1], device=tokens.device)
             positions = positions[None, :].expand(tokens.shape)
-        x = F.embedding(tokens, self.embed.weight).to(cfg.dtype)
+        x = self._embed(tokens)
         new_cache: List[LayerCache] = []
         aux: List[torch.Tensor] = []
         remat = cfg.remat and not decode and torch.is_grad_enabled()
@@ -459,16 +533,36 @@ class Llama(nn.Module):
             new_cache.append(layer_cache)
             if layer_aux is not None:
                 aux.append(layer_aux)
+        if logits_at is not None:
+            x = x[torch.arange(x.shape[0], device=x.device), logits_at]
+            x = x[:, None]
         x = self.final_norm(x)
         if cfg.tie_embeddings:
             logits = F.linear(x, self.embed.weight.to(cfg.dtype))
         else:
             logits = self.lm_head(x)
         logits = logits.float()
+        if self.tp is not None and self.tp.vocab:
+            # Vocab-sharded: every rank samples from the whole row.
+            logits = sharding.gather_dim(logits, -1, self.tp.group)
         if decode:
             return (logits, new_cache, aux) if return_aux else (logits,
                                                                 new_cache)
         return (logits, aux) if return_aux else logits
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The embedding lookup in the compute dtype.  Vocab-sharded, each
+        rank looks up the tokens whose rows it holds, zeros elsewhere, and
+        the group sums the results (exact: one rank holds each row)."""
+        w = self.embed.weight
+        if self.tp is None or not self.tp.vocab:
+            return F.embedding(tokens, w).to(self.cfg.dtype)
+        local = tokens - self.tp.rank * w.shape[0]
+        mine = (local >= 0) & (local < w.shape[0])
+        x = F.embedding(local.clamp(0, w.shape[0] - 1), w).to(self.cfg.dtype)
+        x = torch.where(mine[..., None], x, torch.zeros_like(x))
+        dist.all_reduce(x, group=self.tp.group)
+        return x
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -499,12 +593,19 @@ def _lecun_normal(shape, fan_in: int, dtype, device,
 
 
 def init_params(cfg: LlamaConfig, device: DeviceLike = None,
-                generator: Optional[torch.Generator] = None
-                ) -> Dict[str, torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                mesh: Any = None) -> Dict[str, torch.Tensor]:
     """Random weights for `Llama(cfg, params)`, made directly on `device`
-    (default: the GPU; raises without one) in `cfg.param_dtype`, one
-    weight at a time.  `generator` (on `device`) fixes the draw; default
-    seed 0."""
+    (default: the GPU, or the mesh's device; raises without one) in
+    `cfg.param_dtype`, one weight at a time.  `generator` (on `device`)
+    fixes the draw; default seed 0.  Under a `mesh` every weight is drawn
+    whole (the same draw on every rank) and only this rank's slice is
+    kept, so the whole tree never exists at once."""
+    if mesh is not None and cfg.n_experts > 0:
+        raise ValueError('a mixture-of-experts Llama under a mesh waits for '
+                         'the expert-parallel slice of the port')
+    if device is None and mesh is not None:
+        device = mesh.device
     device = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
@@ -514,10 +615,11 @@ def init_params(cfg: LlamaConfig, device: DeviceLike = None,
         return _lecun_normal((n_out, n_in), n_in, cfg.param_dtype, device,
                              generator)
 
+    params = _KeepSlices(mesh)
     embed = torch.empty((cfg.vocab_size, d), dtype=torch.float32,
                         device=device)
     embed.normal_(0.0, 1.0, generator=generator)
-    params = {'embed.weight': embed.to(cfg.param_dtype)}
+    params['embed.weight'] = embed.to(cfg.param_dtype)
     del embed
     for i in range(cfg.n_layers):
         p = f'layers.{i}.'
@@ -546,4 +648,48 @@ def init_params(cfg: LlamaConfig, device: DeviceLike = None,
                                             device=device)
     if not cfg.tie_embeddings:
         params['lm_head.weight'] = dense(d, cfg.vocab_size)
-    return params
+    return dict(params)
+
+
+def param_shapes(cfg: LlamaConfig) -> Dict[str, Tuple[int, ...]]:
+    """The whole shape of every parameter of `Llama(cfg, ...)`, by name,
+    in `init_params`' order."""
+    d, hd, f = cfg.dim, cfg.head_dim, cfg.ffn_dim
+    shapes = {'embed.weight': (cfg.vocab_size, d)}
+    for i in range(cfg.n_layers):
+        p = f'layers.{i}.'
+        shapes[p + 'attn_norm.scale'] = (d,)
+        shapes[p + 'attn.q_proj.weight'] = (cfg.n_heads * hd, d)
+        shapes[p + 'attn.k_proj.weight'] = (cfg.n_kv_heads * hd, d)
+        shapes[p + 'attn.v_proj.weight'] = (cfg.n_kv_heads * hd, d)
+        shapes[p + 'attn.o_proj.weight'] = (d, cfg.n_heads * hd)
+        shapes[p + 'mlp_norm.scale'] = (d,)
+        if cfg.n_experts > 0:
+            e = cfg.n_experts
+            shapes[p + 'moe_mlp.router.weight'] = (e, d)
+            shapes[p + 'moe_mlp.w_gate'] = (e, d, f)
+            shapes[p + 'moe_mlp.w_up'] = (e, d, f)
+            shapes[p + 'moe_mlp.w_down'] = (e, f, d)
+        else:
+            shapes[p + 'mlp.gate_proj.weight'] = (f, d)
+            shapes[p + 'mlp.up_proj.weight'] = (f, d)
+            shapes[p + 'mlp.down_proj.weight'] = (d, f)
+    shapes['final_norm.scale'] = (d,)
+    if not cfg.tie_embeddings:
+        shapes['lm_head.weight'] = (cfg.vocab_size, d)
+    return shapes
+
+
+class _KeepSlices(dict):
+    """A state dict that keeps only this rank's slice of each weight set
+    into it under `mesh` (a copy: the whole weight is freed)."""
+
+    def __init__(self, mesh) -> None:
+        super().__init__()
+        self.mesh = mesh
+
+    def __setitem__(self, name: str, full: torch.Tensor) -> None:
+        if self.mesh is not None:
+            spec = sharding.param_spec(name, full.shape, self.mesh.shape)
+            full = sharding.local_slice(full, spec, self.mesh).clone()
+        super().__setitem__(name, full)

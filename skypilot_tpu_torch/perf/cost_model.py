@@ -17,6 +17,11 @@ history of every active sequence plus one position's write.  The KV term
 scales with the CACHE ELEMENT WIDTH, so an int8 page pool shows up as a
 measured bytes/token drop, not a recalibration.
 
+Under tensor parallelism (`n_chips` = the mesh's size) the bytes are
+the whole model's, as the JAX package's cost model reads its global
+arrays: bytes per token stay the replica's, and MFU and the roofline
+divide by every chip's peak (per chip, the bytes are 1/n_chips of them).
+
 The bandwidth table holds the card this package runs on, not the TPU
 chips; the peak FLOP/s come from `train/flops.py`'s table.
 """
@@ -82,7 +87,8 @@ class EngineCostModel:
     def from_engine_state(cls, cfg, params: Iterable[torch.Tensor],
                           cache_leaves, n_chips: int = 1,
                           chip: Optional[str] = None,
-                          kv_dtype: Optional[str] = None
+                          kv_dtype: Optional[str] = None,
+                          param_bytes: Optional[int] = None
                           ) -> 'EngineCostModel':
         """Build from live engine state.  Reads only tensor METADATA
         (numel, element size, dtype, storage pointer), never values, so
@@ -95,7 +101,9 @@ class EngineCostModel:
         (`kv_quant.QuantPages`), and inferring the width from whichever
         leaf comes first would misreport bytes/token.  None (unpaged
         engines / direct callers) takes the first cache tensor's element
-        width."""
+        width.  ``param_bytes`` overrides the bytes of ``params``: a
+        tensor-parallel rank holds slices and passes the whole
+        weights'."""
         scale_bytes = 0.0
         if kv_dtype is not None:
             kv_bytes = {'bf16': 2, 'int8': 1}[kv_dtype]
@@ -108,7 +116,8 @@ class EngineCostModel:
         return cls(n_params=cfg.num_params(), n_layers=cfg.n_layers,
                    dim=cfg.dim, n_kv_heads=cfg.n_kv_heads,
                    head_dim=cfg.head_dim,
-                   param_bytes=_distinct_bytes(params),
+                   param_bytes=(param_bytes if param_bytes is not None
+                                else _distinct_bytes(params)),
                    kv_dtype_bytes=int(kv_bytes), n_chips=n_chips,
                    chip=chip or flops_lib.chip_kind(),
                    kv_scale_bytes_per_pos=scale_bytes)

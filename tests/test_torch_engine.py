@@ -195,11 +195,12 @@ def test_engine_pipelined_threaded_loop(models):
 
 
 def test_engine_refuses_later_slice_options(models):
-    """Tensor parallelism (`mesh`) is still a later slice; the paged
-    options (pages, pool size, prefix cache, int8 pages, speculation)
-    are accepted now."""
+    """Tensor parallelism (`mesh`) is accepted now, over a model built on
+    the same mesh (tests/test_torch_sharded.py serves it): a mesh the
+    model was not built over is refused.  The paged options (pages, pool
+    size, prefix cache, int8 pages, speculation) are accepted."""
     model, _ = models
-    with pytest.raises(ValueError, match='tensor-parallel serving slice'):
+    with pytest.raises(ValueError, match='model over the same mesh'):
         _engine(model, mesh=object())
     for kw in ({'kv_page_size': 8}, {'kv_page_size': 8, 'kv_pages': 17},
                {'kv_page_size': 8, 'prefix_cache': False},

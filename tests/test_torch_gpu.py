@@ -7,7 +7,10 @@ body (dense and paged, greedy and sampled), the speculative verify as
 a CUDA graph against its eager body (bf16 and int8 pages, a MoE model),
 no build after prewarm() under the strict recompile sentinel, a
 profiler window that holds the flash kernel launched by the engine's
-loop thread, and a weight swap under the graph, on the card.  Marked
+loop thread, a weight swap under the graph, and tensor parallelism on
+the card: the forward at the per-rank shapes, no mesh or server of
+`--tensor 2` on one card, and a tensor=1 engine over a real NCCL group
+whose decode graph (its collectives captured) equals eager.  Marked
 `gpu`; each test asks the
 `cuda` fixture, which skips when there is no CUDA device.  No JAX here,
 so the file runs where only the port is installed:
@@ -18,6 +21,8 @@ import collections
 import dataclasses
 import gzip
 import json
+import subprocess
+import sys
 import threading
 import time
 
@@ -71,6 +76,11 @@ RL_SHAPES = [(8, 16, 8, s, 64, True, torch.bfloat16) for s in (8, 33, 36)]
 # 256 bucket) and its training step (batch 2 of 2048).
 MOE_SHAPES = [(8, 32, 8, 256, 64, True, torch.bfloat16),
               (2, 32, 8, 2048, 64, True, torch.bfloat16)]
+# Tensor-parallel serving at tensor=2, one rank's prefill: llama2-7b's
+# 16 of 32 MHA heads, and llama3-8b's 16 query heads over 4 of its 8 kv
+# heads (GQA group 4), head_dim 128, 8 prompts in the 256 bucket.
+TP_SHAPES = [(8, 16, 16, 256, 128, True, torch.bfloat16),
+             (8, 16, 4, 256, 128, True, torch.bfloat16)]
 
 
 @pytest.mark.parametrize('b,hq,hkv,s,d,causal,dtype', [
@@ -82,6 +92,7 @@ MOE_SHAPES = [(8, 32, 8, 256, 64, True, torch.bfloat16),
     *EDGE_SHAPES,
     *RL_SHAPES,
     *MOE_SHAPES,
+    *TP_SHAPES,
     # A single row: forward only, since with one key the softmax is
     # constant and dq, dk are 0 up to rounding (no relative error).
     (2, 4, 2, 1, 128, True, torch.bfloat16),
@@ -469,3 +480,56 @@ def test_profile_window_holds_the_loop_threads_kernels(cuda, tmp_path):
     per_launch = collections.Counter(e['args']['correlation']
                                      for e in kernels)
     assert max(per_launch.values()) > 1
+
+
+def test_no_two_rank_mesh_or_server_on_one_card(cuda):
+    """No fallback on a one-card machine: the default two-rank mesh is
+    refused (NCCL puts one rank on a card) and the server's `--tensor 2`
+    exits non-zero with the reason, before it spawns a rank."""
+    from skypilot_tpu_torch.parallel.mesh import build_serve_mesh
+    if torch.cuda.device_count() >= 2:
+        pytest.skip('this machine has two cards')
+    with pytest.raises(ValueError, match='needs 2 devices'):
+        build_serve_mesh(2, n_heads=2, n_kv_heads=2)
+    proc = subprocess.run(
+        [sys.executable, '-m', 'skypilot_tpu_torch.inference.server',
+         '--model', 'tiny', '--tensor', '2'],
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert 'needs 2 CUDA devices' in proc.stderr
+
+
+def rank_nccl_tensor1(eager):
+    """In a one-rank NCCL group: the narrow model over a tensor=1 mesh
+    (its all-reduces and gathers run, over one rank), served with the
+    decode call as a CUDA graph or eagerly."""
+    from skypilot_tpu_torch.parallel.mesh import build_serve_mesh
+    cfg = LlamaConfig(vocab_size=512, dim=256, n_layers=2, n_heads=2,
+                      n_kv_heads=2, ffn_dim=688, rope_theta=10000.0,
+                      max_seq_len=128, dtype=torch.bfloat16,
+                      param_dtype=torch.bfloat16)
+    mesh = build_serve_mesh(1, cfg.n_heads, cfg.n_kv_heads)
+    gen = torch.Generator(device=mesh.device).manual_seed(0)
+    model = Llama(cfg, init_params(cfg, mesh.device, gen, mesh=mesh), mesh)
+    engine = DecodeEngine(model, EngineConfig(
+        n_slots=4, prefill_buckets=(16, 32), steps_per_call=4, mesh=mesh),
+        _eager_decode=eager)
+    engine.prewarm()
+    graph = engine._decode_call.graph is not None
+    toks = _serve(engine, _GRAPH_PROMPTS, 10)
+    engine.close()
+    return toks, graph
+
+
+def test_nccl_tensor1_graph_decode_matches_eager(cuda):
+    """tensor=1 over a real NCCL group: the decode call is captured as a
+    CUDA graph with its collectives, and its tokens equal the eager
+    call's and the mesh-free engine's."""
+    from skypilot_tpu_torch.parallel.group import RankPool
+    with RankPool(1, 'nccl', timeout_s=120) as pool:
+        graph_toks, graph = pool.run(rank_nccl_tensor1, False)[0]
+        eager_toks, eager = pool.run(rank_nccl_tensor1, True)[0]
+    assert graph and not eager
+    plain = _narrow_engine(cuda)
+    plain.prewarm()
+    assert graph_toks == eager_toks == _serve(plain, _GRAPH_PROMPTS, 10)

@@ -2,6 +2,7 @@
 it imports neither JAX nor the JAX package, its entry points refuse to
 run without CUDA unless told to use the CPU, and its copies of the JAX
 package's JAX-free modules stay verbatim apart from import lines."""
+import ast
 import os
 import pathlib
 import re
@@ -176,3 +177,56 @@ def test_perf_slice_modules_are_covered():
     from skypilot_tpu_torch import perf
     assert perf.__all__ == ['compile_telemetry', 'cost_model', 'profiler']
     assert perf.cost_model.HBM_GBPS == {'h100': 3350.0, 'cpu': 100.0}
+
+
+# Names the port copies out of JAX modules (plain Python there), by file.
+COPIED_NAMES = {
+    'parallel/mesh.py': ['MESH_AXES', 'mesh_axes', 'MeshPlan', 'plan_mesh',
+                         'validate_tensor_parallel', 'plan_serve_mesh'],
+    'parallel/sharding.py': ['DEFAULT_RULES', 'rules_to_dict',
+                             'logical_to_spec'],
+}
+
+
+def _top_level_sources(text):
+    """{name: source} of a module's top-level defs, classes and
+    assignments."""
+    out = {}
+    for node in ast.parse(text).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names = [node.name]
+        elif isinstance(node, ast.Assign):
+            names = [t.id for t in node.targets if isinstance(t, ast.Name)]
+        elif isinstance(node, ast.AnnAssign):
+            names = [node.target.id]
+        else:
+            continue
+        for name in names:
+            out[name] = ast.get_source_segment(text, node)
+    return out
+
+
+@pytest.mark.parametrize('rel', sorted(COPIED_NAMES))
+def test_copied_planners_and_rules_match_originals(rel):
+    """The mesh planners and the sharding rules are the JAX package's,
+    verbatim."""
+    original = _top_level_sources((REPO / 'skypilot_tpu' / rel).read_text())
+    copy = _top_level_sources((PORT / rel).read_text())
+    for name in COPIED_NAMES[rel]:
+        assert copy[name] == original[name], name
+
+
+def test_tensor_parallel_slice_modules_are_covered():
+    """The isolation checks above walk every module of the port; the
+    tensor-parallel serving slice's modules are among them, the package
+    exports the planners, and no kernel source was added."""
+    mods = set(_port_modules())
+    assert {'skypilot_tpu_torch.parallel',
+            'skypilot_tpu_torch.parallel.mesh',
+            'skypilot_tpu_torch.parallel.sharding',
+            'skypilot_tpu_torch.parallel.group'} <= mods
+    from skypilot_tpu_torch import parallel
+    for name in ('MeshPlan', 'build_mesh', 'build_serve_mesh', 'plan_mesh',
+                 'plan_serve_mesh', 'validate_tensor_parallel'):
+        assert name in parallel.__all__ and hasattr(parallel, name)
+    assert len(list((PORT / 'csrc').glob('*.cu*'))) == 4

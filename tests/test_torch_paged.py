@@ -365,8 +365,9 @@ def test_config_validation_gives_jax_messages(ref, kw):
 
 
 def test_config_fields_equal_jax(ref):
-    """The port's EngineConfig has the JAX engine's fields (mesh is
-    refused at construction, not absent); the pool floor is accepted."""
+    """The port's EngineConfig has the JAX engine's fields (mesh
+    included: tests/test_torch_sharded.py serves it); the pool floor is
+    accepted."""
     _, _, model, _ = ref
     names = [f.name for f in dataclasses.fields(torch_engine.EngineConfig)]
     assert names == [f.name for f in
