@@ -16,7 +16,8 @@ followed by its seconds:
    the forward at the serving path's shapes, then the forward, dq and
    dk/dv at the training path's (bench-1b, llama-250m, llama2-7b, a
    non-causal, a ragged fp16 case, S=32 and S=320, the RL loop's S=36
-   and S=8 at head_dim 64); then CUDA-event
+   and S=8 at head_dim 64, the MoE training step's and one rank's of the
+   sharded training phase's fsdp=2, tensor=2 and NCCL runs); then CUDA-event
    times of each kernel (and its TFLOP/s), its plain version and the
    library call (SDPA; beside its backward also the port's dq + dk/dv
    sum), next to the roofline bound, at the llama2-7b prefill
@@ -25,8 +26,8 @@ followed by its seconds:
    of each (registers per thread and shared memory as launched); the
    same times at the MoE prefill shape (forward) and the MoE training
    shape (forward, dq, dk/dv; GQA group 4).
-4. Serving: llama2-7b at full width and depth (bf16 random weights from
-   a seed) behind the port's HTTP app on a local port, 8 prompts of 219
+4. Serving: llama2-7b at full width, 16 of its 32 layers (SERVE; bf16
+   random weights from a seed) behind the port's HTTP app on a local port, 8 prompts of 219
    tokens plus one of 300 (chunked prefill), 32 new tokens each; every
    response checked; kernel launch counts read around this run; prefill
    logits through the kernel held against attention_impl='xla'.  The
@@ -48,8 +49,8 @@ followed by its seconds:
    and the 64-token-paged engine on the engine API, each with its decode
    call as a CUDA graph and eager (identical tokens all four ways; out-
    tok/s, TTFT p50 and one profiled decode call each, its decode-only
-   rate as a share of the cost model's roofline; 32 flash launches per
-   prefill group, counted around the paged graph run),
+   rate as a share of the cost model's roofline; one flash launch per
+   layer and prefill group, counted around the paged graph run),
    a prefix-hit burst (8 requests sharing a 3-page prefix; the hit
    counters exact), int8 pages (within half a quantization step plus one
    bf16 ulp of the bf16 pages; pool bytes, whose int8/bf16 ratio the cost
@@ -69,17 +70,19 @@ followed by its seconds:
 6b. Tensor-parallel serving (TENSOR), over the serving weights and
    prompts: (a) two gloo ranks on cuda:0 print which of all_reduce,
    broadcast and all_gather_into_tensor gloo runs on bf16, f32 and int8
-   CUDA tensors (those the phase's model runs must work); (b) llama2-7b
-   at full width over tensor=2, both ranks on the one card, each holding
-   its slices from the same seed: the first-step logits of the 8 prompts
-   bit-identical to one device computing the same arithmetic (o/down as
-   bf16 half products added in bf16) and within LOGITS_RTOL of the plain
+   CUDA tensors (those the phase's model runs must work); (b) the
+   serving phase's llama2-7b over tensor=2, both ranks on the one
+   card, each holding its slices from the same seed: the first-step
+   logits of the 8 prompts bit-identical to one device computing the
+   same arithmetic (o/down as bf16 half products added in bf16) and
+   within LOGITS_RTOL of the plain
    one-device model (relative to its max |logit|; one device's
    flash-vs-xla distance printed beside it), then
    the dense and the 64-token-paged engine
    (eager: gloo syncs the host) on the serving cell's traffic, every
    rank's tokens equal to rank 0's, greedy agreement with the one-device
-   engine printed, 32 flash launches per prefill group on rank 0; (c)
+   engine printed, one flash launch per layer and prefill group on rank
+   0; (c)
    the model cut to 4 layers in f32 (attention_impl 'xla'): tokens
    identical to the one-device engine; (d) tensor=1 over a one-rank NCCL
    group in this process: the decode call a CUDA graph with its
@@ -123,11 +126,36 @@ followed by its seconds:
    After the MoE serving phase the build telemetry's counts and seconds
    (kernel build, decode and verify captures) are printed and the
    sentinel disarmed.
-11. Result: the kernels JSON line (per kernel also TFLOP/s, ptxas
+11. Sharded training (SHARDED, examples/train_llama_fsdp.yaml's
+   llama3-1b at full width and depth, f32 params, bf16 compute): (a) two
+   gloo ranks on cuda:0 print which of reduce_scatter_tensor,
+   all_gather_into_tensor and all_reduce gloo runs on bf16 and f32 CUDA
+   tensors (FSDP2 and the tensor-parallel pair need all six) and, in a
+   throwaway pair of processes per dtype, whether it moves them point
+   to point (it does not: the ring over a gloo mesh stages its hops
+   through pinned host buffers, decided from the backend); then through
+   Trainer(..., mesh=) on the same global batch, 1 + 2 steps each, both
+   ranks on the card: (b) fsdp=2 at 8 x 2048, (c) tensor=2 at 4 x 2048,
+   (d) attention_impl='ring' at fsdp=2 on 1 x 16384 (8192 tokens a
+   rank): each step's loss within SHARDED_LOSS_RTOL and its grad norm
+   within SHARDED_NORM_RTOL of the one-device trainer's 3 steps on the
+   same weights and batch (step 3 the first after a real update; each
+   reference run first and freed), every rank's
+   metrics equal rank 0's, exact flash forward / dq / dk/dv launches per
+   rank (2 forwards per layer under remat; per hop the ring does not
+   skip), peak GB and seconds per step per rank; (e) the ring op at one
+   hop's shape (RING_HOP_SHAPE) against ring_attention_reference
+   (output norm-rel <= BWD_NORM_RTOL, dq/dk/dv <= GRAD_PLAIN_RTOL),
+   with the per-rank launches; (g) (b)'s step saved (DCP) and restored
+   on one device, every parameter bit-equal to the gathered shards; (f)
+   the FSDP2 step and the one-hop ring over a one-rank NCCL group
+   against the unsharded trainer (2 layers, 2 steps): equal within f32
+   rounding; then the three kernels timed at the ring hop's shape.
+12. Result: the kernels JSON line (per kernel also TFLOP/s, ptxas
    registers and spill-store bytes, shared memory per launch; launches
    by path: serving, paged, checkpoint, tensor_serving (rank 0 of (b)
-   and (d)), moe_serving, training, moe_training, rl), the nvidia-smi
-   line, then
+   and (d)), moe_serving, training, moe_training, rl, sharded_training
+   (rank 0 of (b)-(d) and (f))), the nvidia-smi line, then
    {"ok": true, "device": {...}} as the last line.
 
 Needs one CUDA device; exits non-zero without one and imports nothing of
@@ -142,6 +170,7 @@ import json
 import math
 import os
 import re
+import shutil
 import socket
 import subprocess
 import sys
@@ -196,8 +225,11 @@ MOE_TRAIN_SHAPE = (2, 32, 8, 2048, 64)
 # training shape first (it is also the timed one), llama-250m, llama2-7b
 # (MHA), a non-causal and a ragged fp16 case, S shorter than one tile
 # and past a multiple of the 128-row tiles, the RL loop's shapes (its
-# REINFORCE step over 4 + 32 tokens, its rollout's prefill bucket) and
-# the MoE training step's (GQA group 4).
+# REINFORCE step over 4 + 32 tokens, its rollout's prefill bucket), the
+# MoE training step's (GQA group 4) and one rank's in the sharded
+# training phase (SHARDED): (b) fsdp=2 (4 of 8 rows), (c) tensor=2 (half
+# the heads of 4 rows) and (f) (2 x 1024, one rank).  The ring's hop
+# shape is held by (e) through the ring op itself.
 BWD_SHAPES = [(4, 16, 8, 4096, 128, True, 'bfloat16'),
               (8, 16, 8, 2048, 64, True, 'bfloat16'),
               (2, 32, 32, 512, 128, True, 'bfloat16'),
@@ -207,8 +239,15 @@ BWD_SHAPES = [(4, 16, 8, 4096, 128, True, 'bfloat16'),
               (1, 4, 2, 320, 128, True, 'bfloat16'),
               (8, 16, 8, 36, 64, True, 'bfloat16'),
               (8, 16, 8, 8, 64, True, 'bfloat16'),
-              (*MOE_TRAIN_SHAPE, True, 'bfloat16')]
-SERVE = dict(model='llama2-7b', max_seq_len=448, n_slots=8,
+              (*MOE_TRAIN_SHAPE, True, 'bfloat16'),
+              (4, 32, 8, 2048, 64, True, 'bfloat16'),
+              (4, 16, 4, 2048, 64, True, 'bfloat16'),
+              (2, 32, 8, 1024, 64, True, 'bfloat16')]
+# llama2-7b at full width with its depth cut 32 -> 16 layers (the
+# serving, paged, checkpoint and tensor_serving phases share the model;
+# their time is about proportional to depth, and the cut keeps the whole
+# run near half its limit).
+SERVE = dict(model='llama2-7b', n_layers=16, max_seq_len=448, n_slots=8,
              steps_per_call=32, prefill_buckets=(256,), prompt_len=219,
              n_prompts=8, long_prompt_len=300, max_tokens=32)
 # The paged serving phase, over the serving phase's weights and prompts
@@ -265,13 +304,47 @@ PERF_GAUGE_RTOL = 5e-2
 # Tensor-parallel serving on the one card: the serving cell's model and
 # traffic over tensor=2 with both ranks on cuda:0 over gloo (eager calls:
 # a correctness run, its rate is gloo's host staging), dense and 64-token
-# paged; then cut to 4 of 32 layers in f32; then tensor=1 over NCCL.
+# paged; then cut to 4 layers in f32; then tensor=1 over NCCL.  Its model
+# is the serving phase's (SERVE's depth).
 TENSOR = dict(model='llama2-7b', tensor=2, max_seq_len=448, n_slots=8,
               steps_per_call=32, prefill_buckets=(256,), kv_page_size=64,
               max_tokens=32, f32_layers=4)
 # (b, hq, hkv, s, d) of one rank's prefill attention at tensor=2: 8
 # prompts in the 256 bucket over 16 of llama2-7b's 32 heads.
 TP_SHAPE = (8, 16, 16, 256, 128)
+# Sharded training of examples/train_llama_fsdp.yaml's model: llama3-1b
+# at full width and depth (16 layers, dim 2048, 32 query heads over 8 kv
+# heads of 64, tied embeddings, vocab 128256; 1.236B params), f32 params,
+# bf16 compute, the config's remat, two gloo ranks on cuda:0 (NCCL will
+# not put two ranks on one card), each through Trainer(..., mesh=) on the
+# same global batch, 1 + 2 steps: (b) fsdp=2 at the recipe's batch of
+# 8 x 2048 (4 rows a rank); (c) tensor=2 at 4 x 2048 (cut from 8: the
+# whole-vocab f32 logits, gathered on each rank, with their
+# cross-entropy copies and gradients, ~35 GB a rank at 8 rows, and the
+# two ranks share the card's 80 GB); (d) attention_impl='ring' at
+# fsdp=2 on one row of 16384 tokens, 8192 a rank, the per-device share
+# of examples/ring_attention_long_context.yaml (131072 over 16; its
+# batch 2 cut to 1 so the one-device reference fits).  (f) runs the
+# model cut to 2 layers at 2 x 1024 over a one-rank NCCL group.
+SHARDED = dict(model='llama3-1b', ranks=2, device='cuda:0', batch=8, seq=2048,
+               tensor_batch=4, ring_batch=1, ring_seq=16384, steps=3,
+               warmup_steps=5, total_steps=1000, nccl_layers=2,
+               nccl_batch=2, nccl_seq=1024)
+# (b, hq, hkv, s, d) of one ring hop at (d): a rank's 8192-token chunk.
+RING_HOP_SHAPE = (1, 32, 8, 8192, 64)
+# Steps 1 and 3 of a sharded plan against the one-device trainer's on
+# the same weights and batch: the loss (f32, summed over shards in
+# another order; the bf16 attention and o/down products round alike
+# only on one device) and the pre-clip grad norm (bf16 gradients summed
+# over shards and ranks in another order).  Step 1's update is 0 (the
+# warmup starts at 0), so step 3's loss and norm are the first to read
+# a real update: the sharded clip and AdamW over the shards.
+SHARDED_LOSS_RTOL = 2e-3
+SHARDED_NORM_RTOL = 1e-2
+# (f) world 1 over NCCL against the unsharded trainer, two steps on the
+# same weights: the same kernels on the same values, the loss weighted
+# by exactly 1, only the clip's norm summed in another order (f32).
+NCCL_LOSS_RTOL, NCCL_NORM_RTOL, NCCL_PARAM_ATOL = 1e-6, 1e-5, 1e-6
 # tensor=2 first-step logits (bf16) must be bit-identical to one device
 # computing the same arithmetic (each o/down product as two bf16 half
 # products added in bf16; every other op is the same kernel on the same
@@ -836,6 +909,7 @@ def serving_phase(device, card):
     from skypilot_tpu_torch.models.llama import LLAMA_CONFIGS, Llama, init_params
 
     cfg = dataclasses.replace(LLAMA_CONFIGS[SERVE['model']],
+                              n_layers=SERVE['n_layers'],
                               max_seq_len=SERVE['max_seq_len'],
                               param_dtype=torch.bfloat16)
     t0 = time.perf_counter()
@@ -1598,6 +1672,7 @@ def checkpoint_phase(device, card, ctx):
     import torch
     from skypilot_tpu_torch.inference import server
     from skypilot_tpu_torch.inference.engine import DecodeEngine, EngineConfig
+    from skypilot_tpu_torch.models.llama import LLAMA_CONFIGS
     from skypilot_tpu_torch.train.checkpoint import CheckpointManager
 
     cfg, model = ctx['cfg'], ctx['model']
@@ -1609,8 +1684,13 @@ def checkpoint_phase(device, card, ctx):
         save_s = time.perf_counter() - t0
         size_gb = sum(os.path.getsize(os.path.join(d, f))
                       for d, _, fs in os.walk(directory) for f in fs) / 1e9
+        # The server finds its model by --model: SERVE's depth cut is
+        # registered under a name of its own.
+        name = f'{SERVE["model"]}-{cfg.n_layers}-layers'
+        LLAMA_CONFIGS[name] = dataclasses.replace(
+            LLAMA_CONFIGS[SERVE['model']], n_layers=cfg.n_layers)
         args = server.parse_args([
-            '--model', SERVE['model'], '--max-seq-len',
+            '--model', name, '--max-seq-len',
             str(SERVE['max_seq_len']), '--checkpoint', directory,
             '--param-dtype', 'bfloat16', '--device', str(device)])
         t0 = time.perf_counter()
@@ -1756,6 +1836,7 @@ def tp_rank(prompts, logits_tokens, logits_at):
 
     t = TENSOR['tensor']
     cfg = dataclasses.replace(LLAMA_CONFIGS[TENSOR['model']],
+                              n_layers=SERVE['n_layers'],
                               max_seq_len=TENSOR['max_seq_len'],
                               param_dtype=torch.bfloat16)
     mesh = build_serve_mesh(t, cfg.n_heads, cfg.n_kv_heads,
@@ -2740,6 +2821,585 @@ def zoo_phase(device, card):
         torch.cuda.empty_cache()
 
 
+# ----- sharded training -------------------------------------------------------
+def sharded_probe(_):
+    """In each rank of a gloo pool on cuda:0: which collectives FSDP2 and
+    the tensor-parallel pair need gloo runs on CUDA tensors, per dtype;
+    and the ring's transport on this mesh (from the backend)."""
+    import torch
+    import torch.distributed as dist
+    from skypilot_tpu_torch.parallel import ring_attention as ring_lib
+    torch.cuda.set_device(0)
+    rank, out = dist.get_rank(), {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for op in ('reduce_scatter_tensor', 'all_gather_into_tensor',
+                   'all_reduce'):
+            x = torch.full((4,), rank + 1, dtype=dtype, device='cuda')
+            try:
+                if op == 'all_reduce':
+                    dist.all_reduce(x)
+                    got, want = x.tolist(), [3] * 4
+                elif op == 'all_gather_into_tensor':
+                    y = x.new_empty((8,))
+                    dist.all_gather_into_tensor(y, x)
+                    got, want = y.tolist(), [1] * 4 + [2] * 4
+                else:
+                    y = x.new_empty((2,))
+                    dist.reduce_scatter_tensor(y, x)
+                    got, want = y.tolist(), [3] * 2
+                out[f'{str(dtype)[6:]} {op}'] = ('ok' if got == want
+                                                 else f'wrong: {got}')
+            except Exception as e:  # pylint: disable=broad-except
+                out[f'{str(dtype)[6:]} {op}'] = f'fails: {e!r}'[:160]
+    out['ring via host'] = ring_lib._Ring(  # pylint: disable=protected-access
+        dist.group.WORLD, torch.device('cuda')).via_host
+    return out
+
+
+def p2p_probe_rank(rank, port, dtype_name, queue):
+    """One rank of a throwaway gloo pair on cuda:0: a batch_isend_irecv
+    of CUDA tensors to the other rank (gloo may abort the process on it,
+    which is why the pair is its own)."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group('gloo', init_method=f'tcp://127.0.0.1:{port}',
+                            world_size=2, rank=rank,
+                            timeout=datetime.timedelta(seconds=60))
+    x = torch.full((4,), rank + 1, dtype=getattr(torch, dtype_name),
+                   device='cuda')
+    y = torch.zeros_like(x)
+    try:
+        ops = [dist.P2POp(dist.isend, x, 1 - rank),
+               dist.P2POp(dist.irecv, y, 1 - rank)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        torch.cuda.synchronize()
+        result = 'ok' if y.tolist() == [2.0 - rank] * 4 else f'wrong: {y}'
+    except Exception as e:  # pylint: disable=broad-except
+        result = f'fails: {e!r}'[:160]
+    queue.put((rank, result))
+    dist.destroy_process_group()
+
+
+def p2p_probe(timeout_s=60.0):
+    """{dtype: result} of gloo point to point on CUDA tensors, one
+    throwaway pair of processes per dtype (run together); a process that
+    dies reports its exit code.  Every process is stopped before this
+    returns."""
+    import multiprocessing
+    import queue as queue_lib
+    from skypilot_tpu_torch.parallel import group as group_lib
+    ctx = multiprocessing.get_context('spawn')
+    pairs = {}
+    for name in ('bfloat16', 'float32'):
+        q, port = ctx.Queue(), group_lib.free_port()
+        pairs[name] = (q, [ctx.Process(target=p2p_probe_rank,
+                                       args=(r, port, name, q), daemon=True)
+                           for r in range(2)])
+        for proc in pairs[name][1]:
+            proc.start()
+    deadline = time.monotonic() + timeout_s
+    out = {}
+    for name, (q, procs) in pairs.items():
+        got = {}
+        while len(got) < 2 and time.monotonic() < deadline:
+            try:
+                rank, result = q.get(timeout=1.0)
+                got[rank] = result
+            except queue_lib.Empty:
+                if not any(p.is_alive() for p in procs):
+                    break
+        group_lib.stop_processes(procs, 5.0)
+        codes = [p.exitcode for p in procs]
+        if len(got) == 2 and got[0] == got[1]:
+            out[f'{name} batch_isend_irecv'] = got[0]
+        elif not got and all(c is not None and c < 0 for c in codes):
+            out[f'{name} batch_isend_irecv'] = (
+                f'fails: both ranks killed by signals {[-c for c in codes]}')
+        else:
+            out[f'{name} batch_isend_irecv'] = (
+                f'fails: {got or "no result"}; rank exit codes {codes}')
+    return out
+
+
+def sharded_case(kind):
+    """(plan, global batch rows, seq, config) of (b) 'fsdp', (c) 'tensor',
+    (d) 'ring'."""
+    from skypilot_tpu_torch.models.llama import LLAMA_CONFIGS
+    from skypilot_tpu_torch.parallel.mesh import MeshPlan
+    cfg = LLAMA_CONFIGS[SHARDED['model']]
+    n = SHARDED['ranks']
+    if kind == 'fsdp':
+        return MeshPlan(fsdp=n), SHARDED['batch'], SHARDED['seq'], cfg
+    if kind == 'tensor':
+        return (MeshPlan(tensor=n), SHARDED['tensor_batch'], SHARDED['seq'],
+                cfg)
+    cfg = dataclasses.replace(cfg, attention_impl='ring',
+                              max_seq_len=SHARDED['ring_seq'])
+    return (MeshPlan(fsdp=n), SHARDED['ring_batch'], SHARDED['ring_seq'],
+            cfg)
+
+
+def sharded_tokens(kind, device, vocab):
+    """The global batch of `kind`, the same draw in every process."""
+    import torch
+    _, batch, seq, _ = sharded_case(kind)
+    gen = torch.Generator(device=device).manual_seed(
+        SEED + (3 if kind == 'ring' else 2))
+    rows = SHARDED['batch'] if kind != 'ring' else batch
+    return torch.randint(0, vocab, (rows, seq), device=device,
+                         generator=gen)[:batch]
+
+
+def sharded_rank(kind, ckpt_dir=None):
+    """One rank of SHARDED's gloo pair on cuda:0 training `kind` through
+    Trainer(..., mesh=): its slices of the SEED draw, step 1 alone, then
+    the 2 timed steps with the kernels' counts zeroed just before and read
+    just after; with `ckpt_dir` the trained state is saved there (DCP)
+    and each rank writes its FSDP shards beside it (`shards_<i>.pt`,
+    rows i of 2 along dim 0: (b) is fsdp=2 at tensor=1).  DTensor's own
+    gather (`full_tensor`) is not used: over gloo on CUDA tensors its
+    functional all-gather faulted the rank process (H100, torch
+    2.11.0+cu128)."""
+    import torch
+    from skypilot_tpu_torch.models.llama import Llama, init_params
+    from skypilot_tpu_torch.parallel.mesh import build_mesh
+    from skypilot_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    plan, _, _, cfg = sharded_case(kind)
+    t0 = time.perf_counter()
+    mesh = build_mesh(plan, devices=[SHARDED['device']] * SHARDED['ranks'],
+                      backend='gloo')
+    device = mesh.device
+    model = Llama(cfg, init_params(
+        cfg, mesh=mesh,
+        generator=torch.Generator(device=device).manual_seed(SEED)), mesh)
+    trainer = Trainer(model, TrainConfig(
+        warmup_steps=SHARDED['warmup_steps'],
+        total_steps=SHARDED['total_steps']), checkpoint_dir=ckpt_dir,
+        mesh=mesh)
+    tokens = sharded_tokens(kind, device, cfg.vocab_size)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step_metrics = []
+    train_step = trainer.train_step
+
+    def recording_step(state, tokens_):
+        state, metrics = train_step(state, tokens_)
+        step_metrics.append(metrics)
+        return state, metrics
+
+    trainer.train_step = recording_step
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.run(iter([tokens]), 1, log_every=1)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    timed = SHARDED['steps'] - 1
+    zero_launches()
+    t0 = time.perf_counter()
+    trainer.run(iter([tokens] * timed), timed, log_every=timed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    out = {'rank': mesh.rank, 'coord': mesh.coordinate('fsdp'),
+           'init_s': init_s, 'first_s': first_s, 'step_s': wall / timed,
+           'peak_gb': torch.cuda.max_memory_allocated() / 1e9,
+           'losses': [float(m['loss']) for m in step_metrics],
+           'norms': [float(m['grad_norm']) for m in step_metrics],
+           'counts': counts, 'rows': tuple(tokens.shape)}
+    if ckpt_dir is not None:
+        t0 = time.perf_counter()
+        trainer.save_checkpoint()
+        out['save_s'] = time.perf_counter() - t0
+        from torch.distributed.tensor import Replicate, Shard
+        shards = {}
+        for name, p in trainer.state.model.named_parameters():
+            if tuple(p.placements) != (Replicate(), Shard(0)):
+                raise SystemExit(f'{name} is placed {p.placements}')
+            shards[name] = p.detach().to_local().cpu()
+        torch.save(shards, os.path.join(
+            ckpt_dir, f'shards_{mesh.coordinate("fsdp")}.pt'))
+        del shards
+    del trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ring_op_rank():
+    """One rank of the fsdp=2 gloo pair: the ring op at RING_HOP_SHAPE on
+    its chunk of a seeded global q, k, v (bf16), forward and backward
+    with a seeded cotangent; returns its blocks and the launches of the
+    one call (a comparison, not a main path)."""
+    import torch
+    from skypilot_tpu_torch.parallel.mesh import MeshPlan, build_mesh
+    from skypilot_tpu_torch.parallel.ring_attention import ring_attention
+    mesh = build_mesh(MeshPlan(fsdp=SHARDED['ranks']),
+                      devices=[SHARDED['device']] * SHARDED['ranks'],
+                      backend='gloo')
+    q, k, v, g = ring_inputs(mesh.device)
+    s = RING_HOP_SHAPE[3]
+    sl = slice(mesh.coordinate('fsdp') * s, (mesh.coordinate('fsdp') + 1) * s)
+    lq, lk, lv = (x[:, :, sl].contiguous().requires_grad_()
+                  for x in (q, k, v))
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = ring_attention(lq, lk, lv, mesh, causal=True)
+    dq, dk, dv = torch.autograd.grad(out, (lq, lk, lv),
+                                     g[:, :, sl].contiguous())
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    res = {'coord': mesh.coordinate('fsdp'), 'counts': read_launches(),
+           'wall_ms': wall_ms,
+           **{key: t.detach().cpu() for key, t in
+              (('out', out), ('dq', dq), ('dk', dk), ('dv', dv))}}
+    del q, k, v, g, out, dq, dk, dv
+    torch.cuda.empty_cache()
+    return res
+
+
+def ring_inputs(device):
+    """The whole sequence's q, k, v and cotangent at (e)'s shape (bf16),
+    the same draw in every process."""
+    import torch
+    b, hq, hkv, s, d = RING_HOP_SHAPE
+    n = SHARDED['ranks']
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+
+    def draw(h):
+        return torch.randn((b, h, s * n, d), generator=gen,
+                           device=device).to(torch.bfloat16)
+    return draw(hq), draw(hkv), draw(hkv), draw(hq)
+
+
+def ring_reference_grads(q, k, v, g):
+    """ring_attention_reference's output and its gradients on the card,
+    one kv head (with its query heads) at a time: each block's f32 logits
+    of all heads at once would not fit."""
+    import torch
+    from skypilot_tpu_torch.parallel.ring_attention import (
+        ring_attention_reference)
+    group = q.shape[1] // k.shape[1]
+    outs, dqs, dks, dvs = [], [], [], []
+    for h in range(k.shape[1]):
+        qs = slice(h * group, (h + 1) * group)
+        lq = q[:, qs].detach().requires_grad_()
+        lk, lv = (x[:, h:h + 1].detach().requires_grad_() for x in (k, v))
+        out = ring_attention_reference(lq, lk, lv, SHARDED['ranks'])
+        dq, dk, dv = torch.autograd.grad(out, (lq, lk, lv), g[:, qs])
+        outs.append(out.detach())
+        dqs.append(dq)
+        dks.append(dk)
+        dvs.append(dv)
+        del out
+        torch.cuda.empty_cache()
+    return (torch.cat(outs, 1), torch.cat(dqs, 1), torch.cat(dks, 1),
+            torch.cat(dvs, 1))
+
+
+def reference_steps(cfg, params, tokens):
+    """The one-device trainer's (loss, pre-clip grad norm) of each of
+    SHARDED's steps on `tokens`, from `params` (the train step of
+    Trainer.run, on one device)."""
+    import torch
+    from skypilot_tpu_torch.models.llama import Llama
+    from skypilot_tpu_torch.train import trainer as tt
+    tcfg = tt.TrainConfig(warmup_steps=SHARDED['warmup_steps'],
+                          total_steps=SHARDED['total_steps'])
+    state = tt.make_train_state(Llama(cfg, params), tcfg)
+    step = tt.make_train_step(tcfg)
+    out = []
+    for _ in range(SHARDED['steps']):
+        state, metrics = step(state, tokens)
+        out.append((float(metrics['loss']), float(metrics['grad_norm'])))
+    del state, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def nccl_world1(device):
+    """(f) The FSDP2 step and the one-hop ring over a one-rank NCCL group
+    in this process against the unsharded trainer's, two steps each on
+    the same weights; returns the launches of the sharded runs (rank 0's
+    main path) and the numbers."""
+    import torch
+    from skypilot_tpu_torch.models.llama import LLAMA_CONFIGS, Llama, init_params
+    from skypilot_tpu_torch.parallel import group as group_lib
+    from skypilot_tpu_torch.parallel.mesh import MeshPlan, build_mesh
+    from skypilot_tpu_torch.train import trainer as tt
+
+    cfg = dataclasses.replace(LLAMA_CONFIGS[SHARDED['model']],
+                              n_layers=SHARDED['nccl_layers'])
+    tcfg = tt.TrainConfig(warmup_steps=SHARDED['warmup_steps'],
+                          total_steps=SHARDED['total_steps'])
+    tokens = torch.randint(
+        0, cfg.vocab_size, (SHARDED['nccl_batch'], SHARDED['nccl_seq']),
+        device=device,
+        generator=torch.Generator(device=device).manual_seed(SEED + 4))
+
+    def params():
+        return init_params(cfg, device,
+                           torch.Generator(device=device).manual_seed(SEED))
+
+    one = tt.make_train_state(Llama(cfg, params()), tcfg)
+    step = tt.make_train_step(tcfg)
+    want = [step(one, tokens)[1] for _ in range(2)]
+    want = [(float(m['loss']), float(m['grad_norm'])) for m in want]
+    want_params = {n: p.detach().clone()
+                   for n, p in one.model.named_parameters()}
+    del one
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    results = {}
+    group_lib.join(0, 1, group_lib.free_port(), 'nccl', timeout_s=300)
+    try:
+        mesh = build_mesh(MeshPlan(), devices=[device], backend='nccl')
+        for impl in ('flash', 'ring'):
+            cfg_i = dataclasses.replace(cfg, attention_impl=impl)
+            state = tt.make_train_state(Llama(cfg_i, params(), mesh), tcfg,
+                                        mesh)
+            sharded_step = tt.make_sharded_train_step(mesh, tcfg)
+            zero_launches()
+            got = [sharded_step(state, tokens)[1] for _ in range(2)]
+            torch.cuda.synchronize()
+            for name, n in read_launches().items():
+                counts[name] += n
+            got = [(float(m['loss']), float(m['grad_norm'])) for m in got]
+            diff = max((state.layout.global_view(p, n).full_tensor() -
+                        want_params[n]).abs().max().item()
+                       for n, p in state.model.named_parameters())
+            results[impl] = {'metrics': got, 'param_diff': diff}
+            del state
+    finally:
+        group_lib.leave()
+    del want_params
+    torch.cuda.empty_cache()
+    return counts, want, results
+
+
+def sharded_training_phase(device, card, smi):
+    """Sharded training (SHARDED) on the one card: (a) which collectives
+    gloo runs on CUDA tensors (those FSDP2 and the tensor-parallel pair
+    need must work) and whether it moves them point to point; (b) fsdp=2,
+    (c) tensor=2, (d) ring at fsdp=2, each two gloo ranks on cuda:0
+    through Trainer(..., mesh=): each step against the one-device
+    trainer's (run first, freed before the ranks start), every rank's metrics equal
+    rank 0's, exact launches per rank; (e) the ring op at one hop's shape
+    against ring_attention_reference; (g) (b)'s saved step restored on
+    one device, bit-equal to the gathered shards; (f) world 1 over NCCL.
+    Returns (rank 0's launches over (b)-(d) and (f), the kernel times at
+    the ring hop's shape)."""
+    import torch
+    from skypilot_tpu_torch.models.llama import (LLAMA_CONFIGS, Llama,
+                                                 init_params)
+    from skypilot_tpu_torch.parallel import group as group_lib
+    from skypilot_tpu_torch.train import checkpoint as ckpt_lib
+    from skypilot_tpu_torch.train import trainer as tt
+
+    n = SHARDED['ranks']
+    cfg = LLAMA_CONFIGS[SHARDED['model']]
+    per_rank = [(SHARDED['batch'] // n, cfg.n_heads, cfg.n_kv_heads),
+                (SHARDED['tensor_batch'], cfg.n_heads // n,
+                 cfg.n_kv_heads // n)]
+    shapes = [(*x, SHARDED['seq'], cfg.head_dim, True, 'bfloat16')
+              for x in per_rank] + [
+                  (SHARDED['nccl_batch'], cfg.n_heads, cfg.n_kv_heads,
+                   SHARDED['nccl_seq'], cfg.head_dim, True, 'bfloat16')]
+    if any(shape not in BWD_SHAPES for shape in shapes):
+        raise SystemExit(f'the kernel phase does not check every rank '
+                         f'shape of this phase: {shapes}')
+    # The ranks start importing while this process runs the references.
+    pool = group_lib.RankPool(n, 'gloo', timeout_s=600)
+    try:
+        refs = {}
+        t0 = time.perf_counter()
+        for kind in ('fsdp', 'tensor', 'ring'):
+            _, _, _, cfg = sharded_case(kind)
+            if kind == 'ring':
+                cfg = dataclasses.replace(cfg, attention_impl='flash')
+            params = init_params(
+                cfg, device, torch.Generator(device=device).manual_seed(SEED))
+            refs[kind] = reference_steps(
+                cfg, params, sharded_tokens(kind, device, cfg.vocab_size))
+            del params
+            torch.cuda.empty_cache()
+        cfg = LLAMA_CONFIGS[SHARDED['model']]
+        log(f'  {SHARDED["model"]}: {cfg.num_params() / 1e9:.3f}B params '
+            f'f32, {cfg.n_layers} layers, dim {cfg.dim}, heads '
+            f'{cfg.n_heads}/{cfg.n_kv_heads} x {cfg.head_dim}, tied '
+            f'{cfg.tie_embeddings}, vocab {cfg.vocab_size}, remat '
+            f'{cfg.remat}/{cfg.remat_policy!r}; one-device references (loss, '
+            f'grad norm) of steps 1-{SHARDED["steps"]} {refs} in '
+            f'{time.perf_counter() - t0:.1f} s')
+
+        t0 = time.perf_counter()
+        probe = pool.run(sharded_probe, None, timeout_s=300)[0]
+        p2p = p2p_probe()
+        log(f'  (a) gloo over CUDA tensors, {n} ranks on cuda:0 (pool up and '
+            f'probed in {time.perf_counter() - t0:.1f} s):')
+        for key, result in {**probe, **p2p}.items():
+            log(f'    {key}: {result}')
+        needed = [f'{d} {op}' for d in ('bfloat16', 'float32')
+                  for op in ('reduce_scatter_tensor', 'all_gather_into_tensor',
+                             'all_reduce')]
+        if any(probe[key] != 'ok' for key in needed):
+            raise SystemExit(f'gloo refuses a collective FSDP2 or the '
+                             f'tensor-parallel pair needs: {probe}')
+        if probe['ring via host'] is not True:
+            raise SystemExit('the ring does not stage CUDA tensors through '
+                             'host buffers on a gloo mesh')
+        log('    the ring\'s K/V and dK/dV over this gloo mesh go through '
+            'pinned host buffers (decided from the backend)')
+
+        ckpt_dir = os.path.join(REPO, 'build', 'sharded_ckpt')
+        if os.path.exists(ckpt_dir):
+            shutil.rmtree(ckpt_dir)
+        runs, by_path = {}, dict.fromkeys(KERNEL_NAMES, 0)
+        for label, kind in (('(b) fsdp=2', 'fsdp'), ('(c) tensor=2', 'tensor'),
+                            ('(d) ring, fsdp=2', 'ring')):
+            t0 = time.perf_counter()
+            ranks = pool.run(sharded_rank, kind,
+                             ckpt_dir if kind == 'fsdp' else None,
+                             timeout_s=600)
+            runs[kind] = ranks
+            plan, batch, seq, cfg = sharded_case(kind)
+            lead = ranks[0]
+            rels = [(abs(lead['losses'][i] - want[0]) / abs(want[0]),
+                     abs(lead['norms'][i] - want[1]) / abs(want[1]))
+                    for i, want in enumerate(refs[kind])]
+            steps = SHARDED['steps'] - 1
+            log(f'  {label}: {batch} x {seq} tokens on {card} ({smi}), '
+                f'{time.perf_counter() - t0:.1f} s: ' + '; '.join(
+                    f'step {i + 1} loss {lead["losses"][i]:.6f} vs one '
+                    f'device {want[0]:.6f} (rel {rels[i][0]:.2e}, gate '
+                    f'{SHARDED_LOSS_RTOL}), grad norm {lead["norms"][i]:.6f} '
+                    f'vs {want[1]:.6f} (rel {rels[i][1]:.2e}, gate '
+                    f'{SHARDED_NORM_RTOL})'
+                    for i, want in enumerate(refs[kind])))
+            for r in ranks:
+                log(f'    rank {r["rank"]}: init {r["init_s"]:.1f} s, step 1 '
+                    f'{r["first_s"]:.2f} s, {r["step_s"]:.2f} s per timed '
+                    f'step (two ranks on one card over gloo: a correctness '
+                    f'run, not a parallel rate), peak {r["peak_gb"]:.2f} GB, '
+                    f'launches {r["counts"]}' +
+                    (f', save {r["save_s"]:.1f} s' if 'save_s' in r else ''))
+                hops = r['coord'] + 1 if kind == 'ring' else 1
+                want = {'flash_attention_fwd': 2 * cfg.n_layers * hops * steps,
+                        'flash_attention_bwd_dq': cfg.n_layers * hops * steps,
+                        'flash_attention_bwd_dkv':
+                            cfg.n_layers * hops * steps}
+                if r['counts'] != want:
+                    raise SystemExit(f'{label} rank {r["rank"]} launched '
+                                     f'{r["counts"]}, expected {want} (per '
+                                     f'layer and hop: 2 forwards under '
+                                     f'remat, 1 dq, 1 dk/dv)')
+                if (r['losses'], r['norms']) != (lead['losses'],
+                                                 lead['norms']):
+                    raise SystemExit(f'{label}: rank {r["rank"]} reads other '
+                                     f'metrics than rank 0')
+            if not (all(map(math.isfinite, lead['losses'] + lead['norms']))
+                    and all(loss_rel <= SHARDED_LOSS_RTOL and
+                            norm_rel <= SHARDED_NORM_RTOL
+                            for loss_rel, norm_rel in rels)):
+                raise SystemExit(f'{label}: a step disagrees with the '
+                                 f'one-device trainer: {rels}')
+            for name in KERNEL_NAMES:
+                by_path[name] += lead['counts'][name]
+
+        # (e) the ring op at one hop's shape against the plain version.
+        t0 = time.perf_counter()
+        blocks = pool.run(ring_op_rank, timeout_s=300)
+    finally:
+        pool.close()
+    q, k, v, g = ring_inputs(device)
+    ref = ring_reference_grads(q, k, v, g)
+    del q, k, v, g
+    s = RING_HOP_SHAPE[3]
+    rels = {}
+    for i, key in enumerate(('out', 'dq', 'dk', 'dv')):
+        got = torch.zeros_like(ref[i])
+        for blk in blocks:
+            c = blk['coord']
+            got[:, :, c * s:(c + 1) * s] = blk[key].to(device)
+        rels[key] = _norm_rel(got, ref[i])
+    del ref, got
+    torch.cuda.empty_cache()
+    for blk in blocks:
+        hops = blk['coord'] + 1
+        if blk['counts'] != dict.fromkeys(KERNEL_NAMES, hops):
+            raise SystemExit(f'the ring op launched {blk["counts"]} on chunk '
+                             f'{blk["coord"]}, expected {hops} of each')
+    log(f'  (e) ring op at {RING_HOP_SHAPE} per hop (causal, bf16) vs '
+        f'ring_attention_reference: norm-rel out {rels["out"]:.2e} (gate '
+        f'{BWD_NORM_RTOL}), dq {rels["dq"]:.2e}, dk {rels["dk"]:.2e}, dv '
+        f'{rels["dv"]:.2e} (gate {GRAD_PLAIN_RTOL} each); launches per rank '
+        f'{[b["counts"] for b in blocks]}; forward + backward wall '
+        f'{[round(b["wall_ms"], 1) for b in blocks]} ms (host-staged hops); '
+        f'{time.perf_counter() - t0:.1f} s')
+    if not (rels['out'] <= BWD_NORM_RTOL and
+            max(rels[k] for k in ('dq', 'dk', 'dv')) <= GRAD_PLAIN_RTOL):
+        raise SystemExit('the ring op disagrees with ring_attention_reference')
+
+    # (g) the step (b) saved, restored on one device.
+    t0 = time.perf_counter()
+    _, _, _, cfg = sharded_case('fsdp')
+    mgr = ckpt_lib.CheckpointManager(ckpt_dir)
+    saved_step = mgr.latest_step()
+    state = tt.make_train_state(Llama(cfg, init_params(
+        cfg, device, torch.Generator(device=device).manual_seed(SEED + 9))),
+        tt.TrainConfig(warmup_steps=SHARDED['warmup_steps'],
+                       total_steps=SHARDED['total_steps']))
+    mgr.restore(saved_step, state)
+    shards = [torch.load(os.path.join(ckpt_dir, f'shards_{i}.pt'),
+                         mmap=True, weights_only=True) for i in range(n)]
+    gathered = {name: torch.cat([sh[name] for sh in shards])
+                for name in shards[0]}
+    del shards
+    unequal = [name for name, p in state.model.named_parameters()
+               if not torch.equal(p.detach().cpu(), gathered[name])]
+    log(f'  (g) step {saved_step} of (b) (DCP, {mgr.is_sharded(saved_step)}) '
+        f'restored on one device in {time.perf_counter() - t0:.1f} s: '
+        f'{len(gathered) - len(unequal)} of {len(gathered)} parameters '
+        f'bit-equal to the gathered shards; step {int(state.step)}')
+    if unequal or saved_step != SHARDED['steps'] or \
+            int(state.step) != saved_step:
+        raise SystemExit(f'the restored step differs from the gathered '
+                         f'shards: {unequal[:5]}')
+    del state, gathered
+    shutil.rmtree(ckpt_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (f) world 1 over NCCL.
+    t0 = time.perf_counter()
+    counts, want, results = nccl_world1(device)
+    for impl, r in results.items():
+        loss_rel = max(abs(a[0] - b[0]) / abs(b[0])
+                       for a, b in zip(r['metrics'], want))
+        norm_rel = max(abs(a[1] - b[1]) / abs(b[1])
+                       for a, b in zip(r['metrics'], want))
+        log(f'  (f) {impl} over a one-rank NCCL group vs the unsharded '
+            f'trainer, 2 steps of {SHARDED["nccl_batch"]} x '
+            f'{SHARDED["nccl_seq"]} at {SHARDED["nccl_layers"]} layers: '
+            f'loss rel {loss_rel:.2e} (gate {NCCL_LOSS_RTOL}), grad norm rel '
+            f'{norm_rel:.2e} (gate {NCCL_NORM_RTOL}), params max |diff| '
+            f'{r["param_diff"]:.2e} (gate {NCCL_PARAM_ATOL}): equal within '
+            f'f32 rounding: '
+            f'{loss_rel <= NCCL_LOSS_RTOL and norm_rel <= NCCL_NORM_RTOL and r["param_diff"] <= NCCL_PARAM_ATOL}')
+        if not (loss_rel <= NCCL_LOSS_RTOL and norm_rel <= NCCL_NORM_RTOL
+                and r['param_diff'] <= NCCL_PARAM_ATOL):
+            raise SystemExit(f'(f) {impl} at world 1 differs from the '
+                             f'unsharded step beyond f32 rounding')
+    log(f'    launches {counts}; {time.perf_counter() - t0:.1f} s')
+    for name in KERNEL_NAMES:
+        by_path[name] += counts[name]
+    return by_path, kernel_times(device, RING_HOP_SHAPE, 'ring hop'), rels
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2840,6 +3500,9 @@ def main() -> int:
     at_rl_shape = kernel_times(device, RL_SHAPE, 'REINFORCE')
     log(f'[zoo] {ZOO}')
     phase('zoo', zoo_phase, device, card)
+    log(f'[sharded_training] {SHARDED}')
+    by_path['sharded_training'], at_ring_hop, ring_rels = phase(
+        'sharded_training', sharded_training_phase, device, card, smi)
 
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'tflops',
@@ -2847,6 +3510,10 @@ def main() -> int:
     rows = []
     for entry, kind in ((fwd, 'fwd'), (dq, 'dq'), (dkv, 'dkv')):
         entry['at_rl_shape'] = at_rl_shape[kind]
+        # Times at one ring hop's shape; the ring op's norm-relative
+        # errors against ring_attention_reference ((e), out and dq/dk/dv).
+        entry['at_ring_hop_shape'] = {
+            **at_ring_hop[kind], 'ring_op_norm_rel': ring_rels}
         entry['at_moe_training_shape'] = at_moe_train[kind]
         if kind == 'fwd':
             entry['at_moe_prefill_shape'] = at_moe_prefill[kind]

@@ -7,9 +7,10 @@ params at startup.  Train and serve share one state dict (the names
 `Llama(cfg, params)` loads), so no conversion step is needed.
 
 A tensor-parallel replica passes its `mesh` (`parallel/mesh.py`): each
-rank reads only its slices of the memory-mapped file (`serving_shardings`
-names them, the counterpart of the JAX function of that name) and copies
-them to its device, so the whole tree never sits on one device.
+rank reads only its slices of the memory-mapped file, or of a step saved
+under a training mesh (`serving_shardings` names them, the counterpart
+of the JAX function of that name) and copies them to its device, so the
+whole tree never sits on one device or on one host.
 
 Not here yet: `gs://` paths (the JAX package fetches them through its
 storage layer, which the port has no copy of).  A JAX trainer's orbax
@@ -52,13 +53,12 @@ def load_serving_params(path: str, step: Optional[int] = None,
 
     Accepts a full `TrainState` checkpoint (`{'params', 'optimizer',
     'schedule', 'step'}`, train/trainer.py; everything but `params` is
-    dropped) or a params-only state dict.  `dtype` casts the floating
-    tensors only.  The file is read with `weights_only=True` and memory-
-    mapped, so a TrainState's optimizer moments are never read; each
-    param is copied to `device` (and cast) one tensor at a time, never
-    holding the whole tree twice on the host.  Under a `mesh` (default
-    device: the mesh's) only this rank's slice of each param is read and
-    copied.
+    dropped), a params-only state dict, or a step a trainer saved under a
+    mesh (DCP; the optimizer's moments are not read at all).  `dtype` casts the floating tensors only.  A `state.pt`
+    is read with `weights_only=True` and memory-mapped, so a TrainState's
+    optimizer moments are never read; each param is copied to `device`
+    (and cast) one tensor at a time.  Under a `mesh` (default device:
+    the mesh's) only this rank's slice of each param is read and copied.
     """
     if path.startswith('gs://'):
         raise ValueError(
@@ -79,17 +79,16 @@ def load_serving_params(path: str, step: Optional[int] = None,
         raise FileNotFoundError(f'no checkpoint steps found under {path!r} '
                                 f'(resolved to {local!r})')
     logger.info(f'restoring checkpoint step {step} from {path}')
-    state = torch.load(mgr.state_path(step), map_location='cpu',
-                       weights_only=True, mmap=True)
-    # TrainState layout: {'params': ..., 'optimizer': ..., ...}
-    if isinstance(state, dict) and isinstance(state.get('params'), dict):
-        state = state['params']
+    box = None
+    if mesh is not None:
+        from skypilot_tpu_torch.parallel import sharding
+
+        def box(name, shape):
+            return sharding.local_box(
+                shape, sharding.param_spec(name, shape, mesh.shape), mesh)
+    state = mgr.read_params(step, box)
 
     def _put(name: str, t: torch.Tensor) -> torch.Tensor:
-        if mesh is not None:
-            from skypilot_tpu_torch.parallel import sharding
-            t = sharding.local_slice(
-                t, sharding.param_spec(name, t.shape, mesh.shape), mesh)
         cast = dtype if dtype is not None and t.is_floating_point() else None
         return t.to(device=device, dtype=cast, copy=True).contiguous()
 

@@ -92,13 +92,14 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 def shard_params(full: Mapping[str, torch.Tensor],
                  mesh) -> Dict[str, torch.Tensor]:
-    """This rank's slices of a whole Llama state dict on `mesh`
-    (`parallel/sharding.py` PARAM_AXES through the rules), copied onto the
-    mesh's device; `full` is only read."""
+    """This rank's tensor slices of a whole Llama state dict on `mesh`
+    (`parallel/sharding.py` PARAM_AXES through the rules, kept to the
+    'tensor' axis: a training mesh's fsdp sharding is FSDP's), copied onto
+    the mesh's device; `full` is only read."""
     from skypilot_tpu_torch.parallel import sharding
     out = {}
     for name, t in full.items():
-        spec = sharding.param_spec(name, t.shape, mesh.shape)
+        spec = sharding.tensor_spec(name, t.shape, mesh.shape)
         out[name] = sharding.local_slice(t, spec, mesh).to(
             mesh.device, copy=True).contiguous()
     return out

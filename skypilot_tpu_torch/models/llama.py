@@ -53,7 +53,22 @@ dense and the paged cache run on the rank's kv heads unchanged.  A
 mixture-of-experts model under a mesh waits for the expert-parallel
 layout.
 
-Not in this ported package yet: ring attention.
+The training forward under a mesh (grad enabled) uses the differentiable
+pair of `parallel/sharding.py` instead of the in-place collectives: the
+input of q/k/v, gate/up and a vocab-sharded lm_head passes a
+column-parallel entry (its gradient all-reduced over the tensor group),
+o/down and the embedding's masked lookup a row-parallel exit
+(all-reduce forward), and the vocab-sharded logits a gathering exit
+(this rank's slice of the gradient).  Parameters are the rank's tensor
+slices, whole over the other axes; `train/trainer.py` shards them
+further over 'fsdp' with FSDP2.
+
+`attention_impl='ring'` is context parallelism (`parallel/
+ring_attention.py`): the model's tokens are this rank's chunk of the
+sequence over the mesh's 'fsdp' axis, RoPE takes the chunk's absolute
+positions (chunk index * S_local + i), and attention is the ring over
+the flash kernels.  It is a training forward: the serving paths
+(decode=True) refuse it.
 """
 from __future__ import annotations
 
@@ -70,6 +85,7 @@ from torch.utils import checkpoint as checkpoint_lib
 from skypilot_tpu_torch.device import DeviceLike, resolve_device
 from skypilot_tpu_torch.inference import kv_quant
 from skypilot_tpu_torch.ops import attention as attn_lib
+from skypilot_tpu_torch.parallel import ring_attention as ring_lib
 from skypilot_tpu_torch.parallel import sharding
 
 LayerCache = Tuple[torch.Tensor, torch.Tensor]
@@ -91,7 +107,7 @@ class LlamaConfig:
     param_dtype: Any = torch.float32
     remat: bool = True                   # checkpoint each block (training)
     remat_policy: str = 'none'           # 'none' | 'dots'
-    attention_impl: str = 'flash'        # 'flash' | 'xla' ('ring' later)
+    attention_impl: str = 'flash'        # 'flash' | 'xla' | 'ring'
     n_experts: int = 0                   # MoE (models/moe.py) if > 0
     moe_top_k: int = 2
     moe_capacity_factor: float = 1.25
@@ -173,7 +189,8 @@ class Dense(nn.Module):
     params are cast to the compute dtype at use (Flax Dense's
     dtype/param_dtype split).  With `reduce_group` it is row-parallel: its
     input dim is this rank's shard and the partial products are summed
-    over the group."""
+    over the group (in place when no gradient is recorded, through the
+    differentiable exit when one is)."""
 
     def __init__(self, in_features: int, out_features: int, dtype,
                  param_dtype, bias: bool = False,
@@ -189,7 +206,10 @@ class Dense(nn.Module):
         x, w = x.to(self.dtype), self.weight.to(self.dtype)
         if self.reduce_group is None:
             return F.linear(x, w, bias)
-        y = sharding.row_parallel_linear(x, w, self.reduce_group)
+        if torch.is_grad_enabled():
+            y = sharding.row_parallel_exit(F.linear(x, w), self.reduce_group)
+        else:
+            y = sharding.row_parallel_linear(x, w, self.reduce_group)
         return y if bias is None else y + bias
 
 
@@ -219,6 +239,14 @@ class TensorShards:
         return n // self.t if split else n
 
 
+def _entry(x: torch.Tensor, group) -> torch.Tensor:
+    """The column-parallel entry of a training forward (a no-op without a
+    group or without autograd recording)."""
+    if group is None or not torch.is_grad_enabled():
+        return x
+    return sharding.column_parallel_entry(x, group)
+
+
 class RMSNorm(nn.Module):
 
     def __init__(self, dim: int, eps: float, dtype, param_dtype) -> None:
@@ -237,9 +265,12 @@ class RMSNorm(nn.Module):
 class Attention(nn.Module):
 
     def __init__(self, cfg: LlamaConfig,
-                 tp: Optional[TensorShards] = None) -> None:
+                 tp: Optional[TensorShards] = None,
+                 ring_mesh: Any = None) -> None:
         super().__init__()
         self.cfg = cfg
+        self.ring_mesh = ring_mesh
+        self.tp_group = tp.group if tp else None
         hd = cfg.head_dim
         # This rank's heads (all of them without a mesh).
         self.n_heads = tp.part(cfg.n_heads) if tp else cfg.n_heads
@@ -260,8 +291,12 @@ class Attention(nn.Module):
                 page_table: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[LayerCache]]:
         cfg = self.cfg
+        if decode and cfg.attention_impl == 'ring':
+            raise ValueError("attention_impl 'ring' is the context-parallel "
+                             "training forward; serve with 'flash' or 'xla'")
         b, s, _ = x.shape
         hd = cfg.head_dim
+        x = _entry(x, self.tp_group)
         # [B, S, H*D] -> [B, H, S, D]
         q = self.q_proj(x).view(b, s, self.n_heads, hd).transpose(1, 2)
         k = self.k_proj(x).view(b, s, self.n_kv_heads, hd).transpose(1, 2)
@@ -280,7 +315,11 @@ class Attention(nn.Module):
         return self.o_proj(out), cache
 
     def _attend(self, q, k, v):
-        """Causal self-attention over the sequence itself."""
+        """Causal self-attention over the sequence itself (under 'ring',
+        over the whole sequence the mesh's 'fsdp' axis holds in chunks)."""
+        if self.cfg.attention_impl == 'ring':
+            return ring_lib.ring_attention(q, k, v, self.ring_mesh,
+                                           causal=True)
         if self.cfg.attention_impl == 'flash':
             return attn_lib.flash_attention(q, k, v, True)
         return attn_lib.mha_reference(q, k, v, causal=True)
@@ -406,6 +445,7 @@ class MLP(nn.Module):
                  tp: Optional[TensorShards] = None) -> None:
         super().__init__()
         split = tp is not None and tp.ffn
+        self.tp_group = tp.group if split else None
         ffn = tp.part(cfg.ffn_dim) if split else cfg.ffn_dim
         self.gate_proj = Dense(cfg.dim, ffn, cfg.dtype, cfg.param_dtype)
         self.up_proj = Dense(cfg.dim, ffn, cfg.dtype, cfg.param_dtype)
@@ -413,17 +453,19 @@ class MLP(nn.Module):
                                reduce_group=tp.group if split else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = _entry(x, self.tp_group)
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
 class Block(nn.Module):
 
     def __init__(self, cfg: LlamaConfig,
-                 tp: Optional[TensorShards] = None) -> None:
+                 tp: Optional[TensorShards] = None,
+                 ring_mesh: Any = None) -> None:
         super().__init__()
         self.attn_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype,
                                  cfg.param_dtype)
-        self.attn = Attention(cfg, tp)
+        self.attn = Attention(cfg, tp, ring_mesh)
         self.mlp_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype,
                                 cfg.param_dtype)
         self.is_moe = cfg.n_experts > 0
@@ -470,11 +512,12 @@ class Llama(nn.Module):
                 'a mixture-of-experts Llama under a mesh waits for the '
                 'expert-parallel slice of the port (its experts over the '
                 "'expert' axis); serve it on one device")
-        if cfg.attention_impl not in ('flash', 'xla'):
-            raise ValueError(
-                f'attention_impl {cfg.attention_impl!r}: this package has '
-                f"'flash' and 'xla' (ring attention comes with the "
-                f'context-parallel port)')
+        if cfg.attention_impl not in ('flash', 'xla', 'ring'):
+            raise ValueError(f'attention_impl {cfg.attention_impl!r} not in '
+                             f"('flash', 'xla', 'ring')")
+        if cfg.attention_impl == 'ring' and mesh is None:
+            raise ValueError("attention_impl 'ring' needs a mesh (the "
+                             "sequence is sharded over its 'fsdp' axis)")
         if cfg.remat_policy not in ('none', 'dots'):
             raise ValueError(f'remat_policy {cfg.remat_policy!r} not in '
                              f"('none', 'dots')")
@@ -485,7 +528,8 @@ class Llama(nn.Module):
                  else cfg.vocab_size)
         self.embed = nn.Embedding(vocab, cfg.dim, device='meta',
                                   dtype=cfg.param_dtype)
-        self.layers = nn.ModuleList(Block(cfg, self.tp)
+        ring_mesh = mesh if cfg.attention_impl == 'ring' else None
+        self.layers = nn.ModuleList(Block(cfg, self.tp, ring_mesh)
                                     for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype,
                                   cfg.param_dtype)
@@ -511,10 +555,17 @@ class Llama(nn.Module):
         model) to what is returned: (logits, aux) or (logits, cache,
         aux).  `logits_at` [B] names one position per row: the logits
         are computed there only, [B, 1, V] (a prefill samples from its
-        last prompt position)."""
+        last prompt position).  Under 'ring' attention `tokens` is this
+        rank's chunk of the sequence and the default positions are the
+        chunk's absolute ones."""
         cfg = self.cfg
         if positions is None:
-            positions = torch.arange(tokens.shape[1], device=tokens.device)
+            if cfg.attention_impl == 'ring':
+                positions = ring_lib.chunk_positions(
+                    self.mesh, tokens.shape[1], tokens.device)
+            else:
+                positions = torch.arange(tokens.shape[1],
+                                         device=tokens.device)
             positions = positions[None, :].expand(tokens.shape)
         x = self._embed(tokens)
         new_cache: List[LayerCache] = []
@@ -537,14 +588,20 @@ class Llama(nn.Module):
             x = x[torch.arange(x.shape[0], device=x.device), logits_at]
             x = x[:, None]
         x = self.final_norm(x)
+        vocab_group = (self.tp.group if self.tp is not None and self.tp.vocab
+                       else None)
+        x = _entry(x, vocab_group)
         if cfg.tie_embeddings:
             logits = F.linear(x, self.embed.weight.to(cfg.dtype))
         else:
             logits = self.lm_head(x)
         logits = logits.float()
-        if self.tp is not None and self.tp.vocab:
+        if vocab_group is not None:
             # Vocab-sharded: every rank samples from the whole row.
-            logits = sharding.gather_dim(logits, -1, self.tp.group)
+            if torch.is_grad_enabled():
+                logits = sharding.gather_dim_exit(logits, -1, vocab_group)
+            else:
+                logits = sharding.gather_dim(logits, -1, vocab_group)
         if decode:
             return (logits, new_cache, aux) if return_aux else (logits,
                                                                 new_cache)
@@ -561,6 +618,8 @@ class Llama(nn.Module):
         mine = (local >= 0) & (local < w.shape[0])
         x = F.embedding(local.clamp(0, w.shape[0] - 1), w).to(self.cfg.dtype)
         x = torch.where(mine[..., None], x, torch.zeros_like(x))
+        if torch.is_grad_enabled():
+            return sharding.row_parallel_exit(x, self.tp.group)
         dist.all_reduce(x, group=self.tp.group)
         return x
 
@@ -681,8 +740,8 @@ def param_shapes(cfg: LlamaConfig) -> Dict[str, Tuple[int, ...]]:
 
 
 class _KeepSlices(dict):
-    """A state dict that keeps only this rank's slice of each weight set
-    into it under `mesh` (a copy: the whole weight is freed)."""
+    """A state dict that keeps only this rank's tensor slice of each weight
+    set into it under `mesh` (a copy: the whole weight is freed)."""
 
     def __init__(self, mesh) -> None:
         super().__init__()
@@ -690,6 +749,6 @@ class _KeepSlices(dict):
 
     def __setitem__(self, name: str, full: torch.Tensor) -> None:
         if self.mesh is not None:
-            spec = sharding.param_spec(name, full.shape, self.mesh.shape)
+            spec = sharding.tensor_spec(name, full.shape, self.mesh.shape)
             full = sharding.local_slice(full, spec, self.mesh).clone()
         super().__setitem__(name, full)

@@ -65,7 +65,7 @@ def leave() -> None:
         dist.destroy_process_group()
 
 
-def _stop_processes(procs, timeout_s: float) -> None:
+def stop_processes(procs, timeout_s: float) -> None:
     """Join each process within `timeout_s`, then kill what is left."""
     for proc in procs:
         proc.join(timeout_s)
@@ -111,7 +111,7 @@ class Followers:
     def close(self, timeout_s: float = 30.0) -> None:
         """Wait for the followers to return (after the leader told them
         to stop), kill any left after `timeout_s`, leave the group."""
-        _stop_processes(self.procs, timeout_s)
+        stop_processes(self.procs, timeout_s)
         leave()
 
 
@@ -212,7 +212,7 @@ class RankPool:
                     conn.send_bytes(b'')
                 except OSError:
                     pass
-        _stop_processes(self.procs, timeout_s)
+        stop_processes(self.procs, timeout_s)
         for conn in self._conns:
             conn.close()
 

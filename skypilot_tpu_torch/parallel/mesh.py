@@ -16,7 +16,10 @@ gloo group over the same ranks for the host-side control messages (CPU
 tensors), whatever the backend of the device collectives.
 
 Devices: by default `cuda:0 .. cuda:N-1` over NCCL, one card per rank;
-with fewer CUDA devices than ranks the mesh is refused.  NCCL cannot put
+with fewer CUDA devices than ranks the mesh is refused, unless the
+group spans SKYTPU_NUM_NODES hosts of this host's card count
+(`parallel/distributed.py`): rank r then runs on its host's card
+r % cards.  NCCL cannot put
 two ranks on one card: only an explicit device list with a repeated
 card and `backend='gloo'` does that (gloo stages CUDA tensors through
 the host; a correctness setting, not a fast one).  CPU devices mean
@@ -175,6 +178,8 @@ class RankMesh:
     device: torch.device
     backend: str
     control_group: Any
+    _derived: Dict[str, Any] = dataclasses.field(default_factory=dict,
+                                                 repr=False)
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -197,6 +202,23 @@ class RankMesh:
     def coordinate(self, axis: str = 'tensor') -> int:
         """This rank's index along `axis`."""
         return self.device_mesh.get_local_rank(axis)
+
+    def train_mesh(self):
+        """The DeviceMesh of training, built once (every rank together):
+        dims ('tensor', 'replicate', 'shard') over the same ranks, where
+        'shard' is the 'fsdp' axis and 'replicate' flattens ('dcn',
+        'pipeline', 'data', 'expert').  FSDP2 shards over its
+        ('replicate', 'shard') sub-mesh of this rank's tensor coordinate
+        (HSDP); a checkpoint's global tensors live on all three dims."""
+        if 'train' not in self._derived:
+            from torch.distributed.device_mesh import DeviceMesh
+            shape = self.shape
+            ranks = self.device_mesh.mesh.permute(5, 0, 1, 2, 4, 3).reshape(
+                shape['tensor'], -1, shape['fsdp'])
+            self._derived['train'] = DeviceMesh(
+                self.device_mesh.device_type, ranks,
+                mesh_dim_names=('tensor', 'replicate', 'shard'))
+        return self._derived['train']
 
 
 DeviceList = Sequence[Union[str, torch.device]]
@@ -233,15 +255,31 @@ def build_serve_mesh(tensor: int,
     return build_mesh(plan, devices[:tensor], backend)
 
 
+def _default_devices() -> Tuple[list, bool]:
+    """(rank r's device for every rank, whether they span hosts): this
+    host's cards, or, when the group is SKYTPU_NUM_NODES hosts of as many
+    ranks as this host has cards, card r % cards for rank r."""
+    cards = _cuda_devices()
+    hosts = int(os.environ.get('SKYTPU_NUM_NODES', '1'))
+    if (hosts > 1 and cards and dist.is_initialized() and
+            dist.get_world_size() == hosts * len(cards)):
+        return [cards[r % len(cards)]
+                for r in range(dist.get_world_size())], True
+    return cards, False
+
+
 def build_mesh(plan: Optional[MeshPlan] = None,
                devices: Optional[DeviceList] = None,
                backend: Optional[str] = None) -> RankMesh:
     """This rank's view of the mesh `plan` over `devices` (default: every
-    CUDA device), rank r on devices[r].  Call it in every rank of a
+    CUDA device, or every host's cards: `_default_devices`), rank r on
+    devices[r].  Call it in every rank of a
     process group of len(devices) ranks whose backend is `backend`
     (default 'nccl' for CUDA devices, 'gloo' for the CPU)."""
-    devices = [torch.device(d) for d in
-               (devices if devices is not None else _cuda_devices())]
+    across_hosts = False
+    if devices is None:
+        devices, across_hosts = _default_devices()
+    devices = [torch.device(d) for d in devices]
     if plan is None:
         plan = plan_mesh(len(devices))
     plan.validate(len(devices))
@@ -259,7 +297,7 @@ def build_mesh(plan: Optional[MeshPlan] = None,
     if backend == 'nccl':
         if kind != 'cuda':
             raise ValueError('the nccl backend needs CUDA devices')
-        if len(set(devices)) < len(devices):
+        if len(set(devices)) < len(devices) and not across_hosts:
             raise ValueError(
                 f'NCCL puts one rank on a card, and {devices} repeats a '
                 f'card; two ranks share a card only over '

@@ -14,12 +14,30 @@ kernel).  `param_spec` maps it through the rules and keeps the rule of
 `skypilot_tpu/inference/weights.py::serving_shardings`: a dim the mesh
 does not divide stays replicated.
 
-Collectives (the group is the mesh's tensor group), one rule for every
-backend:
+Collectives of the serving forward (the group is the mesh's tensor
+group; no gradient, in place), one rule for every backend:
 - `row_parallel_linear`: a row-parallel product, each rank's partial in
   the compute dtype, added over the group by one all_reduce;
 - `gather_dim`: a dim sharded over the group, gathered whole on every
   rank in rank order (one all_gather_into_tensor).
+
+The training forward's counterparts are differentiable, each collective
+in one direction only (Megatron's f and g):
+- `column_parallel_entry`: identity forward, the gradient all-reduced
+  backward (the input of q/k/v, gate/up and a vocab-sharded lm_head,
+  whose per-rank partial gradients add up to the whole);
+- `row_parallel_exit`: all-reduce forward, identity backward (o/down and
+  the vocab-sharded embedding's masked lookup);
+- `gather_dim_exit`: `gather_dim` forward, this rank's slice of the
+  gradient backward (the vocab-sharded logits).
+(`torch.distributed.nn.functional.all_reduce` is not the exit: its
+backward all-reduces the gradient again, multiplying it by the degree.)
+
+Training layouts (JAX `batch_sharding` and `_constrain_activations`):
+`batch_slice` gives this rank's rows of a global batch over
+('dcn', 'data', 'fsdp', 'expert'); under context parallelism (ring
+attention) `context_slice` gives its rows over ('dcn', 'data') and its
+chunk of the sequence over 'fsdp'.
 """
 from __future__ import annotations
 
@@ -142,17 +160,39 @@ def _index(spec_axes, mesh) -> Tuple[int, int]:
     return index, count
 
 
-def local_slice(full: torch.Tensor, spec: PartitionSpec,
-                mesh) -> torch.Tensor:
-    """This rank's shard of `full` under `spec` (a view)."""
-    out = full
+def local_box(shape: Sequence[int], spec: PartitionSpec,
+              mesh) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """(offsets, sizes) of this rank's shard of a tensor of `shape` under
+    `spec`."""
+    offsets, sizes = [0] * len(shape), list(shape)
     for dim, axes in enumerate(spec):
         if axes is None:
             continue
         index, count = _index(axes, mesh)
-        size = full.shape[dim] // count
-        out = out.narrow(dim, index * size, size)
+        sizes[dim] = shape[dim] // count
+        offsets[dim] = index * sizes[dim]
+    return tuple(offsets), tuple(sizes)
+
+
+def local_slice(full: torch.Tensor, spec: PartitionSpec,
+                mesh) -> torch.Tensor:
+    """This rank's shard of `full` under `spec` (a view)."""
+    out = full
+    for dim, (start, size) in enumerate(zip(*local_box(full.shape, spec,
+                                                       mesh))):
+        if size != full.shape[dim]:
+            out = out.narrow(dim, start, size)
     return out
+
+
+def tensor_spec(name: str, shape: Sequence[int],
+                mesh_shape: Mapping[str, int],
+                rules: Optional[Sequence] = None) -> PartitionSpec:
+    """`param_spec` kept to the 'tensor' axis: the slice a tensor-parallel
+    rank holds as a local tensor.  The 'embed' -> fsdp sharding of a
+    training mesh is FSDP's, on top of it (`train/trainer.py`)."""
+    return P(*[axes if axes == 'tensor' else None
+               for axes in param_spec(name, shape, mesh_shape, rules)])
 
 
 def shard_factor(spec: PartitionSpec, mesh_shape: Mapping[str, int]) -> int:
@@ -182,3 +222,104 @@ def gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     shape = list(x.shape)
     shape[dim] *= t
     return full.view(t, *x.shape).movedim(0, dim).reshape(shape)
+
+
+class _ColumnParallelEntry(torch.autograd.Function):
+    """Identity forward; the gradient summed over `group` backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _RowParallelExit(torch.autograd.Function):
+    """The partials summed over `group` forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherDimExit(torch.autograd.Function):
+    """`gather_dim` forward; this rank's slice of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim = dim % x.dim()
+        ctx.size = x.shape[ctx.dim]
+        ctx.rank = dist.get_group_rank(group, dist.get_rank())
+        return gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.rank * ctx.size, ctx.size), None, None
+
+
+# Each is the identity over a group of one rank.
+
+
+def column_parallel_entry(x: torch.Tensor, group) -> torch.Tensor:
+    """x unchanged; its gradient all-reduced over `group`."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return _ColumnParallelEntry.apply(x, group)
+
+
+def row_parallel_exit(x: torch.Tensor, group) -> torch.Tensor:
+    """x summed over `group` (a copy); its gradient passed through."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return _RowParallelExit.apply(x, group)
+
+
+def gather_dim_exit(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """`gather_dim(x, dim, group)`; the gradient of this rank's slice."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return _GatherDimExit.apply(x, dim, group)
+
+
+BATCH_AXES = ('dcn', 'data', 'fsdp', 'expert')
+CONTEXT_ROW_AXES = ('dcn', 'data')
+
+
+def _rows(tokens: torch.Tensor, axes: Sequence[str], mesh) -> torch.Tensor:
+    index, count = _index(tuple(axes), mesh)
+    if tokens.shape[0] % count:
+        raise ValueError(f'a batch of {tokens.shape[0]} rows does not '
+                         f'split over {tuple(axes)} ({count} shards)')
+    size = tokens.shape[0] // count
+    return tokens.narrow(0, index * size, size)
+
+
+def batch_slice(tokens: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's rows of the global batch `tokens` [B, ...], B split
+    over ('dcn', 'data', 'fsdp', 'expert') in that order (the JAX
+    `batch_sharding`)."""
+    return _rows(tokens, BATCH_AXES, mesh)
+
+
+def context_slice(tokens: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's block of the global batch `tokens` [B, S] under
+    context parallelism: rows over ('dcn', 'data'), the sequence in
+    chunks over 'fsdp' (chunk i holds positions i*S/fsdp ..)."""
+    rows = _rows(tokens, CONTEXT_ROW_AXES, mesh)
+    n = mesh.shape['fsdp']
+    if rows.shape[1] % n:
+        raise ValueError(f'a sequence of {rows.shape[1]} does not split '
+                         f'into {n} fsdp chunks')
+    size = rows.shape[1] // n
+    return rows.narrow(1, mesh.coordinate('fsdp') * size, size)

@@ -1,17 +1,38 @@
-"""Single-device training loop for decoder LMs (PyTorch).
+"""Training loop for decoder LMs (PyTorch), on one device or a mesh.
 
-Twin of `skypilot_tpu/train/trainer.py` on one device: the same
-`TrainConfig`, the same loss (`lm_loss`, f32 next-token cross-entropy),
-an optimizer equal to its optax chain (global-norm clip, then AdamW on a
-warmup-cosine schedule), and a `Trainer` with the same phase stamping,
-windowed throughput, MFU/HBM gauges and productive-time denominators.
+Twin of `skypilot_tpu/train/trainer.py`: the same `TrainConfig`, the
+same loss (`lm_loss`, f32 next-token cross-entropy), an optimizer equal
+to its optax chain (global-norm clip, then AdamW on a warmup-cosine
+schedule), and a `Trainer` with the same phase stamping, windowed
+throughput, MFU/HBM gauges and productive-time denominators.
 Parameters and optimizer state are f32; the model computes in its
 `cfg.dtype` (bf16 by default), attention through the flash kernels.
 
+Over a mesh (`parallel/mesh.py`, one process per rank), `make_train_state
+(..., mesh=)` shards a Llama built on the mesh (its tensor slices, whole
+over the other axes) with FSDP2: each block, then the root,
+`fully_shard`ed over the mesh's 'fsdp' axis with ('dcn', 'pipeline',
+'data', 'expert') as the replicate dimension (HSDP), so each rank holds
+1/fsdp of every parameter and of its AdamW moments (ZeRO-3, as the JAX
+rule 'embed' -> fsdp).  `make_sharded_train_step` takes the GLOBAL batch
+on every rank and gives JAX's global step whatever the plan:
+- each rank's rows (`sharding.batch_slice`), or under ring attention
+  its rows over (dcn, data) and its chunk of the sequence over fsdp
+  (`sharding.context_slice`; the target of a chunk's last position is
+  the next chunk's first token, and the last chunk drops its final
+  position);
+- the rank's mean loss weighted by its share of the B x (S-1) targets,
+  so that FSDP's gradient average over (replicate, shard) -- the one
+  reduction over data and fsdp -- is the gradient of the global mean;
+- the clip's global norm over the whole gradient tree (optax's
+  `global_norm`): squares of each rank's FSDP shard summed over the
+  shard group, tensor-parallel slices also over the tensor group, a
+  parameter replicated over tensor counted once;
+- AdamW elementwise on the shards.
+
 No step reads a value back to the host: `loss`, `grad_norm` and `step`
 stay device tensors, fetched only at log boundaries and at the end of a
-run, as the JAX trainer's `jax.device_get`.  Meshes and sharding rules
-come with the multi-device port.
+run, as the JAX trainer's `jax.device_get`.
 """
 from __future__ import annotations
 
@@ -21,11 +42,13 @@ import time
 from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from skypilot_tpu_torch.device import DeviceLike, device_of, resolve_device
 from skypilot_tpu_torch.obs import goodput as goodput_lib
+from skypilot_tpu_torch.parallel import sharding
 from skypilot_tpu_torch.server import metrics as metrics_lib
 from skypilot_tpu_torch.train import checkpoint as ckpt_lib
 from skypilot_tpu_torch.train import flops as flops_lib
@@ -79,11 +102,15 @@ def make_optimizer(params: List[nn.Parameter], cfg: TrainConfig
 
 
 def clip_by_global_norm_(grads: List[torch.Tensor],
-                         max_norm: float) -> torch.Tensor:
+                         max_norm: float,
+                         norm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """optax.clip_by_global_norm in place, on the device: g if the global
-    norm is below `max_norm`, else g * max_norm / norm.  Returns the
-    pre-clip norm (a device tensor)."""
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    norm is below `max_norm`, else g * max_norm / norm.  `norm`: the
+    global norm when `grads` are shards of the tree (default: theirs).
+    Returns the pre-clip norm (a device tensor)."""
+    if norm is None:
+        norm = torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(grads)))
     factor = torch.where(norm < max_norm, torch.ones_like(norm),
                          max_norm / norm)
     torch._foreach_mul_(grads, factor)
@@ -98,13 +125,86 @@ def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
                            targets.reshape(-1))
 
 
+class ShardedLayout:
+    """How a Llama on `mesh` trains: the FSDP2 mesh, the groups the step
+    reduces over, and which parameters are tensor-parallel slices."""
+
+    def __init__(self, model: nn.Module, mesh) -> None:
+        shape = mesh.shape
+        if shape['pipeline'] != 1:
+            raise ValueError('pipeline parallelism waits for the '
+                             'pipeline slice of the port (pipeline=1)')
+        self.mesh = mesh
+        self.train_mesh = mesh.train_mesh()
+        self.fsdp_mesh = self.train_mesh['replicate', 'shard']
+        self.shard_group = self.train_mesh.get_group('shard')
+        self.replicate_group = self.train_mesh.get_group('replicate')
+        self.tensor_group = mesh.group('tensor')
+        self.context_parallel = model.cfg.attention_impl == 'ring'
+        # FSDP averages every gradient over this many ranks; under context
+        # parallelism the 'expert' ranks of a row block hold the same
+        # tokens (rows split over dcn and data only).
+        self.n_avg = self.fsdp_mesh.size()
+        self.dup = shape['expert'] if self.context_parallel else 1
+        # Parameter name -> the dim split over 'tensor' (None: whole).
+        from skypilot_tpu_torch.models.llama import param_shapes
+        self.tensor_dim: Dict[str, Optional[int]] = {}
+        for name, full in param_shapes(model.cfg).items():
+            dims = [d for d, axes in enumerate(
+                sharding.tensor_spec(name, full, shape)) if axes == 'tensor']
+            self.tensor_dim[name] = (dims[0] if dims and shape['tensor'] > 1
+                                     else None)
+
+    def global_view(self, t: torch.Tensor, name: str) -> torch.Tensor:
+        """The FSDP shard `t` (a DTensor over `fsdp_mesh`) of parameter
+        `name`, or of one of its AdamW moments, as a DTensor of the whole
+        parameter over `train_mesh` (sharing `t`'s storage): what a
+        checkpoint saves and restores onto any plan."""
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        dim = self.tensor_dim[name]
+        shape = list(t.shape)
+        if dim is not None:
+            shape[dim] *= self.mesh.shape['tensor']
+        stride = [math.prod(shape[i + 1:]) for i in range(len(shape))]
+        return DTensor.from_local(
+            t.detach().to_local(), self.train_mesh,
+            [Replicate() if dim is None else Shard(dim), *t.placements],
+            run_check=False, shape=torch.Size(shape), stride=tuple(stride))
+
+    def global_norm(self, named_grads) -> torch.Tensor:
+        """The norm of the whole gradient tree from this rank's shards."""
+        split, whole = [], []
+        for name, g in named_grads:
+            (whole if self.tensor_dim[name] is None else split).append(
+                g.to_local())
+        sq = torch.stack([
+            torch.stack(torch._foreach_norm(part)).square().sum() if part
+            else torch.zeros((), device=self.mesh.device)
+            for part in (split, whole)]).float()
+        if dist.get_world_size(self.shard_group) > 1:
+            dist.all_reduce(sq, group=self.shard_group)
+        split_sq = sq[:1].clone()
+        if dist.get_world_size(self.tensor_group) > 1:
+            dist.all_reduce(split_sq, group=self.tensor_group)
+        return (split_sq[0] + sq[1]).sqrt()
+
+    def sum_over_replicas(self, t: torch.Tensor) -> torch.Tensor:
+        """`t` summed over every rank of this rank's FSDP mesh."""
+        for group in (self.shard_group, self.replicate_group):
+            if dist.get_world_size(group) > 1:
+                dist.all_reduce(t, group=group)
+        return t
+
+
 @dataclasses.dataclass
 class TrainState:
-    """What a train step updates in place, and what a checkpoint holds."""
+    """What a train step updates in place, and what a checkpoint holds;
+    `layout` is set for a model sharded over a mesh."""
     model: nn.Module
     optimizer: torch.optim.Optimizer
     schedule: torch.optim.lr_scheduler.LambdaLR
     step: torch.Tensor          # int64 scalar on the model's device
+    layout: Optional[ShardedLayout] = None
 
     @property
     def device(self) -> torch.device:
@@ -124,15 +224,29 @@ class TrainState:
 
 
 def make_train_state(model: nn.Module,
-                     train_cfg: Optional[TrainConfig] = None) -> TrainState:
+                     train_cfg: Optional[TrainConfig] = None,
+                     mesh: Any = None) -> TrainState:
     """Turn gradients on for `model` and build its optimizer state on the
-    model's device."""
+    model's device.  Under `mesh` (the mesh `model` was built on), shard
+    it with FSDP2 first: each block, then the root, over the mesh's
+    ('replicate', 'shard') sub-mesh."""
     model.requires_grad_(True)
     device = device_of(model)
+    layout = None
+    if mesh is not None:
+        if getattr(model, 'mesh', None) is not mesh:
+            raise ValueError('shard a model built on the same mesh '
+                             '(Llama(cfg, params, mesh))')
+        from torch.distributed.fsdp import fully_shard
+        layout = ShardedLayout(model, mesh)
+        for block in model.layers:
+            fully_shard(block, mesh=layout.fsdp_mesh)
+        fully_shard(model, mesh=layout.fsdp_mesh)
     optimizer, schedule = make_optimizer(list(model.parameters()),
                                          train_cfg or TrainConfig())
     return TrainState(model, optimizer, schedule,
-                      torch.zeros((), dtype=torch.int64, device=device))
+                      torch.zeros((), dtype=torch.int64, device=device),
+                      layout)
 
 
 def make_train_step(
@@ -160,6 +274,75 @@ def make_train_step(
     return step
 
 
+def _context_loss(model: nn.Module, tokens: torch.Tensor, mesh
+                  ) -> Tuple[torch.Tensor, int]:
+    """(mean next-token CE, target count) of this rank's chunk under
+    context parallelism: the chunk's targets are the next positions of
+    the whole sequence, so its last target is the next chunk's first
+    token; the last chunk has one target fewer."""
+    inputs = sharding.context_slice(tokens, mesh)
+    targets = sharding.context_slice(tokens.roll(-1, dims=1), mesh)
+    n_t = inputs.shape[1] - (mesh.coordinate('fsdp') ==
+                             mesh.shape['fsdp'] - 1)
+    if n_t < 1:
+        raise ValueError('a context-parallel chunk needs 2 positions or '
+                         'more')
+    logits = model(inputs)[:, :n_t].float()
+    loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           targets[:, :n_t].reshape(-1).long())
+    return loss, inputs.shape[0] * n_t
+
+
+def make_sharded_train_step(
+    mesh,
+    train_cfg: Optional[TrainConfig] = None,
+    loss_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = lm_loss,
+) -> Callable[[TrainState, torch.Tensor], Tuple[TrainState, dict]]:
+    """The train step of a state sharded over `mesh` (make_train_state
+    with `mesh`), called on every rank with the same GLOBAL batch
+    [B, S]: the loss and gradients of the global mean, the clip on the
+    global norm, AdamW on the shards and the schedule's tick.  `loss_fn`
+    is a mean over its rows (lm_loss); ring attention takes lm_loss
+    only."""
+    cfg = train_cfg or TrainConfig()
+
+    def step(state: TrainState, tokens: torch.Tensor):
+        layout = state.layout
+        if layout is None or layout.mesh is not mesh:
+            raise ValueError('the state is not sharded over this mesh')
+        state.optimizer.zero_grad(set_to_none=True)
+        tokens = tokens.to(mesh.device)
+        n_total = tokens.shape[0] * (tokens.shape[1] - 1)
+        if layout.context_parallel:
+            if loss_fn is not lm_loss:
+                raise ValueError('ring attention trains on lm_loss')
+            local, n_local = _context_loss(state.model, tokens, mesh)
+        else:
+            rows = sharding.batch_slice(tokens, mesh)
+            local = loss_fn(state.model(rows), rows)
+            n_local = rows.shape[0] * (rows.shape[1] - 1)
+        # FSDP averages over n_avg ranks: this weight makes the average
+        # the gradient of the global mean.
+        (local * (n_local * layout.n_avg / (n_total * layout.dup))
+         ).backward()
+        with torch.no_grad():
+            loss = layout.sum_over_replicas(
+                local.detach() * n_local) / (n_total * layout.dup)
+            named = [(n, p.grad) for n, p in state.model.named_parameters()
+                     if p.grad is not None]
+            norm = layout.global_norm(named)
+            grad_norm = clip_by_global_norm_([g.to_local() for _, g in named],
+                                             cfg.grad_clip, norm)
+        state.optimizer.step()
+        state.schedule.step()
+        state.step.add_(1)
+        metrics = {'loss': loss, 'grad_norm': grad_norm,
+                   'step': state.step.clone()}
+        return state, metrics
+
+    return step
+
+
 def _fetch(metrics: dict) -> dict:
     return {k: v.item() for k, v in metrics.items()}
 
@@ -172,14 +355,21 @@ class Trainer:
                  checkpoint_dir: Optional[str] = None,
                  phases=None,
                  host: Optional[str] = None,
-                 device: DeviceLike = None) -> None:
+                 device: DeviceLike = None,
+                 mesh: Any = None) -> None:
+        """`mesh`: train sharded over it (every rank of the mesh builds a
+        Trainer and runs the same steps on the same global batches);
+        the device is then the mesh's."""
         # Goodput phase recorder, opened before the optimizer state is
         # built so set-up lands in init_compile, not unclassified.
         self.phases = (phases if phases is not None
                        else goodput_lib.PhaseRecorder.from_env())
         self.phases.begin(goodput_lib.INIT_COMPILE)
-        self.host = host if host is not None else 'host0'
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        rank = dist.get_rank() if mesh is not None else 0
+        self.host = host if host is not None else f'host{rank}'
+        self.device = resolve_device(mesh.device if mesh is not None and
+                                     device is None else device)
         model_device = device_of(model)
         if model_device != self.device:
             raise ValueError(f'model parameters are on {model_device}, the '
@@ -188,8 +378,10 @@ class Trainer:
         self._badput_exported: dict = {}
         self.model = model
         self.train_cfg = train_cfg or TrainConfig()
-        self.state = make_train_state(model, self.train_cfg)
-        self.train_step = make_train_step(self.train_cfg)
+        self.state = make_train_state(model, self.train_cfg, mesh)
+        self.train_step = (make_train_step(self.train_cfg) if mesh is None
+                           else make_sharded_train_step(mesh,
+                                                        self.train_cfg))
         self.checkpoint_dir = checkpoint_dir
         self._ckpt_mgr = None
         if checkpoint_dir is not None:
@@ -339,7 +531,8 @@ class Trainer:
             n_params = cfg.num_params()
             mfu = flops_lib.estimate_mfu(
                 tokens_per_s, n_params, cfg.n_layers, cfg.dim,
-                seq_len=batch.shape[-1], n_chips=1,
+                seq_len=batch.shape[-1],
+                n_chips=1 if self.mesh is None else self.mesh.size,
                 kind=flops_lib.chip_kind(self.device))
         except (AttributeError, TypeError):
             return      # cfg not LlamaConfig-shaped: no MFU gauge

@@ -185,6 +185,11 @@ COPIED_NAMES = {
                          'validate_tensor_parallel', 'plan_serve_mesh'],
     'parallel/sharding.py': ['DEFAULT_RULES', 'rules_to_dict',
                              'logical_to_spec'],
+    'parallel/distributed.py': ['ENV_NUM_NODES', 'ENV_NODE_RANK',
+                                'ENV_NODE_IPS', 'ENV_COORDINATOR',
+                                'ENV_NUM_SLICES', 'ENV_SLICE_ID',
+                                'DEFAULT_COORDINATOR_PORT',
+                                'distributed_env_from_cluster'],
 }
 
 
@@ -229,4 +234,24 @@ def test_tensor_parallel_slice_modules_are_covered():
     for name in ('MeshPlan', 'build_mesh', 'build_serve_mesh', 'plan_mesh',
                  'plan_serve_mesh', 'validate_tensor_parallel'):
         assert name in parallel.__all__ and hasattr(parallel, name)
+    assert len(list((PORT / 'csrc').glob('*.cu*'))) == 4
+
+
+def test_sharded_training_slice_modules_are_covered():
+    """The isolation checks above walk every module of the port; the
+    sharded training slice's modules are among them, the package exports
+    them, the port has no copy of libtpu's MEGASCALE contract, and no
+    kernel source was added."""
+    mods = set(_port_modules())
+    assert {'skypilot_tpu_torch.parallel.distributed',
+            'skypilot_tpu_torch.parallel.ring_attention'} <= mods
+    from skypilot_tpu_torch import parallel
+    from skypilot_tpu_torch.parallel import ring_attention
+    for name in ('maybe_initialize_distributed', 'LocalRanks',
+                 'distributed_env_from_cluster'):
+        assert name in parallel.__all__ and hasattr(parallel, name)
+    assert callable(ring_attention.ring_attention)
+    assert callable(ring_attention.ring_attention_reference)
+    text = (PORT / 'parallel' / 'distributed.py').read_text()
+    assert 'def megascale_env_from_cluster' not in text
     assert len(list((PORT / 'csrc').glob('*.cu*'))) == 4
