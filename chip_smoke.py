@@ -6,18 +6,22 @@
 Phases, each fatal on failure (non-zero exit, no result line), each
 followed by its seconds:
 
-1. Device: the card's name, and name + power limit from nvidia-smi.
+1. Device: the card's name, name + power limit from nvidia-smi, and its
+   memory as torch.cuda.mem_get_info reads it once this process holds a
+   one-rank NCCL group (checked against validate.py in phase 15).
 2. Build: nvcc compiles every kernel source in skypilot_tpu_torch/csrc/
    for sm_90a (one process per source, in parallel) and links them into
    one library under build/skypilot_tpu_torch/; ptxas reports registers,
    shared memory and spills, and any spill store (or a setmaxnreg that
    ptxas ignored) fails the run.
 3. Kernels: each kernel against its plain PyTorch version on the card:
-   the forward at the serving path's shapes, then the forward, dq and
+   the forward at the serving path's shapes (MoE tensor=2 rank and the
+   graft entry's too), then the forward, dq and
    dk/dv at the training path's (bench-1b, llama-250m, llama2-7b, a
    non-causal, a ragged fp16 case, S=32 and S=320, the RL loop's S=36
    and S=8 at head_dim 64, the MoE training step's and one rank's of the
-   sharded training phase's fsdp=2, tensor=2 and NCCL runs); then CUDA-event
+   sharded training phase's fsdp=2, tensor=2 and NCCL runs, one
+   pipeline microbatch's); then CUDA-event
    times of each kernel (and its TFLOP/s), its plain version and the
    library call (SDPA; beside its backward also the port's dq + dk/dv
    sum), next to the roofline bound, at the llama2-7b prefill
@@ -127,7 +131,8 @@ followed by its seconds:
    (kernel build, decode and verify captures) are printed and the
    sentinel disarmed.
 11. Sharded training (SHARDED, examples/train_llama_fsdp.yaml's
-   llama3-1b at full width and depth, f32 params, bf16 compute): (a) two
+   llama3-1b at full width, 8 of its 16 layers, f32 params, bf16
+   compute): (a) two
    gloo ranks on cuda:0 print which of reduce_scatter_tensor,
    all_gather_into_tensor and all_reduce gloo runs on bf16 and f32 CUDA
    tensors (FSDP2 and the tensor-parallel pair need all six) and, in a
@@ -151,12 +156,37 @@ followed by its seconds:
    the FSDP2 step and the one-hop ring over a one-rank NCCL group
    against the unsharded trainer (2 layers, 2 steps): equal within f32
    rounding; then the three kernels timed at the ring hop's shape.
-12. Result: the kernels JSON line (per kernel also TFLOP/s, ptxas
+12. Pipeline (PIPELINE): pipeline_apply over pipeline=2, both gloo
+   ranks on cuda:0, each stage 7 of bench-1b's 14 decoder blocks at full
+   width, 4 x 4096 bf16 activations in 4 microbatches, forward and
+   backward (a seeded cotangent): the output, x's gradient and every
+   stage's gradients against the sequential fold on one device (norm-relative
+   PIPELINE_RTOL per tensor), exact launches per rank.
+13. Expert parallelism (EXPERT): (a) whether gloo runs all_to_all_single
+   on CUDA tensors (it must: the expert exchange hands them over as they
+   are); MOE_TRAIN's model at expert=2, fsdp=1, two gloo ranks on
+   cuda:0 through Trainer(..., mesh=), 1 + 2 steps at 4 x 2048, each
+   step's loss and grad norm against the one-device trainer's (SHARDED's
+   gates), 4 experts a rank, exact launches.
+14. MoE serving over tensor=2 (MOE_TENSOR): MOE_SERVE's model at 4 of 16
+   layers, two gloo ranks on cuda:0: bf16 first-step logits
+   bit-identical to one device computing the same arithmetic, within
+   LOGITS_RTOL of the plain model, 4 flash launches on rank 0; f32
+   ('xla') greedy tokens of MOE_SERVE's traffic identical to one device,
+   dense and paged.
+15. Graft entry: the port's `graft_entry.entry()` (llama-250m, [1,
+   512]) on the card, its logits against attention_impl='xla' on its
+   example arguments and on seeded tokens; validate.py's h100 entry
+   against the card's memory (mem_get_info read at the start of the run
+   with a one-rank NCCL group) and one placement printed.  Each of the
+   three kernels must launch on at least one of phases 12-15.
+16. Result: the kernels JSON line (per kernel also TFLOP/s, ptxas
    registers and spill-store bytes, shared memory per launch; launches
    by path: serving, paged, checkpoint, tensor_serving (rank 0 of (b)
    and (d)), moe_serving, training, moe_training, rl, sharded_training
-   (rank 0 of (b)-(d) and (f))), the nvidia-smi line, then
-   {"ok": true, "device": {...}} as the last line.
+   (rank 0 of (b)-(d) and (f)), pipeline, expert_parallel,
+   moe_tensor_serving (rank 0 each) and graft_entry), the nvidia-smi
+   line, then {"ok": true, "device": {...}} as the last line.
 
 Needs one CUDA device; exits non-zero without one and imports nothing of
 JAX or of the JAX package.
@@ -221,6 +251,13 @@ TRAIN = dict(model='bench-1b', batch=4, seq=4096, warm_steps=2,
 # the serving prefill (8 prompts in the 256 bucket) and the training step.
 MOE_PREFILL_SHAPE = (8, 32, 8, 256, 64)
 MOE_TRAIN_SHAPE = (2, 32, 8, 2048, 64)
+# One pipeline microbatch through a bench-1b block (PIPELINE), the MoE
+# model's prefill on one rank of tensor=2 (MOE_TENSOR: 16 of 32 query
+# heads over 4 of 8 kv heads), and llama-250m's forward of the graft
+# entry at its example shape.
+PIPE_MICRO_SHAPE = (1, 16, 8, 4096, 128)
+MOE_TP_PREFILL_SHAPE = (8, 16, 4, 256, 64)
+ENTRY_SHAPE = (1, 16, 8, 512, 64)
 # (b, hq, hkv, s, d, causal, dtype) of the backward check: bench-1b's
 # training shape first (it is also the timed one), llama-250m, llama2-7b
 # (MHA), a non-causal and a ragged fp16 case, S shorter than one tile
@@ -242,7 +279,8 @@ BWD_SHAPES = [(4, 16, 8, 4096, 128, True, 'bfloat16'),
               (*MOE_TRAIN_SHAPE, True, 'bfloat16'),
               (4, 32, 8, 2048, 64, True, 'bfloat16'),
               (4, 16, 4, 2048, 64, True, 'bfloat16'),
-              (2, 32, 8, 1024, 64, True, 'bfloat16')]
+              (2, 32, 8, 1024, 64, True, 'bfloat16'),
+              (*PIPE_MICRO_SHAPE, True, 'bfloat16')]
 # llama2-7b at full width with its depth cut 32 -> 16 layers (the
 # serving, paged, checkpoint and tensor_serving phases share the model;
 # their time is about proportional to depth, and the cut keeps the whole
@@ -313,8 +351,10 @@ TENSOR = dict(model='llama2-7b', tensor=2, max_seq_len=448, n_slots=8,
 # prompts in the 256 bucket over 16 of llama2-7b's 32 heads.
 TP_SHAPE = (8, 16, 16, 256, 128)
 # Sharded training of examples/train_llama_fsdp.yaml's model: llama3-1b
-# at full width and depth (16 layers, dim 2048, 32 query heads over 8 kv
-# heads of 64, tied embeddings, vocab 128256; 1.236B params), f32 params,
+# at full width (dim 2048, 32 query heads over 8 kv heads of 64, tied
+# embeddings, vocab 128256), its depth cut 16 -> 8 layers (0.750B params;
+# 1.236B whole through PR 10: the cut makes room for the pipeline and
+# expert phases, as the serving phases' cut did), f32 params,
 # bf16 compute, the config's remat, two gloo ranks on cuda:0 (NCCL will
 # not put two ranks on one card), each through Trainer(..., mesh=) on the
 # same global batch, 1 + 2 steps: (b) fsdp=2 at the recipe's batch of
@@ -326,10 +366,10 @@ TP_SHAPE = (8, 16, 16, 256, 128)
 # of examples/ring_attention_long_context.yaml (131072 over 16; its
 # batch 2 cut to 1 so the one-device reference fits).  (f) runs the
 # model cut to 2 layers at 2 x 1024 over a one-rank NCCL group.
-SHARDED = dict(model='llama3-1b', ranks=2, device='cuda:0', batch=8, seq=2048,
-               tensor_batch=4, ring_batch=1, ring_seq=16384, steps=3,
-               warmup_steps=5, total_steps=1000, nccl_layers=2,
-               nccl_batch=2, nccl_seq=1024)
+SHARDED = dict(model='llama3-1b', n_layers=8, ranks=2, device='cuda:0',
+               batch=8, seq=2048, tensor_batch=4, ring_batch=1,
+               ring_seq=16384, steps=3, warmup_steps=5, total_steps=1000,
+               nccl_layers=2, nccl_batch=2, nccl_seq=1024)
 # (b, hq, hkv, s, d) of one ring hop at (d): a rank's 8192-token chunk.
 RING_HOP_SHAPE = (1, 32, 8, 8192, 64)
 # Steps 1 and 3 of a sharded plan against the one-device trainer's on
@@ -345,6 +385,56 @@ SHARDED_NORM_RTOL = 1e-2
 # same weights: the same kernels on the same values, the loss weighted
 # by exactly 1, only the clip's norm summed in another order (f32).
 NCCL_LOSS_RTOL, NCCL_NORM_RTOL, NCCL_PARAM_ATOL = 1e-6, 1e-5, 1e-6
+# GPipe over pipeline=2, both gloo ranks on cuda:0: bench-1b's decoder
+# blocks at full width (dim 2048, 16/8 heads of 128, ffn 8192; 62.9M
+# params a block), 7 of its 14 blocks a stage (1.76 GB of f32 a stage),
+# the config's remat; the embedding and head stay outside the pipeline
+# (a stage keeps the shape).  A global batch of 4 x 4096 bf16
+# activations from SEED (what the embedding hands the first block) in 4
+# microbatches: a hop carries one [1, 4096, 2048] bf16 activation (16.8
+# MB), through pinned host buffers on a gloo group.
+PIPELINE = dict(model='bench-1b', stages=2, batch=4, seq=4096, n_micro=4,
+                device='cuda:0')
+# The pipeline's output and every stage's parameter gradients against
+# the sequential fold on one device (same weights, input and cotangent),
+# norm-relative per tensor: both compute in bf16 with f32 accumulation,
+# but the fold runs a block over the whole batch (16384 rows) and the
+# pipeline over one microbatch (4096): bf16 products round at other
+# places, and a weight's gradient is 4 bf16 microbatch products added in
+# f32 instead of one.  The difference stays at bf16 rounding, as
+# SHARDED_NORM_RTOL's does; a dropped or doubled microbatch, a gradient
+# counted n_stages times or a hop in the wrong direction is far past it.
+PIPELINE_RTOL = 1e-2
+# Expert parallelism, the EP x DP mesh of
+# examples/train_moe_expert_parallel.yaml:19 (fsdp=1) with its expert=8
+# cut to the one card's two ranks (4 experts a rank): MOE_TRAIN's model
+# (llama3-1b x 8 experts at full width, 4 of 16 layers, remat 'none'),
+# two gloo ranks on cuda:0 through Trainer(..., mesh=), 1 + 2 steps at
+# the global batch 4 x 2048 (2 rows a rank), each against the one-device
+# trainer's 3 steps on the same weights and batch (run first and freed)
+# with SHARDED's gates.  One device: 1.915B params, 30.6 GB of f32 AdamW
+# state; a rank: 0.805B expert and 0.305B dense params, ~17.8 GB.
+EXPERT = dict(model='llama3-1b', n_experts=8, n_layers=4, expert=2, batch=4,
+              seq=2048, steps=3, warmup_steps=5, total_steps=1000,
+              device='cuda:0')
+# MoE serving over tensor=2, both gloo ranks on cuda:0: MOE_SERVE's model
+# cut to 4 of 16 layers (as TENSOR's (c)) with MOE_SERVE's traffic.  (b)
+# bf16 params and compute, the flash prefill: first-step logits
+# bit-identical to one device computing the same arithmetic (o and each
+# expert's w_down as two bf16 half products added in bf16) and within
+# LOGITS_RTOL of the plain one-device model; (c) f32 with attention
+# 'xla' (the kernel takes bf16/fp16): greedy tokens identical to the
+# one-device engine, dense and 64-token paged.
+MOE_TENSOR = dict(model='llama3-1b', n_experts=8, n_layers=4, tensor=2,
+                  device='cuda:0')
+# The graft entry's forward (llama-250m, [1, 512]) against
+# attention_impl='xla' on the same params: LOGITS_RTOL of max |logit|.
+# The card's memory as validate.py's 'h100' entry states it: the total
+# within VALIDATE_HBM_RTOL and the usable share measured at the start of
+# this run (after the CUDA context and a one-rank NCCL group) at least
+# the table's less VALIDATE_FRACTION_ATOL.
+VALIDATE_HBM_RTOL = 1e-2
+VALIDATE_FRACTION_ATOL = 1e-2
 # tensor=2 first-step logits (bf16) must be bit-identical to one device
 # computing the same arithmetic (each o/down product as two bf16 half
 # products added in bf16; every other op is the same kernel on the same
@@ -689,6 +779,8 @@ def kernel_phase(device):
     shapes += [(4, 12, 4, 256, 128, True, torch.bfloat16),  # bench-600m
                (4, 32, 8, 256, 64, True, torch.bfloat16),   # llama3-1b
                (*MOE_PREFILL_SHAPE, True, torch.bfloat16),  # MoE prefill
+               (*MOE_TP_PREFILL_SHAPE, True, torch.bfloat16),  # its rank
+               (*ENTRY_SHAPE, True, torch.bfloat16),        # graft entry
                (2, 32, 32, 256, 128, False, torch.bfloat16),  # non-causal
                (2, 8, 2, 96, 64, True, torch.float16)]      # ragged, fp16
     max_err = 0.0
@@ -2856,10 +2948,11 @@ def sharded_probe(_):
     return out
 
 
-def p2p_probe_rank(rank, port, dtype_name, queue):
-    """One rank of a throwaway gloo pair on cuda:0: a batch_isend_irecv
-    of CUDA tensors to the other rank (gloo may abort the process on it,
-    which is why the pair is its own)."""
+def p2p_probe_rank(rank, port, dtype_name, queue, op='batch_isend_irecv'):
+    """One rank of a throwaway gloo pair on cuda:0: `op` on CUDA tensors
+    with the other rank, a batch_isend_irecv (point to point) or an
+    all_to_all_single (the expert exchange), straight from the card (gloo
+    may abort the process on it, which is why the pair is its own)."""
     import datetime
     import torch
     import torch.distributed as dist
@@ -2871,23 +2964,32 @@ def p2p_probe_rank(rank, port, dtype_name, queue):
                    device='cuda')
     y = torch.zeros_like(x)
     try:
-        ops = [dist.P2POp(dist.isend, x, 1 - rank),
-               dist.P2POp(dist.irecv, y, 1 - rank)]
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
+        if op == 'all_to_all_single':
+            # Rank r sends [10r+1, 10r+1] to rank 0 and [10r+2, 10r+2]
+            # to rank 1, and receives rank 0's chunk r, then rank 1's.
+            x = torch.tensor([10 * rank + 1, 10 * rank + 1, 10 * rank + 2,
+                              10 * rank + 2], dtype=x.dtype, device='cuda')
+            dist.all_to_all_single(y, x)
+            want = [1 + rank, 1 + rank, 11 + rank, 11 + rank]
+        else:
+            ops = [dist.P2POp(dist.isend, x, 1 - rank),
+                   dist.P2POp(dist.irecv, y, 1 - rank)]
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+            want = [2.0 - rank] * 4
         torch.cuda.synchronize()
-        result = 'ok' if y.tolist() == [2.0 - rank] * 4 else f'wrong: {y}'
+        result = 'ok' if y.tolist() == want else f'wrong: {y.tolist()}'
     except Exception as e:  # pylint: disable=broad-except
         result = f'fails: {e!r}'[:160]
     queue.put((rank, result))
     dist.destroy_process_group()
 
 
-def p2p_probe(timeout_s=60.0):
-    """{dtype: result} of gloo point to point on CUDA tensors, one
-    throwaway pair of processes per dtype (run together); a process that
-    dies reports its exit code.  Every process is stopped before this
-    returns."""
+def p2p_probe(timeout_s=60.0, op='batch_isend_irecv'):
+    """{'dtype op': result} of gloo's `op` (p2p_probe_rank) on CUDA
+    tensors, one throwaway pair of processes per dtype (run together); a
+    process that dies reports its exit code.  Every process is stopped
+    before this returns."""
     import multiprocessing
     import queue as queue_lib
     from skypilot_tpu_torch.parallel import group as group_lib
@@ -2896,7 +2998,8 @@ def p2p_probe(timeout_s=60.0):
     for name in ('bfloat16', 'float32'):
         q, port = ctx.Queue(), group_lib.free_port()
         pairs[name] = (q, [ctx.Process(target=p2p_probe_rank,
-                                       args=(r, port, name, q), daemon=True)
+                                       args=(r, port, name, q, op),
+                                       daemon=True)
                            for r in range(2)])
         for proc in pairs[name][1]:
             proc.start()
@@ -2914,12 +3017,12 @@ def p2p_probe(timeout_s=60.0):
         group_lib.stop_processes(procs, 5.0)
         codes = [p.exitcode for p in procs]
         if len(got) == 2 and got[0] == got[1]:
-            out[f'{name} batch_isend_irecv'] = got[0]
+            out[f'{name} {op}'] = got[0]
         elif not got and all(c is not None and c < 0 for c in codes):
-            out[f'{name} batch_isend_irecv'] = (
+            out[f'{name} {op}'] = (
                 f'fails: both ranks killed by signals {[-c for c in codes]}')
         else:
-            out[f'{name} batch_isend_irecv'] = (
+            out[f'{name} {op}'] = (
                 f'fails: {got or "no result"}; rank exit codes {codes}')
     return out
 
@@ -2929,7 +3032,8 @@ def sharded_case(kind):
     (d) 'ring'."""
     from skypilot_tpu_torch.models.llama import LLAMA_CONFIGS
     from skypilot_tpu_torch.parallel.mesh import MeshPlan
-    cfg = LLAMA_CONFIGS[SHARDED['model']]
+    cfg = dataclasses.replace(LLAMA_CONFIGS[SHARDED['model']],
+                              n_layers=SHARDED['n_layers'])
     n = SHARDED['ranks']
     if kind == 'fsdp':
         return MeshPlan(fsdp=n), SHARDED['batch'], SHARDED['seq'], cfg
@@ -3101,19 +3205,19 @@ def ring_reference_grads(q, k, v, g):
             torch.cat(dvs, 1))
 
 
-def reference_steps(cfg, params, tokens):
+def reference_steps(cfg, params, tokens, spec=SHARDED):
     """The one-device trainer's (loss, pre-clip grad norm) of each of
-    SHARDED's steps on `tokens`, from `params` (the train step of
-    Trainer.run, on one device)."""
+    `spec`'s steps (SHARDED, EXPERT) on `tokens`, from `params` (the
+    train step of Trainer.run, on one device)."""
     import torch
     from skypilot_tpu_torch.models.llama import Llama
     from skypilot_tpu_torch.train import trainer as tt
-    tcfg = tt.TrainConfig(warmup_steps=SHARDED['warmup_steps'],
-                          total_steps=SHARDED['total_steps'])
+    tcfg = tt.TrainConfig(warmup_steps=spec['warmup_steps'],
+                          total_steps=spec['total_steps'])
     state = tt.make_train_state(Llama(cfg, params), tcfg)
     step = tt.make_train_step(tcfg)
     out = []
-    for _ in range(SHARDED['steps']):
+    for _ in range(spec['steps']):
         state, metrics = step(state, tokens)
         out.append((float(metrics['loss']), float(metrics['grad_norm'])))
     del state, metrics
@@ -3227,7 +3331,7 @@ def sharded_training_phase(device, card, smi):
                 cfg, params, sharded_tokens(kind, device, cfg.vocab_size))
             del params
             torch.cuda.empty_cache()
-        cfg = LLAMA_CONFIGS[SHARDED['model']]
+        _, _, _, cfg = sharded_case('fsdp')
         log(f'  {SHARDED["model"]}: {cfg.num_params() / 1e9:.3f}B params '
             f'f32, {cfg.n_layers} layers, dim {cfg.dim}, heads '
             f'{cfg.n_heads}/{cfg.n_kv_heads} x {cfg.head_dim}, tied '
@@ -3400,6 +3504,638 @@ def sharded_training_phase(device, card, smi):
     return by_path, kernel_times(device, RING_HOP_SHAPE, 'ring hop'), rels
 
 
+# ----- pipeline, expert parallelism, MoE under tensor=2, the graft entry ----
+def pipeline_stage(cfg, n_blocks):
+    """The stage function (params, x [B, S, D]) -> x of a pipeline stage:
+    `n_blocks` decoder blocks of `cfg` (meta parameters; each call
+    supplies the stage's `layers.<j>.*` through
+    `torch.func.functional_call`), each block under the config's remat as
+    in the model (the recompute calls the block with the same
+    parameters)."""
+    import torch
+    from torch.utils import checkpoint as checkpoint_lib
+    from skypilot_tpu_torch.models.llama import _REMAT_CONTEXTS, Block
+    blocks = [Block(cfg) for _ in range(n_blocks)]
+
+    def fn(params, x):
+        positions = torch.arange(x.shape[1], device=x.device)[
+            None, :].expand(x.shape[:2])
+        for j, block in enumerate(blocks):
+            prefix = f'layers.{j}.'
+            own = {k[len(prefix):]: v for k, v in params.items()
+                   if k.startswith(prefix)}
+
+            def apply(h, block=block, own=own):
+                return torch.func.functional_call(block, own,
+                                                  (h, positions))[0]
+            if cfg.remat:
+                x = checkpoint_lib.checkpoint(
+                    apply, x, use_reentrant=False,
+                    context_fn=_REMAT_CONTEXTS[cfg.remat_policy])
+            else:
+                x = apply(x)
+        return x
+    return fn
+
+
+def pipeline_weights(cfg, device, stage):
+    """Stage `stage`'s block weights from the SEED draw of the whole
+    model, named as `pipeline_stage`'s module names them."""
+    import torch
+    from skypilot_tpu_torch.models.llama import init_params
+    per = cfg.n_layers // PIPELINE['stages']
+    full = init_params(cfg, device,
+                       torch.Generator(device=device).manual_seed(SEED))
+    out = {}
+    for name, t in full.items():
+        m = re.fullmatch(r'layers\.(\d+)\.(.*)', name)
+        if m and int(m.group(1)) // per == stage:
+            out[f'layers.{int(m.group(1)) % per}.{m.group(2)}'] = t
+    del full
+    return out
+
+
+def pipeline_inputs(device, cfg):
+    """The global batch's activations and the output's cotangent (bf16,
+    SEED), the same draw in every process."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    shape = (PIPELINE['batch'], PIPELINE['seq'], cfg.dim)
+    return tuple(torch.randn(shape, generator=gen, device=device).to(
+        cfg.dtype) for _ in range(2))
+
+
+def pipeline_rank(out_dir):
+    """One rank of PIPELINE's gloo pair on cuda:0: pipeline_apply of its
+    stage over the global batch, forward and backward with the launch
+    counts zeroed just before and read just after; the output (rank 0),
+    x's gradient (the last stage, which holds it only through the sum
+    over the group) and its stage's gradients go to `out_dir`."""
+    import torch
+    from skypilot_tpu_torch.models.llama import LLAMA_CONFIGS
+    from skypilot_tpu_torch.parallel.mesh import MeshPlan, build_mesh
+    from skypilot_tpu_torch.parallel.pipeline import pipeline_apply
+    n = PIPELINE['stages']
+    mesh = build_mesh(MeshPlan(pipeline=n), devices=[PIPELINE['device']] * n,
+                      backend='gloo')
+    cfg = LLAMA_CONFIGS[PIPELINE['model']]
+    stage = mesh.coordinate('pipeline')
+    params = {k: t.unsqueeze(0).requires_grad_() for k, t in
+              pipeline_weights(cfg, mesh.device, stage).items()}
+    x, g = pipeline_inputs(mesh.device, cfg)
+    x.requires_grad_()
+    fn = pipeline_stage(cfg, cfg.n_layers // n)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    out = pipeline_apply(fn, params, x, mesh=mesh,
+                         n_microbatches=PIPELINE['n_micro'])
+    torch.autograd.backward(out, g)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    torch.save({k: t.grad[0].cpu() for k, t in params.items()},
+               os.path.join(out_dir, f'pipeline_grads_{stage}.pt'))
+    if mesh.rank == 0:
+        torch.save(out.detach().cpu(), os.path.join(out_dir,
+                                                    'pipeline_out.pt'))
+    if stage == n - 1:
+        torch.save(x.grad.cpu(), os.path.join(out_dir, 'pipeline_dx.pt'))
+    return {'rank': mesh.rank, 'stage': stage, 'counts': counts,
+            'wall_s': wall,
+            'peak_gb': torch.cuda.max_memory_allocated() / 1e9}
+
+
+def pipeline_phase(device, card, smi):
+    """GPipe (PIPELINE) over pipeline=2, both gloo ranks on the card:
+    the output, x's gradient (the last stage's, summed over the group)
+    and every stage's gradients against the sequential fold of
+    the same blocks on one device (run first), norm-relative within
+    PIPELINE_RTOL per tensor; exact launches per rank (every rank runs
+    every one of the n_micro + n_stages - 1 steps, each block twice
+    forward under remat).  Returns rank 0's launches."""
+    import torch
+    from skypilot_tpu_torch.models.llama import LLAMA_CONFIGS
+    from skypilot_tpu_torch.parallel import group as group_lib
+
+    n = PIPELINE['stages']
+    cfg = LLAMA_CONFIGS[PIPELINE['model']]
+    per = cfg.n_layers // n
+    out_dir = os.path.join(REPO, 'build', 'pipeline')
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    pool = group_lib.RankPool(n, 'gloo', timeout_s=600)
+    try:
+        # The sequential fold on one device: stage 0's blocks, then
+        # stage 1's, over the whole batch.
+        t0 = time.perf_counter()
+        fn = pipeline_stage(cfg, per)
+        x, g = pipeline_inputs(device, cfg)
+        x.requires_grad_()
+        stages = []
+        h = x
+        for i in range(n):
+            params = {k: t.requires_grad_() for k, t in
+                      pipeline_weights(cfg, device, i).items()}
+            stages.append(params)
+            h = fn(params, h)
+        torch.autograd.backward(h, g)
+        want_out, want_dx = h.detach(), x.grad
+        want = [{k: t.grad for k, t in p.items()} for p in stages]
+        del stages, h, x, g
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f'  {PIPELINE["model"]} blocks: {per} of {cfg.n_layers} a stage '
+            f'({sum(p.numel() for p in want[0].values()) / 1e6:.1f}M params '
+            f'a stage, f32), dim {cfg.dim}, heads {cfg.n_heads}/'
+            f'{cfg.n_kv_heads} x {cfg.head_dim}, ffn {cfg.ffn_dim}, remat '
+            f'{cfg.remat}/{cfg.remat_policy!r}; the sequential fold on one '
+            f'device, forward + backward over {PIPELINE["batch"]} x '
+            f'{PIPELINE["seq"]}: {ref_s:.1f} s')
+        t0 = time.perf_counter()
+        ranks = pool.run(pipeline_rank, out_dir, timeout_s=600)
+        wall = time.perf_counter() - t0
+    finally:
+        pool.close()
+    steps = PIPELINE['n_micro'] + n - 1
+    expect = {'flash_attention_fwd': 2 * per * steps,
+              'flash_attention_bwd_dq': per * steps,
+              'flash_attention_bwd_dkv': per * steps}
+    for r in ranks:
+        log(f'    rank {r["rank"]} (stage {r["stage"]}): forward + backward '
+            f'{r["wall_s"]:.2f} s over {steps} steps ({PIPELINE["n_micro"]} '
+            f'microbatches; two ranks on one card over gloo, every hop '
+            f'through the host: a correctness run, not a pipeline rate), '
+            f'peak {r["peak_gb"]:.2f} GB, launches {r["counts"]}')
+        if r['counts'] != expect:
+            raise SystemExit(f'pipeline rank {r["rank"]} launched '
+                             f'{r["counts"]}, expected {expect}')
+    rels = {'out': _norm_rel(torch.load(os.path.join(
+        out_dir, 'pipeline_out.pt')).to(device), want_out),
+            'x': _norm_rel(torch.load(os.path.join(
+                out_dir, 'pipeline_dx.pt')).to(device), want_dx)}
+    for i in range(n):
+        got = torch.load(os.path.join(out_dir, f'pipeline_grads_{i}.pt'),
+                         mmap=True, weights_only=True)
+        for k, ref in want[i].items():
+            rels[f'stage {i} {k}'] = _norm_rel(got[k].to(device), ref)
+        del got
+    del want, want_out, want_dx
+    shutil.rmtree(out_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    worst = max(rels, key=rels.get)
+    log(f'  pipeline=2 on {card} ({smi}), {wall:.1f} s: output norm-rel '
+        f'{rels["out"]:.2e}, x gradient {rels["x"]:.2e}, {len(rels) - 2} '
+        f'stage gradients norm-rel '
+        f'max {rels[worst]:.2e} ({worst}), median '
+        f'{sorted(rels.values())[len(rels) // 2]:.2e} (gate {PIPELINE_RTOL} '
+        f'each) against the sequential fold')
+    if not all(math.isfinite(v) and v <= PIPELINE_RTOL
+               for v in rels.values()):
+        raise SystemExit(f'the pipeline disagrees with the sequential fold: '
+                         f'{worst} {rels[worst]}')
+    return ranks[0]['counts'], kernel_times(device, PIPE_MICRO_SHAPE,
+                                            'pipeline microbatch')
+
+
+def expert_case():
+    """(config, global tokens) of EXPERT, the same draw in every
+    process."""
+    import torch
+    from skypilot_tpu_torch.models.llama import LLAMA_CONFIGS
+    cfg = dataclasses.replace(LLAMA_CONFIGS[EXPERT['model']],
+                              n_experts=EXPERT['n_experts'],
+                              n_layers=EXPERT['n_layers'])
+    device = torch.device(EXPERT['device'])
+    tokens = torch.randint(
+        0, cfg.vocab_size, (EXPERT['batch'], EXPERT['seq']), device=device,
+        generator=torch.Generator(device=device).manual_seed(SEED + 31))
+    return cfg, tokens
+
+
+def expert_rank():
+    """One rank of EXPERT's gloo pair on cuda:0 through Trainer(...,
+    mesh=) at expert=2: its experts of the SEED draw, step 1 alone, then
+    the timed steps with the launch counts zeroed just before and read
+    just after."""
+    import torch
+    from skypilot_tpu_torch.models.llama import Llama, init_params
+    from skypilot_tpu_torch.parallel.mesh import MeshPlan, build_mesh
+    from skypilot_tpu_torch.train.trainer import TrainConfig, Trainer
+    n = EXPERT['expert']
+    mesh = build_mesh(MeshPlan(expert=n), devices=[EXPERT['device']] * n,
+                      backend='gloo')
+    cfg, tokens = expert_case()
+    t0 = time.perf_counter()
+    model = Llama(cfg, init_params(
+        cfg, mesh=mesh,
+        generator=torch.Generator(device=mesh.device).manual_seed(SEED)),
+        mesh)
+    trainer = Trainer(model, TrainConfig(warmup_steps=EXPERT['warmup_steps'],
+                                         total_steps=EXPERT['total_steps']),
+                      mesh=mesh)
+    experts = tuple(model.layers[0].moe_mlp.w_gate.shape)
+    local_params = sum(p.numel() for p in model.parameters()) / 1e9
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step_metrics = []
+    train_step = trainer.train_step
+
+    def recording_step(state, tokens_):
+        state, metrics = train_step(state, tokens_)
+        step_metrics.append(metrics)
+        return state, metrics
+
+    trainer.train_step = recording_step
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.run(iter([tokens]), 1, log_every=1)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    timed = EXPERT['steps'] - 1
+    zero_launches()
+    t0 = time.perf_counter()
+    trainer.run(iter([tokens] * timed), timed, log_every=timed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches()
+    out = {'rank': mesh.rank, 'experts': experts, 'init_s': init_s,
+           'first_s': first_s, 'step_s': wall / timed,
+           'local_params_b': local_params,
+           'peak_gb': torch.cuda.max_memory_allocated() / 1e9,
+           'losses': [float(m['loss']) for m in step_metrics],
+           'norms': [float(m['grad_norm']) for m in step_metrics],
+           'counts': counts}
+    del trainer, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def expert_parallel_phase(device, card, smi):
+    """Expert parallelism (EXPERT) on the one card: (a) whether gloo runs
+    all_to_all_single on CUDA tensors (a throwaway pair per dtype); then
+    two gloo ranks on cuda:0 at expert=2 through Trainer(..., mesh=),
+    each step against the one-device trainer's, every rank's metrics
+    equal rank 0's, exact launches, E / 2 experts a rank.  Returns rank
+    0's launches."""
+    import torch
+    from skypilot_tpu_torch.models.llama import init_params
+    from skypilot_tpu_torch.parallel import group as group_lib
+
+    n = EXPERT['expert']
+    t0 = time.perf_counter()
+    probe = p2p_probe(op='all_to_all_single')
+    log(f'  (a) gloo all_to_all_single straight on CUDA tensors, 2 '
+        f'throwaway ranks on cuda:0 ({time.perf_counter() - t0:.1f} s): ' +
+        '; '.join(f'{k}: {v}' for k, v in probe.items()))
+    needed = [f'{d} all_to_all_single' for d in ('bfloat16', 'float32')]
+    if any(probe[key] != 'ok' for key in needed):
+        raise SystemExit(f'gloo refuses all_to_all_single on CUDA tensors, '
+                         f'which the expert exchange hands it: {probe}')
+    log('    the expert exchange hands gloo the CUDA tensors as they are')
+    pool = group_lib.RankPool(n, 'gloo', timeout_s=600)
+    try:
+        cfg, tokens = expert_case()
+        t0 = time.perf_counter()
+        params = init_params(cfg, device,
+                             torch.Generator(device=device).manual_seed(SEED))
+        refs = reference_steps(cfg, params, tokens, EXPERT)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f'  {EXPERT["model"]} x {cfg.n_experts} experts, {cfg.n_layers} '
+            f'layers: {cfg.num_params() / 1e9:.3f}B params f32, remat '
+            f'{cfg.remat}/{cfg.remat_policy!r}; one-device trainer (loss, '
+            f'grad norm) of steps 1-{EXPERT["steps"]} at {EXPERT["batch"]} x '
+            f'{EXPERT["seq"]}: {refs} in {time.perf_counter() - t0:.1f} s')
+        t0 = time.perf_counter()
+        ranks = pool.run(expert_rank, timeout_s=900)
+        wall = time.perf_counter() - t0
+    finally:
+        pool.close()
+    lead = ranks[0]
+    rels = [(abs(lead['losses'][i] - want[0]) / abs(want[0]),
+             abs(lead['norms'][i] - want[1]) / abs(want[1]))
+            for i, want in enumerate(refs)]
+    log(f'  expert={n}, fsdp=1 on {card} ({smi}), {wall:.1f} s: ' + '; '.join(
+        f'step {i + 1} loss {lead["losses"][i]:.6f} vs one device '
+        f'{want[0]:.6f} (rel {rels[i][0]:.2e}, gate {SHARDED_LOSS_RTOL}), '
+        f'grad norm {lead["norms"][i]:.6f} vs {want[1]:.6f} (rel '
+        f'{rels[i][1]:.2e}, gate {SHARDED_NORM_RTOL})'
+        for i, want in enumerate(refs)))
+    per_step = EXPERT['steps'] - 1
+    expect = {'flash_attention_fwd': 2 * cfg.n_layers * per_step,
+              'flash_attention_bwd_dq': cfg.n_layers * per_step,
+              'flash_attention_bwd_dkv': cfg.n_layers * per_step}
+    for r in ranks:
+        log(f'    rank {r["rank"]}: experts {r["experts"]} of layer 0\'s '
+            f'w_gate, {r["local_params_b"]:.3f}B params held, init '
+            f'{r["init_s"]:.1f} s, step 1 {r["first_s"]:.2f} s, '
+            f'{r["step_s"]:.2f} s per timed step (two ranks on one card '
+            f'over gloo: a correctness run, not an expert-parallel rate), '
+            f'peak {r["peak_gb"]:.2f} GB, launches {r["counts"]}')
+        if r['counts'] != expect:
+            raise SystemExit(f'expert rank {r["rank"]} launched '
+                             f'{r["counts"]}, expected {expect}')
+        if (r['losses'], r['norms']) != (lead['losses'], lead['norms']):
+            raise SystemExit(f'expert rank {r["rank"]} reads other metrics '
+                             f'than rank 0')
+        if r['experts'] != (cfg.n_experts // n, cfg.dim, cfg.ffn_dim):
+            raise SystemExit(f'rank {r["rank"]} holds experts '
+                             f'{r["experts"]}')
+    if not (all(map(math.isfinite, lead['losses'] + lead['norms'])) and
+            all(a <= SHARDED_LOSS_RTOL and b <= SHARDED_NORM_RTOL
+                for a, b in rels)):
+        raise SystemExit(f'expert parallelism disagrees with the one-device '
+                         f'trainer: {rels}')
+    return lead['counts']
+
+
+def moe_tensor_case():
+    """(bf16 config, f32 'xla' config, prompts, padded prompts, last
+    positions) of MOE_TENSOR, MOE_SERVE's traffic."""
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch.models.llama import LLAMA_CONFIGS
+    spec = MOE_SERVE
+    cfg = dataclasses.replace(LLAMA_CONFIGS[MOE_TENSOR['model']],
+                              n_experts=MOE_TENSOR['n_experts'],
+                              n_layers=MOE_TENSOR['n_layers'],
+                              max_seq_len=spec['max_seq_len'],
+                              param_dtype=torch.bfloat16)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
+                                param_dtype=torch.float32,
+                                attention_impl='xla')
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, spec['prompt_len']).tolist()
+               for _ in range(spec['n_prompts'])]
+    prompts.append(rng.integers(0, cfg.vocab_size,
+                                spec['long_prompt_len']).tolist())
+    bucket = spec['prefill_buckets'][0]
+    padded = [p + [0] * (bucket - len(p)) for p in prompts[:-1]]
+    return cfg, cfg32, prompts, padded, [len(p) - 1 for p in prompts[:-1]]
+
+
+def _moe_engine(model, mesh=None, device=None, **kw):
+    from skypilot_tpu_torch.inference.engine import DecodeEngine, EngineConfig
+    spec = MOE_SERVE
+    return DecodeEngine(model, EngineConfig(
+        n_slots=spec['n_slots'], steps_per_call=spec['steps_per_call'],
+        prefill_buckets=spec['prefill_buckets'], mesh=mesh, **kw),
+        device=device)
+
+
+def moe_tp_rank():
+    """One rank of MOE_TENSOR's gloo pair on cuda:0: (b) the bf16 model's
+    first-step logits of the padded prompts (its slices of the SEED draw;
+    launches zeroed just before, read just after); (c) the f32 model's
+    dense and paged tokens of every prompt."""
+    import torch
+    from skypilot_tpu_torch.models.llama import Llama, init_params
+    from skypilot_tpu_torch.parallel.mesh import build_serve_mesh
+    cfg, cfg32, prompts, padded, last = moe_tensor_case()
+    t = MOE_TENSOR['tensor']
+    mesh = build_serve_mesh(t, cfg.n_heads, cfg.n_kv_heads,
+                            devices=[MOE_TENSOR['device']] * t,
+                            backend='gloo')
+
+    def build(c):
+        gen = torch.Generator(device=mesh.device).manual_seed(SEED)
+        return Llama(c, init_params(c, mesh.device, gen, mesh=mesh), mesh)
+
+    model = build(cfg)
+    out = {'rank': mesh.rank,
+           'experts': tuple(model.layers[0].moe_mlp.w_down.shape)}
+    zero_launches()
+    with torch.no_grad():
+        logits = model(torch.tensor(padded, device=mesh.device),
+                       logits_at=torch.tensor(last, device=mesh.device))
+    torch.cuda.synchronize()
+    out['launches'] = read_launches()
+    out['logits'] = logits[:, 0].cpu()
+    del model, logits
+    torch.cuda.empty_cache()
+    model = build(cfg32)
+    for name, kw in (('dense', {}),
+                     ('paged', {'kv_page_size': MOE_SERVE['kv_page_size']})):
+        out[name], out[name + '_wall'] = _tp_traffic(
+            _moe_engine(model, mesh, **kw), prompts, MOE_SERVE['max_tokens'])
+    out['peak_gb'] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def _moe_halves_forward(module, t):
+    """A forward for one device's MoEMLP with tensor=t's arithmetic: each
+    expert's F in t slices, each slice's w_down product in the compute
+    dtype, the slices added in that dtype in rank order."""
+    import torch
+    import torch.nn.functional as F
+    from skypilot_tpu_torch.models import moe
+
+    def forward(x, return_aux=False):
+        del return_aux
+        capacity = moe.capacity_of(x.shape[1], module.n_experts,
+                                   module.top_k, module.capacity_factor)
+        probs = torch.softmax(module.router(x), dim=-1)
+        dispatch, combine = moe.top_k_dispatch(probs, module.top_k, capacity)
+        dt = module.dtype
+        expert_in = torch.einsum('bsec,bsd->ebcd', dispatch.to(dt), x.to(dt))
+        k = module.w_gate.shape[2] // t
+        acc = None
+        for r in range(t):
+            sl = slice(r * k, (r + 1) * k)
+            h = (F.silu(torch.einsum('ebcd,edf->ebcf', expert_in,
+                                     module.w_gate[..., sl].to(dt))) *
+                 torch.einsum('ebcd,edf->ebcf', expert_in,
+                              module.w_up[..., sl].to(dt)))
+            part = torch.einsum('ebcf,efd->ebcd', h,
+                                module.w_down[:, sl].to(dt))
+            acc = part if acc is None else acc + part
+        return torch.einsum('ebcd,bsec->bsd', acc,
+                            combine.to(dt)).to(x.dtype)
+    return forward
+
+
+def moe_tensor_serving_phase(device, card):
+    """MoE serving over tensor=2 (MOE_TENSOR), both gloo ranks on the
+    card: (b) bf16 first-step logits bit-identical to one device
+    computing the same arithmetic and within LOGITS_RTOL of the plain
+    one-device model, n_layers flash launches on rank 0; (c) f32 greedy
+    tokens of MOE_SERVE's traffic identical to the one-device engine,
+    dense and paged, on every rank.  Returns rank 0's launches."""
+    import torch
+    from skypilot_tpu_torch.models.llama import Llama, init_params
+    from skypilot_tpu_torch.parallel import group as group_lib
+
+    t = MOE_TENSOR['tensor']
+    cfg, cfg32, prompts, padded, last = moe_tensor_case()
+    pool = group_lib.RankPool(t, 'gloo', timeout_s=600)
+    try:
+        t0 = time.perf_counter()
+        model = Llama(cfg, init_params(
+            cfg, device, torch.Generator(device=device).manual_seed(SEED)))
+
+        def first_logits():
+            with torch.no_grad():
+                return model(torch.tensor(padded, device=device),
+                             logits_at=torch.tensor(last, device=device)
+                             )[:, 0].cpu()
+
+        want_logits = first_logits()
+        patched = [m for layer in model.layers for m in (layer.attn.o_proj,
+                                                         layer.moe_mlp)]
+        for layer in model.layers:
+            layer.attn.o_proj.forward = _halves_product(layer.attn.o_proj, t)
+            layer.moe_mlp.forward = _moe_halves_forward(layer.moe_mlp, t)
+        try:
+            same_math_logits = first_logits()
+        finally:
+            for m in patched:
+                del m.forward
+        del model
+        torch.cuda.empty_cache()
+        one = _moe_engine(Llama(cfg32, init_params(
+            cfg32, device, torch.Generator(device=device).manual_seed(SEED))),
+            device=device)
+        one.prewarm()
+        want_toks, _, _, _ = _drive(one, prompts, MOE_SERVE['max_tokens'])
+        del one
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f'  {MOE_TENSOR["model"]} x {cfg.n_experts} experts at '
+            f'{cfg.n_layers} of 16 layers ({cfg.num_params() / 1e9:.3f}B '
+            f'params): one-device references in '
+            f'{time.perf_counter() - t0:.1f} s')
+        t0 = time.perf_counter()
+        ranks = pool.run(moe_tp_rank, timeout_s=900)
+        wall = time.perf_counter() - t0
+    finally:
+        pool.close()
+    lead = ranks[0]
+    for r in ranks:
+        log(f'    rank {r["rank"]}: experts {r["experts"]} of layer 0\'s '
+            f'w_down, peak {r["peak_gb"]:.2f} GB')
+        if r['experts'] != (cfg.n_experts, cfg.ffn_dim // t, cfg.dim):
+            raise SystemExit(f'rank {r["rank"]} holds {r["experts"]}')
+        for key in ('dense', 'paged'):
+            if r[key] != lead[key]:
+                raise SystemExit(f'rank {r["rank"]} emitted other {key} '
+                                 f'tokens than rank 0')
+    got = lead['logits']
+    scale = want_logits.abs().max().item()
+    err = (got - want_logits).abs().max().item() / scale
+    err_same = (got - same_math_logits).abs().max().item() / scale
+    out_toks = sum(map(len, lead['dense']))
+    log(f'  (b) bf16 tensor={t} over gloo on {card}: first-step logits (max '
+        f'|logit| {scale:.3f}) against one device computing the same '
+        f'arithmetic: rel {err_same:.2e} (gate 0, bit-identical); against '
+        f'the one-device model: rel {err:.2e} (gate {LOGITS_RTOL}); rank 0 '
+        f'flash launches {lead["launches"]}')
+    log(f'  (c) f32 tensor={t}: greedy tokens equal to the one-device '
+        f'engine\'s: dense {_share_equal(lead["dense"], want_toks):.4f}, '
+        f'paged {_share_equal(lead["paged"], want_toks):.4f}; out-tok/s '
+        f'dense {out_toks / lead["dense_wall"]:.1f}, paged '
+        f'{out_toks / lead["paged_wall"]:.1f} (eager, gloo staging: not a '
+        f'tensor-parallel rate); {wall:.1f} s')
+    if not (torch.isfinite(got).all() and torch.equal(got, same_math_logits)
+            and err <= LOGITS_RTOL):
+        raise SystemExit('MoE tensor=2 first-step logits disagree with one '
+                         'device')
+    if lead['launches'] != dict(dict.fromkeys(KERNEL_NAMES, 0),
+                                flash_attention_fwd=cfg.n_layers):
+        raise SystemExit(f'rank 0 launched {lead["launches"]}, expected '
+                         f'{cfg.n_layers} flash forwards')
+    if lead['dense'] != want_toks or lead['paged'] != want_toks:
+        raise SystemExit('MoE f32 tensor=2 tokens differ from one device')
+    return lead['launches'], kernel_times(
+        device, MOE_TP_PREFILL_SHAPE, f'MoE tensor={t} per-rank prefill',
+        ('fwd',))['fwd']
+
+
+def hbm_probe():
+    """(free, total) bytes of the card as torch.cuda.mem_get_info reads
+    them once this process holds its CUDA context, the caching allocator
+    and a one-rank NCCL group (left before returning)."""
+    import torch
+    import torch.distributed as dist
+    from skypilot_tpu_torch.parallel import group as group_lib
+    group_lib.join(0, 1, group_lib.free_port(), 'nccl', timeout_s=120)
+    try:
+        x = torch.ones(1024, device='cuda')
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        return torch.cuda.mem_get_info()
+    finally:
+        group_lib.leave()
+
+
+def graft_entry_phase(device, card, smi, hbm):
+    """The graft entry's twin on the card: entry()'s llama-250m forward on
+    its example arguments and on SEED tokens of that shape, each against
+    attention_impl='xla' on the same params (LOGITS_RTOL of max |logit|),
+    launches zeroed just before and read just after; then validate.py's
+    'h100' entry against the memory measured at the start of this run
+    (`hbm`), and one placement printed.  Returns the launches."""
+    import torch
+    from skypilot_tpu_torch import graft_entry
+    from skypilot_tpu_torch.models.llama import LLAMA_CONFIGS, Llama
+    from skypilot_tpu_torch.parallel import validate
+
+    t0 = time.perf_counter()
+    fn, (params, tokens) = graft_entry.entry()
+    cfg = LLAMA_CONFIGS['llama-250m']
+    xla = Llama(dataclasses.replace(cfg, attention_impl='xla'), params)
+    seeded = torch.randint(0, cfg.vocab_size, tuple(tokens.shape),
+                           device=device, generator=torch.Generator(
+                               device=device).manual_seed(SEED + 41))
+    zero_launches()
+    got = [fn(params, tokens), fn(params, seeded)]
+    torch.cuda.synchronize()
+    counts = read_launches()
+    rels = []
+    with torch.no_grad():
+        for logits, toks in zip(got, (tokens, seeded)):
+            ref = xla(toks)
+            rels.append(((logits - ref).abs().max() /
+                         ref.abs().max()).item())
+    log(f'  entry(): {cfg.num_params() / 1e9:.3f}B params, tokens '
+        f'{tuple(tokens.shape)}, logits {tuple(got[0].shape)} on {card}: '
+        f'against attention_impl=\'xla\' rel {rels[0]:.2e} (example '
+        f'arguments), {rels[1]:.2e} (SEED tokens) (gate {LOGITS_RTOL}); '
+        f'launches {counts}; {time.perf_counter() - t0:.1f} s')
+    if not (all(torch.isfinite(x).all() for x in got) and
+            max(rels) <= LOGITS_RTOL):
+        raise SystemExit('entry() logits disagree with the plain attention '
+                         'path')
+    if counts != dict(dict.fromkeys(KERNEL_NAMES, 0),
+                      flash_attention_fwd=2 * cfg.n_layers):
+        raise SystemExit(f'entry() launched {counts}')
+    del fn, params, xla, got
+    torch.cuda.empty_cache()
+
+    free, total = hbm
+    spec = validate.DEVICES['h100']
+    fraction = free / total
+    log(f'  validate: {card} ({smi}) reports {total} bytes, {free} free '
+        f'({fraction:.4f}) once the CUDA context and a one-rank NCCL group '
+        f'exist; the table\'s h100 entry: {spec.hbm_bytes} bytes, usable '
+        f'{spec.usable_fraction}')
+    report = validate.validate_placement('H100:8', model_name='llama3-8b')
+    log('    ' + report.summary().replace('\n', '\n    '))
+    if not (abs(total - spec.hbm_bytes) <= VALIDATE_HBM_RTOL *
+            spec.hbm_bytes and
+            fraction >= spec.usable_fraction - VALIDATE_FRACTION_ATOL):
+        raise SystemExit(f'validate.py\'s h100 entry {spec} does not match '
+                         f'the card: total {total}, usable {fraction:.4f}')
+    return counts, kernel_times(device, ENTRY_SHAPE, 'graft entry',
+                                ('fwd',))['fwd']
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3415,6 +4151,11 @@ def main() -> int:
     smi = nvidia_smi_line()
     log(f'[device] {card} | {smi} | torch {torch.__version__} cuda '
         f'{torch.version.cuda}')
+    # The card's memory as a training process sees it (validate.py's
+    # table is checked against it in the graft_entry phase).
+    hbm = hbm_probe()
+    log(f'[device] torch.cuda.mem_get_info with a CUDA context and a '
+        f'one-rank NCCL group: {hbm[0]} free of {hbm[1]} bytes')
 
     t0 = time.perf_counter()
     build_log = fa.build()
@@ -3503,6 +4244,25 @@ def main() -> int:
     log(f'[sharded_training] {SHARDED}')
     by_path['sharded_training'], at_ring_hop, ring_rels = phase(
         'sharded_training', sharded_training_phase, device, card, smi)
+    log(f'[pipeline] {PIPELINE}')
+    by_path['pipeline'], at_pipeline = phase('pipeline', pipeline_phase,
+                                             device, card, smi)
+    log(f'[expert_parallel] {EXPERT}')
+    by_path['expert_parallel'] = phase('expert_parallel',
+                                       expert_parallel_phase, device, card,
+                                       smi)
+    log(f'[moe_tensor_serving] {MOE_TENSOR}')
+    by_path['moe_tensor_serving'], fwd['at_moe_tensor_rank_shape'] = phase(
+        'moe_tensor_serving', moe_tensor_serving_phase, device, card)
+    log('[graft_entry] entry() on the card; validate.py\'s h100 entry')
+    by_path['graft_entry'], fwd['at_entry_shape'] = phase(
+        'graft_entry', graft_entry_phase, device, card, smi, hbm)
+    new_paths = ('pipeline', 'expert_parallel', 'moe_tensor_serving',
+                 'graft_entry')
+    for name in KERNEL_NAMES:
+        if not any(by_path[p][name] for p in new_paths):
+            raise SystemExit(f'{name} launched on none of this run\'s new '
+                             f'paths {new_paths}')
 
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'tflops',
@@ -3515,6 +4275,7 @@ def main() -> int:
         entry['at_ring_hop_shape'] = {
             **at_ring_hop[kind], 'ring_op_norm_rel': ring_rels}
         entry['at_moe_training_shape'] = at_moe_train[kind]
+        entry['at_pipeline_shape'] = at_pipeline[kind]
         if kind == 'fwd':
             entry['at_moe_prefill_shape'] = at_moe_prefill[kind]
         # ptxas of the timed instantiation (bf16, head_dim 128); shared

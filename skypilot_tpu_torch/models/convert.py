@@ -92,10 +92,10 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 def shard_params(full: Mapping[str, torch.Tensor],
                  mesh) -> Dict[str, torch.Tensor]:
-    """This rank's tensor slices of a whole Llama state dict on `mesh`
+    """This rank's slices of a whole Llama state dict on `mesh`
     (`parallel/sharding.py` PARAM_AXES through the rules, kept to the
-    'tensor' axis: a training mesh's fsdp sharding is FSDP's), copied onto
-    the mesh's device; `full` is only read."""
+    'tensor' and 'expert' axes: a training mesh's fsdp sharding is
+    FSDP's), copied onto the mesh's device; `full` is only read."""
     from skypilot_tpu_torch.parallel import sharding
     out = {}
     for name, t in full.items():

@@ -50,8 +50,10 @@ adds zeros), and the logits are gathered whole on every rank before
 anyone samples.  A dim the degree
 does not divide (ffn, vocab) stays whole on every rank.  Attention, the
 dense and the paged cache run on the rank's kv heads unchanged.  A
-mixture-of-experts model under a mesh waits for the expert-parallel
-layout.
+mixture-of-experts block under a mesh holds its slices of the expert
+weights (each expert's F over 'tensor', the experts over 'expert') and
+exchanges its dispatched slots over the 'expert' group
+(`models/moe.py`).
 
 The training forward under a mesh (grad enabled) uses the differentiable
 pair of `parallel/sharding.py` instead of the in-place collectives: the
@@ -461,7 +463,7 @@ class Block(nn.Module):
 
     def __init__(self, cfg: LlamaConfig,
                  tp: Optional[TensorShards] = None,
-                 ring_mesh: Any = None) -> None:
+                 ring_mesh: Any = None, mesh: Any = None) -> None:
         super().__init__()
         self.attn_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype,
                                  cfg.param_dtype)
@@ -474,7 +476,7 @@ class Block(nn.Module):
             self.moe_mlp = MoEMLP(
                 cfg.dim, cfg.ffn_dim, cfg.n_experts, top_k=cfg.moe_top_k,
                 capacity_factor=cfg.moe_capacity_factor, dtype=cfg.dtype,
-                param_dtype=cfg.param_dtype)
+                param_dtype=cfg.param_dtype, mesh=mesh)
         else:
             self.mlp = MLP(cfg, tp)
 
@@ -507,11 +509,6 @@ class Llama(nn.Module):
                  params: Mapping[str, torch.Tensor],
                  mesh: Any = None) -> None:
         super().__init__()
-        if mesh is not None and cfg.n_experts > 0:
-            raise ValueError(
-                'a mixture-of-experts Llama under a mesh waits for the '
-                'expert-parallel slice of the port (its experts over the '
-                "'expert' axis); serve it on one device")
         if cfg.attention_impl not in ('flash', 'xla', 'ring'):
             raise ValueError(f'attention_impl {cfg.attention_impl!r} not in '
                              f"('flash', 'xla', 'ring')")
@@ -529,7 +526,7 @@ class Llama(nn.Module):
         self.embed = nn.Embedding(vocab, cfg.dim, device='meta',
                                   dtype=cfg.param_dtype)
         ring_mesh = mesh if cfg.attention_impl == 'ring' else None
-        self.layers = nn.ModuleList(Block(cfg, self.tp, ring_mesh)
+        self.layers = nn.ModuleList(Block(cfg, self.tp, ring_mesh, mesh)
                                     for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.dim, cfg.norm_eps, cfg.dtype,
                                   cfg.param_dtype)
@@ -659,10 +656,8 @@ def init_params(cfg: LlamaConfig, device: DeviceLike = None,
     `cfg.param_dtype`, one weight at a time.  `generator` (on `device`)
     fixes the draw; default seed 0.  Under a `mesh` every weight is drawn
     whole (the same draw on every rank) and only this rank's slice is
-    kept, so the whole tree never exists at once."""
-    if mesh is not None and cfg.n_experts > 0:
-        raise ValueError('a mixture-of-experts Llama under a mesh waits for '
-                         'the expert-parallel slice of the port')
+    kept (its tensor slice, and its experts of a MoE leaf), so the whole
+    tree never exists at once."""
     if device is None and mesh is not None:
         device = mesh.device
     device = resolve_device(device)
@@ -740,8 +735,9 @@ def param_shapes(cfg: LlamaConfig) -> Dict[str, Tuple[int, ...]]:
 
 
 class _KeepSlices(dict):
-    """A state dict that keeps only this rank's tensor slice of each weight
-    set into it under `mesh` (a copy: the whole weight is freed)."""
+    """A state dict that keeps only this rank's local slice of each weight
+    set into it under `mesh` (`sharding.tensor_spec`; a copy: the whole
+    weight is freed)."""
 
     def __init__(self, mesh) -> None:
         super().__init__()

@@ -208,8 +208,9 @@ class RankMesh:
         dims ('tensor', 'replicate', 'shard') over the same ranks, where
         'shard' is the 'fsdp' axis and 'replicate' flattens ('dcn',
         'pipeline', 'data', 'expert').  FSDP2 shards over its
-        ('replicate', 'shard') sub-mesh of this rank's tensor coordinate
-        (HSDP); a checkpoint's global tensors live on all three dims."""
+        ('replicate', 'shard') dims at this rank's tensor coordinate
+        (HSDP, `fsdp_mesh`); a checkpoint's global tensors live on all
+        three dims."""
         if 'train' not in self._derived:
             from torch.distributed.device_mesh import DeviceMesh
             shape = self.shape
@@ -219,6 +220,37 @@ class RankMesh:
                 self.device_mesh.device_type, ranks,
                 mesh_dim_names=('tensor', 'replicate', 'shard'))
         return self._derived['train']
+
+    def fsdp_mesh(self):
+        """FSDP2's mesh (HSDP): the ('replicate', 'shard') dims of
+        `train_mesh()` at this rank's tensor coordinate, a 2-D DeviceMesh
+        of its own over the train mesh's process groups (no new group,
+        and no slice of the train mesh: torch 2.11 refuses that slice
+        when 'shard' has one rank)."""
+        if 'fsdp' not in self._derived:
+            from torch.distributed.device_mesh import DeviceMesh
+            train = self.train_mesh()
+            self._derived['fsdp'] = DeviceMesh.from_group(
+                [train.get_group('replicate'), train.get_group('shard')],
+                train.device_type, train.mesh[self.coordinate('tensor')],
+                mesh_dim_names=('replicate', 'shard'))
+        return self._derived['fsdp']
+
+
+    def expert_mesh(self):
+        """The DeviceMesh of a MoE model's expert weights, built once
+        (every rank together): dims ('tensor', 'expert', 'replicate') over
+        the same ranks, where 'replicate' flattens ('dcn', 'pipeline',
+        'data', 'fsdp'), the ranks that hold the same experts."""
+        if 'expert' not in self._derived:
+            from torch.distributed.device_mesh import DeviceMesh
+            shape = self.shape
+            ranks = self.device_mesh.mesh.permute(5, 4, 0, 1, 2, 3).reshape(
+                shape['tensor'], shape['expert'], -1)
+            self._derived['expert'] = DeviceMesh(
+                self.device_mesh.device_type, ranks,
+                mesh_dim_names=('tensor', 'expert', 'replicate'))
+        return self._derived['expert']
 
 
 DeviceList = Sequence[Union[str, torch.device]]

@@ -48,16 +48,18 @@ _NEG_INF = -1e30
 
 class _Ring:
     """This rank's place on the ring of `group`: its index, the global
-    ranks it sends to and receives from, and whether transfers of CUDA
-    tensors hop through host memory (a gloo group)."""
+    ranks it sends to (`shift` places on) and receives from (`shift`
+    places back), and whether transfers of CUDA tensors hop through host
+    memory (a gloo group).  The pipeline's hop (`parallel/pipeline.py`)
+    rides the same ring, backward with `shift=-1`."""
 
-    def __init__(self, group, device: torch.device) -> None:
+    def __init__(self, group, device: torch.device, shift: int = 1) -> None:
         ranks = dist.get_process_group_ranks(group)
         self.group = group
         self.n = len(ranks)
         self.idx = dist.get_group_rank(group, dist.get_rank())
-        self.next = ranks[(self.idx + 1) % self.n]
-        self.prev = ranks[(self.idx - 1) % self.n]
+        self.next = ranks[(self.idx + shift) % self.n]
+        self.prev = ranks[(self.idx - shift) % self.n]
         self.via_host = (device.type == 'cuda' and
                          dist.get_backend(group) == 'gloo')
 

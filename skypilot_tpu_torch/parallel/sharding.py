@@ -33,6 +33,10 @@ in one direction only (Megatron's f and g):
 (`torch.distributed.nn.functional.all_reduce` is not the exit: its
 backward all-reduces the gradient again, multiplying it by the degree.)
 
+The expert exchange of a MoE block (`models/moe.py`): `all_to_all`,
+dim 0 in equal chunks over the 'expert' group, its own inverse, so its
+backward is the same exchange of the gradient.
+
 Training layouts (JAX `batch_sharding` and `_constrain_activations`):
 `batch_slice` gives this rank's rows of a global batch over
 ('dcn', 'data', 'fsdp', 'expert'); under context parallelism (ring
@@ -103,25 +107,37 @@ def logical_to_spec(logical_axes: Sequence[Optional[str]],
 # -> [H*hd, D]; o [H, hd, D] -> [D, H*hd]; gate/up [D, F] ('embed',
 # 'mlp') -> [F, D]; down -> [D, F]; embedding [V, D] and the lm_head
 # kernel [D, V] ('embed', 'vocab') -> [V, D]; norm scales ('embed',).
-PARAM_AXES: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
+# The MoE block's (`skypilot_tpu/models/moe.py`): the router kernel
+# [D, E] ('embed', None) -> [E, D]; the expert weights keep the Flax
+# layout, w_gate/w_up [E, D, F] ('expert', None, 'mlp') and w_down
+# [E, F, D] ('expert', 'mlp', None).
+PARAM_AXES: Tuple[Tuple[str, Tuple[Optional[str], ...]], ...] = (
     (r'embed\.weight', ('vocab', 'embed')),
     (r'layers\.\d+\.attn\.[qkv]_proj\.weight', ('heads', 'embed')),
     (r'layers\.\d+\.attn\.o_proj\.weight', ('embed', 'heads')),
     (r'layers\.\d+\.mlp\.(gate|up)_proj\.weight', ('mlp', 'embed')),
     (r'layers\.\d+\.mlp\.down_proj\.weight', ('embed', 'mlp')),
+    (r'layers\.\d+\.moe_mlp\.router\.weight', (None, 'embed')),
+    (r'layers\.\d+\.moe_mlp\.w_(gate|up)', ('expert', None, 'mlp')),
+    (r'layers\.\d+\.moe_mlp\.w_down', ('expert', 'mlp', None)),
     (r'layers\.\d+\.(attn|mlp)_norm\.scale', ('embed',)),
     (r'final_norm\.scale', ('embed',)),
     (r'lm_head\.weight', ('vocab', 'embed')),
 )
 
 
-def param_axes(name: str) -> Tuple[str, ...]:
+def param_axes(name: str) -> Tuple[Optional[str], ...]:
     """The logical axes of the Llama parameter `name`."""
     for pattern, axes in PARAM_AXES:
         if re.fullmatch(pattern, name):
             return axes
-    raise KeyError(f'{name!r} has no sharding annotation (a dense Llama '
+    raise KeyError(f'{name!r} has no sharding annotation (a Llama '
                    f'parameter is expected)')
+
+
+def is_expert_param(name: str) -> bool:
+    """True for a MoE block's expert weights (split over 'expert')."""
+    return param_axes(name)[0] == 'expert'
 
 
 def _axis_names(axes) -> Tuple[str, ...]:
@@ -185,13 +201,17 @@ def local_slice(full: torch.Tensor, spec: PartitionSpec,
     return out
 
 
+LOCAL_AXES = ('tensor', 'expert')
+
+
 def tensor_spec(name: str, shape: Sequence[int],
                 mesh_shape: Mapping[str, int],
                 rules: Optional[Sequence] = None) -> PartitionSpec:
-    """`param_spec` kept to the 'tensor' axis: the slice a tensor-parallel
-    rank holds as a local tensor.  The 'embed' -> fsdp sharding of a
-    training mesh is FSDP's, on top of it (`train/trainer.py`)."""
-    return P(*[axes if axes == 'tensor' else None
+    """`param_spec` kept to the axes a rank holds as a local tensor
+    (`LOCAL_AXES`): its tensor-parallel slice and, for expert weights,
+    its E / expert experts.  The 'embed' -> fsdp sharding of a training
+    mesh is FSDP's, on top of it (`train/trainer.py`)."""
+    return P(*[axes if axes in LOCAL_AXES else None
                for axes in param_spec(name, shape, mesh_shape, rules)])
 
 
@@ -222,6 +242,38 @@ def gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     shape = list(x.shape)
     shape[dim] *= t
     return full.view(t, *x.shape).movedim(0, dim).reshape(shape)
+
+
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """`all_to_all` forward; the same exchange of the gradient backward
+    (the exchange is its own inverse)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Dim 0 of `x` in n equal chunks over the n ranks of `group`: chunk
+    i goes to rank i, and chunk i of the result is what rank i sent this
+    rank.  Differentiable.  gloo runs it on CUDA tensors as they are
+    (unlike point to point; chip_smoke.py's expert_parallel probe), so
+    every backend takes the device tensors."""
+    if dist.get_world_size(group) == 1:
+        return x
+    return _AllToAll.apply(x, group)
 
 
 class _ColumnParallelEntry(torch.autograd.Function):

@@ -197,9 +197,15 @@ class CheckpointManager:
         items = dcp_items(target)
         dcp.load(items, checkpoint_id=self._path(step),
                  no_dist=not sharded_target)
-        target.schedule.load_state_dict(items['schedule'])
-        for group, lr in zip(target.optimizer.param_groups, items['lr']):
-            group['lr'] = lr
+        # Every param group follows the one schedule: a step saved with
+        # another number of groups (a MoE mesh keeps its experts in a
+        # group of their own) restores group 0's values into each.
+        n = len(target.optimizer.param_groups)
+        target.schedule.load_state_dict({
+            k: [v[0]] * n if isinstance(v, list) and len(v) != n else v
+            for k, v in items['schedule'].items()})
+        for group in target.optimizer.param_groups:
+            group['lr'] = items['lr'][0]
         return target
 
     def read_params(self, step: int, box: Optional[Box] = None

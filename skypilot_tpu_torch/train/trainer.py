@@ -14,21 +14,36 @@ over the other axes) with FSDP2: each block, then the root,
 `fully_shard`ed over the mesh's 'fsdp' axis with ('dcn', 'pipeline',
 'data', 'expert') as the replicate dimension (HSDP), so each rank holds
 1/fsdp of every parameter and of its AdamW moments (ZeRO-3, as the JAX
-rule 'embed' -> fsdp).  `make_sharded_train_step` takes the GLOBAL batch
-on every rank and gives JAX's global step whatever the plan:
-- each rank's rows (`sharding.batch_slice`), or under ring attention
-  its rows over (dcn, data) and its chunk of the sequence over fsdp
-  (`sharding.context_slice`; the target of a chunk's last position is
-  the next chunk's first token, and the last chunk drops its final
+rule 'embed' -> fsdp).  No rule names 'pipeline' (the
+JAX trainer replicates params and batch over it), so it is one more
+replicate dimension.  A MoE model's expert weights are this rank's E / expert
+experts (and tensor slices), replicated over ('dcn', 'pipeline', 'data',
+'fsdp'): FSDP2 leaves them alone (averaging over a replicate dimension
+that holds 'expert' would mix different experts), and the step sums
+their gradients over the ranks that hold the same experts
+(`RankMesh.expert_mesh`).  `make_sharded_train_step` takes the GLOBAL
+batch on every rank and gives JAX's global step whatever the plan:
+- each rank's rows (`sharding.batch_slice`, over ('dcn', 'data',
+  'fsdp', 'expert'): the rows repeat over 'pipeline'), or under ring
+  attention its rows over (dcn, data) and its chunk of the sequence over
+  fsdp (`sharding.context_slice`; the target of a chunk's last position
+  is the next chunk's first token, and the last chunk drops its final
   position);
-- the rank's mean loss weighted by its share of the B x (S-1) targets,
-  so that FSDP's gradient average over (replicate, shard) -- the one
-  reduction over data and fsdp -- is the gradient of the global mean;
+- the rank's mean loss weighted by its share of the B x (S-1) targets
+  over the times its rows repeat, so that FSDP's gradient average over
+  (replicate, shard) -- the one reduction over data and fsdp -- is the
+  gradient of the global mean; an expert weight's gradient, which the
+  all_to_all's backward already sums over the expert group, is summed
+  over the ranks holding the same experts and divided by the same count
+  FSDP divides by (that count includes 'expert': a plain average over
+  the other ranks would leave it `expert` times too large);
 - the clip's global norm over the whole gradient tree (optax's
   `global_norm`): squares of each rank's FSDP shard summed over the
-  shard group, tensor-parallel slices also over the tensor group, a
-  parameter replicated over tensor counted once;
-- AdamW elementwise on the shards.
+  shard group, of its experts over the expert group, tensor-parallel
+  slices also over the tensor group, a parameter replicated over tensor
+  (or an expert slice over its replicas) counted once;
+- AdamW elementwise on the shards (the expert weights, plain tensors,
+  in a param group of their own beside FSDP2's DTensors).
 
 No step reads a value back to the host: `loss`, `grad_norm` and `step`
 stay device tensors, fetched only at log boundaries and at the end of a
@@ -80,14 +95,16 @@ def learning_rate(cfg: TrainConfig, count: int) -> float:
     return peak * ((1 - alpha) * cosine + alpha)
 
 
-def make_optimizer(params: List[nn.Parameter], cfg: TrainConfig
+def make_optimizer(params: List[Any], cfg: TrainConfig
                    ) -> Tuple[torch.optim.Optimizer,
                               torch.optim.lr_scheduler.LambdaLR]:
     """AdamW and its schedule, equal to the JAX trainer's optax
     `adamw(warmup_cosine_decay_schedule)`: decoupled weight decay scaled
     by the learning rate on every parameter, eps outside the square
     root.  The global-norm clip that precedes it in the optax chain is
-    `clip_by_global_norm_`, applied by the train step."""
+    `clip_by_global_norm_`, applied by the train step.  `params`: the
+    parameters, or param groups of them (dicts, as torch.optim takes),
+    all on the one schedule."""
     if cfg.total_steps <= cfg.warmup_steps:
         raise ValueError(f'total_steps {cfg.total_steps} must exceed '
                          f'warmup_steps {cfg.warmup_steps} (optax requires '
@@ -125,27 +142,33 @@ def lm_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
                            targets.reshape(-1))
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard; a plain tensor (an expert weight) as is."""
+    return t.to_local() if hasattr(t, 'to_local') else t
+
+
 class ShardedLayout:
     """How a Llama on `mesh` trains: the FSDP2 mesh, the groups the step
-    reduces over, and which parameters are tensor-parallel slices."""
+    reduces over, which parameters are tensor-parallel slices and which
+    are expert weights."""
 
     def __init__(self, model: nn.Module, mesh) -> None:
         shape = mesh.shape
-        if shape['pipeline'] != 1:
-            raise ValueError('pipeline parallelism waits for the '
-                             'pipeline slice of the port (pipeline=1)')
         self.mesh = mesh
         self.train_mesh = mesh.train_mesh()
-        self.fsdp_mesh = self.train_mesh['replicate', 'shard']
+        self.fsdp_mesh = mesh.fsdp_mesh()
         self.shard_group = self.train_mesh.get_group('shard')
         self.replicate_group = self.train_mesh.get_group('replicate')
         self.tensor_group = mesh.group('tensor')
         self.context_parallel = model.cfg.attention_impl == 'ring'
-        # FSDP averages every gradient over this many ranks; under context
-        # parallelism the 'expert' ranks of a row block hold the same
-        # tokens (rows split over dcn and data only).
+        # FSDP averages every gradient over this many ranks.  The batch
+        # is not split over 'pipeline', so each row is on that many
+        # ranks; under context parallelism the 'expert' ranks of a row
+        # block also hold the same tokens (rows split over dcn and data
+        # only).
         self.n_avg = self.fsdp_mesh.size()
-        self.dup = shape['expert'] if self.context_parallel else 1
+        self.dup = shape['pipeline'] * (shape['expert']
+                                        if self.context_parallel else 1)
         # Parameter name -> the dim split over 'tensor' (None: whole).
         from skypilot_tpu_torch.models.llama import param_shapes
         self.tensor_dim: Dict[str, Optional[int]] = {}
@@ -154,35 +177,78 @@ class ShardedLayout:
                 sharding.tensor_spec(name, full, shape)) if axes == 'tensor']
             self.tensor_dim[name] = (dims[0] if dims and shape['tensor'] > 1
                                      else None)
+        self.expert_names = {name for name in self.tensor_dim
+                             if sharding.is_expert_param(name)}
+        if self.expert_names:
+            if self.context_parallel and shape['expert'] > 1:
+                raise ValueError('a MoE model under ring attention trains '
+                                 'at expert=1 (the expert ranks of a row '
+                                 'block hold the same tokens)')
+            self.expert_mesh = mesh.expert_mesh()
+            self.expert_group = mesh.group('expert')
+            self.expert_replicate_group = self.expert_mesh.get_group(
+                'replicate')
 
     def global_view(self, t: torch.Tensor, name: str) -> torch.Tensor:
         """The FSDP shard `t` (a DTensor over `fsdp_mesh`) of parameter
         `name`, or of one of its AdamW moments, as a DTensor of the whole
         parameter over `train_mesh` (sharing `t`'s storage): what a
-        checkpoint saves and restores onto any plan."""
+        checkpoint saves and restores onto any plan.  An expert weight's
+        slice (a plain tensor) becomes a DTensor over `expert_mesh`."""
         from torch.distributed.tensor import DTensor, Replicate, Shard
         dim = self.tensor_dim[name]
         shape = list(t.shape)
         if dim is not None:
             shape[dim] *= self.mesh.shape['tensor']
+        tensor_place = Replicate() if dim is None else Shard(dim)
+        if name in self.expert_names:
+            shape[0] *= self.mesh.shape['expert']
+            mesh, local = self.expert_mesh, t.detach()
+            placements = [tensor_place, Shard(0), Replicate()]
+        else:
+            mesh, local = self.train_mesh, t.detach().to_local()
+            placements = [tensor_place, *t.placements]
         stride = [math.prod(shape[i + 1:]) for i in range(len(shape))]
-        return DTensor.from_local(
-            t.detach().to_local(), self.train_mesh,
-            [Replicate() if dim is None else Shard(dim), *t.placements],
-            run_check=False, shape=torch.Size(shape), stride=tuple(stride))
+        return DTensor.from_local(local, mesh, placements, run_check=False,
+                                  shape=torch.Size(shape),
+                                  stride=tuple(stride))
+
+    def reduce_expert_grads(self, named_grads) -> None:
+        """Each expert weight's gradient summed over the ranks holding
+        the same experts, over the count FSDP divides the others by."""
+        grads = [g for name, g in named_grads if name in self.expert_names]
+        if not grads:
+            return
+        if dist.get_world_size(self.expert_replicate_group) > 1:
+            for g in grads:
+                dist.all_reduce(g, group=self.expert_replicate_group)
+        torch._foreach_div_(grads, float(self.n_avg))
 
     def global_norm(self, named_grads) -> torch.Tensor:
         """The norm of the whole gradient tree from this rank's shards."""
-        split, whole = [], []
+        parts = {key: [] for key in ('split', 'whole', 'expert split',
+                                     'expert whole')}
         for name, g in named_grads:
-            (whole if self.tensor_dim[name] is None else split).append(
-                g.to_local())
-        sq = torch.stack([
-            torch.stack(torch._foreach_norm(part)).square().sum() if part
-            else torch.zeros((), device=self.mesh.device)
-            for part in (split, whole)]).float()
+            key = 'whole' if self.tensor_dim[name] is None else 'split'
+            if name in self.expert_names:
+                key = 'expert ' + key
+            parts[key].append(_local(g))
+
+        def sum_sq(keys):
+            return torch.stack([
+                torch.stack(torch._foreach_norm(parts[k])).square().sum()
+                if parts[k] else torch.zeros((), device=self.mesh.device)
+                for k in keys]).float()
+
+        # [split, whole]: FSDP shards, then the expert slices.
+        sq = sum_sq(('split', 'whole'))
         if dist.get_world_size(self.shard_group) > 1:
             dist.all_reduce(sq, group=self.shard_group)
+        if self.expert_names:
+            expert_sq = sum_sq(('expert split', 'expert whole'))
+            if dist.get_world_size(self.expert_group) > 1:
+                dist.all_reduce(expert_sq, group=self.expert_group)
+            sq = sq + expert_sq
         split_sq = sq[:1].clone()
         if dist.get_world_size(self.tensor_group) > 1:
             dist.all_reduce(split_sq, group=self.tensor_group)
@@ -239,11 +305,19 @@ def make_train_state(model: nn.Module,
                              '(Llama(cfg, params, mesh))')
         from torch.distributed.fsdp import fully_shard
         layout = ShardedLayout(model, mesh)
-        for block in model.layers:
-            fully_shard(block, mesh=layout.fsdp_mesh)
-        fully_shard(model, mesh=layout.fsdp_mesh)
-    optimizer, schedule = make_optimizer(list(model.parameters()),
-                                         train_cfg or TrainConfig())
+        experts = [p for name, p in model.named_parameters()
+                   if name in layout.expert_names]
+        for module in (*model.layers, model):
+            fully_shard(module, mesh=layout.fsdp_mesh,
+                        ignored_params=set(experts) or None)
+    params = list(model.parameters())
+    if layout is not None and experts:
+        # foreach AdamW takes one kind of tensor a group (torch 2.11 refuses
+        # plain tensors beside DTensors): the expert weights get their own.
+        ids = {id(p) for p in experts}
+        params = [{'params': [p for p in params if id(p) not in ids]},
+                  {'params': experts}]
+    optimizer, schedule = make_optimizer(params, train_cfg or TrainConfig())
     return TrainState(model, optimizer, schedule,
                       torch.zeros((), dtype=torch.int64, device=device),
                       layout)
@@ -330,8 +404,9 @@ def make_sharded_train_step(
                 local.detach() * n_local) / (n_total * layout.dup)
             named = [(n, p.grad) for n, p in state.model.named_parameters()
                      if p.grad is not None]
+            layout.reduce_expert_grads(named)
             norm = layout.global_norm(named)
-            grad_norm = clip_by_global_norm_([g.to_local() for _, g in named],
+            grad_norm = clip_by_global_norm_([_local(g) for _, g in named],
                                              cfg.grad_clip, norm)
         state.optimizer.step()
         state.schedule.step()

@@ -11,8 +11,9 @@ parallel/sharding.py.
   all-reduced the gradient of the row exit again would double them).
 
 Processes are spawned (gloo on the CPU, one intra-op thread each), every
-wait bounded.  This module imports no JAX at its top: the spawned
-processes import it by name.
+wait bounded, under the rank-pool lock (`tests/torch_rank_lock.py`).
+This module imports no JAX at its top: the spawned processes import it
+by name.
 """
 import dataclasses
 import multiprocessing
@@ -22,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
+import torch_rank_lock
 
 from skypilot_tpu_torch.models import llama as tl
 from skypilot_tpu_torch.parallel import distributed as tdist
@@ -100,20 +102,21 @@ def spawn_hosts(n_hosts, local_ranks):
     the reports of every rank.  The hosts are not daemonic (a host spawns
     its local ranks); they are stopped within the wait's bound."""
     ctx = multiprocessing.get_context('spawn')
-    queue = ctx.Queue()
-    port = group_lib.free_port()
-    ips = ['127.0.0.1'] * n_hosts
-    procs = [ctx.Process(
-        target=host_process,
-        args=(tdist.distributed_env_from_cluster(ips, node, port), queue,
-              local_ranks)) for node in range(n_hosts)]
-    for proc in procs:
-        proc.start()
-    try:
-        reports = [queue.get(timeout=JOIN_TIMEOUT_S)
-                   for _ in range(n_hosts * local_ranks)]
-    finally:
-        group_lib.stop_processes(procs, JOIN_TIMEOUT_S)
+    with torch_rank_lock.hold('spawn_hosts'):
+        queue = ctx.Queue()
+        port = group_lib.free_port()
+        ips = ['127.0.0.1'] * n_hosts
+        procs = [ctx.Process(
+            target=host_process,
+            args=(tdist.distributed_env_from_cluster(ips, node, port), queue,
+                  local_ranks)) for node in range(n_hosts)]
+        for proc in procs:
+            proc.start()
+        try:
+            reports = [queue.get(timeout=JOIN_TIMEOUT_S)
+                       for _ in range(n_hosts * local_ranks)]
+        finally:
+            group_lib.stop_processes(procs, JOIN_TIMEOUT_S)
     assert all(proc.exitcode == 0 for proc in procs), [p.exitcode
                                                       for p in procs]
     return sorted(reports)
@@ -210,8 +213,9 @@ def test_tensor_parallel_gradients_equal_one_device():
     want_loss.backward()
     want_loss = want_loss.detach()
     want = {n: p.grad.numpy() for n, p in one.named_parameters()}
-    with group_lib.RankPool(2, 'gloo', timeout_s=JOIN_TIMEOUT_S,
-                            threads=1) as pool:
+    with torch_rank_lock.hold('tensor-parallel gradients'), \
+            group_lib.RankPool(2, 'gloo', timeout_s=JOIN_TIMEOUT_S,
+                               threads=1) as pool:
         pool.run(os.nice, 10, timeout_s=JOIN_TIMEOUT_S)
         out = pool.run(rank_tp_grads, full, tokens, timeout_s=JOIN_TIMEOUT_S)
     from skypilot_tpu_torch.parallel import sharding

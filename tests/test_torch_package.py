@@ -190,6 +190,7 @@ COPIED_NAMES = {
                                 'ENV_NUM_SLICES', 'ENV_SLICE_ID',
                                 'DEFAULT_COORDINATOR_PORT',
                                 'distributed_env_from_cluster'],
+    'exceptions.py': ['SkyTpuError', 'InvalidRequestError'],
 }
 
 
@@ -254,4 +255,26 @@ def test_sharded_training_slice_modules_are_covered():
     assert callable(ring_attention.ring_attention_reference)
     text = (PORT / 'parallel' / 'distributed.py').read_text()
     assert 'def megascale_env_from_cluster' not in text
+    assert len(list((PORT / 'csrc').glob('*.cu*'))) == 4
+
+
+def test_pipeline_expert_and_graft_slice_modules_are_covered():
+    """The isolation checks above walk every module of the port; the
+    pipeline / expert-parallel / validation slice's modules and the graft
+    entry's twin are among them, the package exports the new names, the
+    device table holds the card's entry and no TPU, and no kernel source
+    was added."""
+    mods = set(_port_modules())
+    assert {'skypilot_tpu_torch.parallel.pipeline',
+            'skypilot_tpu_torch.parallel.validate',
+            'skypilot_tpu_torch.exceptions',
+            'skypilot_tpu_torch.graft_entry'} <= mods
+    from skypilot_tpu_torch import parallel
+    for name in ('pipeline_apply', 'stack_stage_params',
+                 'stage_param_sharding', 'validate_placement',
+                 'PlacementReport'):
+        assert name in parallel.__all__ and hasattr(parallel, name)
+    assert sorted(parallel.validate.DEVICES) == ['h100']
+    text = (PORT / 'models' / 'moe.py').read_text()
+    assert 'Left out' not in text
     assert len(list((PORT / 'csrc').glob('*.cu*'))) == 4

@@ -31,6 +31,7 @@ import urllib.request
 import numpy as np
 import pytest
 import torch
+import torch_rank_lock
 
 from skypilot_tpu_torch.inference import kv_transfer
 from skypilot_tpu_torch.inference.engine import DecodeEngine, EngineConfig
@@ -422,14 +423,16 @@ def same_on_every_rank(out):
 def pools():
     """Pools of 2 and 4 gloo ranks, and two 2-rank pools whose rank 1
     dies in its test (a short collective timeout), started together
-    (each rank imports torch and this module once)."""
-    made = {t: group_lib.RankPool(t, 'gloo', timeout_s=POOL_TIMEOUT_S,
-                                  threads=1) for t in (2, 4)}
-    made.update({('dying', loop): group_lib.RankPool(
-        2, 'gloo', timeout_s=10.0, threads=1) for loop in (True, False)})
-    yield made
-    for pool in made.values():
-        pool.close()
+    (each rank imports torch and this module once), under the rank-pool
+    lock (`tests/torch_rank_lock.py`): one file spawns ranks at a time."""
+    with torch_rank_lock.hold(__name__):
+        made = {t: group_lib.RankPool(t, 'gloo', timeout_s=POOL_TIMEOUT_S,
+                                      threads=1) for t in (2, 4)}
+        made.update({('dying', loop): group_lib.RankPool(
+            2, 'gloo', timeout_s=10.0, threads=1) for loop in (True, False)})
+        yield made
+        for pool in made.values():
+            pool.close()
 
 
 @pytest.fixture(scope='module')
