@@ -29,7 +29,12 @@ followed by its seconds:
    bench-1b training shape (forward, dq, dk/dv), and one profiled launch
    of each (registers per thread and shared memory as launched); the
    same times at the MoE prefill shape (forward) and the MoE training
-   shape (forward, dq, dk/dv; GQA group 4).
+   shape (forward, dq, dk/dv; GQA group 4).  Then the small-head-dim
+   forward (head_dim 16 and 32: csrc/flash_attention_fwd_small.cu) at
+   the perf gate probe's shapes (SMALL_SHAPES: S = 8, 16, 128, causal
+   and not, bf16 and fp16, and head_dim 32 at one shape) against its
+   plain version (out within SMALL_ATOL beyond one output ulp, lse
+   within SMALL_ATOL), timed with its plain version and SDPA at S=16.
 4. Serving: llama2-7b at full width, 16 of its 32 layers (SERVE; bf16
    random weights from a seed) behind the port's HTTP app on a local port, 8 prompts of 219
    tokens plus one of 300 (chunked prefill), 32 new tokens each; every
@@ -49,7 +54,8 @@ followed by its seconds:
    From here through the MoE serving phase SKYTPU_STRICT_RECOMPILE=1:
    every engine is prewarmed, and its traffic must build nothing (no
    counted build, no perf.recompile event).
-5. Paged serving, over the same weights and prompts (PAGED): the dense
+5. Paged serving, over the same prompts and the first 8 of the serving
+   weights' 16 layers (PAGED): the dense
    and the 64-token-paged engine on the engine API, each with its decode
    call as a CUDA graph and eager (identical tokens all four ways; out-
    tok/s, TTFT p50 and one profiled decode call each, its decode-only
@@ -66,11 +72,15 @@ followed by its seconds:
    speculative token within LOGITS_RTOL of the argmax of a teacher-forced
    forward through the kernel.
 6. Checkpoint: the serving weights saved through the port's
-   CheckpointManager, restored by the server's build_model with
-   --checkpoint and --param-dtype bfloat16 and served over HTTP (tokens
-   equal to the in-memory model's); then a sentinel lm_head installed
-   with update_params mid-request under the graph (every later token a
-   sentinel, none before).
+   CheckpointManager into a bucket of a fake-GCS root
+   (SKYTPU_FAKE_GCS_ROOT), restored by the server's build_model with
+   --checkpoint and --param-dtype bfloat16 from the local path and from
+   gs:// (fetched to a temp directory, which must be gone afterwards),
+   both bit-equal to the in-memory weights; the local restore served
+   over HTTP (tokens equal to the in-memory model's), the gs:// restore
+   on the engine API (tokens equal to the local one's); then a
+   sentinel lm_head installed with update_params mid-request under the
+   graph (every later token a sentinel, none before).
 6b. Tensor-parallel serving (TENSOR), over the serving weights and
    prompts: (a) two gloo ranks on cuda:0 print which of all_reduce,
    broadcast and all_gather_into_tensor gloo runs on bf16, f32 and int8
@@ -105,8 +115,12 @@ followed by its seconds:
    attention_impl='xla' on the tokens whose routing agrees in every
    layer (the share that flips is printed, not gated).
 8. Training: bench-1b at full width and depth (f32 params, bf16 compute,
-   remat 'none') through Trainer.run at batch 4, seq 4096: 2 untimed and
-   8 timed steps, launch counts read around the timed steps (2 forward,
+   remat 'none') through Trainer.run at batch 4, seq 4096, as a managed
+   job's trainer (SKYTPU_GOODPUT_JOB set, SKYTPU_JOBS_DB a sqlite file of
+   a temp directory, SKYTPU_DB_URL unset): 2 untimed and 8 timed steps,
+   then the durable goodput ledger's totals equal to the recorder's
+   within LEDGER_ATOL_S, productive seconds > 0 and its interval rows
+   tiling the run; launch counts read around the timed steps (2 forward,
    1 dq and 1 dk/dv launch per layer per step), step time, tokens/s, MFU
    and peak memory; then one step's loss and gradients at batch 1
    through the kernels against the same step with the backward kernels'
@@ -180,13 +194,22 @@ followed by its seconds:
    against the card's memory (mem_get_info read at the start of the run
    with a one-rank NCCL group) and one placement printed.  Each of the
    three kernels must launch on at least one of phases 12-15.
-16. Result: the kernels JSON line (per kernel also TFLOP/s, ptxas
+16. Perf gate: the run of `python -m skypilot_tpu_torch.perf.gate`
+   (perf/gate.py) on the card: the `tiny` serve probe (head_dim 16,
+   dense and int8-paged engines) against the newest committed
+   BENCH_*.json: report ok, every ratio check a cross-host skip, the
+   three live gauges within 5% of the cost model, the roofline rows
+   printed; the probe's prefills launch the small-head-dim forward
+   (counted, every counter zeroed just before) and no wgmma kernel.
+17. Result: the kernels JSON line (per kernel also TFLOP/s, ptxas
    registers and spill-store bytes, shared memory per launch; launches
    by path: serving, paged, checkpoint, tensor_serving (rank 0 of (b)
    and (d)), moe_serving, training, moe_training, rl, sharded_training
    (rank 0 of (b)-(d) and (f)), pipeline, expert_parallel,
-   moe_tensor_serving (rank 0 each) and graft_entry), the nvidia-smi
-   line, then {"ok": true, "device": {...}} as the last line.
+   moe_tensor_serving (rank 0 each), graft_entry and perf_gate; the
+   small-head-dim forward's row launched on perf_gate only), the
+   nvidia-smi line, then {"ok": true, "device": {...}} as the last
+   line.
 
 Needs one CUDA device; exits non-zero without one and imports nothing of
 JAX or of the JAX package.
@@ -245,7 +268,8 @@ GRAD_PLAIN_RTOL = 1e-2
 GRAD_NORM_RTOL = 0.1
 GRAD_GLOBAL_RTOL = 1e-2
 LOSS_RTOL = 1e-2
-TRAIN = dict(model='bench-1b', batch=4, seq=4096, warm_steps=2,
+TRAIN = dict(model='bench-1b', ledger='chip-smoke-bench-1b', batch=4,
+             seq=4096, warm_steps=2,
              timed_steps=8, grad_batch=1, warmup_steps=5, total_steps=1000)
 # (b, hq, hkv, s, d) of the MoE paths' attention (MOE_SERVE, MOE_TRAIN):
 # the serving prefill (8 prompts in the 256 bucket) and the training step.
@@ -288,13 +312,15 @@ BWD_SHAPES = [(4, 16, 8, 4096, 128, True, 'bfloat16'),
 SERVE = dict(model='llama2-7b', n_layers=16, max_seq_len=448, n_slots=8,
              steps_per_call=32, prefill_buckets=(256,), prompt_len=219,
              n_prompts=8, long_prompt_len=300, max_tokens=32)
-# The paged serving phase, over the serving phase's weights and prompts
-# (model and max_seq_len are SERVE's): 64-token pages divide the bucket
+# The paged serving phase, over the serving phase's prompts and the
+# first n_layers of its weights' 16 layers (model and max_seq_len are
+# SERVE's; the depth cut keeps the smoke near half its time limit as
+# phases are added): 64-token pages divide the bucket
 # and max_seq_len, so full backing is 8 * 448/64 + 1 = 57 pages.  The
 # hit burst shares a 192-token (3-page) prefix; the handoff takes 4
 # prompts; the profiled decode call runs with 64-token budgets so the
 # second call is all decode.
-PAGED = dict(model='llama2-7b', max_seq_len=448, n_slots=8,
+PAGED = dict(model='llama2-7b', n_layers=8, max_seq_len=448, n_slots=8,
              steps_per_call=32, prefill_buckets=(256,), kv_page_size=64,
              prefix_len=192, tail_len=27, max_tokens=32, spec_k=4,
              handoff_prompts=4)
@@ -506,6 +532,7 @@ def cold_l2_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 # Kernel symbols as ptxas and the profiler name them, by wrapper.
 KERNEL_SYMBOLS = {'flash_attention_fwd': 'fa_fwd_kernel',
+                  'flash_attention_fwd_small': 'fa_fwd_small_kernel',
                   'flash_attention_bwd_dq': 'fa_bwd_dq_kernel',
                   'flash_attention_bwd_dkv': 'fa_bwd_dkv_kernel'}
 
@@ -843,6 +870,102 @@ def kernel_phase(device):
     }
 
 
+# The small-head-dim forward (head_dim 16 and 32, the `tiny` configs')
+# against its plain version: the JAX reference's own max-abs bound
+# (tests/test_ops.py) on the lse (f32 on both sides) and on the output
+# beyond the output's own rounding: kernel and plain version both round
+# the output to the input type, and where the two f32 values straddle a
+# rounding boundary they land one ulp apart (2^-7 of the value in bf16,
+# 1.56e-2 at |out| in [2, 4)), so |out - ref| <= SMALL_ATOL + ulp(ref).
+SMALL_ATOL = 5e-3
+# The perf gate's probe shapes (B=2, 4 query heads over 2 kv heads of
+# 16, its prefill buckets 8 and 16, and S=128, its max_seq_len), causal
+# and not, bf16 and fp16; head_dim 32 at one shape.  Timed at S=16.
+SMALL_SHAPES = [(2, 4, 2, s, 16, causal, dtype)
+                for s in (8, 16, 128) for causal in (True, False)
+                for dtype in ('bfloat16', 'float16')]
+SMALL_SHAPES.append((2, 4, 2, 128, 32, True, 'bfloat16'))
+SMALL_TIMED_SHAPE = (2, 4, 2, 16, 16)
+
+
+def small_kernel_phase(device):
+    """The small-head-dim forward against its plain version at
+    SMALL_SHAPES, then its time, its plain version's and SDPA's at the
+    probe's S=16 shape beside the bound; returns the kernels-line entry
+    (launches aside)."""
+    import torch
+    import torch.nn.functional as F
+    from skypilot_tpu_torch.ops.cuda import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    max_err = 0.0
+    for b, hq, hkv, s, d, causal, dtype_name in SMALL_SHAPES:
+        dtype = getattr(torch, dtype_name)
+        q = torch.randn((b, hq, s, d), generator=gen, device=device).to(dtype)
+        k, v = (torch.randn((b, hkv, s, d), generator=gen,
+                            device=device).to(dtype) for _ in range(2))
+        before = fa.flash_attention_fwd_small.launches
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                          return_residuals=True)
+        torch.cuda.synchronize()
+        if fa.flash_attention_fwd_small.launches != before + 1:
+            raise SystemExit('flash_attention_fwd did not hand head_dim '
+                             f'{d} to the small kernel')
+        ref, ref_lse = fa.flash_attention_fwd_reference(
+            q, k, v, causal=causal, return_residuals=True)
+        ref = ref.float()
+        diff = (out.float() - ref).abs()
+        ulp = torch.finfo(dtype).eps * torch.exp2(torch.floor(torch.log2(
+            ref.abs().clamp_min(torch.finfo(dtype).tiny))))
+        err = diff.max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        beyond = (diff - ulp).max().item()
+        log(f'  flash_fwd_small b={b} hq={hq} hkv={hkv} s={s} d={d} '
+            f'causal={causal} {dtype_name}: out max_abs_err={err:.3e} '
+            f'(beyond one output ulp {max(beyond, 0.0):.3e}) lse '
+            f'max_abs_err={lse_err:.3e}')
+        if not (beyond <= SMALL_ATOL and lse_err <= SMALL_ATOL and
+                bool(torch.isfinite(out).all())):
+            raise SystemExit(
+                f'flash_attention_fwd_small disagrees with its plain '
+                f'version at {(b, hq, hkv, s, d, causal, dtype_name)}: out '
+                f'{err} ({beyond} beyond one ulp) lse {lse_err}')
+        max_err = max(max_err, err, lse_err)
+
+    b, hq, hkv, s, d = SMALL_TIMED_SHAPE
+    q = torch.randn((b, hq, s, d), generator=gen,
+                    device=device).to(torch.bfloat16)
+    k, v = (torch.randn((b, hkv, s, d), generator=gen,
+                        device=device).to(torch.bfloat16) for _ in range(2))
+
+    def call():
+        return fa.flash_attention_fwd(q, k, v)
+
+    ms = cuda_time_ms(call, iters=200)
+    plain_ms = cuda_time_ms(lambda: fa.flash_attention_fwd_reference(
+        q, k, v), iters=200)
+    library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), iters=200)
+    bound_ms, bound_by, flops, nbytes = attention_bound(b, hq, hkv, s, d,
+                                                        True)
+    launch = launch_attrs({KERNEL_SYMBOLS['flash_attention_fwd_small']:
+                           call})[KERNEL_SYMBOLS['flash_attention_fwd_small']]
+    log(f'  timing b={b} hq={hq} hkv={hkv} s={s} d={d} causal bf16 (the '
+        f'perf gate probe\'s prefill): kernel {ms:.4f} ms, plain '
+        f'{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound '
+        f'{bound_ms:.6f} ms ({bound_by}: {flops} FLOP, {nbytes} B): '
+        f'{bound_ms / ms:.2%} of bound; launch {launch}')
+    return {
+        'name': 'flash_attention_fwd_small', 'route': 'cuda',
+        'source': 'skypilot_tpu_torch/csrc/flash_attention_fwd_small.cu',
+        'replaces': 'skypilot_tpu/ops/pallas/flash_attention.py:37',
+        'max_abs_err': max_err, 'ms': ms, 'plain_ms': plain_ms,
+        'bound_ms': bound_ms, 'bound_by': bound_by,
+        'library_ms': library_ms, 'tflops': flops / ms / 1e9,
+        'launch': launch, 'shape': [b, hq, hkv, s, d, True, 'bfloat16'],
+    }
+
+
 def _free_port() -> int:
     with socket.socket() as sock:
         sock.bind(('127.0.0.1', 0))
@@ -980,9 +1103,15 @@ KERNEL_NAMES = ('flash_attention_fwd', 'flash_attention_bwd_dq',
                 'flash_attention_bwd_dkv')
 
 
+# The small-head-dim forward's wrapper: counted apart from KERNEL_NAMES,
+# whose counts the phases before the perf gate check exactly (no model
+# there has head_dim 16 or 32).
+SMALL_KERNEL = 'flash_attention_fwd_small'
+
+
 def zero_launches() -> None:
     from skypilot_tpu_torch.ops.cuda import flash_attention as fa
-    for name in KERNEL_NAMES:
+    for name in KERNEL_NAMES + (SMALL_KERNEL,):
         getattr(fa, name).launches = 0
 
 
@@ -1340,10 +1469,18 @@ def paged_phase(device, card, ctx):
     from skypilot_tpu_torch.inference import kv_quant, kv_transfer
     from skypilot_tpu_torch.inference.engine import DecodeEngine, EngineConfig
 
-    cfg, model = ctx['cfg'], ctx['model']
+    from skypilot_tpu_torch.models.llama import Llama
+
     if (PAGED['model'], PAGED['max_seq_len']) != (SERVE['model'],
-                                                  cfg.max_seq_len):
+                                                  ctx['cfg'].max_seq_len):
         raise SystemExit('PAGED must name the serving phase\'s model')
+    # The phase's depth cut: the first PAGED['n_layers'] of the serving
+    # weights' layers (the same tensors, not copies), at full width.
+    cfg = dataclasses.replace(ctx['cfg'], n_layers=PAGED['n_layers'])
+    model = Llama(cfg, {
+        name: t for name, t in ctx['params'].items()
+        if not name.startswith('layers.') or
+        int(name.split('.')[1]) < cfg.n_layers})
     prompts = ctx['prompts'] + [ctx['long_prompt']]
     n_new = PAGED['max_tokens']
     base = dict(n_slots=PAGED['n_slots'],
@@ -1428,9 +1565,9 @@ def paged_phase(device, card, ctx):
     got = runs['paged', False]['toks']
     groups, groups_d = runs['paged', False]['groups'], runs['dense', False][
         'groups']
-    log(f'  (1) flash launches of the paged graph run {counts}; tokens '
-        f'equal to the HTTP serving phase\'s '
-        f'{_share_equal(want, ctx["http_ids"]):.4f}')
+    log(f'  (1) {cfg.n_layers} of the serving weights\' '
+        f'{ctx["cfg"].n_layers} layers; flash launches of the paged graph '
+        f'run {counts}')
     for name in ('dense', 'paged'):
         graph_toks, eager_toks = (runs[name, eager]['toks']
                                   for eager in (False, True))
@@ -1446,7 +1583,6 @@ def paged_phase(device, card, ctx):
         raise SystemExit(f'flash launched {counts} over {groups} prefill '
                          f'groups of {cfg.n_layers} layers')
     paged._pool_alloc.check_conserved()
-    ctx['dense_toks'] = want
     ctx['graph_runs'] = {f'{name}_{"eager" if eager else "graph"}': {
         'out_tok_s': toks / r['wall'], 'ttft_p50_ms': _p50(r['ttft']) * 1e3,
         'decode_call_wall_ms': r['wall_ms'], 'decode_call_busy_ms':
@@ -1768,8 +1904,17 @@ def checkpoint_phase(device, card, ctx):
     from skypilot_tpu_torch.train.checkpoint import CheckpointManager
 
     cfg, model = ctx['cfg'], ctx['model']
-    directory = os.path.join(REPO, 'build', 'chip_smoke_checkpoint')
-    shutil.rmtree(directory, ignore_errors=True)
+    # The checkpoint is written straight into a bucket of a fake-GCS root
+    # (SKYTPU_FAKE_GCS_ROOT), so the same bytes load from the local path
+    # and from gs://, and the gs:// load pays only the fetch's copy.
+    gcs_root = os.path.join(REPO, 'build', 'chip_smoke_gcs')
+    bucket, prefix = 'chip-smoke-ckpt', SERVE['model']
+    directory = os.path.join(gcs_root, bucket, prefix)
+    url = f'gs://{bucket}/{prefix}'
+    shutil.rmtree(gcs_root, ignore_errors=True)
+    saved_root = os.environ.get('SKYTPU_FAKE_GCS_ROOT')
+    os.environ['SKYTPU_FAKE_GCS_ROOT'] = gcs_root
+    fetched_before = _fetched_checkpoints()
     try:
         t0 = time.perf_counter()
         CheckpointManager(directory).save(0, model)
@@ -1781,24 +1926,40 @@ def checkpoint_phase(device, card, ctx):
         name = f'{SERVE["model"]}-{cfg.n_layers}-layers'
         LLAMA_CONFIGS[name] = dataclasses.replace(
             LLAMA_CONFIGS[SERVE['model']], n_layers=cfg.n_layers)
-        args = server.parse_args([
-            '--model', name, '--max-seq-len',
-            str(SERVE['max_seq_len']), '--checkpoint', directory,
-            '--param-dtype', 'bfloat16', '--device', str(device)])
-        t0 = time.perf_counter()
-        restored = server.build_model(args)
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
+        restored, load_s = {}, {}
+        for how, path in (('local', directory), ('gs', url)):
+            args = server.parse_args([
+                '--model', name, '--max-seq-len',
+                str(SERVE['max_seq_len']), '--checkpoint', path,
+                '--param-dtype', 'bfloat16', '--device', str(device)])
+            t0 = time.perf_counter()
+            restored[how] = server.build_model(args)
+            torch.cuda.synchronize()
+            load_s[how] = time.perf_counter() - t0
     finally:
-        shutil.rmtree(directory, ignore_errors=True)
-    same = all(torch.equal(t, restored.state_dict()[name])
-               for name, t in model.state_dict().items())
+        shutil.rmtree(gcs_root, ignore_errors=True)
+        if saved_root is None:
+            os.environ.pop('SKYTPU_FAKE_GCS_ROOT', None)
+        else:
+            os.environ['SKYTPU_FAKE_GCS_ROOT'] = saved_root
+    left = _fetched_checkpoints() - fetched_before
+    same = {how: all(torch.equal(t, m.state_dict()[name])
+                     for name, t in model.state_dict().items())
+            for how, m in restored.items()}
     log(f'  saved {size_gb:.3f} GB in {save_s:.2f} s; build_model '
-        f'(--checkpoint, --param-dtype bfloat16) restored it in '
-        f'{load_s:.2f} s; params bit-equal to the in-memory model: {same}')
-    if not same or restored.cfg.param_dtype != torch.bfloat16:
+        f'(--checkpoint, --param-dtype bfloat16) restored it from the '
+        f'local path in {load_s["local"]:.2f} s and from {url} (fetched '
+        f'to a temp directory) in {load_s["gs"]:.2f} s; params bit-equal '
+        f'to the in-memory model: {same}; fetched directories left: '
+        f'{sorted(left)}')
+    if not all(same.values()) or any(
+            m.cfg.param_dtype != torch.bfloat16 for m in restored.values()):
         raise SystemExit('the restored checkpoint differs from the weights '
                          'it was saved from')
+    if left:
+        raise SystemExit(f'the gs:// fetch left {sorted(left)} behind')
+    gs_model = restored.pop('gs')
+    restored = restored.pop('local')
     engine = DecodeEngine(restored, EngineConfig(
         n_slots=SERVE['n_slots'], steps_per_call=SERVE['steps_per_call'],
         prefill_buckets=SERVE['prefill_buckets']), device=device)
@@ -1824,8 +1985,8 @@ def checkpoint_phase(device, card, ctx):
         f'{sum(map(len, ids)) / wall:.1f} out-tok/s (wall {wall:.3f} s), '
         f'TTFT p50 {ttfts[len(ttfts) // 2]:.1f} ms; flash launches '
         f'{counts}; tokens equal to the in-memory model\'s '
-        f'{_share_equal(ids, ctx["dense_toks"]):.4f}')
-    if ids != ctx['dense_toks']:
+        f'{_share_equal(ids, ctx["http_ids"]):.4f}')
+    if ids != ctx['http_ids']:
         raise SystemExit('the checkpoint serves other tokens than the '
                          'in-memory model')
 
@@ -1862,8 +2023,29 @@ def checkpoint_phase(device, card, ctx):
         raise SystemExit('the swap under the graph did not take effect at '
                          'the dispatch boundary')
     del engine, restored
+    # The gs:// restore served once on the engine API: the same tokens as
+    # the local path's over HTTP.
+    gs_engine = DecodeEngine(gs_model, EngineConfig(
+        n_slots=SERVE['n_slots'], steps_per_call=SERVE['steps_per_call'],
+        prefill_buckets=SERVE['prefill_buckets']), device=device)
+    gs_engine.prewarm()
+    gs_ids = _drive(gs_engine, prompts, SERVE['max_tokens'])[0]
+    log(f'  served the gs:// restore on the engine API: tokens equal to '
+        f'the local path\'s {_share_equal(gs_ids, ids):.4f}')
+    if gs_ids != ids:
+        raise SystemExit('the gs:// checkpoint serves other tokens than '
+                         'the local path')
+    del gs_engine, gs_model
     torch.cuda.empty_cache()
     return counts
+
+
+def _fetched_checkpoints() -> set:
+    """The gs:// fetch's temp directories (inference/weights.py) that
+    exist now."""
+    import tempfile
+    root = tempfile.gettempdir()
+    return {n for n in os.listdir(root) if n.startswith('skytpu-ckpt-')}
 
 
 # ----- tensor-parallel serving ------------------------------------------------
@@ -2104,8 +2286,8 @@ def tensor_serving_phase(device, card, ctx):
         f'(gate {LOGITS_RTOL}; one device\'s flash vs xla on the same '
         f'prompts: {floor:.2e}), argmax agreement {agree.item():.4f}; '
         f'greedy tokens equal to the one-device engine\'s: dense '
-        f'{_share_equal(lead["dense"], ctx["dense_toks"]):.4f}, paged '
-        f'{_share_equal(lead["paged"], ctx["dense_toks"]):.4f}, dense = '
+        f'{_share_equal(lead["dense"], ctx["http_ids"]):.4f}, paged '
+        f'{_share_equal(lead["paged"], ctx["http_ids"]):.4f}, dense = '
         f'paged {_share_equal(lead["dense"], lead["paged"]):.4f} (not '
         f'gated); out-tok/s dense {out_toks / lead["dense_wall"]:.1f}, '
         f'paged {out_toks / lead["paged_wall"]:.1f} (eager calls, gloo '
@@ -2150,11 +2332,11 @@ def tensor_serving_phase(device, card, ctx):
         group_lib.leave()
     log(f'  (d) tensor=1 over NCCL, decode call a CUDA graph with its '
         f'collectives (prewarm {prewarm_s:.1f} s): tokens equal to the '
-        f'mesh-free engine\'s {_share_equal(toks1, ctx["dense_toks"]):.4f}; '
+        f'mesh-free engine\'s {_share_equal(toks1, ctx["http_ids"]):.4f}; '
         f'{out_toks / wall1:.1f} out-tok/s, TTFT p50 '
         f'{_p50(ttft1) * 1e3:.1f} ms; flash launches {counts1} over '
         f'{groups1} prefill groups')
-    if toks1 != ctx['dense_toks']:
+    if toks1 != ctx['http_ids']:
         raise SystemExit('tensor=1 over NCCL emits other tokens than the '
                          'mesh-free engine')
     if counts1['flash_attention_fwd'] != cfg.n_layers * groups1:
@@ -2196,7 +2378,10 @@ def training_phase(device, card, smi, spec=TRAIN):
     check and one profiled step.  Returns the launch counts of the timed
     run."""
     import torch
+    import tempfile
+    from unittest import mock
     from skypilot_tpu_torch.models.llama import LLAMA_CONFIGS, Llama, init_params
+    from skypilot_tpu_torch.obs import goodput as goodput_lib
     from skypilot_tpu_torch.train import flops as flops_lib
     from skypilot_tpu_torch.train.trainer import TrainConfig, Trainer
 
@@ -2206,9 +2391,19 @@ def training_phase(device, card, smi, spec=TRAIN):
     t0 = time.perf_counter()
     model = Llama(cfg, init_params(
         cfg, device, torch.Generator(device=device).manual_seed(SEED)))
-    trainer = Trainer(model, TrainConfig(warmup_steps=spec['warmup_steps'],
-                                         total_steps=spec['total_steps']),
-                      device=device)
+    # A managed job's trainer (spec['ledger']): SKYTPU_GOODPUT_JOB makes
+    # its phase recorder write through to the durable goodput ledger, in
+    # a sqlite jobs store of its own (SKYTPU_DB_URL unset).
+    ledger_env = ({goodput_lib.JOB_ENV: spec['ledger'],
+                   'SKYTPU_JOBS_DB': os.path.join(
+                       tempfile.mkdtemp(prefix='chip-smoke-jobs-'),
+                       'managed_jobs.db')} if spec.get('ledger') else {})
+    with mock.patch.dict(os.environ, ledger_env):
+        if ledger_env:
+            os.environ.pop('SKYTPU_DB_URL', None)
+        trainer = Trainer(model, TrainConfig(
+            warmup_steps=spec['warmup_steps'],
+            total_steps=spec['total_steps']), device=device)
     tokens = torch.randint(
         0, cfg.vocab_size, (batch, seq), device=device,
         generator=torch.Generator(device=device).manual_seed(SEED + 2))
@@ -2270,6 +2465,8 @@ def training_phase(device, card, smi, spec=TRAIN):
     if not all(map(math.isfinite, losses + norms)):
         raise SystemExit(f'non-finite training loss or grad norm: {losses} '
                          f'{norms}')
+    if ledger_env:
+        check_ledger(trainer, spec['ledger'])
     # The xla path is a gate for a dense model; for MoE it is reported
     # only: its rounding can flip a near-tied routing choice.
     grad_check(trainer.model, cfg, tokens[:spec['grad_batch']],
@@ -2279,6 +2476,42 @@ def training_phase(device, card, smi, spec=TRAIN):
     del trainer, model
     torch.cuda.empty_cache()
     return counts
+
+
+# Ledger totals vs the recorder's, and the gap between one interval row's
+# end and the next one's start: the same f64 stamps summed in the same
+# order on both sides, so only float rounding may differ.
+LEDGER_ATOL_S = 1e-6
+
+
+def check_ledger(trainer, job):
+    """The durable goodput ledger of a managed job's trainer after its
+    runs: the recorder closed, the ledger's totals(job) equal to the
+    recorder's within LEDGER_ATOL_S per category, productive seconds
+    > 0, and the interval rows tiling the job's wall-clock (each row
+    starting where the one before ended, their durations summing to the
+    totals)."""
+    from skypilot_tpu_torch.obs import goodput as goodput_lib
+    totals = trainer.phases.close()
+    ledger = trainer.phases.ledger
+    rows = ledger.totals(job)
+    ivs = ledger.intervals(job)
+    gaps = [b['t0'] - a['t1'] for a, b in zip(ivs, ivs[1:])]
+    worst = max(abs(rows.get(c, 0.0) - totals.get(c, 0.0))
+                for c in set(rows) | set(totals))
+    spanned = sum(iv['t1'] - iv['t0'] for iv in ivs)
+    log(f'  goodput ledger ({goodput_lib.JOB_ENV}={job}, {ledger.dsn}): '
+        f'totals {({c: round(v, 6) for c, v in rows.items()})}; largest '
+        f'difference from the recorder {worst:.3e} s; {len(ivs)} interval '
+        f'rows spanning {spanned:.6f} s of {sum(totals.values()):.6f} s '
+        f'classified, largest gap {max(map(abs, gaps), default=0.0):.3e} '
+        f's; goodput {ledger.goodput_pct(job):.2f}%')
+    if (set(rows) != set(totals) or worst > LEDGER_ATOL_S or
+            rows.get(goodput_lib.PRODUCTIVE, 0.0) <= 0 or not ivs or
+            any(abs(g) > LEDGER_ATOL_S for g in gaps) or
+            abs(spanned - sum(totals.values())) > LEDGER_ATOL_S):
+        raise SystemExit(f'the goodput ledger disagrees with the trainer\'s '
+                         f'recorder: {rows} vs {totals}, gaps {gaps}')
 
 
 def _grad_diff(grads, ref):
@@ -4057,6 +4290,55 @@ def moe_tensor_serving_phase(device, card):
         ('fwd',))['fwd']
 
 
+def perf_gate_phase(device, card):
+    """The port's perf gate on the card (`python -m
+    skypilot_tpu_torch.perf.gate`'s run): the fresh `tiny` serve probe
+    on this card against the newest committed BENCH_*.json, every launch
+    counter zeroed just before and read just after.  The report must be
+    ok, with every ratio check a cross-host skip (the committed rounds
+    are TPU runs of another model), the live MFU and bytes-per-token
+    gauges (bf16 and int8 pages) within 5% of the cost model and one
+    roofline row per prefill bucket; the probe's prefills (head_dim 16)
+    must launch the small-head-dim forward and no wgmma kernel.  Returns
+    (the wgmma kernels' launch counts, the small kernel's)."""
+    import functools
+    import torch
+    from skypilot_tpu_torch.ops.cuda import flash_attention as fa
+    from skypilot_tpu_torch.perf import gate
+    from skypilot_tpu_torch.train import flops as flops_lib
+
+    baseline, _ = gate.latest_bench(REPO)
+    zero_launches()
+    t0 = time.perf_counter()
+    report = gate.run(baseline_path=baseline,
+                      probe_fn=functools.partial(gate.probe_serve, device))
+    torch.cuda.synchronize()
+    counts, small = read_launches(), fa.flash_attention_fwd_small.launches
+    for line in gate.render_report(report).splitlines():
+        log(f'  {line}')
+    log(f'  gate on {card} in {time.perf_counter() - t0:.1f} s: ok '
+        f'{report["ok"]}; small-head-dim forward launches {small}, wgmma '
+        f'kernels {counts}')
+    by_name = {c['name']: c for c in report['checks']}
+    ratio = [c for c in report['checks']
+             if c['name'].startswith('tolerance:')]
+    gauges = ('gauge-vs-bench-mfu', 'gauge-vs-bench-hbm-bytes-per-token',
+              'gauge-vs-bench-hbm-bytes-per-token-int8')
+    rows = [c for c in report['checks']
+            if c['name'].startswith('roofline:bucket=')]
+    if not (report['ok'] and ratio and
+            all(c['status'] == 'skip' for c in ratio) and
+            all(by_name[g]['status'] == 'ok' for g in gauges) and
+            len(rows) == 2 and
+            report['probe']['chip'] == flops_lib.chip_kind(device)):
+        raise SystemExit(f'the perf gate failed on the card: '
+                         f'{json.dumps(report["checks"])}')
+    if small <= 0 or any(counts.values()):
+        raise SystemExit(f'the gate\'s probe launched the small-head-dim '
+                         f'forward {small} times and {counts}')
+    return counts, small
+
+
 def hbm_probe():
     """(free, total) bytes of the card as torch.cuda.mem_get_info reads
     them once this process holds its CUDA context, the caching allocator
@@ -4181,6 +4463,9 @@ def main() -> int:
     log(f'[kernels] forward vs plain version (out |d| <= {OUT_ATOL} + '
         f'{OUT_RTOL}*|ref|, lse |d| <= {LSE_ATOL})')
     fwd = phase('kernels', kernel_phase, device)
+    log(f'[kernels] the small-head-dim forward vs plain version (out |d| '
+        f'<= {SMALL_ATOL} + one output ulp, lse |d| <= {SMALL_ATOL})')
+    small = phase('kernels', small_kernel_phase, device)
     log(f'[kernels] at the training shapes: forward as above, dq and dk/dv '
         f'vs plain versions (||d|| / ||ref|| <= {BWD_NORM_RTOL})')
     dq, dkv, fwd['at_training_shape'] = phase('kernels', bwd_kernel_phase,
@@ -4257,6 +4542,11 @@ def main() -> int:
     log('[graft_entry] entry() on the card; validate.py\'s h100 entry')
     by_path['graft_entry'], fwd['at_entry_shape'] = phase(
         'graft_entry', graft_entry_phase, device, card, smi, hbm)
+    log('[perf_gate] python -m skypilot_tpu_torch.perf.gate\'s run on the '
+        'card: tiny (head_dim 16) against the newest BENCH_*.json')
+    by_path['perf_gate'], small_launches = phase('perf_gate',
+                                                 perf_gate_phase, device,
+                                                 card)
     new_paths = ('pipeline', 'expert_parallel', 'moe_tensor_serving',
                  'graft_entry')
     for name in KERNEL_NAMES:
@@ -4294,6 +4584,16 @@ def main() -> int:
         entry['launches_by_path'] = counts
         rows.append({**{key: entry[key] for key in keys},
                      **{key: entry[key] for key in entry if key not in keys}})
+    # The small-head-dim forward: launched on the perf gate's path only
+    # (no other path runs head_dim 16 or 32).
+    report = ptxas.get((KERNEL_SYMBOLS[SMALL_KERNEL], 'bf16', 16), {})
+    small.update(registers=report.get('registers'),
+                 spill_bytes=report.get('spill_stores'),
+                 smem_bytes=small['launch'].get('shared memory'),
+                 launches=small_launches,
+                 launches_by_path={'perf_gate': small_launches})
+    rows.append({**{key: small[key] for key in keys},
+                 **{key: small[key] for key in small if key not in keys}})
     kernels = {'kernels': rows}
     log(f'[done] {time.perf_counter() - t_start:.1f} s')
     log(json.dumps(kernels))

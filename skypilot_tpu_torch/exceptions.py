@@ -8,5 +8,17 @@ class SkyTpuError(Exception):
     """Base class for all framework errors."""
 
 
+class InvalidTaskError(SkyTpuError):
+    """Task YAML / construction is invalid."""
+
+
+class InvalidSkyConfigError(SkyTpuError):
+    """Layered config file failed schema validation."""
+
+
 class InvalidRequestError(SkyTpuError):
     """API request body failed schema validation (HTTP 400)."""
+
+
+class StorageError(SkyTpuError):
+    """Base storage error."""

@@ -54,8 +54,10 @@ Text prompts use a byte-level tokenizer (token id = byte value); real
 deployments pass `prompt_ids` from their own tokenizer.
 
 Weights: `--checkpoint DIR` restores the latest step a port trainer
-saved there (inference/weights.py), cast to `--param-dtype`; without it
-the replica serves random weights from `--seed`.
+saved there (inference/weights.py), cast to `--param-dtype`; DIR may be
+a `gs://bucket/prefix`, fetched to a temp directory that is removed
+after the load.  Without it the replica serves random weights from
+`--seed`.
 
 Tensor parallelism: `--tensor N` (env SKYTPU_SERVE_TENSOR, which a serve
 spec's `tensor_parallel` sets) serves one replica over N ranks, weights
@@ -393,8 +395,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument(
         '--checkpoint', default=None,
         help='checkpoint directory written by the port\'s '
-        'train/checkpoint.py (step_<n>/state.pt; a local path): restores '
-        'trained params (the latest step) instead of random init')
+        'train/checkpoint.py (step_<n>/state.pt; a local path or '
+        'gs://bucket/prefix): restores trained params (the latest step) '
+        'instead of random init')
     parser.add_argument(
         '--param-dtype', choices=['float32', 'bfloat16'], default=None,
         help='dtype the params are held in (restored params are cast; '

@@ -1,19 +1,56 @@
-"""Training goodput: the phase vocabulary and the in-process recorder.
+"""Training goodput ledger + multi-host straggler detection.
 
-Copied from `skypilot_tpu/obs/goodput.py`: the category constants and
-`PhaseRecorder` verbatim (pinned by `tests/test_torch_train.py`) apart
-from `PhaseRecorder.from_env`.  The durable `GoodputLedger` and the
-straggler functions stay out until the managed-jobs port brings the
-state store they write to, so `from_env` refuses SKYTPU_GOODPUT_JOB
-instead of dropping the ledger.
+Serving got its trend layer in PR 19; this module gives training jobs
+the same treatment.  Every second of a managed job's wall-clock is
+classified into exactly one category — productive step time or one of
+the badput buckets below — and the classification survives the two
+ways training state usually dies: the *worker* process is preempted
+with its slice (the trainer's in-memory recorder is gone) and the
+*controller* restarts (its poll loop forgets what it was timing).
+Both therefore write through to one durable ``goodput_ledger`` table
+behind the pluggable state backend (sqlite + Postgres via the PR 15
+dialect layer, same idiom as obs/store.py), keyed ``(job, category)``
+with additive upserts — so the breakdown SUMS across recoveries and
+controller restarts, and ``goodput_pct = productive / wall`` is a
+number you can still compute after the job (and its cluster, and its
+processes) are all gone.
+
+Two producers write the ledger:
+
+- the **trainer** (train/trainer.py) runs a :class:`PhaseRecorder` —
+  an interval state machine over host-side ``perf_counter`` stamps
+  (ZERO device syncs, zero recompile perturbation: classification
+  never touches a jax value).  Coarse phases (init/XLA-compile,
+  checkpoint save/restore, productive windows) are interval
+  transitions; per-step input-stall time is *carved* out of the open
+  productive interval without a per-step flight-recorder event, so
+  the hot loop pays two ``perf_counter`` calls and a float add;
+- the **jobs controller** (jobs/controller.py) writes the categories
+  only it can see: ``preemption_downtime`` (preemption detected →
+  recovery dispatch) and ``recovery_relaunch`` (slice delete +
+  re-provision + resubmit → RUNNING again), bracketed by the
+  ``jobs.preemption`` / ``jobs.recovery`` flight-recorder instants
+  PR 11 already records.
+
+Straggler detection rides the per-host step-time histograms the
+trainer now exports (``skytpu_train_step_seconds{host=...}``): the
+store keeps the host label through downsampling
+(obs/store.py HISTOGRAM_SUB_FAMILIES) and
+:func:`step_time_skew` derives max-host-p50 / median-host-p50 per
+window into the ``skytpu_train_step_skew`` gauge, which the
+``straggler`` alert rule (obs/alerts.train_rules) burns on.
 """
 from __future__ import annotations
 
 import os
+import statistics
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
+from skypilot_tpu_torch.serve import metrics_math
+from skypilot_tpu_torch.server import metrics as metrics_lib
 from skypilot_tpu_torch.server import tracing
+from skypilot_tpu_torch.utils import db_utils
 
 # ----- categories -------------------------------------------------------------
 PRODUCTIVE = 'productive'
@@ -41,6 +78,139 @@ TRAIN_RID = 'train-goodput'
 # A trainer launched by a managed job finds its ledger identity here
 # (the task's run command exports it; tests set it directly).
 JOB_ENV = 'SKYTPU_GOODPUT_JOB'
+
+_DDL = [
+    # Additive per-(job, category) accumulator: the durable headline.
+    """CREATE TABLE IF NOT EXISTS goodput_ledger (
+        job TEXT NOT NULL,
+        category TEXT NOT NULL,
+        seconds REAL NOT NULL,
+        intervals INTEGER NOT NULL,
+        updated_at REAL NOT NULL,
+        PRIMARY KEY (job, category))""",
+    # Individual wall-clock intervals (recovery timeline feedstock for
+    # `skytpu jobs top` postmortems — the flight-recorder ring dies
+    # with its process; these rows do not).
+    """CREATE TABLE IF NOT EXISTS goodput_intervals (
+        job TEXT NOT NULL,
+        category TEXT NOT NULL,
+        t0 REAL NOT NULL,
+        t1 REAL NOT NULL,
+        PRIMARY KEY (job, category, t0))""",
+]
+
+
+def jobs_dsn() -> str:
+    """The ledger's default home: the managed-jobs control-plane store
+    (shared Postgres when SKYTPU_DB_URL is set, per-host sqlite
+    otherwise) — the controller and `jobs top` already read it."""
+    return db_utils.control_plane_dsn('SKYTPU_JOBS_DB',
+                                      '~/.skytpu/managed_jobs.db')
+
+
+class GoodputLedger:
+    """The durable (job, category) -> seconds accumulator.
+
+    Cheap to construct (schema creation is memoized by
+    db_utils.ensure_schema); every write is one small transaction, so
+    two producers (trainer on the task cluster, controller on the
+    control plane) can add concurrently without coordination — the
+    upsert is additive and they never write the same category."""
+
+    def __init__(self, dsn: Optional[str] = None) -> None:
+        self.dsn = dsn or jobs_dsn()
+
+    def _ensure(self) -> str:
+        db_utils.ensure_schema(self.dsn, _DDL)
+        return self.dsn
+
+    def add(self, job: str, category: str, seconds: float,
+            t0: Optional[float] = None, t1: Optional[float] = None,
+            now: Optional[float] = None) -> None:
+        """Accumulate ``seconds`` into (job, category); when the
+        interval's wall-clock bounds are known, also keep the interval
+        row (timeline evidence).  Zero/negative durations are dropped
+        — the recorder's tiling arithmetic never produces them, and a
+        skipped empty interval cannot create a gap (its neighbours
+        share the boundary stamp)."""
+        if category not in CATEGORIES:
+            raise ValueError(f'unknown goodput category: {category!r}')
+        if seconds <= 0:
+            return
+        now = time.time() if now is None else now
+        dsn = self._ensure()
+        with db_utils.transaction(dsn) as conn:
+            conn.execute(
+                'INSERT INTO goodput_ledger '
+                '(job, category, seconds, intervals, updated_at) '
+                'VALUES (?,?,?,1,?) '
+                'ON CONFLICT(job, category) DO UPDATE SET '
+                'seconds = goodput_ledger.seconds + excluded.seconds, '
+                'intervals = goodput_ledger.intervals + 1, '
+                'updated_at = excluded.updated_at',
+                (str(job), category, float(seconds), now))
+            if t0 is not None and t1 is not None and t1 > t0:
+                conn.execute(
+                    'INSERT INTO goodput_intervals (job, category, t0, t1) '
+                    'VALUES (?,?,?,?) '
+                    'ON CONFLICT(job, category, t0) DO NOTHING',
+                    (str(job), category, float(t0), float(t1)))
+
+    # ----- queries ------------------------------------------------------------
+    def totals(self, job: str) -> Dict[str, float]:
+        return {r['category']: float(r['seconds'])
+                for r in db_utils.query(
+                    self._ensure(),
+                    'SELECT category, seconds FROM goodput_ledger '
+                    'WHERE job=?', (str(job),))}
+
+    def wall(self, job: str) -> float:
+        """Total classified wall-clock (the categories tile it)."""
+        return sum(self.totals(job).values())
+
+    def goodput_pct(self, job: str) -> Optional[float]:
+        totals = self.totals(job)
+        wall = sum(totals.values())
+        if wall <= 0:
+            return None
+        return 100.0 * totals.get(PRODUCTIVE, 0.0) / wall
+
+    def downtime_s(self, job: str) -> float:
+        """Cumulative recovery cost: the controller-observed
+        categories (the `jobs queue` DOWNTIME column)."""
+        totals = self.totals(job)
+        return sum(totals.get(c, 0.0) for c in CONTROLLER_CATEGORIES)
+
+    def downtime_by_job(self) -> Dict[str, float]:
+        """One query for the whole queue listing."""
+        out: Dict[str, float] = {}
+        marks = ','.join('?' * len(CONTROLLER_CATEGORIES))
+        for r in db_utils.query(
+                self._ensure(),
+                f'SELECT job, SUM(seconds) AS s FROM goodput_ledger '
+                f'WHERE category IN ({marks}) GROUP BY job',
+                tuple(CONTROLLER_CATEGORIES)):
+            out[r['job']] = float(r['s'])
+        return out
+
+    def intervals(self, job: str, category: Optional[str] = None
+                  ) -> List[Dict]:
+        sql = ('SELECT category, t0, t1 FROM goodput_intervals '
+               'WHERE job=?')
+        params: list = [str(job)]
+        if category is not None:
+            sql += ' AND category=?'
+            params.append(category)
+        sql += ' ORDER BY t0'
+        return [{'category': r['category'], 't0': float(r['t0']),
+                 't1': float(r['t1'])}
+                for r in db_utils.query(self._ensure(), sql,
+                                        tuple(params))]
+
+    def jobs(self) -> List[str]:
+        return [r['job'] for r in db_utils.query(
+            self._ensure(),
+            'SELECT DISTINCT job FROM goodput_ledger ORDER BY job')]
 
 
 class PhaseRecorder:
@@ -90,17 +260,11 @@ class PhaseRecorder:
 
     @classmethod
     def from_env(cls) -> 'PhaseRecorder':
-        """The trainer's default: local recording (gauges + flight
-        recorder only).  A managed job exports SKYTPU_GOODPUT_JOB for the
-        durable ledger, which this package does not have yet: refused
-        rather than silently dropped."""
+        """The trainer's default: a managed job exports SKYTPU_GOODPUT_JOB
+        and gets durable accumulation; anything else records locally
+        (gauges + flight recorder only)."""
         job = os.environ.get(JOB_ENV, '').strip()
-        if job:
-            raise RuntimeError(
-                f'{JOB_ENV}={job!r} asks for the durable goodput ledger, '
-                f'which comes with the managed-jobs port; unset it to '
-                f'record phases locally')
-        return cls()
+        return cls(job=job, ledger=GoodputLedger() if job else None)
 
     def now(self) -> float:
         return self._clock()
@@ -194,3 +358,71 @@ class PhaseRecorder:
         if wall <= 0:
             return None
         return 100.0 * snap.get(PRODUCTIVE, 0.0) / wall
+
+
+# ----- straggler detection ----------------------------------------------------
+def step_time_skew(store, service: str, t0: float, t1: float,
+                   q: float = 0.5) -> Optional[Dict]:
+    """Per-host step-time skew over ``(t0, t1]``: max-host p50 over
+    median-host p50 from the host-labeled step histograms the store
+    keeps (HISTOGRAM_SUB_FAMILIES).  None below two reporting hosts —
+    a single host has no skew, and a dead scrape must not read as
+    'balanced'."""
+    by_host = store.histogram_window_by_replica(
+        service, metrics_lib.TRAIN_STEP_FAMILY, t0, t1)
+    p50s: Dict[str, float] = {}
+    for host, cum in by_host.items():
+        if not host:
+            continue  # unlabeled legacy series: no host attribution
+        v = metrics_math.quantile_from_cumulative(cum, q)
+        if v is not None and v > 0:
+            p50s[host] = v
+    if len(p50s) < 2:
+        return None
+    med = statistics.median(p50s.values())
+    if med <= 0:
+        return None
+    slow_host = max(p50s, key=lambda h: p50s[h])
+    return {
+        'skew': p50s[slow_host] / med,
+        'slow_host': slow_host,
+        'p50_by_host': p50s,
+    }
+
+
+def evaluate_stragglers(store, service: str,
+                        now: Optional[float] = None,
+                        window: Optional[float] = None
+                        ) -> Optional[Dict]:
+    """Controller-side skew tick: derive the window's skew, export it
+    as the ``skytpu_train_step_skew`` gauge AND write it into the
+    store (a derived gauge row), so the `straggler` alert rule burns
+    on the same number `jobs top` renders."""
+    if now is None:
+        now = store.last_t(service)
+        now = time.time() if now is None else now
+    if window is None:
+        window = max(60.0, 6.0 * store.resolution)
+    res = step_time_skew(store, service, now - window, now)
+    if res is None:
+        return None
+    metrics_lib.set_gauge(metrics_lib.TRAIN_STEP_SKEW_FAMILY,
+                          res['skew'], service=service)
+    store.put_gauge(service, metrics_lib.TRAIN_STEP_SKEW_FAMILY,
+                    res['skew'], now)
+    return res
+
+
+def train_obs_tick(store, service: str, exposition: str, now: float,
+                   engine=None, roles: Optional[Dict[str, str]] = None
+                   ) -> Optional[Dict]:
+    """One controller tick for a training job, mirroring the serve
+    controller's `_obs_tick`: ingest the workers' federated scrape,
+    derive the skew gauge, evaluate the train alert rules.  Returns
+    the skew result (None when skew is not derivable this tick)."""
+    skew = None
+    if store.ingest(service, exposition, now=now, roles=roles):
+        skew = evaluate_stragglers(store, service, now=now)
+        if engine is not None:
+            engine.evaluate(now)
+    return skew

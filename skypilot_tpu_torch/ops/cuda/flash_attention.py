@@ -6,7 +6,10 @@ PyTorch/CUDA counterparts of `skypilot_tpu/ops/pallas/flash_attention.py`:
   [B, Hkv, S, D] -> out [B, Hq, S, D] in q's dtype and, with
   `return_residuals=True`, the row logsumexp [B, Hq, S] f32 (+inf for
   all-masked rows).  Source `csrc/flash_attention_fwd.cu` (wgmma, a TMA
-  ring of K/V stages, the softmax in registers).
+  ring of K/V stages, the softmax in registers) at head_dim 64 and 128;
+  at head_dim 16 and 32 it hands the call to `flash_attention_fwd_small`
+  (`csrc/flash_attention_fwd_small.cu`: mma.sync m16n8k16, K/V tiles by
+  cp.async), whose launches it counts apart.
 - `flash_attention_bwd` (the Pallas `flash_attention_bwd`): the same
   contract minus `interpret`; delta = rowsum(dO * O) in PyTorch, then
   `flash_attention_bwd_dq` (`_fa_bwd_dq_kernel`; source
@@ -59,12 +62,18 @@ COMPILE_FLAGS = ARCH_FLAGS + ('-std=c++17', '-O3', '-Xcompiler', '-fPIC',
                               '-Xptxas', '-v', '-c')
 LINK_FLAGS = ARCH_FLAGS + ('-shared',)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1}
+# Head dims of the wgmma kernels (forward, dq, dk/dv), and the small ones
+# only the mma.sync forward takes.
 _HEAD_DIMS = (64, 128)
+_SMALL_HEAD_DIMS = (16, 32)
+_FWD_HEAD_DIMS = _SMALL_HEAD_DIMS + _HEAD_DIMS
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argtypes.
 _SIGNATURES = {
     'skytpu_flash_attention_fwd':
+        [_P] * 5 + [_I] * 6 + [ctypes.c_float, _I, _P],
+    'skytpu_flash_attention_fwd_small':
         [_P] * 5 + [_I] * 6 + [ctypes.c_float, _I, _P],
     'skytpu_flash_attention_bwd_dq':
         [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I, _P],
@@ -189,9 +198,10 @@ def _device_type(*tensors: torch.Tensor) -> str:
                      f'(all on one), got {sorted(devices)}')
 
 
-def _check_cuda_inputs(q, k, v, *same_as_q) -> None:
+def _check_cuda_inputs(q, k, v, *same_as_q, head_dims=_HEAD_DIMS) -> None:
     """q and same_as_q [B,Hq,S,D], k/v [B,Hkv,S,D]: one device and dtype
-    (bf16/fp16), head_dim 64/128, contiguous and 16-byte aligned."""
+    (bf16/fp16), head_dim in `head_dims`, contiguous and 16-byte
+    aligned."""
     b, hq, s, d = q.shape
     for name, t in (('q', q), ('k', k), ('v', v),
                     *((f'arg{i}', t) for i, t in enumerate(same_as_q))):
@@ -206,8 +216,9 @@ def _check_cuda_inputs(q, k, v, *same_as_q) -> None:
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f'flash-attention kernels take bf16/fp16, '
                          f'got {q.dtype}')
-    if d not in _HEAD_DIMS:
-        raise ValueError(f'head_dim {d} not in {_HEAD_DIMS}')
+    if d not in head_dims:
+        raise ValueError(f'head_dim {d} not in {head_dims}: the kernel '
+                         f'takes head_dim {", ".join(map(str, head_dims))}')
     if (k.dim() != 4 or k.shape != v.shape or k.shape[0] != b or
             k.shape[2] != s or k.shape[3] != d or hq % k.shape[1] or
             any(t.shape != q.shape for t in same_as_q)):
@@ -278,24 +289,54 @@ def flash_attention_fwd(q: torch.Tensor,
     if _device_type(q, k, v) == 'cpu':
         return flash_attention_fwd_reference(
             q, k, v, causal=causal, return_residuals=return_residuals)
-    _check_cuda_inputs(q, k, v)
+    _check_cuda_inputs(q, k, v, head_dims=_FWD_HEAD_DIMS)
+    if q.shape[3] in _SMALL_HEAD_DIMS:
+        return flash_attention_fwd_small(q, k, v, causal=causal,
+                                         return_residuals=return_residuals)
+    return _launch_fwd('skytpu_flash_attention_fwd', flash_attention_fwd,
+                       q, k, v, causal, return_residuals)
+
+
+flash_attention_fwd.launches = 0
+
+
+def _launch_fwd(entry: str, wrapper, q, k, v, causal, return_residuals):
+    """Launch a forward kernel through its C entry on checked CUDA inputs
+    and count the launch on `wrapper`."""
     b, hq, s, d = q.shape
     out = torch.empty_like(q)
     lse = (torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
            if return_residuals else None)
     lib = _LIBRARY.get()
     with torch.cuda.device(q.device):
-        err = lib.skytpu_flash_attention_fwd(
+        err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if lse is not None else None,
             b, hq, k.shape[1], s, d, _DTYPE_CODES[q.dtype], d**-0.5,
             int(causal), _stream(q.device))
-    _raise_on(err, 'flash_attention_fwd')
-    flash_attention_fwd.launches += 1
+    _raise_on(err, wrapper.__name__)
+    wrapper.launches += 1
     return (out, lse) if return_residuals else out
 
 
-flash_attention_fwd.launches = 0
+def flash_attention_fwd_small(q: torch.Tensor,
+                              k: torch.Tensor,
+                              v: torch.Tensor,
+                              causal: bool = True,
+                              return_residuals: bool = False):
+    """The forward at head_dim 16 or 32
+    (`csrc/flash_attention_fwd_small.cu`): `flash_attention_fwd`'s
+    contract, which calls it at those head dims."""
+    if _device_type(q, k, v) == 'cpu':
+        return flash_attention_fwd_reference(
+            q, k, v, causal=causal, return_residuals=return_residuals)
+    _check_cuda_inputs(q, k, v, head_dims=_SMALL_HEAD_DIMS)
+    return _launch_fwd('skytpu_flash_attention_fwd_small',
+                       flash_attention_fwd_small, q, k, v, causal,
+                       return_residuals)
+
+
+flash_attention_fwd_small.launches = 0
 
 # ----- backward ---------------------------------------------------------------
 

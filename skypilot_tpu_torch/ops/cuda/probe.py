@@ -2,12 +2,15 @@
 
     python -m skypilot_tpu_torch.ops.cuda.probe build  # nvcc, ptxas report
     python -m skypilot_tpu_torch.ops.cuda.probe check  # kernels vs plain
+    python -m skypilot_tpu_torch.ops.cuda.probe check small  # D = 16, 32
     python -m skypilot_tpu_torch.ops.cuda.probe time   # CUDA-event times
     python -m skypilot_tpu_torch.ops.cuda.probe time dq  # only names with 'dq'
 
 `check` holds the forward (out, lse) and the dk/dv and dq kernels against
 their plain versions at shapes on the edges of the kernels' tiles, up to
-bench-1b's training shape; `time` times the forward, dq and dk/dv at
+bench-1b's training shape, then the small-head-dim forward (head_dim 16
+and 32; no backward kernel takes them) at its tile edges; `check small`
+runs only the latter; `time` times the forward, dq and dk/dv at
 bench-1b's shape (B=4, Hq=16, Hkv=8, S=4096, D=128, causal bf16) and the
 forward at the serving shape (B=8, H=32, S=256), each the mean of 20 calls
 queued behind a spin kernel, so the device runs them back to back.  To
@@ -39,6 +42,17 @@ CHECK_SHAPES = [  # (b, hq, hkv, s, d, causal, dtype)
     (1, 4, 2, 1024, 128, True, torch.bfloat16),
     (4, 16, 8, 4096, 128, True, torch.bfloat16),
 ]
+# The small-head-dim forward: 64-row tiles, so S on both sides of 64 and
+# 128; GQA groups 1, 2 and 4; the `tiny` probe's S = 8 and 16.
+SMALL_CHECK_SHAPES = [
+    (b, hq, hkv, s, d, causal, dtype)
+    for b, hq, hkv in ((2, 4, 2),)
+    for s in (1, 5, 8, 16, 17, 63, 64, 65, 127, 128, 129)
+    for d in (16, 32)
+    for causal in (True, False)
+    for dtype in (torch.bfloat16, torch.float16)
+] + [(1, 8, 2, 1024, 16, True, torch.bfloat16),
+     (3, 4, 4, 300, 32, False, torch.float16)]
 SPIN_CYCLES = 20_000_000
 
 
@@ -52,6 +66,30 @@ def _inputs(gen, b, hq, hkv, s, d, dtype):
 
 def _norm_rel(x, ref) -> float:
     return ((x.float() - ref.float()).norm() / ref.float().norm()).item()
+
+
+def check_small() -> None:
+    """The forward at head_dim 16 and 32 against its plain version."""
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    worst = 0.0
+    for b, hq, hkv, s, d, causal, dtype in SMALL_CHECK_SHAPES:
+        q, k, v, _ = _inputs(gen, b, hq, hkv, s, d, dtype)
+        before = fa.flash_attention_fwd_small.launches
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                          return_residuals=True)
+        no_lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        ref, ref_lse = fa.flash_attention_fwd_reference(
+            q, k, v, causal=causal, return_residuals=True)
+        err = (out.float() - ref.float()).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        worst = max(worst, err, lse_err)
+        print(f'{(b, hq, hkv, s, d, causal, str(dtype)[6:])}: out max '
+              f'{err:.3e} lse max {lse_err:.3e} no-lse equal '
+              f'{bool(torch.equal(out, no_lse))} launches '
+              f'{fa.flash_attention_fwd_small.launches - before}',
+              flush=True)
+    print(f'small forward worst max-abs {worst:.3e}', flush=True)
 
 
 def check() -> None:
@@ -81,6 +119,7 @@ def check() -> None:
         print(line, flush=True)
         del ref_dq
         torch.cuda.empty_cache()
+    check_small()
 
 
 def _time_ms(fn, iters: int = 20) -> float:
@@ -125,7 +164,7 @@ def main(argv) -> int:
     if mode == 'build':
         print(fa.build())
     elif mode == 'check':
-        check()
+        check_small() if argv[2:] == ['small'] else check()
     elif mode == 'time':
         time_kernels(argv[2] if len(argv) > 2 else '')
     else:

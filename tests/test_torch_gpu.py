@@ -1,5 +1,6 @@
 """GPU-only checks of the PyTorch port: the hand-written flash-attention
-kernels (forward, dq, dk/dv) against their plain versions, the autograd
+kernels (forward, the head_dim 16/32 forward, dq, dk/dv) against their
+plain versions, the autograd
 op against autograd through `mha_reference`, the engine's kernel path
 against attention_impl='xla', a narrow model trained through the
 kernels, the engine's decode call as a CUDA graph against its eager
@@ -132,6 +133,43 @@ def test_flash_kernel_without_lse_matches_plain(cuda, s, causal):
     torch.testing.assert_close(out.float(), ref.float(), atol=OUT_ATOL,
                                rtol=OUT_RTOL)
     assert torch.equal(out, with_lse)
+
+
+# The small-head-dim forward (head_dim 16 and 32, 64-row tiles) at the
+# edges of its tiles: one row, below, at and past 64 and 128, GQA groups
+# 2 and 4, causal and not, bf16 and fp16.  Tolerance: the JAX
+# reference's max-abs 5e-3 (tests/test_ops.py) beyond one ulp of the
+# output, which kernel and plain version both round to the input type.
+SMALL_ATOL = 5e-3
+
+
+@pytest.mark.parametrize('s', [1, 5, 17, 63, 64, 65, 127, 128, 129])
+@pytest.mark.parametrize('d,hq,causal,dtype', [
+    (16, 4, True, torch.bfloat16), (16, 8, False, torch.float16),
+    (32, 4, True, torch.float16), (32, 8, False, torch.bfloat16)])
+def test_small_head_dim_kernel_matches_plain(cuda, s, d, hq, causal, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn((2, hq, s, d), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((2, 2, s, d), generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    before = (fa.flash_attention_fwd.launches,
+              fa.flash_attention_fwd_small.launches)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                      return_residuals=True)
+    no_lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_fwd.launches,
+            fa.flash_attention_fwd_small.launches) == (before[0],
+                                                       before[1] + 2)
+    ref, ref_lse = fa.flash_attention_fwd_reference(q, k, v, causal=causal,
+                                                    return_residuals=True)
+    ref = ref.float()
+    ulp = torch.finfo(dtype).eps * torch.exp2(torch.floor(torch.log2(
+        ref.abs().clamp_min(torch.finfo(dtype).tiny))))
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    assert bool(((out.float() - ref).abs() <= SMALL_ATOL + ulp).all())
+    torch.testing.assert_close(lse, ref_lse, atol=SMALL_ATOL, rtol=0)
+    assert torch.equal(out, no_lse)
 
 
 def test_flash_kernel_rejects_what_it_cannot_run(cuda):

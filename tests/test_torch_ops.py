@@ -92,6 +92,75 @@ def test_flash_fwd_plain_matches_pallas_interpret(causal, hkv):
         got_out.numpy(), atol=0, rtol=0)
 
 
+# The `tiny` configs' head_dim 16 (and 32) go to the small-head-dim
+# kernel on the card; its plain version on the CPU is the same function.
+@pytest.mark.parametrize('s,d,causal', [(8, 16, True), (16, 16, True),
+                                        (16, 16, False), (128, 16, True),
+                                        (128, 32, False), (16, 32, True)])
+def test_flash_fwd_small_head_dims_plain_match_pallas_interpret(s, d,
+                                                                causal):
+    q, k, v = _qkv(b=2, h=4, s=s, d=d, hkv=2, seed=5)
+    want_out, want_lse = jax_fa.flash_attention_fwd(
+        q, k, v, causal=causal, interpret=True, return_residuals=True)
+    before = (torch_fa.flash_attention_fwd.launches,
+              torch_fa.flash_attention_fwd_small.launches)
+    for fn in (torch_fa.flash_attention_fwd,
+               torch_fa.flash_attention_fwd_small):
+        got_out, got_lse = fn(*_t(q, k, v), causal=causal,
+                              return_residuals=True)
+        np.testing.assert_allclose(got_out.numpy(), np.asarray(want_out),
+                                   atol=FLASH_ATOL, rtol=0)
+        np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse),
+                                   atol=FLASH_ATOL, rtol=0)
+    assert (torch_fa.flash_attention_fwd.launches,
+            torch_fa.flash_attention_fwd_small.launches) == before
+
+
+def test_forward_dispatches_small_head_dims_to_their_kernel(monkeypatch):
+    """On a CUDA tensor the forward takes head_dim 16 and 32 to the
+    small kernel's C entry (counted on `flash_attention_fwd_small`), 64
+    and 128 to the wgmma kernel's, and refuses any other head_dim naming
+    the supported set; the backward kernels still take 64 and 128 only.
+    (The launch itself is stubbed: the checks and the routing are
+    host code.)"""
+    calls = []
+    monkeypatch.setattr(torch_fa, '_device_type', lambda *ts: 'cuda')
+    monkeypatch.setattr(
+        torch_fa, '_launch_fwd',
+        lambda entry, wrapper, *args: calls.append((entry, wrapper)))
+    for d, entry, wrapper in (
+            (16, 'skytpu_flash_attention_fwd_small',
+             torch_fa.flash_attention_fwd_small),
+            (32, 'skytpu_flash_attention_fwd_small',
+             torch_fa.flash_attention_fwd_small),
+            (64, 'skytpu_flash_attention_fwd', torch_fa.flash_attention_fwd),
+            (128, 'skytpu_flash_attention_fwd',
+             torch_fa.flash_attention_fwd)):
+        q, k, v = (t.to(torch.bfloat16)
+                   for t in _t(*_qkv(b=2, h=4, s=16, d=d, hkv=2)))
+        torch_fa.flash_attention_fwd(q, k, v)
+        assert calls.pop() == (entry, wrapper), d
+    for d in (48, 8, 256):
+        q, k, v = (t.to(torch.bfloat16)
+                   for t in _t(*_qkv(b=2, h=4, s=16, d=d, hkv=2)))
+        with pytest.raises(ValueError, match='head_dim 16, 32, 64, 128'):
+            torch_fa.flash_attention_fwd(q, k, v)
+        with pytest.raises(ValueError, match='head_dim 16, 32'):
+            torch_fa.flash_attention_fwd_small(q, k, v)
+    assert not calls
+    q, k, v = (t.to(torch.bfloat16)
+               for t in _t(*_qkv(b=1, h=2, s=16, d=16)))
+    lse = torch.zeros(1, 2, 16)
+    with pytest.raises(ValueError, match='head_dim 64, 128'):
+        torch_fa.flash_attention_bwd_dq(q, k, v, q, lse, lse)
+    with pytest.raises(ValueError, match='head_dim 64, 128'):
+        torch_fa.flash_attention_bwd_dkv(q, k, v, q, lse, lse)
+    assert torch_fa._SIGNATURES['skytpu_flash_attention_fwd_small'] == (
+        torch_fa._SIGNATURES['skytpu_flash_attention_fwd'])
+    assert (torch_fa.CSRC_DIR / 'flash_attention_fwd_small.cu') in (
+        torch_fa.sources())
+
+
 def test_flash_fwd_block_contract_and_devices():
     q, k, v = _qkv(b=1, h=2, s=600, d=64)
     with pytest.raises(ValueError, match='must divide block size'):

@@ -15,7 +15,18 @@ import torch
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / 'skypilot_tpu_torch'
 COPIED = ['sky_logging.py', 'utils/timeline.py', 'server/metrics.py',
-          'server/tracing.py', 'inference/paging.py']
+          'server/tracing.py', 'inference/paging.py',
+          # The control-plane store the goodput ledger writes through, the
+          # ledger itself, and the bucket helpers of the gs:// fetch.
+          'state/__init__.py', 'state/dialect.py', 'state/sqlite.py',
+          'state/postgres.py', 'state/leases.py', 'utils/db_utils.py',
+          'sky_config.py', 'utils/common_utils.py', 'utils/schemas.py',
+          'serve/metrics_math.py', 'obs/store.py', 'obs/goodput.py',
+          'data/storage_utils.py']
+# Every kernel source of the port (csrc/).
+KERNEL_SOURCES = ['flash_attention_bwd_dkv.cu', 'flash_attention_bwd_dq.cu',
+                  'flash_attention_fwd.cu', 'flash_attention_fwd_small.cu',
+                  'sm90_common.cuh']
 
 
 def _port_modules():
@@ -119,9 +130,8 @@ def test_training_slice_modules_are_covered():
             'skypilot_tpu_torch.train.checkpoint',
             'skypilot_tpu_torch.train.flops',
             'skypilot_tpu_torch.obs.goodput'} <= mods
-    assert sorted(p.name for p in (PORT / 'csrc').glob('*.cu*')) == [
-        'flash_attention_bwd_dkv.cu', 'flash_attention_bwd_dq.cu',
-        'flash_attention_fwd.cu', 'sm90_common.cuh']
+    assert sorted(p.name for p in (PORT / 'csrc').glob('*.cu*')) == (
+        KERNEL_SOURCES)
 
 
 def test_paged_serving_slice_modules_are_covered():
@@ -190,7 +200,15 @@ COPIED_NAMES = {
                                 'ENV_NUM_SLICES', 'ENV_SLICE_ID',
                                 'DEFAULT_COORDINATOR_PORT',
                                 'distributed_env_from_cluster'],
-    'exceptions.py': ['SkyTpuError', 'InvalidRequestError'],
+    'exceptions.py': ['SkyTpuError', 'InvalidTaskError',
+                      'InvalidSkyConfigError', 'InvalidRequestError',
+                      'StorageError'],
+    'perf/gate.py': ['TOLERANCES', 'GAUGE_AGREEMENT_FRAC', 'latest_bench',
+                     '_dig', '_ratio_check', '_agreement_check', 'run',
+                     'render_report'],
+    'data/storage.py': ['_fake_root', '_BucketStore', 'GcsStore',
+                        'fnmatch_to_re'],
+    'inference/weights.py': ['_materialize_local', '_cleanup_fetched'],
 }
 
 
@@ -214,18 +232,23 @@ def _top_level_sources(text):
 
 @pytest.mark.parametrize('rel', sorted(COPIED_NAMES))
 def test_copied_planners_and_rules_match_originals(rel):
-    """The mesh planners and the sharding rules are the JAX package's,
-    verbatim."""
+    """The mesh planners, the sharding rules and the other copied names
+    are the JAX package's, verbatim apart from import lines (which name
+    the port)."""
     original = _top_level_sources((REPO / 'skypilot_tpu' / rel).read_text())
     copy = _top_level_sources((PORT / rel).read_text())
     for name in COPIED_NAMES[rel]:
-        assert copy[name] == original[name], name
+        assert (_import_lines_dropped(copy[name]) ==
+                _import_lines_dropped(original[name])), name
+        for line in copy[name].splitlines():
+            if re.match(r'\s*(from|import)\s+skypilot_tpu', line):
+                assert 'skypilot_tpu_torch' in line, (name, line)
 
 
 def test_tensor_parallel_slice_modules_are_covered():
     """The isolation checks above walk every module of the port; the
     tensor-parallel serving slice's modules are among them, the package
-    exports the planners, and no kernel source was added."""
+    exports the planners, and the kernel sources are the known set."""
     mods = set(_port_modules())
     assert {'skypilot_tpu_torch.parallel',
             'skypilot_tpu_torch.parallel.mesh',
@@ -235,14 +258,15 @@ def test_tensor_parallel_slice_modules_are_covered():
     for name in ('MeshPlan', 'build_mesh', 'build_serve_mesh', 'plan_mesh',
                  'plan_serve_mesh', 'validate_tensor_parallel'):
         assert name in parallel.__all__ and hasattr(parallel, name)
-    assert len(list((PORT / 'csrc').glob('*.cu*'))) == 4
+    assert sorted(p.name for p in (PORT / 'csrc').glob('*.cu*')) == (
+        KERNEL_SOURCES)
 
 
 def test_sharded_training_slice_modules_are_covered():
     """The isolation checks above walk every module of the port; the
     sharded training slice's modules are among them, the package exports
-    them, the port has no copy of libtpu's MEGASCALE contract, and no
-    kernel source was added."""
+    them, the port has no copy of libtpu's MEGASCALE contract, and the
+    kernel sources are the known set."""
     mods = set(_port_modules())
     assert {'skypilot_tpu_torch.parallel.distributed',
             'skypilot_tpu_torch.parallel.ring_attention'} <= mods
@@ -255,15 +279,16 @@ def test_sharded_training_slice_modules_are_covered():
     assert callable(ring_attention.ring_attention_reference)
     text = (PORT / 'parallel' / 'distributed.py').read_text()
     assert 'def megascale_env_from_cluster' not in text
-    assert len(list((PORT / 'csrc').glob('*.cu*'))) == 4
+    assert sorted(p.name for p in (PORT / 'csrc').glob('*.cu*')) == (
+        KERNEL_SOURCES)
 
 
 def test_pipeline_expert_and_graft_slice_modules_are_covered():
     """The isolation checks above walk every module of the port; the
     pipeline / expert-parallel / validation slice's modules and the graft
     entry's twin are among them, the package exports the new names, the
-    device table holds the card's entry and no TPU, and no kernel source
-    was added."""
+    device table holds the card's entry and no TPU, and the kernel
+    sources are the known set."""
     mods = set(_port_modules())
     assert {'skypilot_tpu_torch.parallel.pipeline',
             'skypilot_tpu_torch.parallel.validate',
@@ -277,4 +302,37 @@ def test_pipeline_expert_and_graft_slice_modules_are_covered():
     assert sorted(parallel.validate.DEVICES) == ['h100']
     text = (PORT / 'models' / 'moe.py').read_text()
     assert 'Left out' not in text
-    assert len(list((PORT / 'csrc').glob('*.cu*'))) == 4
+    assert sorted(p.name for p in (PORT / 'csrc').glob('*.cu*')) == (
+        KERNEL_SOURCES)
+
+
+def test_gate_ledger_and_storage_slice_modules_are_covered():
+    """The isolation checks above walk every module of the port; the perf
+    gate, the goodput ledger with the control-plane store under it, and
+    the gs:// fetch are among them, and the small-head-dim forward kernel
+    is a source of its own with its own C entry."""
+    mods = set(_port_modules())
+    assert {'skypilot_tpu_torch.perf.gate',
+            'skypilot_tpu_torch.obs.goodput',
+            'skypilot_tpu_torch.obs.store',
+            'skypilot_tpu_torch.state',
+            'skypilot_tpu_torch.state.dialect',
+            'skypilot_tpu_torch.state.sqlite',
+            'skypilot_tpu_torch.state.postgres',
+            'skypilot_tpu_torch.state.leases',
+            'skypilot_tpu_torch.utils.db_utils',
+            'skypilot_tpu_torch.utils.common_utils',
+            'skypilot_tpu_torch.utils.schemas',
+            'skypilot_tpu_torch.sky_config',
+            'skypilot_tpu_torch.serve.metrics_math',
+            'skypilot_tpu_torch.data.storage',
+            'skypilot_tpu_torch.data.storage_utils'} <= mods
+    from skypilot_tpu_torch.obs import goodput
+    from skypilot_tpu_torch.perf import gate
+    assert callable(goodput.GoodputLedger) and callable(gate.main)
+    for name in ('step_time_skew', 'evaluate_stragglers', 'train_obs_tick',
+                 'jobs_dsn'):
+        assert callable(getattr(goodput, name)), name
+    src = (PORT / 'csrc' / 'flash_attention_fwd_small.cu').read_text()
+    assert 'extern "C" int skytpu_flash_attention_fwd_small(' in src
+    assert 'mma.sync.aligned.m16n8k16' in src and 'cp.async' in src

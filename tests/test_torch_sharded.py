@@ -555,6 +555,23 @@ def test_paths_match_single_device_and_jax(pools, ref, path, tensor):
     assert got == _run(jax_e, [jax_e.submit(p, 6) for p in prompts])
 
 
+def test_chunked_matches_fused_tensor2(pools, ref):
+    """Prompts of 20 and 120 tokens (2 and 8 chunks of 16) at tensor=2:
+    every rank's tokens equal the fused single-dispatch path's on one
+    device (an engine whose bucket holds the whole prompt) and the JAX
+    fused engine's (tests/test_serve_chunked.py's tensor-2 parity)."""
+    params_j, full = ref
+    prompts = [prompt_of(20, seed=31), prompt_of(120, seed=32)]
+    got = same_on_every_rank(run_ranks(pools, 2, rank_paths, full, 2,
+                                       'dense', prompts, 6))
+    fused = single_engine(full, prefill_buckets=(8, 16, 128))
+    want = [_run(fused, [fused.submit(p, 6)])[0] for p in prompts]
+    assert got == want
+    ref_engine = jax_engine(params_j, 1, prefill_buckets=(8, 16, 128))
+    reqs = [ref_engine.submit(p, 6) for p in prompts]
+    assert _run(ref_engine, reqs) == want
+
+
 def test_sharded_engine_gqa(pools):
     """2 kv heads over tensor=2 (one kv head and two q heads per rank)."""
     full = tl.init_params(CFG_GQA, 'cpu')

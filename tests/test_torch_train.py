@@ -372,18 +372,35 @@ def test_goodput_copy_matches_original():
     orig_m, copy_m = methods[False], methods[True]
     assert set(orig_m) == set(copy_m)
     for name in orig_m:
-        if name != 'from_env':
-            assert copy_m[name] == orig_m[name], name
-    assert not hasattr(tgoodput, 'GoodputLedger')
+        assert copy_m[name] == orig_m[name], name
+    for name in ('GoodputLedger', 'jobs_dsn', 'step_time_skew',
+                 'evaluate_stragglers', 'train_obs_tick'):
+        assert copy[name + ':src'] == orig[name + ':src'], name
 
 
-def test_goodput_from_env_refuses_the_durable_ledger(monkeypatch):
+def test_goodput_from_env_gives_the_durable_ledger(monkeypatch, tmp_path):
+    """Without SKYTPU_GOODPUT_JOB the recorder records locally; with it
+    (a managed job) it writes through to the durable ledger in the jobs
+    store, as the JAX recorder does."""
+    from skypilot_tpu_torch import state as tstate
     monkeypatch.delenv(tgoodput.JOB_ENV, raising=False)
     rec = tgoodput.PhaseRecorder.from_env()
     assert rec.ledger is None and rec.rid == tgoodput.TRAIN_RID
+    monkeypatch.delenv('SKYTPU_DB_URL', raising=False)
+    monkeypatch.setenv('SKYTPU_JOBS_DB', str(tmp_path / 'jobs.db'))
     monkeypatch.setenv(tgoodput.JOB_ENV, 'job-7')
-    with pytest.raises(RuntimeError, match='managed-jobs port'):
-        tgoodput.PhaseRecorder.from_env()
+    tstate.reset_connections_for_tests()
+    try:
+        rec = tgoodput.PhaseRecorder.from_env()
+        assert rec.job == 'job-7' and rec.rid == 'job-job-7'
+        assert rec.ledger.dsn == str(tmp_path / 'jobs.db')
+        rec.begin(tgoodput.INIT_COMPILE, now=10.0)
+        rec.begin(tgoodput.PRODUCTIVE, now=12.5)
+        totals = rec.close(now=20.0)
+        assert rec.ledger.totals('job-7') == totals == {
+            tgoodput.INIT_COMPILE: 2.5, tgoodput.PRODUCTIVE: 7.5}
+    finally:
+        tstate.reset_connections_for_tests()
 
 
 def test_flops_copy_matches_original():

@@ -5,6 +5,8 @@ port's `CheckpointManager`, restored leaf-exact, and served with the
 JAX engine's greedy tokens on the same weights.  f32 compute on both
 sides so greedy argmax is not at the mercy of bf16 rounding."""
 import dataclasses
+import os
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -13,10 +15,13 @@ import pytest
 import torch
 from flax.core import meta
 
+from skypilot_tpu.data import storage as jax_storage
 from skypilot_tpu.inference import engine as jax_engine
+from skypilot_tpu.inference import weights as jax_weights
 from skypilot_tpu.models import llama as jl
 from skypilot_tpu_torch.inference import server as torch_server
 from skypilot_tpu_torch.inference.engine import DecodeEngine, EngineConfig
+from skypilot_tpu_torch.inference import weights as torch_weights
 from skypilot_tpu_torch.inference.weights import load_serving_params
 from skypilot_tpu_torch.models import llama as tl
 from skypilot_tpu_torch.models.convert import params_from_jax
@@ -114,8 +119,15 @@ def test_missing_steps_and_buckets_raise(tmp_path):
         load_serving_params(str(tmp_path), device='cpu')
     with pytest.raises(FileNotFoundError, match='no checkpoint directory'):
         load_serving_params(str(tmp_path / 'absent'), device='cpu')
-    with pytest.raises(ValueError, match='storage slice'):
-        load_serving_params('gs://bucket/run-1', device='cpu')
+
+
+def test_missing_gs_bucket_raises_and_leaves_no_download(gcs):
+    """A gs:// path with nothing under it is fetched (to an empty temp
+    directory), raises as an empty local directory does, and the temp
+    directory is gone afterwards."""
+    with pytest.raises(FileNotFoundError, match='no checkpoint steps'):
+        load_serving_params('gs://absent-bucket/run-1', device='cpu')
+    assert os.listdir(gcs['tmp']) == []
 
 
 @pytest.mark.parametrize('param_dtype', [None, 'float32', 'bfloat16'])
@@ -144,3 +156,91 @@ def test_server_without_checkpoint_serves_seeded_random_weights():
     for (name, x), y in zip(a.state_dict().items(), b.state_dict().values()):
         assert x.dtype == torch.bfloat16, name
         assert torch.equal(x, y), name
+
+
+# ----- gs:// checkpoints (through the fake-GCS root) -------------------------
+
+
+@pytest.fixture
+def gcs(saved, tmp_path, monkeypatch):
+    """The saved checkpoint uploaded to gs://ckpts/run-1 under a fake-GCS
+    root (by the JAX package's GcsStore, so the port's fetch reads what
+    the JAX storage layer wrote), and a private temp directory that the
+    fetch's downloads land in."""
+    monkeypatch.setenv('SKYTPU_FAKE_GCS_ROOT', str(tmp_path / 'gcs'))
+    downloads = tmp_path / 'tmp'
+    downloads.mkdir()
+    monkeypatch.setattr(tempfile, 'tempdir', str(downloads))
+    store = jax_storage.GcsStore('ckpts')
+    store.create()
+    store.sync_up(saved[3], 'run-1')
+    return {'url': 'gs://ckpts/run-1', 'tmp': str(downloads),
+            'dir': saved[3]}
+
+
+def test_gs_load_equals_local_load_and_cleans_up(gcs):
+    got = load_serving_params(gcs['url'], device='cpu')
+    want = load_serving_params(gcs['dir'], device='cpu')
+    assert list(got) == list(want)
+    for name in want:
+        assert got[name].dtype == want[name].dtype
+        torch.testing.assert_close(got[name], want[name], rtol=0, atol=0)
+    first = load_serving_params(gcs['url'], step=1, device='cpu',
+                                dtype=torch.bfloat16)
+    assert all(t.dtype == torch.bfloat16 and not t.any()
+               for t in first.values())
+    assert os.listdir(gcs['tmp']) == []
+
+
+def test_gs_fetch_matches_the_jax_fetch(gcs):
+    """The port's `_materialize_local` downloads the same files as the JAX
+    package's; both hand local paths back untouched, and both remove
+    only what they fetched."""
+    fetched = {}
+    for name, lib in (('jax', jax_weights), ('torch', torch_weights)):
+        local = lib._materialize_local(gcs['url'])
+        assert local.startswith(gcs['tmp'])
+        fetched[name] = sorted(
+            os.path.relpath(os.path.join(d, f), local)
+            for d, _, files in os.walk(local) for f in files)
+        lib._cleanup_fetched(gcs['url'], local)
+        assert not os.path.exists(local)
+        assert lib._materialize_local(gcs['dir']) == gcs['dir']
+        lib._cleanup_fetched(gcs['dir'], gcs['dir'])
+        assert os.path.isdir(gcs['dir'])
+    assert fetched['torch'] == fetched['jax'] and fetched['torch']
+
+
+def test_gs_load_removes_the_download_after_a_failure(gcs, monkeypatch):
+    def broken(self, step, box=None):
+        raise RuntimeError('read failed')
+
+    monkeypatch.setattr(CheckpointManager, 'read_params', broken)
+    with pytest.raises(RuntimeError, match='read failed'):
+        load_serving_params(gcs['url'], device='cpu')
+    assert os.listdir(gcs['tmp']) == []
+
+
+def test_server_builds_from_a_gs_checkpoint(gcs, saved):
+    """`--checkpoint gs://...` builds the same model as the local path,
+    and serves the JAX engine's greedy tokens on those weights."""
+    model_j, params_j, params_t, _ = saved
+    argv = ['--model', 'tiny', '--device', 'cpu', '--max-seq-len', '128',
+            '--checkpoint', gcs['url']]
+    model = torch_server.build_model(torch_server.parse_args(argv))
+    got = model.state_dict()
+    assert sorted(got) == sorted(params_t)
+    for name, want in params_t.items():
+        torch.testing.assert_close(got[name], want, rtol=0, atol=0)
+    assert os.listdir(gcs['tmp']) == []
+    model = tl.Llama(CFG_T, {k: v.clone() for k, v in got.items()})
+    engine = DecodeEngine(model, EngineConfig(**ENGINE_KW), device='cpu')
+    toks = _run(engine, [engine.submit(p, 8) for p in PROMPTS])
+    ref = jax_engine.DecodeEngine(model_j, params_j,
+                                  jax_engine.EngineConfig(**ENGINE_KW))
+    reqs = [ref.submit(p, 8) for p in PROMPTS]
+    for _ in range(400):
+        ref.step()
+        if all(r.finished_at is not None for r in reqs):
+            break
+    assert toks == [r.tokens() for r in reqs]
