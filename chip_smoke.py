@@ -35,6 +35,16 @@ followed by its seconds:
    and not, bf16 and fp16, and head_dim 32 at one shape) against its
    plain version (out within SMALL_ATOL beyond one output ulp, lse
    within SMALL_ATOL), timed with its plain version and SDPA at S=16.
+3b. Small backward: the head_dim 16/32 dq and dk/dv
+   (csrc/flash_attention_bwd_{dq,dkv}_small.cu) against their plain
+   versions at the small forward's tile-edge grid (SMALL_BWD_SHAPES: S =
+   1-129 on both sides of the 64-row tiles, head_dim 16 and 32, bf16 and
+   fp16, causal and not, GQA 4 -> 2 and 4 -> 4, and (1, 8, 2, 1024,
+   16)): norm-rel <= BWD_NORM_RTOL (an output that is 0 in exact
+   arithmetic within SMALL_BWD_ZERO_ATOL), each call launching its small
+   kernel exactly once; then the three small kernels, their plain
+   versions and SDPA timed at `tiny`'s training shape (TINY_TRAIN_SHAPE)
+   beside the bounds, one profiled launch each.
 4. Serving: llama2-7b at full width, 16 of its 32 layers (SERVE; bf16
    random weights from a seed) behind the port's HTTP app on a local port, 8 prompts of 219
    tokens plus one of 300 (chunked prefill), 32 new tokens each; every
@@ -131,6 +141,12 @@ followed by its seconds:
    counts and numbers (MFU counts all experts, 6N, as the JAX package
    does), and its gradients against the plain backward; against xla
    reported only (its rounding may flip a routing choice).
+8b. Tiny training (TINY_TRAIN, bench.py:64-67): `tiny` (head_dim 16)
+   through Trainer.run at B=4 x S=64 and S=128, 2 untimed and 5 timed
+   steps each: the small forward, dq and dk/dv launched exactly n_layers
+   times a step and no wgmma kernel, finite losses, step time; the
+   gradient check of phase 8 (against the plain backward and, gated,
+   against attention_impl='xla') and one profiled step.
 9. RL (RL, examples/train_rl_reinforce.yaml): llama-250m at full width
    and depth, 3 iterations of rollout (the engine's graph, temperature
    1) -> REINFORCE step (forward, dq, dk/dv kernels) -> update_params,
@@ -163,9 +179,14 @@ followed by its seconds:
    metrics equal rank 0's, exact flash forward / dq / dk/dv launches per
    rank (2 forwards per layer under remat; per hop the ring does not
    skip), peak GB and seconds per step per rank; (e) the ring op at one
-   hop's shape (RING_HOP_SHAPE) against ring_attention_reference
+   hop's shape (RING_HOP_SHAPE, and `tiny`'s RING_SMALL_HOP_SHAPE at
+   head_dim 16 on the small kernels) against ring_attention_reference
    (output norm-rel <= BWD_NORM_RTOL, dq/dk/dv <= GRAD_PLAIN_RTOL),
-   with the per-rank launches; (g) (b)'s step saved (DCP) and restored
+   with the per-rank launches; (h) a one-device `tiny` state.pt (2
+   steps) restored through Trainer(..., mesh=) at fsdp=2: every
+   parameter and AdamW moment shard bit-equal to its rows of the saved
+   tensor, the next step within SHARDED's gates of the one-device step
+   3; (g) (b)'s step saved (DCP) and restored
    on one device, every parameter bit-equal to the gathered shards; (f)
    the FSDP2 step and the one-hop ring over a one-rank NCCL group
    against the unsharded trainer (2 layers, 2 steps): equal within f32
@@ -206,10 +227,10 @@ followed by its seconds:
    by path: serving, paged, checkpoint, tensor_serving (rank 0 of (b)
    and (d)), moe_serving, training, moe_training, rl, sharded_training
    (rank 0 of (b)-(d) and (f)), pipeline, expert_parallel,
-   moe_tensor_serving (rank 0 each), graft_entry and perf_gate; the
-   small-head-dim forward's row launched on perf_gate only), the
-   nvidia-smi line, then {"ok": true, "device": {...}} as the last
-   line.
+   moe_tensor_serving (rank 0 each), graft_entry, tiny_training and
+   perf_gate; the three small-head-dim kernels' rows launched on
+   tiny_training, the forward's also on perf_gate), the nvidia-smi
+   line, then {"ok": true, "device": {...}} as the last line.
 
 Needs one CUDA device; exits non-zero without one and imports nothing of
 JAX or of the JAX package.
@@ -396,8 +417,11 @@ SHARDED = dict(model='llama3-1b', n_layers=8, ranks=2, device='cuda:0',
                batch=8, seq=2048, tensor_batch=4, ring_batch=1,
                ring_seq=16384, steps=3, warmup_steps=5, total_steps=1000,
                nccl_layers=2, nccl_batch=2, nccl_seq=1024)
-# (b, hq, hkv, s, d) of one ring hop at (d): a rank's 8192-token chunk.
+# (b, hq, hkv, s, d) of one ring hop at (d): a rank's 8192-token chunk;
+# and of one hop of `tiny` (head_dim 16) at TINY_TRAIN's batch of 4 x 128
+# over fsdp=2, which (e) also runs.
 RING_HOP_SHAPE = (1, 32, 8, 8192, 64)
+RING_SMALL_HOP_SHAPE = (4, 4, 2, 64, 16)
 # Steps 1 and 3 of a sharded plan against the one-device trainer's on
 # the same weights and batch: the loss (f32, summed over shards in
 # another order; the bf16 attention and o/down products round alike
@@ -534,7 +558,9 @@ def cold_l2_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 KERNEL_SYMBOLS = {'flash_attention_fwd': 'fa_fwd_kernel',
                   'flash_attention_fwd_small': 'fa_fwd_small_kernel',
                   'flash_attention_bwd_dq': 'fa_bwd_dq_kernel',
-                  'flash_attention_bwd_dkv': 'fa_bwd_dkv_kernel'}
+                  'flash_attention_bwd_dq_small': 'fa_bwd_dq_small_kernel',
+                  'flash_attention_bwd_dkv': 'fa_bwd_dkv_kernel',
+                  'flash_attention_bwd_dkv_small': 'fa_bwd_dkv_small_kernel'}
 
 
 def ptxas_report(build_log: str) -> dict:
@@ -888,6 +914,125 @@ SMALL_SHAPES.append((2, 4, 2, 128, 32, True, 'bfloat16'))
 SMALL_TIMED_SHAPE = (2, 4, 2, 16, 16)
 
 
+# The small-head-dim dq and dk/dv against their plain versions
+# (BWD_NORM_RTOL per output) at the small forward's tile-edge grid: S on
+# both sides of the 64-row tiles, head_dim 16 and 32, bf16 and fp16,
+# causal and not, GQA 4 -> 2 and 4 -> 4, and a long GQA-4 case.
+SMALL_BWD_SHAPES = [(2, 4, hkv, s, d, causal, dtype)
+                    for hkv in (2, 4)
+                    for s in (1, 5, 8, 16, 17, 63, 64, 65, 127, 128, 129)
+                    for d in (16, 32) for causal in (True, False)
+                    for dtype in ('bfloat16', 'float16')]
+SMALL_BWD_SHAPES.append((1, 8, 2, 1024, 16, True, 'bfloat16'))
+# At S = 1 every row attends to one key, so dS = P (dP - delta) = 0 and dq
+# and dk are 0 in exact arithmetic: both sides hold f32 cancellation
+# noise (up to ~9e-7 on an H100) and their ratio says nothing.  Where the
+# plain version's largest entry is below SMALL_BWD_ZERO_ATOL, the kernel's
+# must be too (a wrong kernel's garbage is ~0.1 and up).
+SMALL_BWD_ZERO_ATOL = 1e-5
+# (b, hq, hkv, s, d) of `tiny`'s training step (TINY_TRAIN at S = 64): the
+# three small kernels are timed there.
+TINY_TRAIN_SHAPE = (4, 4, 2, 64, 16)
+
+
+def small_bwd_kernel_phase(device):
+    """The small-head-dim dq and dk/dv against their plain versions at
+    SMALL_BWD_SHAPES (on the small forward's out and lse), each call
+    launching its small kernel exactly once and no other; then the three
+    small kernels timed at TINY_TRAIN_SHAPE beside their plain versions,
+    SDPA and the bounds.  Returns ({'dq': entry, 'dkv': entry} for the
+    kernels line, launches aside, the times at TINY_TRAIN_SHAPE)."""
+    import torch
+    from skypilot_tpu_torch.ops.cuda import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    errs = {'dq': 0.0, 'dkv': 0.0}
+    worst = 0.0
+    t0 = time.perf_counter()
+    for shape in SMALL_BWD_SHAPES:
+        b, hq, hkv, s, d, causal, dtype_name = shape
+        dtype = getattr(torch, dtype_name)
+        q, g = (torch.randn((b, hq, s, d), generator=gen,
+                            device=device).to(dtype) for _ in range(2))
+        k, v = (torch.randn((b, hkv, s, d), generator=gen,
+                            device=device).to(dtype) for _ in range(2))
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                          return_residuals=True)
+        delta = (g.float() * out.float()).sum(-1)
+        zero_launches()
+        dq = fa.flash_attention_bwd_dq(q, k, v, g, lse, delta, causal)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal)
+        torch.cuda.synchronize()
+        launched = {**read_launches(), **read_small_launches()}
+        if launched != {**dict.fromkeys(KERNEL_NAMES + SMALL_KERNELS, 0),
+                        'flash_attention_bwd_dq_small': 1,
+                        'flash_attention_bwd_dkv_small': 1}:
+            raise SystemExit(f'the backward at {shape} launched {launched}')
+        refs = (fa.flash_attention_bwd_dq_reference(q, k, v, g, lse, delta,
+                                                    causal),
+                *fa.flash_attention_bwd_dkv_reference(q, k, v, g, lse,
+                                                      delta, causal))
+        line = []
+        for name, x, ref in zip(('dq', 'dk', 'dv'), (dq, dk, dv), refs):
+            err = (x.float() - ref.float()).abs().max().item()
+            zero = ref.float().abs().max().item() <= SMALL_BWD_ZERO_ATOL
+            rel = _norm_rel(x, ref) if not zero else 0.0
+            ok = (bool(torch.isfinite(x).all()) and
+                  (err <= SMALL_BWD_ZERO_ATOL if zero
+                   else rel <= BWD_NORM_RTOL))
+            if not ok:
+                raise SystemExit(f'the small {name} kernel disagrees with '
+                                 f'its plain version at {shape}: norm-rel '
+                                 f'{rel}, max_abs_err {err}')
+            key = 'dq' if name == 'dq' else 'dkv'
+            errs[key] = max(errs[key], err)
+            worst = max(worst, rel)
+            line.append(f'{name} {"zero " if zero else ""}{rel:.2e}/'
+                        f'{err:.2e}')
+        log(f'  flash_bwd_small {shape[:5]} causal={causal} {dtype_name}: '
+            f'norm-rel/max_abs_err {" ".join(line)}')
+    log(f'  {len(SMALL_BWD_SHAPES)} shapes: worst norm-rel {worst:.3e} '
+        f'(gate {BWD_NORM_RTOL}; a plain output below '
+        f'{SMALL_BWD_ZERO_ATOL} is zero: the kernel\'s must be too), '
+        f'launches exact; {time.perf_counter() - t0:.1f} s')
+
+    times = kernel_times(device, TINY_TRAIN_SHAPE, 'tiny training')
+    # One profiled launch of each small kernel there (registers, shared
+    # memory as launched).
+    b, hq, hkv, s, d = TINY_TRAIN_SHAPE
+    q, g = (torch.randn((b, hq, s, d), generator=gen,
+                        device=device).to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((b, hkv, s, d), generator=gen,
+                        device=device).to(torch.bfloat16) for _ in range(2))
+    out, lse = fa.flash_attention_fwd(q, k, v, return_residuals=True)
+    bwd_args = (q, k, v, g, lse, (g.float() * out.float()).sum(-1))
+    attrs = launch_attrs({
+        KERNEL_SYMBOLS[SMALL_KERNEL]: lambda: fa.flash_attention_fwd(
+            q, k, v, return_residuals=True),
+        KERNEL_SYMBOLS['flash_attention_bwd_dq_small']:
+            lambda: fa.flash_attention_bwd_dq(*bwd_args),
+        KERNEL_SYMBOLS['flash_attention_bwd_dkv_small']:
+            lambda: fa.flash_attention_bwd_dkv(*bwd_args)})
+    entries = {}
+    for kind, line, source in (('dq', 196, 'flash_attention_bwd_dq_small.cu'),
+                               ('dkv', 225,
+                                'flash_attention_bwd_dkv_small.cu')):
+        name = f'flash_attention_bwd_{kind}_small'
+        entries[kind] = {
+            'name': name, 'route': 'cuda',
+            'source': f'skypilot_tpu_torch/csrc/{source}',
+            'replaces': f'skypilot_tpu/ops/pallas/flash_attention.py:{line}',
+            'max_abs_err': errs[kind],
+            **{key: times[kind][key] for key in (
+                'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
+                'tflops', 'shape')},
+            'launch': attrs[KERNEL_SYMBOLS[name]]}
+    times['fwd']['launch'] = attrs[KERNEL_SYMBOLS[SMALL_KERNEL]]
+    for symbol, attr in attrs.items():
+        log(f'  launch of {symbol}: {attr}')
+    return entries, times['fwd']
+
+
 def small_kernel_phase(device):
     """The small-head-dim forward against its plain version at
     SMALL_SHAPES, then its time, its plain version's and SDPA's at the
@@ -1103,21 +1248,28 @@ KERNEL_NAMES = ('flash_attention_fwd', 'flash_attention_bwd_dq',
                 'flash_attention_bwd_dkv')
 
 
-# The small-head-dim forward's wrapper: counted apart from KERNEL_NAMES,
-# whose counts the phases before the perf gate check exactly (no model
-# there has head_dim 16 or 32).
+# The small-head-dim kernels' wrappers (head_dim 16 and 32): counted
+# apart from KERNEL_NAMES, whose counts the phases with no model of
+# head_dim 16 or 32 check exactly.
 SMALL_KERNEL = 'flash_attention_fwd_small'
+SMALL_KERNELS = (SMALL_KERNEL, 'flash_attention_bwd_dq_small',
+                 'flash_attention_bwd_dkv_small')
 
 
 def zero_launches() -> None:
     from skypilot_tpu_torch.ops.cuda import flash_attention as fa
-    for name in KERNEL_NAMES + (SMALL_KERNEL,):
+    for name in KERNEL_NAMES + SMALL_KERNELS:
         getattr(fa, name).launches = 0
 
 
 def read_launches() -> dict:
     from skypilot_tpu_torch.ops.cuda import flash_attention as fa
     return {name: getattr(fa, name).launches for name in KERNEL_NAMES}
+
+
+def read_small_launches() -> dict:
+    from skypilot_tpu_torch.ops.cuda import flash_attention as fa
+    return {name: getattr(fa, name).launches for name in SMALL_KERNELS}
 
 
 def serving_phase(device, card):
@@ -2478,6 +2630,95 @@ def training_phase(device, card, smi, spec=TRAIN):
     return counts
 
 
+# `tiny` (head_dim 16: 4 query heads over 2 kv heads, 2 layers, dim 64)
+# at its full config, f32 params and bf16 compute, no remat: the JAX
+# bench's own `tiny` training defaults (bench.py:64-67: B = 4, S = 64),
+# then S = 128 (its max_seq_len), 2 untimed and 5 timed steps each
+# through Trainer.run.  The forward runs the small forward kernel, the
+# backward the small dq and dk/dv.
+TINY_TRAIN = dict(model='tiny', batch=4, seqs=(64, 128), warm_steps=2,
+                  timed_steps=5, grad_batch=1, warmup_steps=5,
+                  total_steps=1000)
+
+
+def tiny_training_phase(device, card, smi):
+    """`tiny` through Trainer.run on the card at each of TINY_TRAIN's
+    sequence lengths: the timed steps with every launch counter zeroed
+    just before and read just after (the three small kernels exactly
+    n_layers times a step, no wgmma kernel), finite losses, step time;
+    then grad_check (against the plain backward and against
+    attention_impl='xla') and one profiled step.  Returns the launch
+    counts of the timed runs, all kernels."""
+    import torch
+    from skypilot_tpu_torch.models.llama import LLAMA_CONFIGS, Llama, init_params
+    from skypilot_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    spec = TINY_TRAIN
+    cfg = LLAMA_CONFIGS[spec['model']]
+    batch, steps = spec['batch'], spec['timed_steps']
+    total = dict.fromkeys(KERNEL_NAMES + SMALL_KERNELS, 0)
+    for seq in spec['seqs']:
+        t0 = time.perf_counter()
+        model = Llama(cfg, init_params(
+            cfg, device, torch.Generator(device=device).manual_seed(SEED)))
+        trainer = Trainer(model, TrainConfig(
+            warmup_steps=spec['warmup_steps'],
+            total_steps=spec['total_steps']), device=device)
+        tokens = torch.randint(
+            0, cfg.vocab_size, (batch, seq), device=device,
+            generator=torch.Generator(device=device).manual_seed(SEED + 2))
+        step_metrics = []
+        train_step = trainer.train_step
+
+        def recording_step(state, tokens_, train_step=train_step,
+                           step_metrics=step_metrics):
+            state, metrics = train_step(state, tokens_)
+            step_metrics.append(metrics)
+            return state, metrics
+
+        trainer.train_step = recording_step
+        trainer.run(iter([tokens] * spec['warm_steps']), spec['warm_steps'],
+                    log_every=spec['warm_steps'])
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        zero_launches()
+        t0 = time.perf_counter()
+        out = trainer.run(iter([tokens] * steps), steps, log_every=steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {**read_launches(), **read_small_launches()}
+        losses = [float(m['loss']) for m in step_metrics]
+        norms = [float(m['grad_norm']) for m in step_metrics]
+        log(f'  tiny: {cfg.num_params() / 1e6:.3f}M params f32, '
+            f'{cfg.n_layers} layers, dim {cfg.dim}, heads {cfg.n_heads}/'
+            f'{cfg.n_kv_heads} x {cfg.head_dim}, compute {cfg.dtype}, remat '
+            f'{cfg.remat}; {batch} x {seq} tokens on {smi}: init + '
+            f'{spec["warm_steps"]} untimed steps {warm_s:.2f} s; {steps} '
+            f'timed steps: step {wall / steps * 1e3:.2f} ms, '
+            f'{batch * seq * steps / wall:.0f} tokens/s (trainer '
+            f'{out["tokens_per_s"]:.0f}); loss per step '
+            f'{[round(x, 4) for x in losses]}; grad norm '
+            f'{[round(x, 3) for x in norms]}; launches {counts}')
+        want = {**dict.fromkeys(KERNEL_NAMES + SMALL_KERNELS, 0),
+                **dict.fromkeys(SMALL_KERNELS, cfg.n_layers * steps)}
+        if counts != want:
+            raise SystemExit(f'tiny training launches {counts}, expected '
+                             f'{want} (per step and layer: 1 small '
+                             f'forward, dq and dk/dv; no remat)')
+        if not all(map(math.isfinite, losses + norms)):
+            raise SystemExit(f'non-finite tiny loss or grad norm: {losses} '
+                             f'{norms}')
+        for name, n in counts.items():
+            total[name] += n
+        grad_check(trainer.model, cfg, tokens[:spec['grad_batch']])
+        trainer.train_step = train_step
+        if seq == spec['seqs'][-1]:
+            profile_train_step(trainer, tokens, card)
+        del trainer, model
+        torch.cuda.empty_cache()
+    return total
+
+
 # Ledger totals vs the recorder's, and the gap between one interval row's
 # end and the next one's start: the same f64 stamps summed in the same
 # order on both sides, so only float rounding may differ.
@@ -3366,9 +3607,9 @@ def sharded_rank(kind, ckpt_dir=None):
     return out
 
 
-def ring_op_rank():
-    """One rank of the fsdp=2 gloo pair: the ring op at RING_HOP_SHAPE on
-    its chunk of a seeded global q, k, v (bf16), forward and backward
+def ring_op_rank(shape=RING_HOP_SHAPE):
+    """One rank of the fsdp=2 gloo pair: the ring op at one hop's `shape`
+    on its chunk of a seeded global q, k, v (bf16), forward and backward
     with a seeded cotangent; returns its blocks and the launches of the
     one call (a comparison, not a main path)."""
     import torch
@@ -3377,8 +3618,8 @@ def ring_op_rank():
     mesh = build_mesh(MeshPlan(fsdp=SHARDED['ranks']),
                       devices=[SHARDED['device']] * SHARDED['ranks'],
                       backend='gloo')
-    q, k, v, g = ring_inputs(mesh.device)
-    s = RING_HOP_SHAPE[3]
+    q, k, v, g = ring_inputs(mesh.device, shape)
+    s = shape[3]
     sl = slice(mesh.coordinate('fsdp') * s, (mesh.coordinate('fsdp') + 1) * s)
     lq, lk, lv = (x[:, :, sl].contiguous().requires_grad_()
                   for x in (q, k, v))
@@ -3390,7 +3631,8 @@ def ring_op_rank():
                                      g[:, :, sl].contiguous())
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    res = {'coord': mesh.coordinate('fsdp'), 'counts': read_launches(),
+    res = {'coord': mesh.coordinate('fsdp'),
+           'counts': {**read_launches(), **read_small_launches()},
            'wall_ms': wall_ms,
            **{key: t.detach().cpu() for key, t in
               (('out', out), ('dq', dq), ('dk', dk), ('dv', dv))}}
@@ -3399,11 +3641,158 @@ def ring_op_rank():
     return res
 
 
-def ring_inputs(device):
-    """The whole sequence's q, k, v and cotangent at (e)'s shape (bf16),
+def check_ring_op(device, shape, blocks, seconds):
+    """(e)'s gates on the ranks' `blocks` of the ring op at one hop's
+    `shape`: output (BWD_NORM_RTOL) and dq/dk/dv (GRAD_PLAIN_RTOL) against
+    ring_attention_reference, one launch of each kernel per hop (the
+    small kernels at head_dim 16 or 32, the wgmma ones otherwise).
+    Returns the norm-relative errors."""
+    import torch
+    q, k, v, g = ring_inputs(device, shape)
+    ref = ring_reference_grads(q, k, v, g)
+    del q, k, v, g
+    s = shape[3]
+    rels = {}
+    for i, key in enumerate(('out', 'dq', 'dk', 'dv')):
+        got = torch.zeros_like(ref[i])
+        for blk in blocks:
+            c = blk['coord']
+            got[:, :, c * s:(c + 1) * s] = blk[key].to(device)
+        rels[key] = _norm_rel(got, ref[i])
+    del ref, got
+    torch.cuda.empty_cache()
+    launched = SMALL_KERNELS if shape[4] in (16, 32) else KERNEL_NAMES
+    for blk in blocks:
+        want = {**dict.fromkeys(KERNEL_NAMES + SMALL_KERNELS, 0),
+                **dict.fromkeys(launched, blk['coord'] + 1)}
+        if blk['counts'] != want:
+            raise SystemExit(f'the ring op launched {blk["counts"]} on chunk '
+                             f'{blk["coord"]}, expected {want}')
+    log(f'  (e) ring op at {shape} per hop (causal, bf16) vs '
+        f'ring_attention_reference: norm-rel out {rels["out"]:.2e} (gate '
+        f'{BWD_NORM_RTOL}), dq {rels["dq"]:.2e}, dk {rels["dk"]:.2e}, dv '
+        f'{rels["dv"]:.2e} (gate {GRAD_PLAIN_RTOL} each); launches per rank '
+        f'{[b["counts"] for b in blocks]}; forward + backward wall '
+        f'{[round(b["wall_ms"], 1) for b in blocks]} ms (host-staged hops); '
+        f'both shapes on the ranks {seconds:.1f} s')
+    if not (rels['out'] <= BWD_NORM_RTOL and
+            max(rels[k] for k in ('dq', 'dk', 'dv')) <= GRAD_PLAIN_RTOL):
+        raise SystemExit(f'the ring op disagrees with '
+                         f'ring_attention_reference at {shape}')
+    return rels
+
+
+def tiny_cfg_and_tokens(device):
+    """(h)'s model and global batch: `tiny` at TINY_TRAIN's first shape,
     the same draw in every process."""
     import torch
-    b, hq, hkv, s, d = RING_HOP_SHAPE
+    from skypilot_tpu_torch.models.llama import LLAMA_CONFIGS
+    cfg = LLAMA_CONFIGS[TINY_TRAIN['model']]
+    tokens = torch.randint(
+        0, cfg.vocab_size, (TINY_TRAIN['batch'], TINY_TRAIN['seqs'][0]),
+        device=device,
+        generator=torch.Generator(device=device).manual_seed(SEED + 7))
+    return cfg, tokens
+
+
+def tiny_one_device_save(device, ckpt_dir):
+    """(h) on one device: a `tiny` Trainer's 2 steps, saved (a
+    `state.pt`), then its step 3; returns step 3's (loss, grad norm)."""
+    import torch
+    from skypilot_tpu_torch.models.llama import Llama, init_params
+    from skypilot_tpu_torch.train.trainer import TrainConfig, Trainer
+    cfg, tokens = tiny_cfg_and_tokens(device)
+    trainer = Trainer(Llama(cfg, init_params(
+        cfg, device, torch.Generator(device=device).manual_seed(SEED))),
+        TrainConfig(warmup_steps=SHARDED['warmup_steps'],
+                    total_steps=SHARDED['total_steps']),
+        checkpoint_dir=ckpt_dir, device=device)
+    for _ in range(2):
+        trainer.state, _ = trainer.train_step(trainer.state, tokens)
+    trainer.save_checkpoint()
+    trainer.state, m = trainer.train_step(trainer.state, tokens)
+    return float(m['loss']), float(m['grad_norm'])
+
+
+def tiny_restore_rank(ckpt_dir):
+    """One rank of (h): a `tiny` Trainer at fsdp=2 on cuda:0 (other
+    weights than the saved ones) resumed from the one-device `state.pt`
+    in `ckpt_dir`; whether each parameter's and AdamW moment's shard is
+    bit-equal to its rows of the saved tensor (FSDP2 splits dim 0 as
+    torch.chunk does), the restored step; then one step (loss, grad
+    norm)."""
+    import torch
+    from skypilot_tpu_torch.models.llama import Llama, init_params
+    from skypilot_tpu_torch.parallel.mesh import MeshPlan, build_mesh
+    from skypilot_tpu_torch.train.checkpoint import CheckpointManager
+    from skypilot_tpu_torch.train.trainer import TrainConfig, Trainer
+    n = SHARDED['ranks']
+    mesh = build_mesh(MeshPlan(fsdp=n), devices=[SHARDED['device']] * n,
+                      backend='gloo')
+    cfg, tokens = tiny_cfg_and_tokens(mesh.device)
+    model = Llama(cfg, init_params(
+        cfg, mesh=mesh, generator=torch.Generator(
+            device=mesh.device).manual_seed(SEED + 8)), mesh)
+    trainer = Trainer(model, TrainConfig(
+        warmup_steps=SHARDED['warmup_steps'],
+        total_steps=SHARDED['total_steps']), checkpoint_dir=ckpt_dir,
+        mesh=mesh)
+    resumed = trainer.restore_if_available()
+    state = trainer.state
+    mgr = CheckpointManager(ckpt_dir)
+    saved = torch.load(mgr.state_path(resumed), mmap=True,
+                       weights_only=True, map_location='cpu')
+    coord = mesh.coordinate('fsdp')
+    unequal = []
+    with torch.no_grad():
+        for i, (name, p) in enumerate(state.model.named_parameters()):
+            adam = state.optimizer.state[p]
+            for key, t, whole in (
+                    ('param', p, saved['params'][name]),
+                    ('exp_avg', adam['exp_avg'],
+                     saved['optimizer']['state'][i]['exp_avg']),
+                    ('exp_avg_sq', adam['exp_avg_sq'],
+                     saved['optimizer']['state'][i]['exp_avg_sq'])):
+                if not torch.equal(t.to_local().cpu(),
+                                   whole.chunk(n)[coord]):
+                    unequal.append(f'{key}:{name}')
+    step = int(state.step)
+    trainer.state, m = trainer.train_step(state, tokens)
+    out = {'rank': mesh.rank, 'resumed': resumed, 'step': step,
+           'unequal': unequal, 'n': 3 * len(saved['params']),
+           'loss': float(m['loss']), 'norm': float(m['grad_norm'])}
+    del trainer, model, state, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_tiny_restore(want, ranks, seconds):
+    """(h)'s gates: every rank resumed step 2 with every shard bit-equal
+    to the saved tensors' rows, and its next step within SHARDED's gates
+    of the one-device step 3 (`want`: loss, grad norm)."""
+    for r in ranks:
+        loss_rel = abs(r['loss'] - want[0]) / abs(want[0])
+        norm_rel = abs(r['norm'] - want[1]) / abs(want[1])
+        log(f'  (h) rank {r["rank"]}: a one-device tiny state.pt (step '
+            f'{r["resumed"]}) restored at fsdp=2: {r["n"] - len(r["unequal"])}'
+            f' of {r["n"]} parameter and moment shards bit-equal to the '
+            f'saved rows; next step loss {r["loss"]:.6f} vs one device '
+            f'{want[0]:.6f} (rel {loss_rel:.2e}, gate {SHARDED_LOSS_RTOL}), '
+            f'grad norm {r["norm"]:.6f} vs {want[1]:.6f} (rel '
+            f'{norm_rel:.2e}, gate {SHARDED_NORM_RTOL}); save, restore and '
+            f'step {seconds:.1f} s')
+        if (r['resumed'], r['step']) != (2, 2) or r['unequal'] or \
+                loss_rel > SHARDED_LOSS_RTOL or norm_rel > SHARDED_NORM_RTOL:
+            raise SystemExit(f'the one-device tiny step restored at fsdp=2 '
+                             f'differs: {r}')
+
+
+def ring_inputs(device, shape):
+    """The whole sequence's q, k, v and cotangent at one hop's `shape`
+    (bf16), the same draw in every process."""
+    import torch
+    b, hq, hkv, s, d = shape
     n = SHARDED['ranks']
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
 
@@ -3526,8 +3915,10 @@ def sharded_training_phase(device, card, smi):
     through Trainer(..., mesh=): each step against the one-device
     trainer's (run first, freed before the ranks start), every rank's metrics equal
     rank 0's, exact launches per rank; (e) the ring op at one hop's shape
-    against ring_attention_reference; (g) (b)'s saved step restored on
-    one device, bit-equal to the gathered shards; (f) world 1 over NCCL.
+    (head_dim 64, and `tiny`'s 16) against ring_attention_reference; (h)
+    a one-device `tiny` state.pt restored at fsdp=2; (g) (b)'s saved
+    step restored on one device, bit-equal to the gathered shards; (f)
+    world 1 over NCCL.
     Returns (rank 0's launches over (b)-(d) and (f), the kernel times at
     the ring hop's shape)."""
     import torch
@@ -3647,39 +4038,28 @@ def sharded_training_phase(device, card, smi):
             for name in KERNEL_NAMES:
                 by_path[name] += lead['counts'][name]
 
-        # (e) the ring op at one hop's shape against the plain version.
+        # (e) the ring op at one hop's shape against the plain version,
+        # at llama3-1b's head_dim 64 and at `tiny`'s 16.
         t0 = time.perf_counter()
-        blocks = pool.run(ring_op_rank, timeout_s=300)
+        blocks = {shape: pool.run(ring_op_rank, shape, timeout_s=300)
+                  for shape in (RING_HOP_SHAPE, RING_SMALL_HOP_SHAPE)}
+        ring_s = time.perf_counter() - t0
+        # (h) a one-device `tiny` state.pt restored at fsdp=2.
+        t0 = time.perf_counter()
+        restore_dir = os.path.join(REPO, 'build', 'tiny_ckpt')
+        if os.path.exists(restore_dir):
+            shutil.rmtree(restore_dir)
+        want = tiny_one_device_save(device, restore_dir)
+        restored = pool.run(tiny_restore_rank, restore_dir, timeout_s=300)
+        restore_s = time.perf_counter() - t0
     finally:
         pool.close()
-    q, k, v, g = ring_inputs(device)
-    ref = ring_reference_grads(q, k, v, g)
-    del q, k, v, g
-    s = RING_HOP_SHAPE[3]
     rels = {}
-    for i, key in enumerate(('out', 'dq', 'dk', 'dv')):
-        got = torch.zeros_like(ref[i])
-        for blk in blocks:
-            c = blk['coord']
-            got[:, :, c * s:(c + 1) * s] = blk[key].to(device)
-        rels[key] = _norm_rel(got, ref[i])
-    del ref, got
-    torch.cuda.empty_cache()
-    for blk in blocks:
-        hops = blk['coord'] + 1
-        if blk['counts'] != dict.fromkeys(KERNEL_NAMES, hops):
-            raise SystemExit(f'the ring op launched {blk["counts"]} on chunk '
-                             f'{blk["coord"]}, expected {hops} of each')
-    log(f'  (e) ring op at {RING_HOP_SHAPE} per hop (causal, bf16) vs '
-        f'ring_attention_reference: norm-rel out {rels["out"]:.2e} (gate '
-        f'{BWD_NORM_RTOL}), dq {rels["dq"]:.2e}, dk {rels["dk"]:.2e}, dv '
-        f'{rels["dv"]:.2e} (gate {GRAD_PLAIN_RTOL} each); launches per rank '
-        f'{[b["counts"] for b in blocks]}; forward + backward wall '
-        f'{[round(b["wall_ms"], 1) for b in blocks]} ms (host-staged hops); '
-        f'{time.perf_counter() - t0:.1f} s')
-    if not (rels['out'] <= BWD_NORM_RTOL and
-            max(rels[k] for k in ('dq', 'dk', 'dv')) <= GRAD_PLAIN_RTOL):
-        raise SystemExit('the ring op disagrees with ring_attention_reference')
+    for shape, ranks in blocks.items():
+        rels[shape] = check_ring_op(device, shape, ranks, ring_s)
+    check_tiny_restore(want, restored, restore_s)
+    shutil.rmtree(restore_dir)
+    rels = rels[RING_HOP_SHAPE]
 
     # (g) the step (b) saved, restored on one device.
     t0 = time.perf_counter()
@@ -4466,6 +4846,12 @@ def main() -> int:
     log(f'[kernels] the small-head-dim forward vs plain version (out |d| '
         f'<= {SMALL_ATOL} + one output ulp, lse |d| <= {SMALL_ATOL})')
     small = phase('kernels', small_kernel_phase, device)
+    log(f'[small_bwd_kernel] the small-head-dim dq and dk/dv vs plain '
+        f'versions (||d|| / ||ref|| <= {BWD_NORM_RTOL}) at '
+        f'{len(SMALL_BWD_SHAPES)} tile-edge shapes; the three small kernels '
+        f'timed at tiny\'s training shape {TINY_TRAIN_SHAPE}')
+    small_bwd, small['at_tiny_training_shape'] = phase(
+        'small_bwd_kernel', small_bwd_kernel_phase, device)
     log(f'[kernels] at the training shapes: forward as above, dq and dk/dv '
         f'vs plain versions (||d|| / ||ref|| <= {BWD_NORM_RTOL})')
     dq, dkv, fwd['at_training_shape'] = phase('kernels', bwd_kernel_phase,
@@ -4521,6 +4907,9 @@ def main() -> int:
     log(f'[moe_training] {MOE_TRAIN}')
     by_path['moe_training'] = phase('moe_training', training_phase, device,
                                     card, smi, MOE_TRAIN)
+    log(f'[tiny_training] {TINY_TRAIN}')
+    by_path['tiny_training'] = phase('tiny_training', tiny_training_phase,
+                                     device, card, smi)
     log(f'[rl] {RL}')
     by_path['rl'] = phase('rl', rl_phase, device, card)
     at_rl_shape = kernel_times(device, RL_SHAPE, 'REINFORCE')
@@ -4576,7 +4965,8 @@ def main() -> int:
         entry['spill_bytes'] = report.get('spill_stores')
         launch = entry.get('launch') or entry['at_training_shape']['launch']
         entry['smem_bytes'] = launch.get('shared memory')
-        counts = {path: c[entry['name']] for path, c in by_path.items()}
+        counts = {path: c.get(entry['name'], 0)
+                  for path, c in by_path.items()}
         if not any(counts.values()):
             raise SystemExit(f'{entry["name"]} was never launched on the '
                              f'main paths: {counts}')
@@ -4584,16 +4974,25 @@ def main() -> int:
         entry['launches_by_path'] = counts
         rows.append({**{key: entry[key] for key in keys},
                      **{key: entry[key] for key in entry if key not in keys}})
-    # The small-head-dim forward: launched on the perf gate's path only
-    # (no other path runs head_dim 16 or 32).
-    report = ptxas.get((KERNEL_SYMBOLS[SMALL_KERNEL], 'bf16', 16), {})
-    small.update(registers=report.get('registers'),
-                 spill_bytes=report.get('spill_stores'),
-                 smem_bytes=small['launch'].get('shared memory'),
-                 launches=small_launches,
-                 launches_by_path={'perf_gate': small_launches})
-    rows.append({**{key: small[key] for key in keys},
-                 **{key: small[key] for key in small if key not in keys}})
+    # The small-head-dim kernels: launched on tiny_training's path (all
+    # three) and the perf gate's (the forward); ptxas of the bf16,
+    # head_dim 16 instantiation `tiny` runs.
+    by_path['perf_gate'][SMALL_KERNEL] = small_launches
+    for entry in (small, small_bwd['dq'], small_bwd['dkv']):
+        report = ptxas.get((KERNEL_SYMBOLS[entry['name']], 'bf16', 16), {})
+        counts = {path: c.get(entry['name'], 0)
+                  for path, c in by_path.items()
+                  if c.get(entry['name'], 0)}
+        if not counts:
+            raise SystemExit(f'{entry["name"]} was never launched on the '
+                             f'main paths')
+        entry.update(registers=report.get('registers'),
+                     spill_bytes=report.get('spill_stores'),
+                     smem_bytes=entry['launch'].get('shared memory'),
+                     launches=sum(counts.values()),
+                     launches_by_path=counts)
+        rows.append({**{key: entry[key] for key in keys},
+                     **{key: entry[key] for key in entry if key not in keys}})
     kernels = {'kernels': rows}
     log(f'[done] {time.perf_counter() - t_start:.1f} s')
     log(json.dumps(kernels))

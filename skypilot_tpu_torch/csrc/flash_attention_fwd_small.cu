@@ -38,10 +38,13 @@
 //   step); V's B fragments are two 16-bit shared loads each.
 // - Causal: tiles above the diagonal are skipped; only the diagonal and
 //   the ragged tile past S are masked element by element.
+// The mma.sync, cp.async and fragment helpers, shared with the small
+// backward kernels (flash_attention_bwd_{dq,dkv}_small.cu), are in
+// sm80_mma.cuh.
 
 #include <math.h>
 
-#include "sm90_common.cuh"
+#include "sm80_mma.cuh"
 
 namespace {
 
@@ -50,59 +53,10 @@ constexpr int kBlockN = 64;  // kv rows per tile (== kBlockM)
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kStages = 2;
-constexpr int kPad = 8;  // elements of padding per shared-memory row
 constexpr float kNegInf = -1e30f;  // the TPU kernel's mask value
 constexpr float kLn2 = 0.6931471805599453f;
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  // src-size 0 copies nothing and zero-fills the 16 bytes.
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   sm90::smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// d += a b: one m16n8k16 product, f32 accumulators d[off .. off + 3].
-template <typename T, int N>
-__device__ __forceinline__ void mma16816(float (&d)[N], int off,
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  if constexpr (sm90::kIsBf16<T>) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(d[off]), "+f"(d[off + 1]), "+f"(d[off + 2]), "+f"(d[off + 3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  } else {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-        "{%0, %1, %2, %3};\n"
-        : "+f"(d[off]), "+f"(d[off + 1]), "+f"(d[off + 2]), "+f"(d[off + 3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-}
-
-__device__ __forceinline__ uint32_t load_u32(const void* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two 16-bit values from two rows of one column, low half first.
-__device__ __forceinline__ uint32_t pack_u16(const void* lo, const void* hi) {
-  return uint32_t(*reinterpret_cast<const uint16_t*>(lo)) |
-         (uint32_t(*reinterpret_cast<const uint16_t*>(hi)) << 16);
-}
+using sm80::kPad;
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -111,7 +65,6 @@ __global__ void __launch_bounds__(kThreads)
                         float* __restrict__ lse, int hq, int hkv, int s_len,
                         float scale_log2, int causal) {
   constexpr int kLd = D + kPad;     // shared-memory row, in elements
-  constexpr int kChunks = D / 8;    // 16-byte chunks per row
   __shared__ __align__(16) T k_s[kStages][kBlockN * kLd];
   __shared__ __align__(16) T v_s[kStages][kBlockN * kLd];
 
@@ -126,17 +79,9 @@ __global__ void __launch_bounds__(kThreads)
   const T* v_head = v + size_t(bkv) * s_len * D;
 
   auto load_tile = [&](int t) {
-    const int st = t % kStages;
-    for (int c = threadIdx.x; c < kBlockN * kChunks; c += kThreads) {
-      const int row = c / kChunks;
-      const int col = (c % kChunks) * 8;
-      const int key = t * kBlockN + row;
-      const bool valid = key < s_len;
-      const size_t off = size_t(valid ? key : 0) * D + col;
-      cp_async16(&k_s[st][row * kLd + col], k_head + off, valid);
-      cp_async16(&v_s[st][row * kLd + col], v_head + off, valid);
-    }
-    cp_async_commit();
+    sm80::load_tile_pair<D, kBlockN, kThreads>(
+        k_s[t % kStages], v_s[t % kStages], k_head, v_head, t * kBlockN,
+        s_len);
   };
   load_tile(0);
 
@@ -149,18 +94,8 @@ __global__ void __launch_bounds__(kThreads)
 
   // Q as the A fragments of the D / 16 k-steps of S = Q K^T.
   uint32_t q_frag[D / 16][4];
-  {
-    const T* q_head = q + size_t(bh) * s_len * D;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int row = rows[r % 2];
-        const int col = kk * 16 + 2 * quad + 8 * (r / 2);
-        q_frag[kk][r] =
-            row < s_len ? load_u32(q_head + size_t(row) * D + col) : 0u;
-      }
-  }
+  sm80::load_a_rows<D>(q_frag, q + size_t(bh) * s_len * D, rows, quad,
+                       s_len);
 
   float o_acc[D / 2];
 #pragma unroll
@@ -171,9 +106,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = 0; t < n_tiles; ++t) {
     if (t + 1 < n_tiles) {
       load_tile(t + 1);
-      cp_async_wait<1>();
+      sm80::cp_async_wait<1>();
     } else {
-      cp_async_wait<0>();
+      sm80::cp_async_wait<0>();
     }
     __syncthreads();
     const T* ks = k_s[t % kStages];
@@ -189,8 +124,9 @@ __global__ void __launch_bounds__(kThreads)
       const T* k_row = ks + (8 * j + g) * kLd + 2 * quad;
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        mma16816<T>(s, 4 * j, q_frag[kk], load_u32(k_row + 16 * kk),
-                    load_u32(k_row + 16 * kk + 8));
+        sm80::mma16816<T>(s, 4 * j, q_frag[kk],
+                          sm80::load_u32(k_row + 16 * kk),
+                          sm80::load_u32(k_row + 16 * kk + 8));
     }
 
     // Online softmax (the wgmma kernel's softmax_tile on 64 keys).
@@ -252,8 +188,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) {
         const T* v_col = v_k + 8 * n;
-        mma16816<T>(o_acc, 4 * n, p_frag, pack_u16(v_col, v_col + kLd),
-                    pack_u16(v_col + 8 * kLd, v_col + 9 * kLd));
+        sm80::mma16816<T>(o_acc, 4 * n, p_frag,
+                          sm80::pack_u16(v_col, v_col + kLd),
+                          sm80::pack_u16(v_col + 8 * kLd, v_col + 9 * kLd));
       }
     }
     // The next iteration's cp.async overwrites this stage.

@@ -17,8 +17,13 @@ PyTorch/CUDA counterparts of `skypilot_tpu/ops/pallas/flash_attention.py`:
   in registers) and `flash_attention_bwd_dkv` (`_fa_bwd_dkv_kernel`,
   dk/dv already summed to Hkv heads; source
   `csrc/flash_attention_bwd_dkv.cu`, wgmma with P^T and dS^T in
-  registers).  The Hopper building blocks the three kernels share are in
-  `csrc/sm90_common.cuh`.
+  registers).  At head_dim 16 and 32 they hand the call to
+  `flash_attention_bwd_dq_small` and `flash_attention_bwd_dkv_small`
+  (`csrc/flash_attention_bwd_{dq,dkv}_small.cu`, mma.sync as the small
+  forward), whose launches they count apart.  The Hopper building blocks
+  the three wgmma kernels share are in `csrc/sm90_common.cuh`; the
+  mma.sync ones of the three small kernels in `csrc/sm80_mma.cuh`.  Any
+  other head_dim is refused.
 
 GQA reads kv head h // (Hq // Hkv) inside the kernels.  Every source in
 `csrc/` is compiled with nvcc for sm_90a (one process per source, in
@@ -62,11 +67,12 @@ COMPILE_FLAGS = ARCH_FLAGS + ('-std=c++17', '-O3', '-Xcompiler', '-fPIC',
                               '-Xptxas', '-v', '-c')
 LINK_FLAGS = ARCH_FLAGS + ('-shared',)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1}
-# Head dims of the wgmma kernels (forward, dq, dk/dv), and the small ones
-# only the mma.sync forward takes.
+# Head dims of the wgmma kernels (forward, dq, dk/dv), of the mma.sync
+# ones (the same three at the small head dims), and of the wrappers that
+# hand each call to one or the other.
 _HEAD_DIMS = (64, 128)
 _SMALL_HEAD_DIMS = (16, 32)
-_FWD_HEAD_DIMS = _SMALL_HEAD_DIMS + _HEAD_DIMS
+_ALL_HEAD_DIMS = _SMALL_HEAD_DIMS + _HEAD_DIMS
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argtypes.
@@ -77,7 +83,11 @@ _SIGNATURES = {
         [_P] * 5 + [_I] * 6 + [ctypes.c_float, _I, _P],
     'skytpu_flash_attention_bwd_dq':
         [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I, _P],
+    'skytpu_flash_attention_bwd_dq_small':
+        [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I, _P],
     'skytpu_flash_attention_bwd_dkv':
+        [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _P],
+    'skytpu_flash_attention_bwd_dkv_small':
         [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _P],
 }
 
@@ -198,7 +208,7 @@ def _device_type(*tensors: torch.Tensor) -> str:
                      f'(all on one), got {sorted(devices)}')
 
 
-def _check_cuda_inputs(q, k, v, *same_as_q, head_dims=_HEAD_DIMS) -> None:
+def _check_cuda_inputs(q, k, v, *same_as_q, head_dims) -> None:
     """q and same_as_q [B,Hq,S,D], k/v [B,Hkv,S,D]: one device and dtype
     (bf16/fp16), head_dim in `head_dims`, contiguous and 16-byte
     aligned."""
@@ -289,7 +299,7 @@ def flash_attention_fwd(q: torch.Tensor,
     if _device_type(q, k, v) == 'cpu':
         return flash_attention_fwd_reference(
             q, k, v, causal=causal, return_residuals=return_residuals)
-    _check_cuda_inputs(q, k, v, head_dims=_FWD_HEAD_DIMS)
+    _check_cuda_inputs(q, k, v, head_dims=_ALL_HEAD_DIMS)
     if q.shape[3] in _SMALL_HEAD_DIMS:
         return flash_attention_fwd_small(q, k, v, causal=causal,
                                          return_residuals=return_residuals)
@@ -414,23 +424,50 @@ def flash_attention_bwd_dq(q, k, v, g, lse, delta,
     if _device_type(q, k, v, g, lse, delta) == 'cpu':
         return flash_attention_bwd_dq_reference(q, k, v, g, lse, delta,
                                                 causal)
-    _check_cuda_inputs(q, k, v, g)
+    _check_cuda_inputs(q, k, v, g, head_dims=_ALL_HEAD_DIMS)
     _check_rows(q, lse, delta)
+    if q.shape[3] in _SMALL_HEAD_DIMS:
+        return flash_attention_bwd_dq_small(q, k, v, g, lse, delta, causal)
+    return _launch_dq('skytpu_flash_attention_bwd_dq', flash_attention_bwd_dq,
+                      q, k, v, g, lse, delta, causal)
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dq_small(q, k, v, g, lse, delta,
+                                 causal: bool = True) -> torch.Tensor:
+    """The dq kernel at head_dim 16 or 32
+    (`csrc/flash_attention_bwd_dq_small.cu`): `flash_attention_bwd_dq`'s
+    contract, which calls it at those head dims."""
+    if _device_type(q, k, v, g, lse, delta) == 'cpu':
+        return flash_attention_bwd_dq_reference(q, k, v, g, lse, delta,
+                                                causal)
+    _check_cuda_inputs(q, k, v, g, head_dims=_SMALL_HEAD_DIMS)
+    _check_rows(q, lse, delta)
+    return _launch_dq('skytpu_flash_attention_bwd_dq_small',
+                      flash_attention_bwd_dq_small, q, k, v, g, lse, delta,
+                      causal)
+
+
+flash_attention_bwd_dq_small.launches = 0
+
+
+def _launch_dq(entry: str, wrapper, q, k, v, g, lse, delta, causal):
+    """Launch a dq kernel through its C entry on checked CUDA inputs and
+    count the launch on `wrapper`."""
     b, hq, s, d = q.shape
     dq = torch.empty_like(q)
     lib = _LIBRARY.get()
     with torch.cuda.device(q.device):
-        err = lib.skytpu_flash_attention_bwd_dq(
+        err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             b, hq, k.shape[1], s, d, _DTYPE_CODES[q.dtype], d**-0.5,
             int(causal), _stream(q.device))
-    _raise_on(err, 'flash_attention_bwd_dq')
-    flash_attention_bwd_dq.launches += 1
+    _raise_on(err, wrapper.__name__)
+    wrapper.launches += 1
     return dq
-
-
-flash_attention_bwd_dq.launches = 0
 
 
 def flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal: bool = True
@@ -440,24 +477,53 @@ def flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal: bool = True
     if _device_type(q, k, v, g, lse, delta) == 'cpu':
         return flash_attention_bwd_dkv_reference(q, k, v, g, lse, delta,
                                                  causal)
-    _check_cuda_inputs(q, k, v, g)
+    _check_cuda_inputs(q, k, v, g, head_dims=_ALL_HEAD_DIMS)
     _check_rows(q, lse, delta)
+    if q.shape[3] in _SMALL_HEAD_DIMS:
+        return flash_attention_bwd_dkv_small(q, k, v, g, lse, delta, causal)
+    return _launch_dkv('skytpu_flash_attention_bwd_dkv',
+                       flash_attention_bwd_dkv, q, k, v, g, lse, delta,
+                       causal)
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd_dkv_small(q, k, v, g, lse, delta,
+                                  causal: bool = True
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dk/dv kernel at head_dim 16 or 32
+    (`csrc/flash_attention_bwd_dkv_small.cu`): `flash_attention_bwd_dkv`'s
+    contract, which calls it at those head dims."""
+    if _device_type(q, k, v, g, lse, delta) == 'cpu':
+        return flash_attention_bwd_dkv_reference(q, k, v, g, lse, delta,
+                                                 causal)
+    _check_cuda_inputs(q, k, v, g, head_dims=_SMALL_HEAD_DIMS)
+    _check_rows(q, lse, delta)
+    return _launch_dkv('skytpu_flash_attention_bwd_dkv_small',
+                       flash_attention_bwd_dkv_small, q, k, v, g, lse, delta,
+                       causal)
+
+
+flash_attention_bwd_dkv_small.launches = 0
+
+
+def _launch_dkv(entry: str, wrapper, q, k, v, g, lse, delta, causal):
+    """Launch a dk/dv kernel through its C entry on checked CUDA inputs and
+    count the launch on `wrapper`."""
     b, hq, s, d = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     lib = _LIBRARY.get()
     with torch.cuda.device(q.device):
-        err = lib.skytpu_flash_attention_bwd_dkv(
+        err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b, hq, k.shape[1], s, d, _DTYPE_CODES[q.dtype], d**-0.5,
             int(causal), _stream(q.device))
-    _raise_on(err, 'flash_attention_bwd_dkv')
-    flash_attention_bwd_dkv.launches += 1
+    _raise_on(err, wrapper.__name__)
+    wrapper.launches += 1
     return dk, dv
-
-
-flash_attention_bwd_dkv.launches = 0
 
 
 def flash_attention_bwd(q: torch.Tensor,

@@ -8,9 +8,9 @@
 
 `check` holds the forward (out, lse) and the dk/dv and dq kernels against
 their plain versions at shapes on the edges of the kernels' tiles, up to
-bench-1b's training shape, then the small-head-dim forward (head_dim 16
-and 32; no backward kernel takes them) at its tile edges; `check small`
-runs only the latter; `time` times the forward, dq and dk/dv at
+bench-1b's training shape, then the small-head-dim kernels (head_dim 16
+and 32: forward, dq and dk/dv) at their tile edges; `check small` runs
+only the latter; `time` times the forward, dq and dk/dv at
 bench-1b's shape (B=4, Hq=16, Hkv=8, S=4096, D=128, causal bf16) and the
 forward at the serving shape (B=8, H=32, S=256), each the mean of 20 calls
 queued behind a spin kernel, so the device runs them back to back.  To
@@ -42,11 +42,11 @@ CHECK_SHAPES = [  # (b, hq, hkv, s, d, causal, dtype)
     (1, 4, 2, 1024, 128, True, torch.bfloat16),
     (4, 16, 8, 4096, 128, True, torch.bfloat16),
 ]
-# The small-head-dim forward: 64-row tiles, so S on both sides of 64 and
+# The small-head-dim kernels: 64-row tiles, so S on both sides of 64 and
 # 128; GQA groups 1, 2 and 4; the `tiny` probe's S = 8 and 16.
 SMALL_CHECK_SHAPES = [
     (b, hq, hkv, s, d, causal, dtype)
-    for b, hq, hkv in ((2, 4, 2),)
+    for b, hq, hkv in ((2, 4, 2), (2, 4, 4))
     for s in (1, 5, 8, 16, 17, 63, 64, 65, 127, 128, 129)
     for d in (16, 32)
     for causal in (True, False)
@@ -68,28 +68,50 @@ def _norm_rel(x, ref) -> float:
     return ((x.float() - ref.float()).norm() / ref.float().norm()).item()
 
 
+SMALL_KERNELS = ('flash_attention_fwd_small', 'flash_attention_bwd_dq_small',
+                 'flash_attention_bwd_dkv_small')
+
+
 def check_small() -> None:
-    """The forward at head_dim 16 and 32 against its plain version."""
+    """The forward, dq and dk/dv at head_dim 16 and 32 against their
+    plain versions (forward max-abs; backward norm-relative and max-abs),
+    with each small wrapper's launches per case (1, 2 for the forward)."""
     gen = torch.Generator(device='cuda').manual_seed(0)
-    worst = 0.0
+    worst = {'fwd': 0.0, 'bwd': 0.0}
     for b, hq, hkv, s, d, causal, dtype in SMALL_CHECK_SHAPES:
-        q, k, v, _ = _inputs(gen, b, hq, hkv, s, d, dtype)
-        before = fa.flash_attention_fwd_small.launches
+        q, k, v, g = _inputs(gen, b, hq, hkv, s, d, dtype)
+        before = [getattr(fa, name).launches for name in SMALL_KERNELS]
         out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
                                           return_residuals=True)
         no_lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        delta = (g.float() * out.float()).sum(-1)
+        dq = fa.flash_attention_bwd_dq(q, k, v, g, lse, delta, causal)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal)
         torch.cuda.synchronize()
+        launches = [getattr(fa, name).launches - n
+                    for name, n in zip(SMALL_KERNELS, before)]
         ref, ref_lse = fa.flash_attention_fwd_reference(
             q, k, v, causal=causal, return_residuals=True)
         err = (out.float() - ref.float()).abs().max().item()
         lse_err = (lse - ref_lse).abs().max().item()
-        worst = max(worst, err, lse_err)
+        worst['fwd'] = max(worst['fwd'], err, lse_err)
+        refs = (fa.flash_attention_bwd_dq_reference(q, k, v, g, lse, delta,
+                                                    causal),
+                *fa.flash_attention_bwd_dkv_reference(q, k, v, g, lse,
+                                                      delta, causal))
+        bwd = []
+        for name, x, r in zip(('dq', 'dk', 'dv'), (dq, dk, dv), refs):
+            rel = _norm_rel(x, r)
+            worst['bwd'] = max(worst['bwd'], rel)
+            bwd.append(f'{name} {rel:.3e}/'
+                       f'{(x.float() - r.float()).abs().max().item():.3e}')
+        bwd = ' '.join(bwd)
         print(f'{(b, hq, hkv, s, d, causal, str(dtype)[6:])}: out max '
               f'{err:.3e} lse max {lse_err:.3e} no-lse equal '
-              f'{bool(torch.equal(out, no_lse))} launches '
-              f'{fa.flash_attention_fwd_small.launches - before}',
-              flush=True)
-    print(f'small forward worst max-abs {worst:.3e}', flush=True)
+              f'{bool(torch.equal(out, no_lse))} | norm-rel/max-abs {bwd} '
+              f'| launches {launches}', flush=True)
+    print(f'small forward worst max-abs {worst["fwd"]:.3e}; small backward '
+          f'worst norm-rel {worst["bwd"]:.3e}', flush=True)
 
 
 def check() -> None:

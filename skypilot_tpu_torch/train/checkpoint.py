@@ -8,7 +8,11 @@ half-written step.  `state` is the trainer's `TrainState` (or, unsharded,
 any object with `state_dict()`/`load_state_dict()`).
 
 - One device: `step_<n>/state.pt`, `torch.save` of `state_dict()`, loaded
-  back with `torch.load(weights_only=True)` onto the target's device.
+  back with `torch.load(weights_only=True)` onto the target's device, or,
+  onto a target sharded over a mesh, memory-mapped on every rank, each
+  copying its own block (its FSDP shard of its tensor slice) into every
+  parameter and AdamW moment: a job trained on one device resumes on a
+  mesh, as orbax reshards a one-device step on load.
 - Sharded over a mesh (`state.layout` set): `torch.distributed.checkpoint`
   (DCP), every rank writing its shards into `step_<n>/`.  Parameters and
   AdamW moments are saved as whole tensors (`ShardedLayout.global_view`:
@@ -109,6 +113,27 @@ def dcp_items(state) -> Dict[str, Any]:
     return items
 
 
+def _block(t: torch.Tensor, offsets, sizes) -> torch.Tensor:
+    """The block of `t` at `offsets` of `sizes`, as a view (of a
+    memory-mapped file: only the block's pages are read)."""
+    for dim, (start, size) in enumerate(zip(offsets, sizes)):
+        t = t.narrow(dim, start, size)
+    return t
+
+
+def _restore_schedule(target, schedule: Dict[str, Any], lr: float) -> None:
+    """The schedule's state and the learning rate into every param group:
+    each follows the one schedule, so a step saved with another number of
+    groups (a MoE mesh keeps its experts in a group of their own) restores
+    group 0's values into each."""
+    n = len(target.optimizer.param_groups)
+    target.schedule.load_state_dict({
+        k: [v[0]] * n if isinstance(v, list) and len(v) != n else v
+        for k, v in schedule.items()})
+    for group in target.optimizer.param_groups:
+        group['lr'] = lr
+
+
 class CheckpointManager:
 
     def __init__(self, directory: str, max_to_keep: int = 3) -> None:
@@ -181,14 +206,13 @@ class CheckpointManager:
         dist.barrier()
 
     def restore(self, step: int, target: Any) -> Any:
-        """Load step `step` into `target` and return it.  A DCP step
+        """Load step `step` into `target` and return it.  Either format
         restores onto any plan (every rank of the target's mesh together)
-        or onto one device; a `state.pt` step onto one device."""
+        or onto one device."""
         sharded_target = getattr(target, 'layout', None) is not None
         if not self.is_sharded(step):
             if sharded_target:
-                raise ValueError(f'step {step} is a one-device state.pt: '
-                                 f'restore it on one device')
+                return self._restore_onto_mesh(step, target)
             state = torch.load(self.state_path(step),
                                map_location=target.device, weights_only=True)
             target.load_state_dict(state)
@@ -197,15 +221,61 @@ class CheckpointManager:
         items = dcp_items(target)
         dcp.load(items, checkpoint_id=self._path(step),
                  no_dist=not sharded_target)
-        # Every param group follows the one schedule: a step saved with
-        # another number of groups (a MoE mesh keeps its experts in a
-        # group of their own) restores group 0's values into each.
-        n = len(target.optimizer.param_groups)
-        target.schedule.load_state_dict({
-            k: [v[0]] * n if isinstance(v, list) and len(v) != n else v
-            for k, v in items['schedule'].items()})
-        for group in target.optimizer.param_groups:
-            group['lr'] = items['lr'][0]
+        _restore_schedule(target, items['schedule'], items['lr'][0])
+        return target
+
+    def _load_state(self, step: int) -> Dict[str, Any]:
+        """Step `step`'s `state.pt` on the host, memory-mapped: a block cut
+        out of it reads only its own pages."""
+        return torch.load(self.state_path(step), map_location='cpu',
+                          weights_only=True, mmap=True)
+
+    def _restore_onto_mesh(self, step: int, target: Any) -> Any:
+        """A one-device `state.pt` into a target sharded over a mesh (on
+        every rank of it): each parameter and AdamW moment gets its own
+        block of the saved whole tensor, the inverse of
+        `ShardedLayout.global_view`.  The saved moments are matched to
+        parameters by name (the one-device optimizer has one param group
+        in `named_parameters()` order; a MoE mesh target has two)."""
+        from torch.distributed.tensor._utils import (
+            compute_local_shape_and_global_offset)
+        saved = self._load_state(step)
+        layout = target.layout
+        named = list(target.model.named_parameters())
+        ids = [i for group in saved['optimizer']['param_groups']
+               for i in group['params']]
+        if len(ids) != len(named):
+            raise ValueError(f'step {step} holds {len(ids)} parameters, '
+                             f'the target {len(named)}')
+        moments = {name: saved['optimizer']['state'].get(i)
+                   for (name, _), i in zip(named, ids)}
+
+        def copy_block(t, name, whole):
+            view = layout.global_view(t, name)
+            sizes, offsets = compute_local_shape_and_global_offset(
+                view.shape, view.device_mesh, view.placements)
+            block, local = _block(whole, offsets, sizes), view.to_local()
+            if block.shape != local.shape:
+                raise ValueError(f'{name}: a block of {tuple(block.shape)} '
+                                 f'for a shard of {tuple(local.shape)}')
+            local.copy_(block)
+
+        with torch.no_grad():
+            for name, p in named:
+                whole = saved['params'][name]
+                copy_block(p, name, whole)
+                adam = _adam_state(target.optimizer, p)
+                moment = moments[name]
+                if moment is None:  # saved before the first step
+                    moment = {'step': torch.zeros(()),
+                              'exp_avg': torch.zeros_like(whole),
+                              'exp_avg_sq': torch.zeros_like(whole)}
+                for key in ('exp_avg', 'exp_avg_sq'):
+                    copy_block(adam[key], name, moment[key])
+                adam['step'].copy_(moment['step'])
+        target.step.copy_(saved['step'])
+        _restore_schedule(target, saved['schedule'],
+                          saved['optimizer']['param_groups'][0]['lr'])
         return target
 
     def read_params(self, step: int, box: Optional[Box] = None
@@ -217,20 +287,14 @@ class CheckpointManager:
         memory-mapped (the blocks are views of it); from a DCP step only
         the blocks' bytes are read, into tensors of their size."""
         if not self.is_sharded(step):
-            state = torch.load(self.state_path(step), map_location='cpu',
-                               weights_only=True, mmap=True)
+            state = self._load_state(step)
             if isinstance(state, dict) and isinstance(state.get('params'),
                                                       dict):
                 state = state['params']
             if box is None:
                 return state
-            out = {}
-            for name, t in state.items():
-                for dim, (start, size) in enumerate(zip(*box(name,
-                                                             t.shape))):
-                    t = t.narrow(dim, start, size)
-                out[name] = t
-            return out
+            return {name: _block(t, *box(name, t.shape))
+                    for name, t in state.items()}
         import torch.distributed.checkpoint as dcp
         reader = dcp.FileSystemReader(self._path(step))
         meta = reader.read_metadata().state_dict_metadata

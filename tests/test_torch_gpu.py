@@ -1,6 +1,6 @@
 """GPU-only checks of the PyTorch port: the hand-written flash-attention
-kernels (forward, the head_dim 16/32 forward, dq, dk/dv) against their
-plain versions, the autograd
+kernels (forward, dq, dk/dv, and the three at head_dim 16/32) against
+their plain versions, the autograd
 op against autograd through `mha_reference`, the engine's kernel path
 against attention_impl='xla', a narrow model trained through the
 kernels, the engine's decode call as a CUDA graph against its eager
@@ -170,6 +170,51 @@ def test_small_head_dim_kernel_matches_plain(cuda, s, d, hq, causal, dtype):
     assert bool(((out.float() - ref).abs() <= SMALL_ATOL + ulp).all())
     torch.testing.assert_close(lse, ref_lse, atol=SMALL_ATOL, rtol=0)
     assert torch.equal(out, no_lse)
+
+
+# The small-head-dim dq and dk/dv at the same tile edges, against their
+# plain versions (BWD_NORM_RTOL below).  At S = 1 every row attends one
+# key, so dq and dk are 0 in exact arithmetic and both sides hold only
+# f32 cancellation noise: there the kernel's largest entry is held to
+# SMALL_BWD_ZERO_ATOL instead.
+SMALL_BWD_ZERO_ATOL = 1e-5
+
+
+@pytest.mark.parametrize('s', [1, 5, 17, 63, 64, 65, 127, 128, 129])
+@pytest.mark.parametrize('d,hq,causal,dtype', [
+    (16, 4, True, torch.bfloat16), (16, 8, False, torch.float16),
+    (32, 4, True, torch.float16), (32, 8, False, torch.bfloat16)])
+def test_small_head_dim_bwd_kernels_match_plain(cuda, s, d, hq, causal,
+                                                dtype):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, g = (torch.randn((2, hq, s, d), generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    k, v = (torch.randn((2, 2, s, d), generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                      return_residuals=True)
+    delta = (g.float() * out.float()).sum(-1)
+    counters = (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv,
+                fa.flash_attention_bwd_dq_small,
+                fa.flash_attention_bwd_dkv_small)
+    before = [c.launches for c in counters]
+    dq = fa.flash_attention_bwd_dq(q, k, v, g, lse, delta, causal)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal)
+    again = (fa.flash_attention_bwd_dq(q, k, v, g, lse, delta, causal),
+             *fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal))
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [0, 0, 2, 2]
+    refs = (fa.flash_attention_bwd_dq_reference(q, k, v, g, lse, delta,
+                                                causal),
+            *fa.flash_attention_bwd_dkv_reference(q, k, v, g, lse, delta,
+                                                  causal))
+    for got, ref, repeat in zip((dq, dk, dv), refs, again):
+        assert got.dtype == dtype and got.shape == ref.shape
+        assert torch.isfinite(got).all() and torch.equal(got, repeat)
+        if ref.float().abs().max() <= SMALL_BWD_ZERO_ATOL:
+            assert got.float().abs().max() <= SMALL_BWD_ZERO_ATOL
+        else:
+            assert _norm_rel(got, ref) <= BWD_NORM_RTOL
 
 
 def test_flash_kernel_rejects_what_it_cannot_run(cuda):
@@ -345,6 +390,34 @@ def test_narrow_model_trains_through_kernels(cuda):
         losses.append(float(metrics['loss']))
     assert [c.launches - b for c, b in zip(counters, before)] == [
         3 * 2 * cfg.n_layers, 3 * cfg.n_layers, 3 * cfg.n_layers]
+    assert all(torch.isfinite(torch.tensor(losses))) and losses[-1] < losses[0]
+
+
+def test_tiny_trains_through_small_kernels(cuda):
+    """`tiny` (head_dim 16, no remat) takes 3 train steps on the card:
+    every layer launches the small forward, dq and dk/dv once per step
+    and no wgmma kernel, and the loss is finite and falls."""
+    from skypilot_tpu_torch.models.llama import LLAMA_CONFIGS
+    from skypilot_tpu_torch.train import trainer as tt
+    cfg = LLAMA_CONFIGS['tiny']
+    model = Llama(cfg, init_params(
+        cfg, cuda, torch.Generator(device=cuda).manual_seed(0)))
+    trainer = tt.Trainer(model, tt.TrainConfig(learning_rate=1e-2,
+                                               warmup_steps=1,
+                                               total_steps=50))
+    tokens = torch.randint(0, cfg.vocab_size, (4, 64), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv, fa.flash_attention_fwd_small,
+                fa.flash_attention_bwd_dq_small,
+                fa.flash_attention_bwd_dkv_small)
+    before = [c.launches for c in counters]
+    losses = []
+    for _ in range(3):
+        trainer.state, metrics = trainer.train_step(trainer.state, tokens)
+        losses.append(float(metrics['loss']))
+    assert [c.launches - b for c, b in zip(counters, before)] == [
+        0, 0, 0, *[3 * cfg.n_layers] * 3]
     assert all(torch.isfinite(torch.tensor(losses))) and losses[-1] < losses[0]
 
 

@@ -120,14 +120,16 @@ def test_forward_dispatches_small_head_dims_to_their_kernel(monkeypatch):
     """On a CUDA tensor the forward takes head_dim 16 and 32 to the
     small kernel's C entry (counted on `flash_attention_fwd_small`), 64
     and 128 to the wgmma kernel's, and refuses any other head_dim naming
-    the supported set; the backward kernels still take 64 and 128 only.
-    (The launch itself is stubbed: the checks and the routing are
-    host code.)"""
+    the supported set; the backward's dq and dk/dv route the same way to
+    their small kernels' entries (counted on `flash_attention_bwd_dq_small`
+    and `_dkv_small`) and refuse the same head dims.  (The launches
+    themselves are stubbed: the checks and the routing are host code.)"""
     calls = []
     monkeypatch.setattr(torch_fa, '_device_type', lambda *ts: 'cuda')
-    monkeypatch.setattr(
-        torch_fa, '_launch_fwd',
-        lambda entry, wrapper, *args: calls.append((entry, wrapper)))
+    for launch in ('_launch_fwd', '_launch_dq', '_launch_dkv'):
+        monkeypatch.setattr(
+            torch_fa, launch,
+            lambda entry, wrapper, *args: calls.append((entry, wrapper)))
     for d, entry, wrapper in (
             (16, 'skytpu_flash_attention_fwd_small',
              torch_fa.flash_attention_fwd_small),
@@ -148,17 +150,41 @@ def test_forward_dispatches_small_head_dims_to_their_kernel(monkeypatch):
         with pytest.raises(ValueError, match='head_dim 16, 32'):
             torch_fa.flash_attention_fwd_small(q, k, v)
     assert not calls
-    q, k, v = (t.to(torch.bfloat16)
-               for t in _t(*_qkv(b=1, h=2, s=16, d=16)))
-    lse = torch.zeros(1, 2, 16)
-    with pytest.raises(ValueError, match='head_dim 64, 128'):
+    lse = torch.zeros(2, 4, 16)
+    for d, suffix, (dq_wrapper, dkv_wrapper) in (
+            (16, '_small', (torch_fa.flash_attention_bwd_dq_small,
+                            torch_fa.flash_attention_bwd_dkv_small)),
+            (32, '_small', (torch_fa.flash_attention_bwd_dq_small,
+                            torch_fa.flash_attention_bwd_dkv_small)),
+            (64, '', (torch_fa.flash_attention_bwd_dq,
+                      torch_fa.flash_attention_bwd_dkv)),
+            (128, '', (torch_fa.flash_attention_bwd_dq,
+                       torch_fa.flash_attention_bwd_dkv))):
+        q, k, v = (t.to(torch.bfloat16)
+                   for t in _t(*_qkv(b=2, h=4, s=16, d=d, hkv=2)))
         torch_fa.flash_attention_bwd_dq(q, k, v, q, lse, lse)
-    with pytest.raises(ValueError, match='head_dim 64, 128'):
         torch_fa.flash_attention_bwd_dkv(q, k, v, q, lse, lse)
-    assert torch_fa._SIGNATURES['skytpu_flash_attention_fwd_small'] == (
-        torch_fa._SIGNATURES['skytpu_flash_attention_fwd'])
-    assert (torch_fa.CSRC_DIR / 'flash_attention_fwd_small.cu') in (
-        torch_fa.sources())
+        assert calls == [
+            (f'skytpu_flash_attention_bwd_dq{suffix}', dq_wrapper),
+            (f'skytpu_flash_attention_bwd_dkv{suffix}', dkv_wrapper)], d
+        calls.clear()
+    for d in (48, 8, 256):
+        q, k, v = (t.to(torch.bfloat16)
+                   for t in _t(*_qkv(b=2, h=4, s=16, d=d, hkv=2)))
+        for fn in (torch_fa.flash_attention_bwd_dq,
+                   torch_fa.flash_attention_bwd_dkv):
+            with pytest.raises(ValueError, match='head_dim 16, 32, 64, 128'):
+                fn(q, k, v, q, lse, lse)
+        for fn in (torch_fa.flash_attention_bwd_dq_small,
+                   torch_fa.flash_attention_bwd_dkv_small):
+            with pytest.raises(ValueError, match='head_dim 16, 32'):
+                fn(q, k, v, q, lse, lse)
+    assert not calls
+    for kernel in ('fwd', 'bwd_dq', 'bwd_dkv'):
+        assert torch_fa._SIGNATURES[f'skytpu_flash_attention_{kernel}_small'] \
+            == torch_fa._SIGNATURES[f'skytpu_flash_attention_{kernel}']
+        assert (torch_fa.CSRC_DIR / f'flash_attention_{kernel}_small.cu') in (
+            torch_fa.sources())
 
 
 def test_flash_fwd_block_contract_and_devices():
@@ -203,6 +229,40 @@ def test_flash_bwd_plain_matches_pallas_interpret(causal, hkv):
         assert x.shape == ref.shape and x.dtype == torch.float32, name
         np.testing.assert_allclose(x.numpy(), np.asarray(ref),
                                    atol=FLASH_ATOL, rtol=0, err_msg=name)
+
+
+# The `tiny` configs train at head_dim 16: the backward's small kernels'
+# plain versions (what CPU tensors take, through both the public wrappers
+# and the small ones) against the Pallas backward in interpret mode, GQA
+# 4 -> 2.  Each S with both head dims, each head dim causal and not.
+@pytest.mark.parametrize('s,d,causal', [
+    (8, 16, True), (8, 32, False), (16, 16, False), (16, 32, True),
+    (64, 16, True), (64, 32, False), (128, 16, False), (128, 32, True)])
+def test_flash_bwd_small_head_dims_plain_match_pallas_interpret(s, d,
+                                                                causal):
+    q, k, v = _qkv(b=2, h=4, s=s, d=d, hkv=2, seed=6)
+    g = np.random.default_rng(7).standard_normal(q.shape).astype(np.float32)
+    # Both backwards take the same residuals (the forward's parity is
+    # test_flash_fwd_small_head_dims_plain_match_pallas_interpret's).
+    out, lse = (x.numpy() for x in torch_fa.flash_attention_fwd_reference(
+        *_t(q, k, v), causal=causal, return_residuals=True))
+    want = jax_fa.flash_attention_bwd(q, k, v, out, lse, g, causal=causal,
+                                      interpret=True)
+    args = _t(q, k, v, g, lse)
+    names = ('flash_attention_bwd_dq', 'flash_attention_bwd_dkv',
+             'flash_attention_bwd_dq_small', 'flash_attention_bwd_dkv_small')
+    before = [getattr(torch_fa, name).launches for name in names]
+    got = torch_fa.flash_attention_bwd(*_t(q, k, v, out, lse, g),
+                                       causal=causal)
+    delta = torch_fa._delta(torch.from_numpy(out), args[3])
+    small = (torch_fa.flash_attention_bwd_dq_small(*args, delta, causal),
+             *torch_fa.flash_attention_bwd_dkv_small(*args, delta, causal))
+    assert [getattr(torch_fa, name).launches for name in names] == before
+    for name, x, y, ref in zip(('dq', 'dk', 'dv'), got, small, want):
+        assert x.shape == ref.shape and x.dtype == torch.float32, name
+        np.testing.assert_allclose(x.numpy(), np.asarray(ref),
+                                   atol=FLASH_ATOL, rtol=0, err_msg=name)
+        torch.testing.assert_close(y, x, atol=0, rtol=0, msg=name)
 
 
 def test_flash_bwd_contract():

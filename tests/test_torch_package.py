@@ -24,9 +24,12 @@ COPIED = ['sky_logging.py', 'utils/timeline.py', 'server/metrics.py',
           'serve/metrics_math.py', 'obs/store.py', 'obs/goodput.py',
           'data/storage_utils.py']
 # Every kernel source of the port (csrc/).
-KERNEL_SOURCES = ['flash_attention_bwd_dkv.cu', 'flash_attention_bwd_dq.cu',
+KERNEL_SOURCES = ['flash_attention_bwd_dkv.cu',
+                  'flash_attention_bwd_dkv_small.cu',
+                  'flash_attention_bwd_dq.cu',
+                  'flash_attention_bwd_dq_small.cu',
                   'flash_attention_fwd.cu', 'flash_attention_fwd_small.cu',
-                  'sm90_common.cuh']
+                  'sm80_mma.cuh', 'sm90_common.cuh']
 
 
 def _port_modules():
@@ -333,6 +336,12 @@ def test_gate_ledger_and_storage_slice_modules_are_covered():
     for name in ('step_time_skew', 'evaluate_stragglers', 'train_obs_tick',
                  'jobs_dsn'):
         assert callable(getattr(goodput, name)), name
-    src = (PORT / 'csrc' / 'flash_attention_fwd_small.cu').read_text()
-    assert 'extern "C" int skytpu_flash_attention_fwd_small(' in src
-    assert 'mma.sync.aligned.m16n8k16' in src and 'cp.async' in src
+    # The small-head-dim kernels (the forward, then dq and dk/dv) are
+    # mma.sync + cp.async kernels on the helpers of csrc/sm80_mma.cuh.
+    helpers = (PORT / 'csrc' / 'sm80_mma.cuh').read_text()
+    assert 'mma.sync.aligned.m16n8k16' in helpers and 'cp.async' in helpers
+    for kernel in ('fwd', 'bwd_dq', 'bwd_dkv'):
+        src = (PORT / 'csrc' /
+               f'flash_attention_{kernel}_small.cu').read_text()
+        assert f'extern "C" int skytpu_flash_attention_{kernel}_small(' in src
+        assert '#include "sm80_mma.cuh"' in src and 'sm80::mma16816' in src

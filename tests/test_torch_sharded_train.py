@@ -47,6 +47,10 @@ POOL_TIMEOUT_S = 120.0
 TRAIN_LOSS_RTOL, GRAD_NORM_RTOL = 1e-5, 1e-4
 TRAIN_PARAM_ATOL, TRAIN_PARAM_ATOL_ALL = 1e-5, 1e-4
 TRAIN_PARAM_OUTLIER_SHARE = 1e-3
+# AdamW moments after two steps, port against optax: the gradients they
+# average differ in summation order only (~1e-6 relative), and the
+# second moment squares them.
+MOMENT_RTOL = 1e-4
 
 # Port plans (2 or 4 ranks) -> the JAX plan (8 devices) they are held
 # against; every JAX plan gives the same step.
@@ -140,6 +144,36 @@ def rank_restore(full, plan_kw, ckpt_dir):
                                           torch.from_numpy(tokens_of()))
     return {'resumed': resumed, 'loss': float(m['loss']),
             'params': params if mesh.rank == 0 else None}
+
+
+def rank_restore_one_device(full, plan_kw, ckpt_dir):
+    """A Trainer at `plan_kw` (built from `full`, other weights than the
+    saved ones) resumed from a one-device `state.pt` in `ckpt_dir`: the
+    restored step, every parameter and AdamW moment whole (copied: a
+    replicated gather is the rank's own storage), the AdamW step counts
+    and the learning rate; then one step more (its loss and grad norm)."""
+    model, mesh = rank_model(full, plan_kw)
+    trainer = tt.Trainer(model, tt.TrainConfig(**TCFG),
+                         checkpoint_dir=ckpt_dir, mesh=mesh)
+    resumed = trainer.restore_if_available()
+    state = trainer.state
+    whole = {}
+    for name, p in state.model.named_parameters():
+        adam = state.optimizer.state[p]
+        for key, t in (('param', p), ('exp_avg', adam['exp_avg']),
+                       ('exp_avg_sq', adam['exp_avg_sq'])):
+            whole[f'{key}:{name}'] = state.layout.global_view(
+                t, name).full_tensor().clone().numpy()
+    counts = {float(state.optimizer.state[p]['step'])
+              for p in state.model.parameters()}
+    lrs = [group['lr'] for group in state.optimizer.param_groups]
+    step = int(state.step)
+    trainer.state, m = trainer.train_step(state,
+                                          torch.from_numpy(tokens_of()))
+    return {'resumed': resumed, 'step': step, 'counts': counts,
+            'lrs': lrs, 'loss': float(m['loss']),
+            'norm': float(m['grad_norm']),
+            'whole': whole if mesh.rank == 0 else None}
 
 
 def rank_load_slices(ckpt_dir, tensor):
@@ -373,6 +407,163 @@ def test_checkpoint_roundtrip_and_reshard(pools, jax_ref, tmp_path):
                                           torch.from_numpy(tokens_of()))
     np.testing.assert_allclose(float(m['loss']), restored[0]['loss'],
                                rtol=TRAIN_LOSS_RTOL)
+
+
+def _init(seed):
+    return tl.init_params(CFG, 'cpu', torch.Generator().manual_seed(seed))
+
+
+def _saved_whole(ckpt, step):
+    """Every parameter and AdamW moment of a one-device `state.pt`, by
+    the names `rank_restore_one_device` gives them."""
+    from skypilot_tpu_torch.train.checkpoint import CheckpointManager
+    state = torch.load(CheckpointManager(ckpt).state_path(step),
+                       weights_only=True)
+    names = [name for name, _ in tl.Llama(CFG, _init(0)).named_parameters()]
+    whole = {}
+    for i, name in enumerate(names):
+        whole[f'param:{name}'] = state['params'][name].numpy()
+        for key in ('exp_avg', 'exp_avg_sq'):
+            whole[f'{key}:{name}'] = state['optimizer']['state'][i][
+                key].numpy()
+    return whole
+
+
+@pytest.mark.parametrize('plan', [dict(fsdp=2), dict(tensor=2)])
+def test_one_device_checkpoint_restores_onto_mesh(pools, tmp_path, plan):
+    """A `tiny` Trainer state saved on one device after 2 steps (a
+    `state.pt`) resumes through Trainer(..., mesh=): every parameter and
+    AdamW moment whole is the saved tensor bit for bit, the step, the
+    AdamW counts and the learning rate are the saved ones, and the next
+    step is step 3 on one device (TRAIN_LOSS_RTOL / GRAD_NORM_RTOL: f32,
+    sums over shards in another order)."""
+    ckpt = str(tmp_path / 'ckpt')
+    trainer = tt.Trainer(tl.Llama(CFG, _init(0)), tt.TrainConfig(**TCFG),
+                         checkpoint_dir=ckpt, device='cpu')
+    toks = torch.from_numpy(tokens_of())
+    for _ in range(2):
+        trainer.state, _ = trainer.train_step(trainer.state, toks)
+    trainer.save_checkpoint()
+    lr = trainer.state.optimizer.param_groups[0]['lr']
+    trainer.state, m = trainer.train_step(trainer.state, toks)
+    saved = _saved_whole(ckpt, 2)
+    out = run_ranks(pools, plan, rank_restore_one_device, _init(1), plan,
+                    ckpt)
+    for o in out:
+        assert (o['resumed'], o['step'], o['counts'], o['lrs']) == (
+            2, 2, {2.0}, [lr]), o
+        assert (o['loss'], o['norm']) == (out[0]['loss'], out[0]['norm'])
+    got = out[0]['whole']
+    assert set(got) == set(saved)
+    for key, want in saved.items():
+        np.testing.assert_array_equal(got[key], want, err_msg=key)
+    np.testing.assert_allclose(out[0]['loss'], float(m['loss']),
+                               rtol=TRAIN_LOSS_RTOL)
+    np.testing.assert_allclose(out[0]['norm'], float(m['grad_norm']),
+                               rtol=GRAD_NORM_RTOL)
+
+
+def test_untrained_one_device_checkpoint_restores_onto_mesh(pools,
+                                                           tmp_path):
+    """A one-device `state.pt` saved before the first step (no AdamW
+    state yet) restores at fsdp=2: the saved weights, zero moments, step
+    and AdamW counts 0; the next step is the one-device first step."""
+    ckpt = str(tmp_path / 'ckpt')
+    trainer = tt.Trainer(tl.Llama(CFG, _init(0)), tt.TrainConfig(**TCFG),
+                         checkpoint_dir=ckpt, device='cpu')
+    trainer.save_checkpoint()
+    trainer.state, m = trainer.train_step(trainer.state,
+                                          torch.from_numpy(tokens_of()))
+    out = run_ranks(pools, dict(fsdp=2), rank_restore_one_device, _init(1),
+                    dict(fsdp=2), ckpt)
+    assert (out[0]['resumed'], out[0]['step'], out[0]['counts']) == (
+        0, 0, {0.0})
+    for name, want in _init(0).items():
+        np.testing.assert_array_equal(out[0]['whole'][f'param:{name}'],
+                                      want.numpy())
+        for key in ('exp_avg', 'exp_avg_sq'):
+            assert not out[0]['whole'][f'{key}:{name}'].any(), (key, name)
+    np.testing.assert_allclose(out[0]['loss'], float(m['loss']),
+                               rtol=TRAIN_LOSS_RTOL)
+
+
+def test_one_device_restore_onto_mesh_matches_jax(pools, tmp_path):
+    """The JAX CheckpointManager (orbax) restores a one-device state onto
+    a 2-device CPU mesh; the port's manager does the same with its own
+    one-device state (same initial weights and tokens, 2 steps each, f32).
+    Both restored trees, params and AdamW moments (optax mu/nu) through
+    the Flax -> torch conversion, agree: params as the parity tests'
+    (TRAIN_PARAM_ATOL_ALL), moments within MOMENT_RTOL of each tensor's
+    largest entry."""
+    import jax
+    import jax.numpy as jnp
+    from flax.core import meta
+    from skypilot_tpu.models import llama as jl
+    from skypilot_tpu.parallel.mesh import MeshPlan as JPlan
+    from skypilot_tpu.parallel.mesh import build_mesh as jbuild
+    from skypilot_tpu.train import trainer as jt
+    from skypilot_tpu.train.checkpoint import CheckpointManager as JManager
+    from skypilot_tpu_torch.models.convert import params_from_jax
+
+    tokens = tokens_of()
+    cfg = tt.TrainConfig(**TCFG)
+
+    def jax_state(n_devices, seed):
+        mesh = jbuild(JPlan(fsdp=n_devices), jax.devices()[:n_devices])
+        return jt.make_train_state(jl.Llama(cfg_j(), mesh), mesh,
+                                   jax.random.PRNGKey(seed),
+                                   jnp.asarray(tokens),
+                                   jt.TrainConfig(**TCFG)), mesh
+
+    (state, shardings), mesh = jax_state(1, 0)
+    init = params_from_jax(jax.tree.map(np.asarray,
+                                        meta.unbox(state.params)))
+    step = jt.make_sharded_train_step(mesh, shardings)
+    for _ in range(2):
+        state, _ = step(state, jnp.asarray(tokens))
+    mgr = JManager(str(tmp_path / 'jax'))
+    mgr.save(2, state, wait=True)
+    (target, _), _ = jax_state(2, 1)
+    restored = mgr.restore(2, target)
+    mgr.close()
+    kernel = restored.params['layer_0']['mlp']['gate_proj']['kernel']
+    assert len(kernel.sharding.device_set) == 2
+
+    def adam(opt_state):
+        found = [s for s in jax.tree.leaves(
+            opt_state, is_leaf=lambda x: hasattr(x, 'mu')) if hasattr(s, 'mu')]
+        return found[0]
+
+    want = {}
+    for key, tree in (('param', restored.params),
+                      ('exp_avg', adam(restored.opt_state).mu),
+                      ('exp_avg_sq', adam(restored.opt_state).nu)):
+        for name, t in params_from_jax(jax.tree.map(
+                np.asarray, meta.unbox(tree))).items():
+            want[f'{key}:{name}'] = t.numpy()
+    assert int(adam(restored.opt_state).count) == 2
+
+    ckpt = str(tmp_path / 'port')
+    trainer = tt.Trainer(tl.Llama(CFG, init), cfg, checkpoint_dir=ckpt,
+                         device='cpu')
+    for _ in range(2):
+        trainer.state, _ = trainer.train_step(trainer.state,
+                                              torch.from_numpy(tokens))
+    trainer.save_checkpoint()
+    out = run_ranks(pools, dict(fsdp=2), rank_restore_one_device,
+                    _init(1), dict(fsdp=2), ckpt)
+    got = out[0]['whole']
+    assert set(got) == set(want) and out[0]['counts'] == {2.0}
+    for key in want:
+        if key.startswith('param:'):
+            continue
+        scale = np.abs(want[key]).max()
+        np.testing.assert_allclose(got[key], want[key], rtol=0,
+                                   atol=MOMENT_RTOL * scale, err_msg=key)
+    assert_params_close({k: v for k, v in got.items()
+                         if k.startswith('param:')},
+                        {k: v for k, v in want.items()
+                         if k.startswith('param:')})
 
 
 def test_serving_loader_reads_sharded_step(pools, jax_ref, tmp_path):

@@ -182,6 +182,44 @@ def test_five_train_steps_match_jax_trainer():
                 TRAIN_PARAM_OUTLIER_SHARE), name
 
 
+# The gates the card's `tiny_training` phase holds between the flash path
+# and attention_impl='xla' at bf16 compute: the two round to bf16 at other
+# places (the xla path under autograd rounds dP to bf16 before the
+# softmax backward's cancellation), ~1e-2 per tensor and ~9e-3 over the
+# whole gradient for `tiny` here; a wrong backward is off by ~1.
+XLA_LOSS_RTOL, XLA_GRAD_RTOL, XLA_GRAD_GLOBAL_RTOL = 1e-2, 0.1, 1e-2
+
+
+def test_tiny_bf16_flash_step_matches_xla():
+    """One Trainer step of `tiny` (head_dim 16) at bf16 compute through
+    the flash op, whose backward on the CPU is the small kernels' plain
+    versions, against the same step under attention_impl='xla' on the
+    same weights and tokens (B=4, S=64: the JAX bench's `tiny` defaults):
+    the loss, the grad norm and every gradient (no clip, so p.grad is the
+    raw gradient)."""
+    tokens = torch.from_numpy(_tokens((4, 64), CFG.vocab_size))
+    tcfg = tt.TrainConfig(learning_rate=1e-3, warmup_steps=1,
+                          total_steps=50, grad_clip=float('inf'))
+    out = {}
+    for impl in ('flash', 'xla'):
+        model = _tiny_model(attention_impl=impl)
+        assert model.cfg.dtype == torch.bfloat16 and model.cfg.head_dim == 16
+        trainer = tt.Trainer(model, tcfg, device='cpu')
+        trainer.state, m = trainer.train_step(trainer.state, tokens)
+        out[impl] = (float(m['loss']), float(m['grad_norm']),
+                     {n: p.grad for n, p in model.named_parameters()})
+    (loss_f, norm_f, grads_f), (loss_x, norm_x, grads_x) = (out['flash'],
+                                                            out['xla'])
+    np.testing.assert_allclose(loss_f, loss_x, rtol=XLA_LOSS_RTOL)
+    np.testing.assert_allclose(norm_f, norm_x, rtol=XLA_GRAD_GLOBAL_RTOL)
+    diff = {n: float((grads_f[n] - g).norm()) for n, g in grads_x.items()}
+    for name, g in grads_x.items():
+        assert diff[name] <= XLA_GRAD_RTOL * float(g.norm()), name
+    whole = float(torch.stack([g.norm() for g in grads_x.values()]).norm())
+    assert float(torch.tensor(list(diff.values())).norm()) <= (
+        XLA_GRAD_GLOBAL_RTOL * whole)
+
+
 def test_training_loss_decreases():
     """Single-device mirror of test_sharded_training_loss_decreases."""
     model = _tiny_model()
