@@ -45,6 +45,22 @@ followed by its seconds:
    kernel exactly once; then the three small kernels, their plain
    versions and SDPA timed at `tiny`'s training shape (TINY_TRAIN_SHAPE)
    beside the bounds, one profiled launch each.
+3c. Sync audit (SYNC_AUDIT): first which synchronizing forms
+   torch.cuda.set_sync_debug_mode('warn') reports on this torch (.item(),
+   .cpu(), .tolist(), torch.cuda.synchronize(), .nonzero(), a pinned
+   non_blocking copy and others; printed, caught and missed); then
+   `tiny` (max_seq_len 128, 2 slots, buckets 8 and 16) under it: the
+   dense engine with the graph decode through step_pipelined over the
+   perf-gate probe's traffic (6 requests of 8 ids, 8 new tokens), the
+   int8-paged engine with n-gram speculation k = 4 (the verify graph),
+   and Trainer.run at 4 x 128 for 10 steps, log_every=5.  Each
+   synchronizing call is attributed to its step and to the innermost
+   line of the port in the warning's stack.  Gates: exactly one sync per
+   active engine step, at the engine's annotated fetch, none on an idle
+   step; none on the trainer's non-log steps; every line seen is a site
+   the static analyzer (`python -m skypilot_tpu_torch.analysis`,
+   hot-loop-sync) reports, suppressed with a reason.  Prints
+   `sync_audit {...}` (counts per step and per line, the probe).
 4. Serving: llama2-7b at full width, 16 of its 32 layers (SERVE; bf16
    random weights from a seed) behind the port's HTTP app on a local port, 8 prompts of 219
    tokens plus one of 300 (chunked prefill), 32 new tokens each; every
@@ -227,9 +243,10 @@ followed by its seconds:
    by path: serving, paged, checkpoint, tensor_serving (rank 0 of (b)
    and (d)), moe_serving, training, moe_training, rl, sharded_training
    (rank 0 of (b)-(d) and (f)), pipeline, expert_parallel,
-   moe_tensor_serving (rank 0 each), graft_entry, tiny_training and
-   perf_gate; the three small-head-dim kernels' rows launched on
-   tiny_training, the forward's also on perf_gate), the nvidia-smi
+   moe_tensor_serving (rank 0 each), graft_entry, tiny_training,
+   perf_gate and sync_audit; the three small-head-dim kernels' rows
+   launched on tiny_training and sync_audit, the forward's also on
+   perf_gate), the nvidia-smi
    line, then {"ok": true, "device": {...}} as the last line.
 
 Needs one CUDA device; exits non-zero without one and imports nothing of
@@ -4798,6 +4815,291 @@ def graft_entry_phase(device, card, smi, hbm):
                                 ('fwd',))['fwd']
 
 
+# The sync audit (torch.cuda.set_sync_debug_mode('warn')): `tiny` served
+# by the dense engine with the graph decode through step_pipelined (the
+# perf-gate probe's traffic) and by the int8-paged engine with n-gram
+# speculation (the verify call), and trained through Trainer.run.
+SYNC_AUDIT = dict(model='tiny', max_seq_len=128, n_slots=2, steps_per_call=4,
+                  prefill_buckets=(8, 16), n_requests=6, prompt_len=8,
+                  new_tokens=8, kv_page_size=8, speculation=4,
+                  train_batch=4, train_seq=128, train_steps=10, log_every=5)
+SYNC_WARNING = 'called a synchronizing CUDA operation'
+
+
+def _sync_site(stack) -> str:
+    """Where a synchronizing call came from: the innermost frame in the
+    port's package as 'path:line' relative to it (the static analyzer's
+    paths), else the innermost frame outside torch and warnings."""
+    pkg = os.path.join(REPO, 'skypilot_tpu_torch') + os.sep
+    for frame in reversed(stack):
+        if frame.filename.startswith(pkg):
+            return f'{os.path.relpath(frame.filename, pkg)}:{frame.lineno}'
+    for frame in reversed(stack):
+        name = frame.filename.replace(os.sep, '/')
+        if '/torch/' not in name and not name.endswith('/warnings.py'):
+            return f'{os.path.basename(name)}:{frame.lineno}'
+    return 'unknown'
+
+
+class SyncRecorder:
+    """Every synchronizing CUDA call under set_sync_debug_mode('warn'),
+    as (step, site): `step` is whatever the caller set last, the site
+    the innermost frame of the port in the warning's stack.  Other
+    warnings pass through."""
+
+    def __init__(self):
+        self.step = None
+        self.events = []
+
+    def __enter__(self):
+        import torch
+        import warnings
+        self._catch = warnings.catch_warnings()
+        self._catch.__enter__()
+        warnings.simplefilter('always')
+        self._show = warnings.showwarning
+        warnings.showwarning = self._record
+        torch.cuda.set_sync_debug_mode('warn')
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.cuda.set_sync_debug_mode('default')
+        self._catch.__exit__(*exc)
+
+    def _record(self, message, category, filename, lineno, file=None,
+                line=None):
+        import traceback
+        if SYNC_WARNING not in str(message):
+            self._show(message, category, filename, lineno, file, line)
+            return
+        self.events.append((self.step, _sync_site(traceback.extract_stack())))
+
+    def take(self):
+        """The events so far, and forget them."""
+        out, self.events = self.events, []
+        return out
+
+
+def sync_probe(device) -> dict:
+    """Which synchronizing forms set_sync_debug_mode('warn') reports on
+    this torch: {form: warnings for one call}."""
+    import torch
+    x = torch.arange(1, 1025, device=device, dtype=torch.float32)
+    pinned = torch.empty(x.shape, dtype=x.dtype).pin_memory()
+    host = torch.ones(1024)
+    event = torch.cuda.Event()
+    event.record()
+    forms = {
+        '.item()': lambda: x.sum().item(),
+        '.cpu()': lambda: x.cpu(),
+        '.tolist()': lambda: x[:4].tolist(),
+        'float(tensor)': lambda: float(x[0]),
+        'torch.cuda.synchronize()': torch.cuda.synchronize,
+        'Stream.synchronize()': lambda: torch.cuda.current_stream().synchronize(),
+        'Event.synchronize()': event.synchronize,
+        '.nonzero()': lambda: x.nonzero(),
+        'torch.unique': lambda: torch.unique(x),
+        'torch.masked_select': lambda: torch.masked_select(x, x > 512),
+        'mask index x[x > 512]': lambda: x[x > 512],
+        'if t.any():': lambda: bool((x > 512).any()),
+        'pinned non_blocking D2H copy': lambda: pinned.copy_(x, non_blocking=True),
+        'pinned non_blocking H2D copy': lambda: x.copy_(pinned, non_blocking=True),
+        'pageable blocking H2D copy': lambda: host.to(device),
+        'torch.tensor(list, device=cuda)': lambda: torch.tensor([1, 2], device=device),
+    }
+    caught = {}
+    with SyncRecorder() as rec:
+        for form, fn in forms.items():
+            torch.cuda.synchronize()
+            rec.take()
+            fn()
+            caught[form] = len(rec.take())
+    torch.cuda.synchronize()
+    return caught
+
+
+def _audit_engine(rec, engine, prompts, new_tokens):
+    """Serve `prompts` through step_pipelined (speculation: step), one
+    recorded step at a time until idle.  Returns [(active, sites)] per
+    step: active when the step fetches a call's output (pipelined: a call
+    was in flight at its start; speculation: it dispatched)."""
+    reqs = [engine.submit(p, new_tokens) for p in prompts]
+    steps = []
+    while (not all(r.finished_at is not None for r in reqs) or
+           engine._inflight is not None):
+        rec.step = len(steps)
+        inflight = engine._inflight is not None
+        n = engine.step_pipelined()
+        active = n > 0 if engine._spec_k else inflight
+        steps.append((active, [site for _, site in rec.take()]))
+    if len(steps) > 200 or not all(len(r.tokens()) == new_tokens
+                                   for r in reqs):
+        raise SystemExit(f'sync audit: the engine served {len(steps)} steps, '
+                         f'tokens {[len(r.tokens()) for r in reqs]}')
+    return steps
+
+
+def sync_audit_phase(device, card):
+    """set_sync_debug_mode('warn') on the port's hot loops (SYNC_AUDIT):
+    first which synchronizing forms it reports on this torch; then each
+    synchronizing call of `tiny`'s dense graph engine (step_pipelined),
+    its int8-paged engine with n-gram speculation (the verify call) and
+    Trainer.run, by step and by source line.  Gates: exactly one sync per
+    active engine step, at the engine's annotated contract line; none on
+    an idle step; none on the trainer's non-log steps; every line seen at
+    runtime is a site the static analyzer reports (hot-loop-sync),
+    suppressed with a reason.  Returns the launch counts of the audited
+    runs."""
+    import collections
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch import analysis
+    from skypilot_tpu_torch.inference.engine import DecodeEngine, EngineConfig
+    from skypilot_tpu_torch.models.llama import LLAMA_CONFIGS, Llama, init_params
+    from skypilot_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    spec = SYNC_AUDIT
+    t_phase = time.perf_counter()
+    caught = sync_probe(device)
+    log(f'  probe on {card}, torch {torch.__version__}: reported '
+        f'{sorted(f for f, n in caught.items() if n)}; not reported '
+        f'{sorted(f for f, n in caught.items() if not n)}')
+    for form in ('.item()', '.cpu()', '.tolist()'):
+        if not caught[form]:
+            raise SystemExit(f'set_sync_debug_mode does not report {form}: '
+                             f'the audit cannot see the hot loops\' fetches')
+
+    report = analysis.run_check(None, rules=['hot-loop-sync'])
+    if report.unsuppressed:
+        raise SystemExit('the static gate has findings: ' + '; '.join(
+            f.format() for f in report.unsuppressed))
+    static = {f'{f.path}:{f.line}': f for f in report.findings}
+
+    def contract(fn):
+        sites = [site for site, f in static.items() if f.suppressed and
+                 f.message.split(' in ', 1)[-1].startswith(
+                     f'skypilot_tpu_torch.inference.engine.DecodeEngine.'
+                     f'{fn} ')]
+        if len(sites) != 1:
+            raise SystemExit(f'expected one annotated fetch in {fn}, the '
+                             f'static gate reports {sites}')
+        return sites[0]
+
+    cfg = dataclasses.replace(LLAMA_CONFIGS[spec['model']],
+                              max_seq_len=spec['max_seq_len'])
+    model = Llama(cfg, init_params(
+        cfg, device, torch.Generator(device=device).manual_seed(SEED)))
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, spec['prompt_len']).tolist()
+               for _ in range(spec['n_requests'])]
+    base = dict(n_slots=spec['n_slots'], steps_per_call=spec['steps_per_call'],
+                prefill_buckets=spec['prefill_buckets'])
+    engines = {
+        'dense_graph': (dict(base), contract('_step_pipelined')),
+        'paged_int8_spec': (dict(base, kv_page_size=spec['kv_page_size'],
+                                 kv_dtype='int8',
+                                 speculation=spec['speculation']),
+                            contract('_step')),
+    }
+    out = {'probe': caught, 'engines': {}, 'lines': collections.Counter()}
+    zero_launches()
+    with SyncRecorder() as rec:
+        for name, (kw, fetch) in engines.items():
+            engine = DecodeEngine(model, EngineConfig(**kw), device=device)
+            engine.prewarm()
+            if engine._decode_call is None and engine._verify_call is None:
+                raise SystemExit(f'{name}: prewarm built no call')
+            if (engine._decode_call or engine._verify_call).graph is None:
+                raise SystemExit(f'{name}: the call is not a CUDA graph')
+            # Warm every admission shape the audit hits (as the probe).
+            warm = [engine.submit(p, 1) for p in prompts[:spec['n_slots']]]
+            while any(w.finished_at is None for w in warm) or \
+                    engine._inflight is not None:
+                engine.step_pipelined()
+            torch.cuda.synchronize()
+            rec.take()
+            steps = _audit_engine(rec, engine, prompts, spec['new_tokens'])
+            for _, sites in steps:
+                out['lines'].update(sites)
+            bad = [(i, active, sites) for i, (active, sites) in
+                   enumerate(steps)
+                   if sites != ([fetch] if active else [])]
+            n_active = sum(active for active, _ in steps)
+            out['engines'][name] = {
+                'steps': len(steps), 'active_steps': n_active,
+                'syncs_per_step': [len(sites) for _, sites in steps],
+                'contract_line': fetch}
+            log(f'  {name}: {len(steps)} steps, {n_active} active; syncs per '
+                f'step {[len(sites) for _, sites in steps]} (contract line '
+                f'{fetch})')
+            if bad or not n_active:
+                raise SystemExit(f'sync audit {name}: steps off the contract '
+                                 f'(one sync at {fetch} per active step, none '
+                                 f'when idle): {bad}')
+            del engine
+        del model
+        torch.cuda.empty_cache()
+
+        # Trainer.run: the data iterator marks the step each batch starts.
+        model = Llama(cfg, init_params(
+            cfg, device, torch.Generator(device=device).manual_seed(SEED)))
+        trainer = Trainer(model, TrainConfig(warmup_steps=5, total_steps=1000),
+                          device=device)
+        tokens = torch.randint(
+            0, cfg.vocab_size, (spec['train_batch'], spec['train_seq']),
+            device=device,
+            generator=torch.Generator(device=device).manual_seed(SEED + 2))
+        torch.cuda.synchronize()
+        rec.take()
+
+        def batches():
+            for i in range(spec['train_steps']):
+                rec.step = i
+                yield tokens
+
+        logged = []
+        result = trainer.run(batches(), spec['train_steps'],
+                             log_every=spec['log_every'],
+                             log_fn=logged.append)
+        events = rec.take()
+    torch.cuda.synchronize()
+    counts = {**read_launches(), **read_small_launches()}
+    by_step = collections.defaultdict(list)
+    for step, site in events:
+        by_step[step].append(site)
+    out['lines'].update(site for _, site in events)
+    log_steps = [i for i in range(spec['train_steps'])
+                 if (i + 1) % spec['log_every'] == 0]
+    out['trainer'] = {
+        'steps': spec['train_steps'], 'log_steps': log_steps,
+        'syncs_per_step': [len(by_step.get(i, ()))
+                           for i in range(spec['train_steps'])],
+        'losses': [m['loss'] for m in logged] + [result['loss']]}
+    log(f'  trainer: {spec["train_steps"]} steps of {spec["train_batch"]} x '
+        f'{spec["train_seq"]}, log steps {log_steps}; syncs per step '
+        f'{out["trainer"]["syncs_per_step"]} (the last step also holds the '
+        f'end-of-run fetch); losses {out["trainer"]["losses"]}')
+    stray = {i: sites for i, sites in by_step.items() if i not in log_steps}
+    if stray or not all(map(math.isfinite, out['trainer']['losses'])):
+        raise SystemExit(f'sync audit: the trainer synced on non-log steps '
+                         f'{stray} (or a loss is not finite)')
+    unknown = {site: n for site, n in out['lines'].items()
+               if site not in static or not static[site].reason}
+    if unknown:
+        raise SystemExit(f'sync audit: synchronizing lines the static '
+                         f'analyzer does not report as annotated '
+                         f'(a finding against hot-loop-sync): {unknown}')
+    out['lines'] = {site: [n, static[site].reason]
+                    for site, n in sorted(out['lines'].items())}
+    out['seconds'] = time.perf_counter() - t_phase
+    out['launches'] = counts
+    log('sync_audit ' + json.dumps(out))
+    if not counts[SMALL_KERNEL] or not counts['flash_attention_bwd_dq_small']:
+        raise SystemExit(f'sync audit launched {counts}')
+    return counts
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4864,6 +5166,10 @@ def main() -> int:
                            MOE_PREFILL_SHAPE, 'MoE prefill', ('fwd',))
     at_moe_train = phase('kernels', kernel_times, device, MOE_TRAIN_SHAPE,
                          'MoE training')
+    log(f'[sync_audit] {SYNC_AUDIT}')
+    by_path = {}
+    by_path['sync_audit'] = phase('sync_audit', sync_audit_phase, device,
+                                  card)
 
     from skypilot_tpu_torch.perf import compile_telemetry
     log(f'[build] compile telemetry {compile_telemetry.summary()} '
@@ -4873,7 +5179,6 @@ def main() -> int:
     # under traffic raises inside the engine loop (and fails the phase).
     os.environ[compile_telemetry.STRICT_ENV] = '1'
     log(f'[serving] {SERVE}')
-    by_path = {}
     by_path['serving'], serve_ctx = phase('serving', serving_phase, device,
                                           card)
     log(f'[paged] {PAGED}')

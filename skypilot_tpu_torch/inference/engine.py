@@ -387,18 +387,23 @@ class _GraphCall:
         eng._last_d.copy_(saved[0])
         eng._lens_d.copy_(saved[1])
         eng._gen.set_state(saved[2])
+        # skytpu: allow-recompile(one capture per engine call: prewarm builds it before traffic on the card, and a dispatch builds it only when prewarm was skipped)
         graph = torch.cuda.CUDAGraph()
         # Temperature sampling draws from the engine's own generator:
         # registered, each replay draws fresh numbers and advances it.
         graph.register_generator_state(eng._gen)
         # thread_local: the server's executor threads may touch the
         # device (export copies) while the loop thread captures.
+        # skytpu: allow-recompile(the capture of the graph created above, once per engine call)
         with torch.cuda.graph(graph, capture_error_mode='thread_local'):
             self._body(eng)
         return graph
 
-    def __call__(self, engine: 'DecodeEngine') -> torch.Tensor:
-        """One call on `engine`, the engine it was built for."""
+    def __call__(self,  # skytpu: hot-entry
+                 engine: 'DecodeEngine') -> torch.Tensor:
+        """One call on `engine`, the engine it was built for: every
+        engine step makes one (a hot entry point of its own, since the
+        engine reaches it through the attribute that holds it)."""
         if self.graph is not None:
             self.graph.replay()
         else:
@@ -679,7 +684,8 @@ class DecodeEngine:
             raise
         self._apply(reqs, swap)
 
-    def follow(self, record: bool = False) -> List[Request]:
+    def follow(self,  # skytpu: hot-entry
+               record: bool = False) -> List[Request]:
         """A follower rank's loop: take rank 0's announcements, apply
         them and run the same action, until rank 0 closes.  With `record`
         it returns the requests it ran (their tokens are rank 0's), else
@@ -696,7 +702,9 @@ class DecodeEngine:
                 flat = ctl.recv_ints(n_req * _META + n_ids)
                 meta = flat[:n_req * _META].reshape(n_req, _META)
                 ids, off = flat[n_req * _META:], 0
+                # skytpu: allow-sync(the control plane's ints arrive as host tensors over gloo: nothing device-side)
                 for route, plen, max_new, first, n_kv in meta.tolist():
+                    # skytpu: allow-sync(same: a host tensor from the control plane)
                     req = Request(ids[off:off + plen].tolist(), max_new)
                     off += plen
                     req.export = route == _ROUTE_PREFILL
@@ -1342,7 +1350,7 @@ class DecodeEngine:
         self._enqueue(req)
         return req
 
-    def drain(self) -> None:
+    def drain(self) -> None:  # skytpu: hot-entry
         """Run the pipelined loop until FULLY idle: queues empty, no
         active or chunk-prefilling request, nothing in flight."""
         while (self._inflight is not None or
@@ -1479,6 +1487,7 @@ class DecodeEngine:
     def _prewarm(self) -> None:
         with compile_telemetry.warmup():
             if self.device.type == 'cuda':
+                # skytpu: allow-recompile(prewarm: builds the kernel library before traffic, a no-op once it is loaded)
                 cuda_fa.build()
             if self._spec_k:
                 if self._verify_call is None:
@@ -2124,7 +2133,7 @@ class DecodeEngine:
         metrics_lib.set_gauge(metrics_lib.QUEUED_PREFILL_TOKENS_FAMILY,
                               float(max(sample[2], 0)))
 
-    def step(self) -> int:
+    def step(self) -> int:  # skytpu: hot-entry
         """One SYNCHRONOUS engine iteration (admit + decode + process).
         Returns #active slots.  The serving loop uses step_pipelined
         (or this, under speculation)."""
@@ -2144,6 +2153,7 @@ class DecodeEngine:
             return 0
         t0 = time.perf_counter()
         out = self._dispatch_decode()
+        # skytpu: allow-sync(the ONE device->host fetch per step — the engine's contract)
         out = out.cpu().numpy()          # [T+1, B]: the ONE sync per step
         t1 = time.perf_counter()
         snapshot = {i: self._slots[i] for i in active}
@@ -2157,7 +2167,7 @@ class DecodeEngine:
         self._release_retiring()
         return len(active)
 
-    def step_pipelined(self) -> int:
+    def step_pipelined(self) -> int:  # skytpu: hot-entry
         """One PIPELINED iteration: dispatch decode call k, THEN sync and
         process call k-1's output while k runs on the device, then admit
         into any slots k-1 freed (their prefills queue behind k).  A slot
@@ -2193,8 +2203,7 @@ class DecodeEngine:
         if self._inflight is not None:
             out_prev, snapshot = self._inflight
             self._inflight = None
-            # The ONE fetch per step, one call late: syncs call k-1 while
-            # call k runs.
+            # skytpu: allow-sync(the ONE fetch per step, one call late: syncs call k-1 while call k runs)
             self._process_rows(out_prev.cpu().numpy(), snapshot)
         self._release_retiring()
         self._inflight = dispatched
@@ -2297,7 +2306,7 @@ class DecodeEngine:
             metrics_lib.set_gauge('skytpu_engine_spec_acceptance',
                                   spec_accepted / spec_proposed)
 
-    def _loop(self):
+    def _loop(self):  # skytpu: hot-entry
         while not self._stop.is_set():
             try:
                 n = self.step_pipelined()

@@ -83,10 +83,15 @@ def make_reinforce_step(model: torch.nn.Module,
     device = device_of(model)
 
     def as_tensor(x, dtype=None):
-        return torch.as_tensor(x, dtype=dtype, device=device)
+        # Host inputs go up from pinned memory without blocking: a
+        # pageable copy would wait for the device's queue to drain.
+        t = torch.as_tensor(x, dtype=dtype)
+        if device.type == 'cuda' and t.device.type == 'cpu':
+            t = t.pin_memory()
+        return t.to(device, non_blocking=True)
 
-    def step(tokens, advantages, prompt_lens, total_lens,
-             ref_logprobs=None) -> torch.Tensor:
+    def step(tokens, advantages, prompt_lens,  # skytpu: hot-entry
+             total_lens, ref_logprobs=None) -> torch.Tensor:
         tokens = as_tensor(tokens, torch.long)
         optimizer.zero_grad(set_to_none=True)
         loss = reinforce_loss(
@@ -102,7 +107,8 @@ def make_reinforce_step(model: torch.nn.Module,
     return step
 
 
-def rollout(engine, prompts: List[List[int]], max_new_tokens: int,
+def rollout(engine,  # skytpu: hot-entry
+            prompts: List[List[int]], max_new_tokens: int,
             reward_fn: Callable[[List[int], List[int]], float]
             ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """Sample continuations on the decode engine and score them.

@@ -331,7 +331,7 @@ def make_train_step(
     clip, one AdamW update and the schedule's tick, all in place."""
     cfg = train_cfg or TrainConfig()
 
-    def step(state: TrainState, tokens: torch.Tensor):
+    def step(state: TrainState, tokens: torch.Tensor):  # skytpu: hot-entry
         state.optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(state.model(tokens), tokens)
         loss.backward()
@@ -380,7 +380,7 @@ def make_sharded_train_step(
     only."""
     cfg = train_cfg or TrainConfig()
 
-    def step(state: TrainState, tokens: torch.Tensor):
+    def step(state: TrainState, tokens: torch.Tensor):  # skytpu: hot-entry
         layout = state.layout
         if layout is None or layout.mesh is not mesh:
             raise ValueError('the state is not sharded over this mesh')
@@ -419,7 +419,17 @@ def make_sharded_train_step(
 
 
 def _fetch(metrics: dict) -> dict:
-    return {k: v.item() for k, v in metrics.items()}
+    """The metrics' values on the host in ONE device->host copy (the
+    JAX trainer's device_get of the tree): float64 holds every f32 value
+    and integer step exactly, and integer metrics come back as ints."""
+    if not metrics:
+        return {}
+    flat = torch.stack([v.detach().reshape(()).to(torch.float64)
+                        for v in metrics.values()])
+    # skytpu: allow-sync(log-boundary and end-of-run read only: one copy of the metrics of a step already dispatched)
+    host = flat.cpu().tolist()
+    return {k: (x if v.is_floating_point() else int(x))
+            for (k, v), x in zip(metrics.items(), host)}
 
 
 class Trainer:
@@ -475,7 +485,7 @@ class Trainer:
         self.phases.begin(goodput_lib.INIT_COMPILE)
         return step
 
-    def run(self, data: Iterator[torch.Tensor],
+    def run(self, data: Iterator[torch.Tensor],  # skytpu: hot-entry
             num_steps: int,
             checkpoint_every: int = 0,
             log_every: int = 10,
@@ -628,6 +638,5 @@ class Trainer:
 
     def save_checkpoint(self) -> None:
         if self._ckpt_mgr is not None:
-            # Checkpoint boundary: the whole state is copied to the host
-            # anyway, so reading the step adds nothing.
+            # skytpu: allow-sync(checkpoint boundary: the whole state is copied to the host anyway, so reading the step adds nothing)
             self._ckpt_mgr.save(int(self.state.step.item()), self.state)

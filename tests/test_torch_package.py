@@ -23,6 +23,16 @@ COPIED = ['sky_logging.py', 'utils/timeline.py', 'server/metrics.py',
           'sky_config.py', 'utils/common_utils.py', 'utils/schemas.py',
           'serve/metrics_math.py', 'obs/store.py', 'obs/goodput.py',
           'data/storage_utils.py']
+# Modules whose code is the original's with the package renamed (import
+# lines and the constants that name the package), docstrings aside: the
+# analyzer's modules copied from skypilot_tpu/analysis/ (their docstrings
+# name the port's gate), and the SLO alert rules, whose AlertRule the
+# metric-naming rule of the port's analyzer holds to the registry.
+COPIED_CODE = ['obs/alerts.py', 'analysis/core.py', 'analysis/reporters.py',
+               'analysis/rules/blocking_async.py',
+               'analysis/rules/db_discipline.py',
+               'analysis/rules/metric_naming.py',
+               'analysis/rules/unbounded_io.py']
 # Every kernel source of the port (csrc/).
 KERNEL_SOURCES = ['flash_attention_bwd_dkv.cu',
                   'flash_attention_bwd_dkv_small.cu',
@@ -345,3 +355,65 @@ def test_gate_ledger_and_storage_slice_modules_are_covered():
                f'flash_attention_{kernel}_small.cu').read_text()
         assert f'extern "C" int skytpu_flash_attention_{kernel}_small(' in src
         assert '#include "sm80_mma.cuh"' in src and 'sm80::mma16816' in src
+
+
+def _code_without_docstrings(text):
+    """The module's AST without its docstrings (comments and layout are
+    not in it), dumped for comparison."""
+    tree = ast.parse(text)
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body and \
+                isinstance(node.body[0], ast.Expr) and \
+                isinstance(node.body[0].value, ast.Constant) and \
+                isinstance(node.body[0].value.value, str):
+            node.body = node.body[1:] or [ast.Pass()]
+    return ast.dump(tree)
+
+
+@pytest.mark.parametrize('rel', COPIED_CODE)
+def test_copied_analysis_modules_match_originals(rel):
+    """The alert rules, and the analyzer's framework, reporters and the
+    four rules that know no JAX, are the JAX package's code with
+    `skypilot_tpu_torch` where it names `skypilot_tpu`, and nothing
+    else."""
+    original = (REPO / 'skypilot_tpu' / rel).read_text()
+    copy = (PORT / rel).read_text()
+    assert 'skypilot_tpu_torch' in copy
+    assert _code_without_docstrings(
+        copy.replace('skypilot_tpu_torch', 'skypilot_tpu')) == (
+        _code_without_docstrings(original))
+
+
+def test_analysis_slice_modules_are_covered():
+    """The isolation checks above walk every module of the port; the
+    analyzer's modules and the alert rules are among them, the package
+    keeps the JAX analyzer's public names and rule set, and the kernel
+    sources are the known set (this slice adds no kernel)."""
+    mods = set(_port_modules())
+    assert {'skypilot_tpu_torch.analysis',
+            'skypilot_tpu_torch.analysis.__main__',
+            'skypilot_tpu_torch.analysis.core',
+            'skypilot_tpu_torch.analysis.callgraph',
+            'skypilot_tpu_torch.analysis.reporters',
+            'skypilot_tpu_torch.analysis.rules',
+            'skypilot_tpu_torch.analysis.rules.hot_loop_sync',
+            'skypilot_tpu_torch.analysis.rules.recompile_hazard',
+            'skypilot_tpu_torch.analysis.rules.speculation',
+            'skypilot_tpu_torch.analysis.rules.blocking_async',
+            'skypilot_tpu_torch.analysis.rules.db_discipline',
+            'skypilot_tpu_torch.analysis.rules.metric_naming',
+            'skypilot_tpu_torch.analysis.rules.unbounded_io',
+            'skypilot_tpu_torch.obs.alerts'} <= mods
+    from skypilot_tpu_torch import analysis
+    from skypilot_tpu_torch.analysis.rules import all_rules
+    assert analysis.__all__ == ['Finding', 'Project', 'Report', 'Rule',
+                                'load_project', 'run_check', 'render_json',
+                                'render_text']
+    assert [(r.name, r.suppress_token) for r in all_rules()] == [
+        ('hot-loop-sync', 'sync'), ('recompile-hazard', 'recompile'),
+        ('blocking-in-async', 'blocking'), ('db-discipline', 'db'),
+        ('unbounded-io', 'unbounded-io'), ('metric-naming', 'metric-naming'),
+        ('speculation', 'spec')]
+    assert sorted(p.name for p in (PORT / 'csrc').glob('*.cu*')) == (
+        KERNEL_SOURCES)

@@ -28,6 +28,7 @@ import torch
 from flax.core import meta
 
 from skypilot_tpu.inference import engine as jax_engine
+from skypilot_tpu.perf import compile_telemetry as jax_compile_telemetry
 from skypilot_tpu.models import llama as jl
 from skypilot_tpu_torch.inference import server as torch_server
 from skypilot_tpu_torch.inference.engine import DecodeEngine, EngineConfig
@@ -55,11 +56,16 @@ def weights():
 
 @pytest.fixture(autouse=True)
 def _reset():
+    # The JAX reference engines compile lazily: a JAX sentinel left armed
+    # by an earlier test in this process (a mesh engine's prewarm() arms
+    # it) would raise inside them under SKYTPU_STRICT_RECOMPILE.
+    for telemetry in (compile_telemetry, jax_compile_telemetry):
+        telemetry.reset_for_tests()
     metrics_lib.reset_for_tests()
-    compile_telemetry.reset_for_tests()
     yield
     metrics_lib.reset_for_tests()
-    compile_telemetry.reset_for_tests()
+    for telemetry in (compile_telemetry, jax_compile_telemetry):
+        telemetry.reset_for_tests()
 
 
 def prompt_of(n, seed):
