@@ -74,6 +74,32 @@ followed by its seconds:
    core.down (record gone, agent exited, free card memory back within
    1 GB); the same engine in this process gives job A's tokens.
    Prints the phase's seconds and its split.
+3e. Managed job (MANAGED_JOB): with a temporary HOME, jobs.launch of a
+   task on a local cluster asking for H100:1 that trains bench-1b at
+   full width, 2 of its 14 layers, batch 2 x 4096, 20 steps with a
+   checkpoint every 5 (Trainer with checkpoint_dir, restore_if_available,
+   its goodput phases under the managed job's id).  After the checkpoint
+   of step 10 the first attempt's data blocks; the phase kills the
+   cluster's processes (agent and job, as a lost VM would) and marks the
+   node preempted (inject_preemption).  Gates: statuses RUNNING ->
+   RECOVERING -> RUNNING -> SUCCEEDED, one recovery; the recovered
+   attempt restored step 10, its losses at steps 11-20 within
+   MANAGED_LOSS_RTOL of an uninterrupted 20-step run in this process,
+   its launches exact (10 steps of 2 layers); the goodput ledger holds
+   productive, checkpoint_save, checkpoint_restore, preemption_downtime
+   and recovery_relaunch for the job, the downtime ending where the
+   relaunch starts; `jobs top`'s frame shows the recovery; the cluster
+   gone and the card's memory back.
+3f. Serve (SERVE_SERVICE): with a temporary HOME, serve.up of one local
+   replica asking for H100:1, the replica the port's HTTP app over
+   LAUNCH's engine (serve_replica), behind the port's load balancer;
+   LAUNCH's HTTP prompts through the LB one at a time: ids and usage
+   equal to job A's, the LB's trace of each request holds lb.admission
+   and lb.route; the replica's launches read from its log
+   (serve.tail_replica_logs), n_layers per prompt within the largest
+   bucket; serve.down: SHUTDOWN, the replica's cluster gone, the LB's
+   port closed, the card's memory back once the replica's process (which
+   serve.down leaves, as core.down leaves jobs) is killed.
 4. Serving: llama2-7b at full width, 16 of its 32 layers (SERVE; bf16
    random weights from a seed) behind the port's HTTP app on a local port, 8 prompts of 219
    tokens plus one of 300 (chunked prefill), 32 new tokens each; every
@@ -143,11 +169,11 @@ followed by its seconds:
    forward at one rank's prefill shape (TP_SHAPE) against its plain
    version, timed beside its bound.  Each rank's peak memory printed.
 7. MoE serving (MOE_SERVE, examples/train_moe_expert_parallel.yaml:20):
-   llama3-1b with 8 experts at full width and depth (6.873B params,
-   bf16 from a seed) on the engine API with the serving phase's traffic,
-   dense with the decode call as a graph and eagerly, and paged (64-
-   token pages) as a graph: tokens identical all three ways, exactly 16
-   flash launches per prefill group, every id in the vocabulary; out-
+   llama3-1b with 8 experts at full width, 8 of its 16 layers (3.568B
+   params, bf16 from a seed) on the engine API with the serving phase's
+   traffic, dense with the decode call as a graph and eagerly, and paged
+   (64-token pages) as a graph: tokens identical all three ways, exactly
+   8 flash launches per prefill group, every id in the vocabulary; out-
    tok/s, TTFT p50, prewarm seconds and one profiled decode call each;
    the share of (token, expert) choices the prefill group drops at
    capacity; the prefill logits through the kernel held against
@@ -242,8 +268,7 @@ followed by its seconds:
    512]) on the card, its logits against attention_impl='xla' on its
    example arguments and on seeded tokens; validate.py's h100 entry
    against the card's memory (mem_get_info read at the start of the run
-   with a one-rank NCCL group) and one placement printed.  Each of the
-   three kernels must launch on at least one of phases 12-15.
+   with a one-rank NCCL group) and one placement printed.
 16. Perf gate: the run of `python -m skypilot_tpu_torch.perf.gate`
    (perf/gate.py) on the card: the `tiny` serve probe (head_dim 16,
    dense and int8-paged engines) against the newest committed
@@ -257,7 +282,10 @@ followed by its seconds:
    and (d)), moe_serving, training, moe_training, rl, sharded_training
    (rank 0 of (b)-(d) and (f)), pipeline, expert_parallel,
    moe_tensor_serving (rank 0 each), graft_entry, tiny_training,
-   perf_gate, sync_audit and launch (job A's process); the three small-head-dim kernels' rows
+   perf_gate, sync_audit, launch (job A's process), managed_job (the
+   recovered attempt's process) and serve (the replica's process; each
+   of the three wgmma kernels must launch on managed_job or serve); the
+   three small-head-dim kernels' rows
    launched on tiny_training and sync_audit, the forward's also on
    perf_gate), the nvidia-smi
    line, then {"ok": true, "device": {...}} as the last line.
@@ -268,8 +296,10 @@ JAX or of the JAX package.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
 import os
@@ -279,6 +309,7 @@ import socket
 import subprocess
 import sys
 import time
+import urllib.request
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
@@ -387,13 +418,15 @@ RL = dict(model='llama-250m', prompt=(1, 2, 3, 4), n_prompts=8, max_new=32,
 RL_SHAPE = (8, 16, 8, 36, 64)
 # The MoE configuration of examples/train_moe_expert_parallel.yaml:20,
 # llama3-1b with 8 experts (top-2, capacity factor 1.25): 32 query heads
-# over 8 kv heads of 64 (a GQA group of 4).  Served whole (6.873B params,
-# 13.75 GB in bf16) with SERVE's engine and traffic, dense (graph and
-# eager) and 64-token-paged (graph).
-MOE_SERVE = dict(model='llama3-1b', n_experts=8, max_seq_len=448,
-                 n_slots=8, steps_per_call=32, prefill_buckets=(256,),
-                 kv_page_size=64, prompt_len=219, n_prompts=8,
-                 long_prompt_len=300, max_tokens=32)
+# over 8 kv heads of 64 (a GQA group of 4), at full width with its depth
+# cut 16 -> 8 layers (3.568B params, 7.14 GB in bf16; 6.873B whole: the
+# cut makes room for the managed_job and serve phases) with SERVE's
+# engine and traffic, dense (graph and eager) and 64-token-paged
+# (graph).
+MOE_SERVE = dict(model='llama3-1b', n_experts=8, n_layers=8,
+                 max_seq_len=448, n_slots=8, steps_per_call=32,
+                 prefill_buckets=(256,), kv_page_size=64, prompt_len=219,
+                 n_prompts=8, long_prompt_len=300, max_tokens=32)
 # Trained at full width with n_layers cut 16 -> 4: the whole model's f32
 # AdamW state would be 110 GB; 4 layers are 1.915B params, ~30.6 GB.
 # The config's own remat (policy 'none'), f32 params, bf16 compute; batch
@@ -3178,15 +3211,15 @@ def moe_routing(model, tokens):
 
 
 def moe_serving_phase(device, card):
-    """llama3-1b with 8 experts at full width and depth (bf16 weights from
-    a seed) on the engine API, SERVE's traffic: dense with the decode
-    call as a CUDA graph and eagerly, and 64-token-paged as a graph;
-    tokens identical all three ways, the flash launches of each run
-    exactly 16 per prefill group, every token in the vocabulary; the
-    prefill group's drop share at capacity; and the prefill logits
-    through the kernel held against attention_impl='xla' on the tokens
-    whose routing agrees in every layer.  Returns the kernels' launch
-    counts of the three runs."""
+    """llama3-1b with 8 experts at full width, MOE_SERVE's depth (bf16
+    weights from a seed) on the engine API, SERVE's traffic: dense with
+    the decode call as a CUDA graph and eagerly, and 64-token-paged as a
+    graph; tokens identical all three ways, the flash launches of each
+    run exactly n_layers per prefill group, every token in the
+    vocabulary; the prefill group's drop share at capacity; and the
+    prefill logits through the kernel held against attention_impl='xla'
+    on the tokens whose routing agrees in every layer.  Returns the
+    kernels' launch counts of the three runs."""
     import numpy as np
     import torch
     from skypilot_tpu_torch.inference.engine import DecodeEngine, EngineConfig
@@ -3196,6 +3229,7 @@ def moe_serving_phase(device, card):
     spec = MOE_SERVE
     cfg = dataclasses.replace(LLAMA_CONFIGS[spec['model']],
                               n_experts=spec['n_experts'],
+                              n_layers=spec['n_layers'],
                               max_seq_len=spec['max_seq_len'],
                               param_dtype=torch.bfloat16)
     t0 = time.perf_counter()
@@ -4887,8 +4921,6 @@ def _wait_job_status(core, cluster, job_id, timeout_s, until):
 
 
 def _job_log(core, cluster, job_id) -> str:
-    import contextlib
-    import io
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         core.tail_logs(cluster, job_id, follow=False)
@@ -4896,7 +4928,6 @@ def _job_log(core, cluster, job_id) -> str:
 
 
 def _http_json(url, body=None, timeout=120):
-    import urllib.request
     data = None if body is None else json.dumps(body).encode()
     req = urllib.request.Request(
         url, data=data, headers={'Content-Type': 'application/json'})
@@ -4904,16 +4935,552 @@ def _http_json(url, body=None, timeout=120):
         return resp.status, json.loads(resp.read())
 
 
+class PhaseHome:
+    """A temporary HOME for a phase that launches clusters (their state
+    DBs, the agents' homes and the jobs' logs live under it), with the
+    port's config cache reset and `env` set on top; close() kills every
+    process that inherited it, restores the environment and removes the
+    directory."""
+
+    def __init__(self, prefix: str, **env: str) -> None:
+        import tempfile
+        from skypilot_tpu_torch import sky_config
+        self._state = tempfile.TemporaryDirectory(prefix=prefix)
+        self.root = self._state.name
+        home = os.path.join(self.root, 'home')
+        os.makedirs(home)
+        env = dict(
+            env, HOME=home,
+            SKYTPU_GLOBAL_CONFIG=os.path.join(home, '.skytpu', 'config.yaml'),
+            SKYTPU_AGENT_PID_FILE=os.path.join(self.root, 'agent-pids.txt'))
+        self._saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)
+        sky_config.reset_cache_for_tests()
+
+    def kill_processes(self) -> int:
+        """SIGKILL every process the phase started (they inherited its
+        HOME); returns how many."""
+        return _kill_processes_with_env(self.root)
+
+    def close(self) -> None:
+        from skypilot_tpu_torch import sky_config
+        stray = self.kill_processes()
+        if stray:
+            log(f'  killed {stray} process(es) left by the phase')
+        for key, value in self._saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        sky_config.reset_cache_for_tests()
+        self._state.cleanup()
+
+
+def _wait_port_closed(port, timeout_s, what):
+    deadline = time.monotonic() + timeout_s
+    while True:
+        with socket.socket() as sock:
+            if sock.connect_ex(('127.0.0.1', port)) != 0:
+                return
+        if time.monotonic() > deadline:
+            raise SystemExit(f'port {port} still open {what}')
+        time.sleep(0.2)
+
+
+def _wait_free_memory(free_before, timeout_s, atol):
+    """Seconds until the card's free memory is back within `atol` bytes
+    of `free_before` (a job's process releases it as it exits, which may
+    be a little after its port closed and its cluster went); (seconds,
+    free bytes)."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + timeout_s
+    while True:
+        free_after = torch.cuda.mem_get_info()[0]
+        if free_after >= free_before - atol:
+            return time.perf_counter() - t0, free_after
+        if time.monotonic() > deadline:
+            raise SystemExit(f'card memory free {free_after} bytes '
+                             f'{timeout_s} s after the phase\'s clusters '
+                             f'went, {free_before} before the phase')
+        time.sleep(0.2)
+
+
+# A managed job on a local cluster asking for H100:1, through the port's
+# jobs controller: bench-1b (bench.py:58-115) at full width (dim 2048, 16
+# query and 8 kv heads of 128, ffn 8192, vocab 32768) with its depth cut
+# 14 -> 2 layers (a save is then ~193M params x 12 bytes, 2.3 GB, against
+# ~11 GB whole), f32 params, bf16 compute, batch 2 x 4096 made from SEED
+# and the step index, 20 steps through Trainer.run with a checkpoint every
+# 5.  The first attempt's data blocks at step 10, after the checkpoint of
+# step 10; the phase then kills the cluster's processes (its agent and the
+# job, as a lost VM would) and marks its node preempted.  The recovered
+# attempt restores step 10 and trains to step 20.
+MANAGED_JOB = dict(model='bench-1b', n_layers=2, batch=2, seq=4096, steps=20,
+                   checkpoint_every=5, preempt_at=10, warmup_steps=5,
+                   total_steps=1000, accelerators='H100:1', poll_s=0.5,
+                   block_s=600, timeout_s=600, release_timeout_s=60,
+                   mem_atol_bytes=1 << 30)
+# The recovered attempt's losses at steps 11-20 against an uninterrupted
+# 20-step run in this process, relative: the same kernels on the same
+# state and batches, so only a restore that lost or changed state moves
+# them.
+MANAGED_LOSS_RTOL = 1e-3
+# The job's `run`: one attempt (managed_job_attempt) in a new process;
+# the agent puts the checkout on the job's PYTHONPATH.
+MANAGED_JOB_RUN = ('python -c "import chip_smoke; '
+                   'chip_smoke.managed_job_attempt()"')
+
+
+def managed_trainer(spec, device, checkpoint_dir=None):
+    """The managed job's model (`spec`'s, its depth cut) from SEED and its
+    Trainer; (trainer, cfg)."""
+    import torch
+    from skypilot_tpu_torch.models.llama import LLAMA_CONFIGS, Llama, init_params
+    from skypilot_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = dataclasses.replace(LLAMA_CONFIGS[spec['model']],
+                              n_layers=spec['n_layers'])
+    model = Llama(cfg, init_params(
+        cfg, device, torch.Generator(device=device).manual_seed(SEED)))
+    trainer = Trainer(model, TrainConfig(warmup_steps=spec['warmup_steps'],
+                                         total_steps=spec['total_steps']),
+                      checkpoint_dir=checkpoint_dir, device=device)
+    return trainer, cfg
+
+
+def managed_steps(trainer, cfg, spec, device, start, block_at=None):
+    """Steps `start` .. spec['steps'] - 1 through Trainer.run (a checkpoint
+    every spec['checkpoint_every'] when the trainer has a directory),
+    each step's batch made from SEED and its index; at step `block_at`
+    the data waits (up to spec['block_s'], then the attempt fails) for
+    the preemption that kills it.  Returns each step's loss."""
+    import torch
+    losses = []
+    train_step = trainer.train_step
+
+    def recording_step(state, tokens):
+        state, metrics = train_step(state, tokens)
+        losses.append(metrics['loss'])
+        return state, metrics
+
+    def batches():
+        for step in range(start, spec['steps']):
+            if step == block_at:
+                print(f'blocking at step {step}', flush=True)
+                time.sleep(spec['block_s'])
+                raise SystemExit(f'not preempted at step {step} within '
+                                 f'{spec["block_s"]} s')
+            yield torch.randint(
+                0, cfg.vocab_size, (spec['batch'], spec['seq']),
+                device=device, generator=torch.Generator(
+                    device=device).manual_seed(SEED + 1000 + step))
+
+    n = spec['steps'] - start
+    trainer.train_step = recording_step
+    try:
+        trainer.run(batches(), n, checkpoint_every=spec['checkpoint_every'],
+                    log_every=n)
+    finally:
+        trainer.train_step = train_step
+    return [float(x) for x in losses]
+
+
+def managed_job_attempt() -> None:
+    """One attempt of the managed job (MANAGED_JOB_RUN), its spec in
+    MANAGED_JOB_SPEC: the trainer restores the newest checkpoint if
+    there is one, the launch counters are zeroed, and the remaining steps
+    run (a first attempt blocks at spec['preempt_at']); one JSON line
+    out: the step restored, each step's loss, the launches."""
+    import torch
+    from skypilot_tpu_torch.obs import goodput as goodput_lib
+
+    spec = json.loads(os.environ['MANAGED_JOB_SPEC'])
+    # The controller keys the job's downtime by its managed job id, and the
+    # job's cluster is named jobs-<id>-<name>: the trainer's phases go to
+    # the same key of the same ledger.
+    os.environ[goodput_lib.JOB_ENV] = re.match(
+        r'jobs-(\d+)-', os.environ['SKYTPU_CLUSTER_NAME']).group(1)
+    device = torch.device(spec['device'])
+    if device.type == 'cpu':
+        torch.set_num_threads(1)
+    trainer, cfg = managed_trainer(spec, device, spec['ckpt_dir'])
+    restored = trainer.restore_if_available()
+    zero_launches()
+    losses = managed_steps(trainer, cfg, spec, device, restored,
+                           None if restored else spec['preempt_at'])
+    print(json.dumps({'managed_job': {
+        'restored': restored, 'losses': losses,
+        'launches': read_launches(),
+        'device': (torch.cuda.get_device_name() if device.type == 'cuda'
+                   else 'cpu')}}), flush=True)
+
+
+class StatusWatch:
+    """Every status a managed job passes through, in order (polled from
+    the jobs DB every 20 ms on a thread of its own)."""
+
+    def __init__(self, job_id) -> None:
+        import threading
+        from skypilot_tpu_torch.jobs import state as jobs_state
+        self.seen = []
+        self._stop = threading.Event()
+
+        def poll():
+            while not self._stop.is_set():
+                rec = jobs_state.get(job_id)
+                if rec is not None and (not self.seen or
+                                        self.seen[-1] != rec['status']):
+                    self.seen.append(rec['status'])
+                    if rec['status'].is_terminal():
+                        return
+                time.sleep(0.02)
+
+        self._thread = threading.Thread(target=poll, daemon=True)
+        self._thread.start()
+
+    def stop(self) -> list:
+        self._stop.set()
+        self._thread.join()
+        return [s.value for s in self.seen]
+
+
+def managed_job_phase(device, card, smi):
+    """MANAGED_JOB through the port's managed jobs on the card: launch,
+    a preemption after the checkpoint of step preempt_at, recovery and
+    success; the recovered attempt's restored step, losses and launches,
+    the goodput ledger's rows for the job, `jobs top`'s frame, the
+    cluster gone and the card's memory back.  Returns the recovered
+    attempt's launch counts."""
+    import torch
+    from skypilot_tpu_torch import global_user_state, jobs
+    from skypilot_tpu_torch.jobs import controller as jobs_controller
+    from skypilot_tpu_torch.jobs import state as jobs_state
+    from skypilot_tpu_torch.obs import goodput as goodput_lib
+    from skypilot_tpu_torch.obs import jobs_top
+    from skypilot_tpu_torch.provision.local import instance as local_instance
+    from skypilot_tpu_torch.resources import Resources
+    from skypilot_tpu_torch.task import Task
+
+    spec = dict(MANAGED_JOB)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free_before = torch.cuda.mem_get_info()[0]
+    home = PhaseHome('skytpu-managed-',
+                     SKYTPU_JOBS_POLL_INTERVAL=str(spec['poll_s']))
+    t_phase = time.perf_counter()
+    try:
+        spec.update(device=str(device),
+                    ckpt_dir=os.path.join(home.root, 'ckpt'))
+        task = Task('smoke-train', run=MANAGED_JOB_RUN,
+                    envs={'MANAGED_JOB_SPEC': json.dumps(spec)})
+        task.set_resources(Resources.from_yaml_config(
+            {'infra': 'local', 'accelerators': spec['accelerators']}))
+        t0 = time.perf_counter()
+        job_id = jobs.launch(task)
+        watch = StatusWatch(job_id)
+        blocked = os.path.join(spec['ckpt_dir'], f'step_{spec["preempt_at"]}')
+        deadline = time.monotonic() + spec['timeout_s']
+        while not os.path.isdir(blocked):
+            rec = jobs_state.get(job_id)
+            if rec['status'].is_terminal() or time.monotonic() > deadline:
+                raise SystemExit(f'managed job {job_id} {rec["status"]} '
+                                 f'without {blocked}: {watch.stop()}')
+            time.sleep(0.1)
+        first_s = time.perf_counter() - t0
+        cluster = jobs_state.get(job_id)['cluster_name']
+        # The node is lost: its agent and the job die with it (the local
+        # provisioner's terminate kills no process), then the cloud
+        # reports the node preempted.
+        killed = home.kill_processes()
+        t0 = time.perf_counter()
+        local_instance.inject_preemption(cluster)
+        final = jobs_controller.wait_job(job_id, spec['timeout_s'])
+        recover_s = time.perf_counter() - t0
+        statuses = watch.stop()
+        rec = jobs_state.get(job_id)
+        buf = io.StringIO()
+        jobs.tail_logs(job_id, follow=False, out=buf)
+        text = buf.getvalue()
+        if final.value != 'SUCCEEDED' or rec['recovery_count'] != 1:
+            raise SystemExit(f'managed job {job_id} ended {final.value}, '
+                             f'recoveries {rec["recovery_count"]}, statuses '
+                             f'{statuses}:\n{text[-4000:]}')
+        want_seen = ['RUNNING', 'RECOVERING', 'RUNNING', 'SUCCEEDED']
+        if statuses[-4:] != want_seen:
+            raise SystemExit(f'managed job statuses {statuses}, want them '
+                             f'to end {want_seen}')
+        lines = [json.loads(line)['managed_job'] for line in
+                 text.splitlines() if line.startswith('{"managed_job"')]
+        if len(lines) != 1:
+            raise SystemExit(f'the recovered attempt printed {len(lines)} '
+                             f'result lines:\n{text[-4000:]}')
+        out = lines[0]
+        log(f'  job {job_id} on {cluster}: first attempt to the checkpoint '
+            f'of step {spec["preempt_at"]} {first_s:.2f} s; killed '
+            f'{killed} process(es) of the cluster, node marked preempted; '
+            f'to SUCCEEDED {recover_s:.2f} s; statuses {statuses}, '
+            f'recoveries {rec["recovery_count"]}; the recovered attempt on '
+            f'{out["device"]} restored step {out["restored"]}, launches '
+            f'{out["launches"]}')
+        if out['restored'] != spec['preempt_at']:
+            raise SystemExit(f'the recovered attempt restored step '
+                             f'{out["restored"]}, not {spec["preempt_at"]}')
+        if out['device'] != card:
+            raise SystemExit(f'the job ran on {out["device"]}, not {card}')
+        if global_user_state.get_cluster(cluster) is not None:
+            raise SystemExit(f'cluster {cluster} survived SUCCEEDED')
+        # The ledger the controller (this process) and the trainer (the
+        # job's) share: ~/.skytpu/managed_jobs.db under the phase's HOME.
+        ledger = goodput_lib.GoodputLedger()
+        totals = ledger.totals(str(job_id))
+        need = (goodput_lib.PRODUCTIVE, goodput_lib.CHECKPOINT_SAVE,
+                goodput_lib.CHECKPOINT_RESTORE,
+                goodput_lib.PREEMPTION_DOWNTIME,
+                goodput_lib.RECOVERY_RELAUNCH)
+        down = ledger.intervals(str(job_id), goodput_lib.PREEMPTION_DOWNTIME)
+        relaunch = ledger.intervals(str(job_id),
+                                    goodput_lib.RECOVERY_RELAUNCH)
+        log(f'  goodput ledger of job {job_id} ({ledger.dsn}): '
+            f'{ {c: round(v, 3) for c, v in sorted(totals.items())} }; '
+            f'downtime {down}, relaunch {relaunch}')
+        if not all(totals.get(c, 0.0) > 0 for c in need) or \
+                len(down) != 1 or len(relaunch) != 1 or \
+                abs(down[0]['t1'] - relaunch[0]['t0']) > 1e-6:
+            raise SystemExit(f'the ledger misses the recovery: {totals}, '
+                             f'{down}, {relaunch}')
+        frame = jobs_top.render(jobs_top.snapshot(str(job_id),
+                                                  job_rec=rec))
+        log('  jobs top: ' + frame.replace('\n', '\n    '))
+        if 'recoveries 1' not in frame.splitlines()[0]:
+            raise SystemExit(f'jobs top shows no recovery:\n{frame}')
+        release_s, free_after = _wait_free_memory(
+            free_before, spec['release_timeout_s'], spec['mem_atol_bytes'])
+        log(f'  free card memory {free_before} bytes before, {free_after} '
+            f'{release_s:.2f} s after SUCCEEDED')
+        phase_s = time.perf_counter() - t_phase
+    finally:
+        jobs_controller.stop_all_controllers()
+        home.close()
+
+    t0 = time.perf_counter()
+    trainer, cfg = managed_trainer(spec, device)
+    want = managed_steps(trainer, cfg, spec, device, 0)[spec['preempt_at']:]
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    got = out['losses']
+    worst = max((abs(a - b) / abs(b) for a, b in zip(got, want)),
+                default=math.inf)
+    log(f'  an uninterrupted {spec["steps"]}-step run in this process '
+        f'({time.perf_counter() - t0:.2f} s): losses at steps '
+        f'{spec["preempt_at"] + 1}-{spec["steps"]} {want}; the recovered '
+        f'attempt\'s {got}; largest relative difference {worst:.3e}')
+    if len(got) != len(want) or not worst <= MANAGED_LOSS_RTOL:
+        raise SystemExit(f'the recovered attempt\'s losses {got} differ from '
+                         f'the uninterrupted run\'s {want}')
+    steps = spec['steps'] - spec['preempt_at']
+    forwards = 2 if cfg.remat else 1
+    expect = {'flash_attention_fwd': forwards * cfg.n_layers * steps,
+              'flash_attention_bwd_dq': cfg.n_layers * steps,
+              'flash_attention_bwd_dkv': cfg.n_layers * steps}
+    if device.type == 'cuda' and out['launches'] != expect:
+        raise SystemExit(f'the recovered attempt launched {out["launches"]}, '
+                         f'expected {expect} ({steps} steps of '
+                         f'{cfg.n_layers} layers)')
+    log(f'  launch to SUCCEEDED {phase_s:.2f} s on {smi}')
+    return out['launches']
+
+
+# SkyServe on the card: one local replica asking for H100:1 behind the
+# port's load balancer, the replica the port's HTTP app over LAUNCH's
+# engine (llama3-1b whole, bf16 from SEED), LAUNCH's HTTP prompts sent
+# through the LB one at a time.
+SERVE_SERVICE = dict(name='smoke-serve', accelerators='H100:1', tick_s=0.5,
+                     ready_timeout_s=300, shutdown_timeout_s=120,
+                     release_timeout_s=60, mem_atol_bytes=1 << 30)
+SERVE_REPLICA_RUN = ('python -c "import chip_smoke; '
+                     'chip_smoke.serve_replica()"')
+
+
+def serve_replica() -> None:
+    """The serve phase's replica (SERVE_REPLICA_RUN): the engine from
+    ENGINE_FLAGS exactly as `python -m skypilot_tpu_torch.inference.server`
+    builds it, its launch counters zeroed after prewarm(), the server's
+    app on the port the replica manager gives; the counters printed (one
+    JSON line) whenever they change."""
+    import threading
+
+    from aiohttp import web
+    from skypilot_tpu_torch.device import device_of
+    from skypilot_tpu_torch.inference import server
+    from skypilot_tpu_torch.inference.engine import DecodeEngine
+
+    args = server.parse_args(json.loads(os.environ['ENGINE_FLAGS']) + [
+        '--port', os.environ['SKYTPU_SERVE_REPLICA_PORT']])
+    model = server.build_model(args)
+    engine = DecodeEngine(model, server.engine_config(args),
+                          device=device_of(model))
+    engine.prewarm()
+    zero_launches()
+    engine.start()
+
+    def report():
+        last = None
+        while True:
+            now = read_launches()
+            if now != last:
+                print(json.dumps({'replica_launches': now}), flush=True)
+                last = now
+            time.sleep(0.2)
+
+    threading.Thread(target=report, daemon=True).start()
+    try:
+        web.run_app(server.build_app(engine), port=args.port, print=None)
+    finally:
+        engine.close()
+
+
+def serve_phase(device, card, smi, launch_ctx):
+    """SERVE_SERVICE through the port's SkyServe on the card: serve.up,
+    the replica READY, LAUNCH's HTTP prompts through the load balancer
+    (ids and usage equal to job A's, the LB's trace of each request), the
+    replica's launches from its log, serve.down (the replica's cluster
+    gone, the LB's port closed) and the card's memory back.  Returns the
+    replica's launch counts over the requests."""
+    import urllib.error
+
+    import torch
+    from skypilot_tpu_torch import global_user_state, serve
+    from skypilot_tpu_torch.inference import server
+    from skypilot_tpu_torch.resources import Resources
+    from skypilot_tpu_torch.serve import controller as serve_controller
+    from skypilot_tpu_torch.serve import serve_state
+    from skypilot_tpu_torch.server import tracing
+    from skypilot_tpu_torch.task import Task
+
+    spec = SERVE_SERVICE
+    name, max_new = spec['name'], LAUNCH['max_new']
+    prompts, tokens = launch_ctx['prompts'], launch_ctx['tokens']
+    args = server.parse_args(LAUNCH['flags'])
+    cfg = server.model_config(args)
+    # Prompts beyond the largest bucket the engine keeps (those within
+    # max_seq_len) are chunked through the decode path, not the kernel.
+    largest = max((b for b in server.engine_config(args).prefill_buckets
+                   if b <= cfg.max_seq_len), default=cfg.max_seq_len)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free_before = torch.cuda.mem_get_info()[0]
+    home = PhaseHome('skytpu-serve-',
+                     SKYTPU_SERVE_TICK_INTERVAL=str(spec['tick_s']))
+    t_phase = time.perf_counter()
+    try:
+        task = Task(name, run=SERVE_REPLICA_RUN,
+                    envs={'ENGINE_FLAGS': json.dumps(LAUNCH['flags'])},
+                    service={'readiness_probe': {
+                        'path': '/health',
+                        'initial_delay_seconds': spec['ready_timeout_s']},
+                             'replicas': 1})
+        task.set_resources(Resources.from_yaml_config(
+            {'infra': 'local', 'accelerators': spec['accelerators']}))
+        t0 = time.perf_counter()
+        endpoint = serve.up(task)['endpoint']
+        deadline = time.monotonic() + spec['ready_timeout_s']
+        while True:
+            replicas = serve_state.get_replicas(name, include_terminal=True)
+            if any(r['status'].value == 'READY' for r in replicas):
+                break
+            if any(r['status'].is_terminal() for r in replicas) or \
+                    time.monotonic() > deadline:
+                states = [(r['replica_id'], r['status'].value)
+                          for r in replicas]
+                raise SystemExit(f'no READY replica: {states}')
+            time.sleep(0.2)
+        ready_s = time.perf_counter() - t0
+        replica = replicas[0]
+        served = []
+        for i in LAUNCH['http_prompts']:
+            rid = f'smoke-serve-{i}'
+            req = urllib.request.Request(
+                endpoint + '/v1/completions',
+                data=json.dumps({'prompt_ids': prompts[i],
+                                 'max_tokens': max_new}).encode(),
+                headers={'Content-Type': 'application/json',
+                         tracing.TRACE_HEADER: rid})
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                status, body = resp.status, json.loads(resp.read())
+            usage = body.get('usage', {})
+            if (status, body.get('ids')) != (200, tokens[i]) or (
+                    usage.get('prompt_tokens'),
+                    usage.get('completion_tokens')) != (len(prompts[i]),
+                                                        max_new):
+                raise SystemExit(f'prompt {i} through the LB: {status} '
+                                 f'{body}, want job A\'s {tokens[i]}')
+            _, trace = _http_json(endpoint + f'/debug/requests/{rid}')
+            names = [e['name'] for e in trace['events']]
+            if not {'lb.admission', 'lb.route'} <= set(names):
+                raise SystemExit(f'the LB\'s trace of {rid}: {names}')
+            served.append(i)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            serve.tail_replica_logs(name, replica['replica_id'])
+        reports = [json.loads(line)['replica_launches']
+                   for line in buf.getvalue().splitlines()
+                   if line.startswith('{"replica_launches"')]
+        counts = reports[-1] if reports else {}
+        expect = dict.fromkeys(KERNEL_NAMES, 0)
+        expect['flash_attention_fwd'] = cfg.n_layers * sum(
+            len(prompts[i]) <= largest for i in served)
+        log(f'  service {name} up {ready_s:.2f} s to a READY replica '
+            f'({replica["cluster_name"]}, {replica["url"]}); prompts '
+            f'{served} through {endpoint} one at a time: ids equal to job '
+            f'A\'s, usage right, the LB\'s trace holds lb.admission and '
+            f'lb.route; the replica\'s launches {counts} (expected '
+            f'{expect}: {cfg.n_layers} layers a prompt within the {largest} '
+            f'bucket)')
+        if device.type == 'cuda' and counts != expect:
+            raise SystemExit(f'the replica launched {counts}, expected '
+                             f'{expect}:\n{buf.getvalue()[-4000:]}')
+        t0 = time.perf_counter()
+        serve.down(name)
+        serve_controller.wait_service_status(
+            name, (serve_state.ServiceStatus.SHUTDOWN,),
+            spec['shutdown_timeout_s'])
+        down_s = time.perf_counter() - t0
+        if global_user_state.get_cluster(replica['cluster_name']) is not None:
+            raise SystemExit(f'replica cluster {replica["cluster_name"]} '
+                             f'survived serve.down')
+        port = int(endpoint.rsplit(':', 1)[1])
+        _wait_port_closed(port, 30, 'after serve.down')
+        # serve.down stops the replica's agent, not its job (as core.down
+        # does): the replica's server is still running.
+        left = home.kill_processes()
+        release_s, free_after = _wait_free_memory(
+            free_before, spec['release_timeout_s'], spec['mem_atol_bytes'])
+        log(f'  serve.down to SHUTDOWN {down_s:.2f} s: replica cluster '
+            f'gone, LB port {port} closed; {left} process(es) of the '
+            f'replica left running, killed; free card memory '
+            f'{free_before} bytes before, {free_after} {release_s:.2f} s '
+            f'after')
+        log(f'  serve.up to down {time.perf_counter() - t_phase:.2f} s on '
+            f'{smi}')
+    finally:
+        serve_controller.stop_all_controllers()
+        home.close()
+    return counts
+
+
 def launch_phase(device, card, smi):
     """LAUNCH through the port's launch path on the card; returns job
-    A's kernel launch counts (its process zeroes them after prewarm)."""
-    import tempfile
+    A's kernel launch counts (its process zeroes them after prewarm) and
+    its prompts and tokens."""
     import urllib.error
 
     import numpy as np
     import torch
     from skypilot_tpu_torch import core, execution, global_user_state
-    from skypilot_tpu_torch import sky_config
     from skypilot_tpu_torch.agent.job_queue import JobStatus
     from skypilot_tpu_torch.inference import server
     from skypilot_tpu_torch.resources import Resources
@@ -4928,16 +5495,7 @@ def launch_phase(device, card, smi):
     gc.collect()
     torch.cuda.empty_cache()
     free_before = torch.cuda.mem_get_info()[0]
-    saved = {k: os.environ.get(k) for k in (
-        'HOME', 'SKYTPU_GLOBAL_CONFIG', 'SKYTPU_AGENT_PID_FILE')}
-    state = tempfile.TemporaryDirectory(prefix='skytpu-launch-')
-    home = os.path.join(state.name, 'home')
-    os.makedirs(home)
-    os.environ.update(
-        HOME=home,
-        SKYTPU_GLOBAL_CONFIG=os.path.join(home, '.skytpu', 'config.yaml'),
-        SKYTPU_AGENT_PID_FILE=os.path.join(state.name, 'agent-pids.txt'))
-    sky_config.reset_cache_for_tests()
+    home = PhaseHome('skytpu-launch-')
     t_phase = time.perf_counter()
     try:
         task = Task('smoke-job-a', run=LAUNCH_JOB_A, envs={
@@ -5027,14 +5585,7 @@ def launch_phase(device, card, smi):
                                JobStatus.is_terminal)
         if JobStatus(rec['status']) is not JobStatus.CANCELLED:
             raise SystemExit(f'job B ended {rec["status"]}, not CANCELLED')
-        deadline = time.monotonic() + 30
-        while True:
-            with socket.socket() as sock:
-                if sock.connect_ex(('127.0.0.1', port)) != 0:
-                    break
-            if time.monotonic() > deadline:
-                raise SystemExit(f'port {port} still open after cancel')
-            time.sleep(0.2)
+        _wait_port_closed(port, 30, 'after cancel')
         t0 = time.perf_counter()
         core.down(cluster)
         down_s = time.perf_counter() - t0
@@ -5045,23 +5596,8 @@ def launch_phase(device, card, smi):
             if time.monotonic() > deadline:
                 raise SystemExit(f'agent {agent_pid} alive after down')
             time.sleep(0.2)
-        # The jobs' processes release the card as they exit, which may
-        # be a little after their port closed and their agent went.
-        gc.collect()
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        deadline = time.monotonic() + LAUNCH['release_timeout_s']
-        while True:
-            free_after = torch.cuda.mem_get_info()[0]
-            if free_after >= free_before - LAUNCH['mem_atol_bytes']:
-                break
-            if time.monotonic() > deadline:
-                raise SystemExit(
-                    f'card memory free {free_after} bytes '
-                    f'{LAUNCH["release_timeout_s"]} s after down, '
-                    f'{free_before} before the phase')
-            time.sleep(0.2)
-        release_s = time.perf_counter() - t0
+        release_s, free_after = _wait_free_memory(
+            free_before, LAUNCH['release_timeout_s'], LAUNCH['mem_atol_bytes'])
         log(f'  job B CANCELLED, port closed; down {down_s:.2f} s: record '
             f'gone, agent exited; free card memory {free_before} bytes '
             f'before, {free_after} {release_s:.2f} s after down')
@@ -5074,16 +5610,7 @@ def launch_phase(device, card, smi):
                 if not JobStatus(job['status']).is_terminal():
                     core.cancel(cluster, job['job_id'])
             core.down(cluster)
-        stray = _kill_processes_with_env(state.name)
-        if stray:
-            log(f'  killed {stray} process(es) left by the phase')
-        for key, value in saved.items():
-            if value is None:
-                os.environ.pop(key, None)
-            else:
-                os.environ[key] = value
-        sky_config.reset_cache_for_tests()
-        state.cleanup()
+        home.close()
 
     t0 = time.perf_counter()
     want = launch_reference_tokens(LAUNCH['flags'], prompts, max_new)
@@ -5097,7 +5624,8 @@ def launch_phase(device, card, smi):
     log(f'  launch to down {phase_s:.2f} s (launch {launch_s:.2f}, job A '
         f'{job_a_s:.2f}, job B to ready {ready_s:.2f}, down {down_s:.2f}) '
         f'on {smi}')
-    return {name: out['launches'].get(name, 0) for name in KERNEL_NAMES}
+    return ({name: out['launches'].get(name, 0) for name in KERNEL_NAMES},
+            {'prompts': prompts, 'tokens': tokens})
 
 
 def hbm_probe():
@@ -5535,7 +6063,14 @@ def main() -> int:
     by_path['sync_audit'] = phase('sync_audit', sync_audit_phase, device,
                                   card)
     log(f'[launch] {LAUNCH}')
-    by_path['launch'] = phase('launch', launch_phase, device, card, smi)
+    by_path['launch'], launch_ctx = phase('launch', launch_phase, device,
+                                          card, smi)
+    log(f'[managed_job] {MANAGED_JOB}')
+    by_path['managed_job'] = phase('managed_job', managed_job_phase, device,
+                                   card, smi)
+    log(f'[serve] {SERVE_SERVICE}')
+    by_path['serve'] = phase('serve', serve_phase, device, card, smi,
+                             launch_ctx)
 
     from skypilot_tpu_torch.perf import compile_telemetry
     log(f'[build] compile telemetry {compile_telemetry.summary()} '
@@ -5607,8 +6142,7 @@ def main() -> int:
     by_path['perf_gate'], small_launches = phase('perf_gate',
                                                  perf_gate_phase, device,
                                                  card)
-    new_paths = ('pipeline', 'expert_parallel', 'moe_tensor_serving',
-                 'graft_entry')
+    new_paths = ('managed_job', 'serve')
     for name in KERNEL_NAMES:
         if not any(by_path[p][name] for p in new_paths):
             raise SystemExit(f'{name} launched on none of this run\'s new '

@@ -35,20 +35,32 @@ COPIED = ['sky_logging.py', 'utils/timeline.py', 'server/metrics.py',
           'utils/locks.py', 'agent/__init__.py', 'agent/job_queue.py',
           'agent/autostop.py', 'agent/events.py', 'logs/__init__.py',
           'agent/client.py', 'backends/__init__.py', 'backends/backend.py',
-          'backends/backend_utils.py', 'execution.py', 'core.py']
+          'backends/backend_utils.py', 'execution.py', 'core.py',
+          # Managed jobs, their terminal views, and SkyServe.
+          'jobs/__init__.py', 'jobs/state.py', 'jobs/recovery_strategy.py',
+          'jobs/controller.py', 'jobs/core.py', 'obs/top.py',
+          'obs/jobs_top.py', 'serve/__init__.py', 'serve/service_spec.py',
+          'serve/serve_state.py', 'serve/spot_placer.py',
+          'serve/load_balancing_policies.py', 'serve/autoscalers.py',
+          'serve/load_balancer.py', 'serve/replica_managers.py',
+          'serve/controller.py', 'serve/core.py', 'serve/slo_sim.py']
 # Modules whose code is the original's with the package renamed (import
 # lines and the constants that name the package), docstrings aside: the
 # analyzer's modules copied from skypilot_tpu/analysis/ (their docstrings
 # name the port's gate), the SLO alert rules, whose AlertRule the
 # metric-naming rule of the port's analyzer holds to the registry, and
 # the launch path's modules whose strings name the package (the task's
-# comment, the catalog's refresh hint, the provisioners' module path).
+# comment, the catalog's refresh hint, the provisioners' module path),
+# and the dedicated-controller mode's, whose commands name the module
+# they run on the controller host.
 COPIED_CODE = ['obs/alerts.py', 'analysis/core.py', 'analysis/reporters.py',
                'analysis/rules/blocking_async.py',
                'analysis/rules/db_discipline.py',
                'analysis/rules/metric_naming.py',
                'analysis/rules/unbounded_io.py',
-               'task.py', 'catalog/common.py', 'provision/__init__.py']
+               'task.py', 'catalog/common.py', 'provision/__init__.py',
+               'controller_vm.py', 'jobs/remote_exec.py',
+               'jobs/controller_daemon.py']
 # The launch path's deliberate rewrites (their docstrings say how they
 # differ; tests/test_torch_launch.py and test_torch_control_plane.py
 # hold their behaviour).
@@ -492,6 +504,64 @@ def test_head_agent_imports_neither_torch_nor_jax():
         'import skypilot_tpu_torch.agent.events\n'
         'import skypilot_tpu_torch.logs\n'
         'import skypilot_tpu_torch.provision.local.instance\n'
+        'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
+        '("torch", "jax", "jaxlib", "flax", "skypilot_tpu"))\n'
+        'assert not bad, bad\n'
+        'print("ok")\n')
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == 'ok'
+
+
+def test_jobs_and_serve_slice_modules_are_covered():
+    """The isolation checks above walk every module of the port; managed
+    jobs, SkyServe, the controller VM and the jobs views are among them,
+    every one of them is pinned (COPIED or COPIED_CODE), the module each
+    controller host runs is the port's, and the kernel sources are the
+    known set (this slice adds no kernel)."""
+    mods = set(_port_modules())
+    assert {'skypilot_tpu_torch.jobs', 'skypilot_tpu_torch.jobs.controller',
+            'skypilot_tpu_torch.jobs.controller_daemon',
+            'skypilot_tpu_torch.jobs.remote_exec',
+            'skypilot_tpu_torch.serve', 'skypilot_tpu_torch.serve.controller',
+            'skypilot_tpu_torch.serve.load_balancer',
+            'skypilot_tpu_torch.controller_vm',
+            'skypilot_tpu_torch.obs.top',
+            'skypilot_tpu_torch.obs.jobs_top'} <= mods
+    ported = [p.relative_to(PORT).as_posix() for sub in ('jobs', 'serve')
+              for p in (PORT / sub).rglob('*.py')]
+    ported += ['controller_vm.py', 'obs/top.py', 'obs/jobs_top.py']
+    pinned = set(COPIED) | set(COPIED_CODE)
+    for rel in ported:
+        assert rel in pinned, rel
+    # Every module of the JAX package's jobs/ and serve/ has its copy.
+    assert sorted(ported[:-3]) == sorted(
+        p.relative_to(REPO / 'skypilot_tpu').as_posix()
+        for sub in ('jobs', 'serve')
+        for p in (REPO / 'skypilot_tpu' / sub).rglob('*.py'))
+    for rel in ('controller_vm.py', 'jobs/remote_exec.py'):
+        text = (PORT / rel).read_text()
+        assert '-m skypilot_tpu_torch.jobs.' in text or (
+            "'-m', 'skypilot_tpu_torch.jobs.controller_daemon'" in text), rel
+    assert sorted(p.name for p in (PORT / 'csrc').glob('*.cu*')) == (
+        KERNEL_SOURCES)
+
+
+def test_jobs_serve_and_views_import_neither_torch_nor_jax():
+    """Managed jobs, SkyServe (controller, load balancer, replica
+    manager), the controller VM and `jobs top` import neither torch nor
+    JAX: their controllers poll and proxy, and never touch a card."""
+    code = (
+        'import sys\n'
+        'import skypilot_tpu_torch.jobs\n'
+        'import skypilot_tpu_torch.jobs.controller_daemon\n'
+        'import skypilot_tpu_torch.jobs.remote_exec\n'
+        'import skypilot_tpu_torch.serve\n'
+        'import skypilot_tpu_torch.serve.slo_sim\n'
+        'import skypilot_tpu_torch.controller_vm\n'
+        'import skypilot_tpu_torch.obs.jobs_top\n'
         'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
         '("torch", "jax", "jaxlib", "flax", "skypilot_tpu"))\n'
         'assert not bad, bad\n'
