@@ -74,6 +74,18 @@ followed by its seconds:
    core.down (record gone, agent exited, free card memory back within
    1 GB); the same engine in this process gives job A's tokens.
    Prints the phase's seconds and its split.
+3d'. API server (API_SERVER): with a temporary HOME, `python -m
+   skypilot_tpu_torch.server.app` on a free port as a process of its own
+   (a marker in its environment); over REST through the port's SDK,
+   sdk.launch of job A's task onto a local cluster asking for H100:1
+   (the request runs in the server's request worker, which runs the
+   port's execution.launch), sdk.get, sdk.queue until SUCCEEDED, job A's
+   JSON line read through the logs route: its tokens equal the launch
+   phase's, its flash launches the launch phase's (48 forward: 3 chunk
+   groups x 16 layers; no backward); `skytpu-torch status` (the CLI, a
+   subprocess) lists the cluster UP; sdk.down removes it, the card's
+   memory comes back; SIGTERM to the server closes its port and leaves
+   no process with the marker.  Prints each step's seconds.
 3e. Managed job (MANAGED_JOB): with a temporary HOME, jobs.launch of a
    task on a local cluster asking for H100:1 that trains bench-1b at
    full width, 2 of its 14 layers, batch 2 x 4096, 20 steps with a
@@ -220,10 +232,10 @@ followed by its seconds:
    compute): (a) two
    gloo ranks on cuda:0 print which of reduce_scatter_tensor,
    all_gather_into_tensor and all_reduce gloo runs on bf16 and f32 CUDA
-   tensors (FSDP2 and the tensor-parallel pair need all six) and, in a
-   throwaway pair of processes per dtype, whether it moves them point
-   to point (it does not: the ring over a gloo mesh stages its hops
-   through pinned host buffers, decided from the backend); then through
+   tensors (FSDP2 and the tensor-parallel pair need all six; the ring
+   over a gloo mesh stages its hops through pinned host buffers, decided
+   from the backend: gloo moves no CUDA tensor point to point); then
+   through
    Trainer(..., mesh=) on the same global batch, 1 + 2 steps each, both
    ranks on the card: (b) fsdp=2 at 8 x 2048, (c) tensor=2 at 4 x 2048,
    (d) attention_impl='ring' at fsdp=2 on 1 x 16384 (8192 tokens a
@@ -282,10 +294,11 @@ followed by its seconds:
    and (d)), moe_serving, training, moe_training, rl, sharded_training
    (rank 0 of (b)-(d) and (f)), pipeline, expert_parallel,
    moe_tensor_serving (rank 0 each), graft_entry, tiny_training,
-   perf_gate, sync_audit, launch (job A's process), managed_job (the
-   recovered attempt's process) and serve (the replica's process; each
-   of the three wgmma kernels must launch on managed_job or serve); the
-   three small-head-dim kernels' rows
+   perf_gate, sync_audit, launch (job A's process), api_server (job A's
+   process under the API server), managed_job (the recovered attempt's
+   process) and serve (the replica's process; the new path, api_server,
+   must have launched the flash forward); the three small-head-dim
+   kernels' rows
    launched on tiny_training and sync_audit, the forward's also on
    perf_gate), the nvidia-smi
    line, then {"ok": true, "device": {...}} as the last line.
@@ -650,33 +663,42 @@ def ptxas_report(build_log: str) -> dict:
     return report
 
 
-def launch_attrs(calls: dict) -> dict:
+def launch_attrs(calls: dict, attempts: int = 3, repeats: int = 3) -> dict:
     """{symbol: the profiler's record of its launch} for each {symbol:
     fn} of `calls`, all under one profiler: registers per thread,
-    shared memory (static + dynamic), grid, block ({} where the trace has
-    no such kernel)."""
+    shared memory (static + dynamic), grid, block.  Each fn runs
+    `repeats` times under it; a trace that lacks some of the kernels
+    (on the H100 the profiler has returned traces without one, or
+    without any) is taken again for those, up to `attempts` in all; {}
+    where no trace had the kernel."""
     import tempfile
     import torch
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for fn in calls.values():
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, 'trace.json')
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            trace = json.load(f)
     attrs = {symbol: {} for symbol in calls}
-    for evt in trace.get('traceEvents', []):
-        for symbol in calls:
-            if evt.get('cat') == 'kernel' and symbol in evt.get('name', ''):
-                args = evt.get('args', {})
-                attrs[symbol] = {key: args.get(key) for key in (
-                    'registers per thread', 'shared memory', 'grid',
-                    'block', 'blocks per SM', 'warps per SM')}
+    for _ in range(attempts):
+        missing = [symbol for symbol in calls if not attrs[symbol]]
+        if not missing:
+            break
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for symbol in missing:
+                for _ in range(repeats):
+                    calls[symbol]()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, 'trace.json')
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                trace = json.load(f)
+        for evt in trace.get('traceEvents', []):
+            for symbol in missing:
+                if evt.get('cat') == 'kernel' and \
+                        symbol in evt.get('name', ''):
+                    args = evt.get('args', {})
+                    attrs[symbol] = {key: args.get(key) for key in (
+                        'registers per thread', 'shared memory', 'grid',
+                        'block', 'blocks per SM', 'warps per SM')}
     return attrs
 
 
@@ -3486,11 +3508,11 @@ def sharded_probe(_):
     return out
 
 
-def p2p_probe_rank(rank, port, dtype_name, queue, op='batch_isend_irecv'):
-    """One rank of a throwaway gloo pair on cuda:0: `op` on CUDA tensors
-    with the other rank, a batch_isend_irecv (point to point) or an
-    all_to_all_single (the expert exchange), straight from the card (gloo
-    may abort the process on it, which is why the pair is its own)."""
+def p2p_probe_rank(rank, port, dtype_name, queue):
+    """One rank of a throwaway gloo pair on cuda:0: an all_to_all_single
+    (the expert exchange) on CUDA tensors with the other rank, straight
+    from the card (gloo may abort the process on it, which is why the
+    pair is its own)."""
     import datetime
     import torch
     import torch.distributed as dist
@@ -3498,23 +3520,15 @@ def p2p_probe_rank(rank, port, dtype_name, queue, op='batch_isend_irecv'):
     dist.init_process_group('gloo', init_method=f'tcp://127.0.0.1:{port}',
                             world_size=2, rank=rank,
                             timeout=datetime.timedelta(seconds=60))
-    x = torch.full((4,), rank + 1, dtype=getattr(torch, dtype_name),
-                   device='cuda')
+    # Rank r sends [10r+1, 10r+1] to rank 0 and [10r+2, 10r+2] to rank 1,
+    # and receives rank 0's chunk r, then rank 1's.
+    x = torch.tensor([10 * rank + 1, 10 * rank + 1, 10 * rank + 2,
+                      10 * rank + 2], dtype=getattr(torch, dtype_name),
+                     device='cuda')
     y = torch.zeros_like(x)
     try:
-        if op == 'all_to_all_single':
-            # Rank r sends [10r+1, 10r+1] to rank 0 and [10r+2, 10r+2]
-            # to rank 1, and receives rank 0's chunk r, then rank 1's.
-            x = torch.tensor([10 * rank + 1, 10 * rank + 1, 10 * rank + 2,
-                              10 * rank + 2], dtype=x.dtype, device='cuda')
-            dist.all_to_all_single(y, x)
-            want = [1 + rank, 1 + rank, 11 + rank, 11 + rank]
-        else:
-            ops = [dist.P2POp(dist.isend, x, 1 - rank),
-                   dist.P2POp(dist.irecv, y, 1 - rank)]
-            for work in dist.batch_isend_irecv(ops):
-                work.wait()
-            want = [2.0 - rank] * 4
+        dist.all_to_all_single(y, x)
+        want = [1 + rank, 1 + rank, 11 + rank, 11 + rank]
         torch.cuda.synchronize()
         result = 'ok' if y.tolist() == want else f'wrong: {y.tolist()}'
     except Exception as e:  # pylint: disable=broad-except
@@ -3523,11 +3537,11 @@ def p2p_probe_rank(rank, port, dtype_name, queue, op='batch_isend_irecv'):
     dist.destroy_process_group()
 
 
-def p2p_probe(timeout_s=60.0, op='batch_isend_irecv'):
-    """{'dtype op': result} of gloo's `op` (p2p_probe_rank) on CUDA
-    tensors, one throwaway pair of processes per dtype (run together); a
-    process that dies reports its exit code.  Every process is stopped
-    before this returns."""
+def p2p_probe(timeout_s=60.0):
+    """{'dtype all_to_all_single': result} of gloo's all_to_all_single
+    (p2p_probe_rank) on CUDA tensors, one throwaway pair of processes per
+    dtype (run together); a process that dies reports its exit code.
+    Every process is stopped before this returns."""
     import multiprocessing
     import queue as queue_lib
     from skypilot_tpu_torch.parallel import group as group_lib
@@ -3536,7 +3550,7 @@ def p2p_probe(timeout_s=60.0, op='batch_isend_irecv'):
     for name in ('bfloat16', 'float32'):
         q, port = ctx.Queue(), group_lib.free_port()
         pairs[name] = (q, [ctx.Process(target=p2p_probe_rank,
-                                       args=(r, port, name, q, op),
+                                       args=(r, port, name, q),
                                        daemon=True)
                            for r in range(2)])
         for proc in pairs[name][1]:
@@ -3555,12 +3569,12 @@ def p2p_probe(timeout_s=60.0, op='batch_isend_irecv'):
         group_lib.stop_processes(procs, 5.0)
         codes = [p.exitcode for p in procs]
         if len(got) == 2 and got[0] == got[1]:
-            out[f'{name} {op}'] = got[0]
+            out[f'{name} all_to_all_single'] = got[0]
         elif not got and all(c is not None and c < 0 for c in codes):
-            out[f'{name} {op}'] = (
+            out[f'{name} all_to_all_single'] = (
                 f'fails: both ranks killed by signals {[-c for c in codes]}')
         else:
-            out[f'{name} {op}'] = (
+            out[f'{name} all_to_all_single'] = (
                 f'fails: {got or "no result"}; rank exit codes {codes}')
     return out
 
@@ -3974,7 +3988,7 @@ def nccl_world1(device):
 def sharded_training_phase(device, card, smi):
     """Sharded training (SHARDED) on the one card: (a) which collectives
     gloo runs on CUDA tensors (those FSDP2 and the tensor-parallel pair
-    need must work) and whether it moves them point to point; (b) fsdp=2,
+    need must work); (b) fsdp=2,
     (c) tensor=2, (d) ring at fsdp=2, each two gloo ranks on cuda:0
     through Trainer(..., mesh=): each step against the one-device
     trainer's (run first, freed before the ranks start), every rank's metrics equal
@@ -4030,10 +4044,9 @@ def sharded_training_phase(device, card, smi):
 
         t0 = time.perf_counter()
         probe = pool.run(sharded_probe, None, timeout_s=300)[0]
-        p2p = p2p_probe()
         log(f'  (a) gloo over CUDA tensors, {n} ranks on cuda:0 (pool up and '
             f'probed in {time.perf_counter() - t0:.1f} s):')
-        for key, result in {**probe, **p2p}.items():
+        for key, result in probe.items():
             log(f'    {key}: {result}')
         needed = [f'{d} {op}' for d in ('bfloat16', 'float32')
                   for op in ('reduce_scatter_tensor', 'all_gather_into_tensor',
@@ -4465,18 +4478,21 @@ def expert_parallel_phase(device, card, smi):
     from skypilot_tpu_torch.parallel import group as group_lib
 
     n = EXPERT['expert']
-    t0 = time.perf_counter()
-    probe = p2p_probe(op='all_to_all_single')
-    log(f'  (a) gloo all_to_all_single straight on CUDA tensors, 2 '
-        f'throwaway ranks on cuda:0 ({time.perf_counter() - t0:.1f} s): ' +
-        '; '.join(f'{k}: {v}' for k, v in probe.items()))
-    needed = [f'{d} all_to_all_single' for d in ('bfloat16', 'float32')]
-    if any(probe[key] != 'ok' for key in needed):
-        raise SystemExit(f'gloo refuses all_to_all_single on CUDA tensors, '
-                         f'which the expert exchange hands it: {probe}')
-    log('    the expert exchange hands gloo the CUDA tensors as they are')
+    # The ranks start importing while the throwaway pairs probe gloo.
     pool = group_lib.RankPool(n, 'gloo', timeout_s=600)
     try:
+        t0 = time.perf_counter()
+        probe = p2p_probe()
+        log(f'  (a) gloo all_to_all_single straight on CUDA tensors, 2 '
+            f'throwaway ranks on cuda:0 ({time.perf_counter() - t0:.1f} s): '
+            + '; '.join(f'{k}: {v}' for k, v in probe.items()))
+        needed = [f'{d} all_to_all_single' for d in ('bfloat16', 'float32')]
+        if any(probe[key] != 'ok' for key in needed):
+            raise SystemExit(f'gloo refuses all_to_all_single on CUDA '
+                             f'tensors, which the expert exchange hands it: '
+                             f'{probe}')
+        log('    the expert exchange hands gloo the CUDA tensors as they '
+            'are')
         cfg, tokens = expert_case()
         t0 = time.perf_counter()
         params = init_params(cfg, device,
@@ -4883,22 +4899,33 @@ def _pid_alive(pid) -> bool:
         return False
 
 
-def _kill_processes_with_env(marker: str) -> int:
-    """SIGKILL every other process whose environment (as it was at its
-    exec) holds `marker`; returns how many.  The agent and its jobs
-    inherit the phase's temporary HOME, so this stops whatever a failed
-    check left running (`down` stops the agent, not its jobs)."""
-    killed = 0
+def _pids_with_env(marker: str) -> list:
+    """Every other process whose environment (as it was at its exec)
+    holds `marker`."""
+    pids = []
     for entry in os.listdir('/proc'):
         if not entry.isdigit() or int(entry) == os.getpid():
             continue
         try:
             with open(f'/proc/{entry}/environ', 'rb') as f:
-                if marker.encode() not in f.read():
-                    continue
-            os.kill(int(entry), 9)
+                if marker.encode() in f.read():
+                    pids.append(int(entry))
+        except OSError:
+            continue
+    return pids
+
+
+def _kill_processes_with_env(marker: str) -> int:
+    """SIGKILL every other process whose environment holds `marker`;
+    returns how many.  The agent and its jobs inherit the phase's
+    temporary HOME, so this stops whatever a failed check left running
+    (`down` stops the agent, not its jobs)."""
+    killed = 0
+    for pid in _pids_with_env(marker):
+        try:
+            os.kill(pid, 9)
             killed += 1
-        except (OSError, ProcessLookupError):
+        except OSError:
             continue
     return killed
 
@@ -5120,30 +5147,39 @@ def managed_job_attempt() -> None:
 
 class StatusWatch:
     """Every status a managed job passes through, in order (polled from
-    the jobs DB every 20 ms on a thread of its own)."""
+    the jobs DB every 20 ms on a thread of its own, and read once more
+    when the watch stops, so a status reached between the thread's last
+    poll and stop() is not lost)."""
 
     def __init__(self, job_id) -> None:
         import threading
-        from skypilot_tpu_torch.jobs import state as jobs_state
         self.seen = []
+        self._job_id = job_id
         self._stop = threading.Event()
 
         def poll():
             while not self._stop.is_set():
-                rec = jobs_state.get(job_id)
-                if rec is not None and (not self.seen or
-                                        self.seen[-1] != rec['status']):
-                    self.seen.append(rec['status'])
-                    if rec['status'].is_terminal():
-                        return
+                if self._record():
+                    return
                 time.sleep(0.02)
 
         self._thread = threading.Thread(target=poll, daemon=True)
         self._thread.start()
 
+    def _record(self) -> bool:
+        """Appends the job's status if it changed; True once terminal."""
+        from skypilot_tpu_torch.jobs import state as jobs_state
+        rec = jobs_state.get(self._job_id)
+        if rec is None:
+            return False
+        if not self.seen or self.seen[-1] != rec['status']:
+            self.seen.append(rec['status'])
+        return rec['status'].is_terminal()
+
     def stop(self) -> list:
         self._stop.set()
         self._thread.join()
+        self._record()
         return [s.value for s in self.seen]
 
 
@@ -5628,6 +5664,144 @@ def launch_phase(device, card, smi):
             {'prompts': prompts, 'tokens': tokens})
 
 
+# The launch phase's job A again, launched over REST: the port's API
+# server as its own process, the client the port's SDK and CLI.  Job A
+# makes 3 chunk groups x 16 layers of flash forward launches (the 300-id
+# prompt beyond the largest bucket) and no backward.
+API_SERVER = dict(cluster='smoke-api', fwd_launches=48, start_timeout_s=120,
+                  request_timeout_s=300, stop_timeout_s=60,
+                  marker='SKYTPU_SMOKE_API_SERVER')
+
+
+def api_server_phase(device, card, smi, launch_ctx, launch_counts):
+    """LAUNCH's job A through the port's API server: the server started as
+    a process, the job launched, polled, read and brought down over REST
+    by the port's SDK, the cluster listed by the port's CLI; returns job
+    A's launch counts in this run."""
+    import torch
+    from skypilot_tpu_torch.agent.job_queue import JobStatus
+    from skypilot_tpu_torch.client import sdk
+    from skypilot_tpu_torch.resources import Resources
+    from skypilot_tpu_torch.task import Task
+
+    spec = API_SERVER
+    cluster, prompts = spec['cluster'], launch_ctx['prompts']
+    del device
+    gc.collect()
+    torch.cuda.empty_cache()
+    free_before = torch.cuda.mem_get_info()[0]
+    marker = f'{spec["marker"]}={os.getpid()}'
+    port = _free_port()
+    url = f'http://127.0.0.1:{port}'
+    home = PhaseHome('skytpu-api-', SKYTPU_API_SERVER=url,
+                     **dict([marker.split('=', 1)]))
+    proc = None
+    t_phase = time.perf_counter()
+    try:
+        proc = subprocess.Popen(
+            [sys.executable, '-m', 'skypilot_tpu_torch.server.app',
+             '--port', str(port)], cwd=REPO,
+            env=dict(os.environ, PYTHONPATH=REPO))
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + spec['start_timeout_s']
+        while sdk.api_info(timeout=2.0) is None:
+            if proc.poll() is not None or time.monotonic() > deadline:
+                raise SystemExit(f'API server on :{port} not healthy '
+                                 f'(exit {proc.poll()})')
+            time.sleep(0.2)
+        start_s = time.perf_counter() - t0
+        task = Task('smoke-job-a', run=LAUNCH_JOB_A, envs={
+            'ENGINE_FLAGS': json.dumps(LAUNCH['flags']),
+            'PROMPTS': json.dumps(prompts),
+            'MAX_NEW': str(LAUNCH['max_new'])})
+        task.set_resources(Resources.from_yaml_config(
+            {'infra': 'local', 'accelerators': LAUNCH['accelerators']}))
+        t0 = time.perf_counter()
+        request_id = sdk.launch(task, cluster)
+        result = sdk.get(request_id, timeout_s=spec['request_timeout_s'])
+        launch_s = time.perf_counter() - t0
+        job_id = result['job_id']
+        deadline = time.monotonic() + LAUNCH['job_timeout_s']
+        while True:
+            rec = next(j for j in sdk.queue(cluster)
+                       if j['job_id'] == job_id)
+            if JobStatus(rec['status']).is_terminal():
+                break
+            if time.monotonic() > deadline:
+                raise SystemExit(f'job {job_id} still {rec["status"]} '
+                                 f'after {LAUNCH["job_timeout_s"]} s')
+            time.sleep(0.5)
+        text = io.StringIO()
+        sdk.tail_logs(cluster, job_id, follow=False, out=text)
+        text = text.getvalue()
+        if rec['status'] != 'SUCCEEDED':
+            raise SystemExit(f'job A over REST ended {rec["status"]}:\n'
+                             f'{text[-4000:]}')
+        job_s = rec['ended_at'] - rec['started_at']
+        lines = [line for line in text.splitlines()
+                 if line.startswith('{"tokens"')]
+        if len(lines) != 1:
+            raise SystemExit(f'job A over REST printed {len(lines)} result '
+                             f'lines:\n{text[-4000:]}')
+        out = json.loads(lines[0])
+        counts = {name: out['launches'].get(name, 0)
+                  for name in KERNEL_NAMES}
+        log(f'  server healthy in {start_s:.2f} s; launch request -> job '
+            f'{job_id} {launch_s:.2f} s; job A SUCCEEDED in {job_s:.2f} s on '
+            f'{out["device"]}: launches {counts}')
+        if out['device'] != card:
+            raise SystemExit(f'job A ran on {out["device"]}, not {card}')
+        if out['tokens'] != launch_ctx['tokens']:
+            raise SystemExit(f'job A over REST gave {out["tokens"]}, the '
+                             f'launch phase {launch_ctx["tokens"]}')
+        want = dict.fromkeys(KERNEL_NAMES, 0)
+        want['flash_attention_fwd'] = spec['fwd_launches']
+        if counts != want or counts != launch_counts:
+            raise SystemExit(f'job A over REST launched {counts}, want '
+                             f'{want} (the launch phase: {launch_counts})')
+        cli = subprocess.run(
+            [sys.executable, '-m', 'skypilot_tpu_torch.client.cli',
+             'status'], cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+            capture_output=True, text=True, timeout=120)
+        row = [line for line in cli.stdout.splitlines()
+               if line.split()[:1] == [cluster]]
+        if cli.returncode != 0 or len(row) != 1 or 'UP' not in row[0]:
+            raise SystemExit(f'skytpu-torch status (rc {cli.returncode}):\n'
+                             f'{cli.stdout}{cli.stderr}')
+        log(f'  skytpu-torch status: {" ".join(row[0].split())}')
+        t0 = time.perf_counter()
+        sdk.get(sdk.down(cluster), timeout_s=spec['request_timeout_s'])
+        down_s = time.perf_counter() - t0
+        if any(c['name'] == cluster for c in sdk.status()):
+            raise SystemExit(f'{cluster} listed after sdk.down')
+        release_s, free_after = _wait_free_memory(
+            free_before, LAUNCH['release_timeout_s'], LAUNCH['mem_atol_bytes'])
+        proc.terminate()
+        proc.wait(timeout=spec['stop_timeout_s'])
+        _wait_port_closed(port, 30, 'after the server\'s SIGTERM')
+        left = _pids_with_env(marker)
+        if left:
+            raise SystemExit(f'processes {left} with {spec["marker"]} left '
+                             f'after the server stopped')
+        phase_s = time.perf_counter() - t_phase
+        log(f'  sdk.down {down_s:.2f} s: {cluster} gone; free card memory '
+            f'{free_before} bytes before, {free_after} {release_s:.2f} s '
+            f'after; server stopped (exit {proc.returncode}), port closed, '
+            f'no marked process left')
+        log(f'  api_server {phase_s:.2f} s (server start {start_s:.2f}, '
+            f'launch request -> job id {launch_s:.2f}, job {job_s:.2f}, down '
+            f'{down_s:.2f}) on {smi}')
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        stray = _kill_processes_with_env(marker)
+        if stray:
+            log(f'  killed {stray} process(es) with {spec["marker"]}')
+        home.close()
+    return counts
+
+
 def hbm_probe():
     """(free, total) bytes of the card as torch.cuda.mem_get_info reads
     them once this process holds its CUDA context, the caching allocator
@@ -6065,6 +6239,9 @@ def main() -> int:
     log(f'[launch] {LAUNCH}')
     by_path['launch'], launch_ctx = phase('launch', launch_phase, device,
                                           card, smi)
+    log(f'[api_server] {API_SERVER}')
+    by_path['api_server'] = phase('api_server', api_server_phase, device,
+                                  card, smi, launch_ctx, by_path['launch'])
     log(f'[managed_job] {MANAGED_JOB}')
     by_path['managed_job'] = phase('managed_job', managed_job_phase, device,
                                    card, smi)
@@ -6142,11 +6319,14 @@ def main() -> int:
     by_path['perf_gate'], small_launches = phase('perf_gate',
                                                  perf_gate_phase, device,
                                                  card)
-    new_paths = ('managed_job', 'serve')
-    for name in KERNEL_NAMES:
-        if not any(by_path[p][name] for p in new_paths):
-            raise SystemExit(f'{name} launched on none of this run\'s new '
-                             f'paths {new_paths}')
+    # This run's new path and the kernels it runs (the REST-launched job
+    # serves: the flash forward, no backward).
+    new_paths = {'api_server': ('flash_attention_fwd',)}
+    for path, names in new_paths.items():
+        for name in names:
+            if not by_path[path][name]:
+                raise SystemExit(f'{name} not launched on the new path '
+                                 f'{path}: {by_path[path]}')
 
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'tflops',
@@ -6168,7 +6348,10 @@ def main() -> int:
         report = ptxas.get((KERNEL_SYMBOLS[entry['name']], 'bf16', 128), {})
         entry['registers'] = report.get('registers')
         entry['spill_bytes'] = report.get('spill_stores')
-        launch = entry.get('launch') or entry['at_training_shape']['launch']
+        # The profiled launch at the training shape ({} where no trace
+        # held it: then no shared-memory figure).
+        launch = entry.get('launch') or entry.get(
+            'at_training_shape', {}).get('launch') or {}
         entry['smem_bytes'] = launch.get('shared memory')
         counts = {path: c.get(entry['name'], 0)
                   for path, c in by_path.items()}

@@ -9,7 +9,9 @@ parallelism (`parallel/`: tensor, data/FSDP, context, pipeline and
 expert axes, placement validation), the graft entry's twin
 (`graft_entry`), the launch path (`execution`, `core`, `task`,
 `resources`, `optimizer`, `provision/` with the local cloud, the head
-agent in `agent/`, `backends/`), and verbatim copies of the JAX-free
+agent in `agent/`, `backends/`), managed jobs and SkyServe (`jobs/`,
+`serve/`), the REST API server (`server/`) with its SDK and the
+`skytpu-torch` CLI (`client/`), and verbatim copies of the JAX-free
 modules they need (`sky_logging`, `utils/timeline`, `server/metrics`,
 `server/tracing` and others).  It imports torch, never jax, and nothing
 of `skypilot_tpu`; the head agent imports neither.  Entry points run on

@@ -17,8 +17,9 @@ name, so a reader finds its twin).  Where it differs:
     (H100:N gives N) as from a TPU slice's chips per host, and refuses a
     `docker:` image until provision/docker_utils.py is ported;
   - what needs modules the port does not have yet is refused with
-    NotSupportedError: task `volumes:` (volumes.py) and bucket file
-    mounts (data/storage.py's fetch).  The registry holds only the local
+    NotSupportedError: task `volumes:` (their k8s-pvc and gcp-disk
+    backing stores need the kubernetes and gcp provisioners) and bucket
+    file mounts (data/storage.py's fetch).  The registry holds only the local
     cloud, so no placement needs authentication.py's SSH key.
 """
 from __future__ import annotations
@@ -168,7 +169,9 @@ class TpuVmBackend(backend_lib.Backend):
                           ) -> ClusterHandle:
         if task.volumes:
             raise exceptions.NotSupportedError(
-                'task volumes wait for the port of volumes.py')
+                'task volumes live on k8s-pvc or gcp-disk volumes, whose '
+                'provisioners skypilot_tpu_torch does not have yet (ROADMAP '
+                'Queue 1 item 2)')
 
         def provision_fn(candidate: resources_lib.Resources):
             # Only `local` is registered (clouds/__init__.py), so no

@@ -47,6 +47,8 @@ from skypilot_tpu_torch.resources import Resources
 from skypilot_tpu_torch.task import Task
 from skypilot_tpu_torch.train.checkpoint import CheckpointManager
 
+from torch_control import bounded as _bounded
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_AGENT = b'skypilot_tpu_torch.agent.server'
 
@@ -97,27 +99,6 @@ def local_task(home):
         t.set_resources(Resources.from_yaml_config({'infra': 'local'}))
         return t
     return make
-
-
-def _bounded(fn, *args, timeout=60.0, **kwargs):
-    """fn(*args, **kwargs) on a daemon thread; TimeoutError when it has
-    not returned within `timeout` seconds."""
-    box = {}
-
-    def run():
-        try:
-            box['value'] = fn(*args, **kwargs)
-        except BaseException as e:  # pylint: disable=broad-except
-            box['error'] = e
-
-    thread = threading.Thread(target=run, daemon=True)
-    thread.start()
-    thread.join(timeout)
-    if thread.is_alive():
-        raise TimeoutError(f'{fn.__name__} did not return in {timeout}s')
-    if 'error' in box:
-        raise box['error']
-    return box.get('value')
 
 
 @contextlib.contextmanager

@@ -25,7 +25,8 @@ from skypilot_tpu_torch.provision.local import instance as local_instance
 from skypilot_tpu_torch.resources import Resources
 from skypilot_tpu_torch.task import Task
 
-from torch_control import kill_with_env, port_home, reap_marked  # noqa: F401
+from torch_control import (bounded, kill_with_env, port_home,  # noqa: F401
+                           reap_marked, wait_for)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -324,17 +325,19 @@ def _scenario(pkg, kind, home, monkeypatch):
     ctl = pkg['controller']
     try:
         if kind == 'preempt':
-            _until(lambda: started.exists() and 'RUNNING' in seen, 30)
+            wait_for(lambda: started.exists() and 'RUNNING' in seen, 30,
+                     'the job RUNNING', 0.05)
             # The node is lost with its processes (the local provisioner's
             # terminate kills none): no agent of the old cluster outlives
             # the recovery's teardown and touches the state it removes.
             assert kill_with_env(f'HOME={home}') >= 2
             pkg['instance'].inject_preemption(
                 state.get(job_id)['cluster_name'])
-            _until(lambda: 'RECOVERING' in seen, 30)
+            wait_for(lambda: 'RECOVERING' in seen, 30, 'RECOVERING', 0.05)
             gate.write_text('go')
         elif kind == 'cancel':
-            _until(lambda: started.exists() and 'RUNNING' in seen, 30)
+            wait_for(lambda: started.exists() and 'RUNNING' in seen, 30,
+                     'the job RUNNING', 0.05)
             assert pkg['jobs'].cancel(job_id)
         ctl.wait_job(job_id, timeout_s=60)
         rec = state.get(job_id)
@@ -343,18 +346,15 @@ def _scenario(pkg, kind, home, monkeypatch):
         ctl.stop_all_controllers()
     return ['PENDING'] + seen, rec['recovery_count']
 
-
-def _until(pred, timeout):
-    deadline = time.time() + timeout
-    while not pred():
-        if time.time() > deadline:
-            raise TimeoutError(f'condition not met in {timeout} s')
-        time.sleep(0.05)
+# launch, at most three 30 s waits, the 60 s wait_job and the 30 s wait
+# for the cluster to go, with a margin for a loaded machine.
+SCENARIO_TIMEOUT_S = 300
 
 
 def _wait_gone(pkg, cluster):
     gus = pkg['global_user_state']
-    _until(lambda: gus.get_cluster(cluster) is None, 30)
+    wait_for(lambda: gus.get_cluster(cluster) is None, 30,
+             f'{cluster} gone', 0.05)
 
 
 @pytest.mark.parametrize('kind', ['succeed', 'preempt', 'fail', 'cancel'])
@@ -377,8 +377,14 @@ def test_same_scenario_same_statuses_in_both_packages(kind, tmp_path,
         monkeypatch.setenv('SKYTPU_PROJECT_CONFIG', str(home / '.skytpu.yaml'))
         pkg['sky_config'].reset_cache_for_tests()
         try:
-            out[name] = _scenario(pkg, kind, home, monkeypatch)
+            # One deadline over the whole scenario (each of its waits has
+            # its own): a hang in either package fails this case, and its
+            # processes are killed by HOME, rather than eat the run.
+            out[name] = bounded(_scenario, pkg, kind, home, monkeypatch,
+                                timeout=SCENARIO_TIMEOUT_S)
         finally:
+            pkg['controller'].stop_all_controllers()
+            kill_with_env(f'HOME={home}')
             pkg['sky_config'].reset_cache_for_tests()
     want = {
         'succeed': (['PENDING', 'STARTING', 'RUNNING', 'SUCCEEDED'], 0),

@@ -18,7 +18,6 @@ This module imports no JAX at its top: the ranks import it by name to
 find their functions.
 """
 import dataclasses
-import os
 
 import numpy as np
 import pytest
@@ -27,7 +26,6 @@ import torch_rank_lock
 
 from skypilot_tpu_torch.models import llama as tl
 from skypilot_tpu_torch.models.convert import shard_params
-from skypilot_tpu_torch.parallel import group as group_lib
 from skypilot_tpu_torch.parallel.mesh import MeshPlan, build_mesh
 from skypilot_tpu_torch.train import trainer as tt
 
@@ -199,16 +197,13 @@ def jax_run(plan_kw, tokens, n_steps):
 
 @pytest.fixture(scope='module')
 def pools():
-    """Rank pools of 2 and 4 at niceness +10, under the rank-pool lock
-    (one file spawns ranks at a time)."""
-    with torch_rank_lock.hold(__name__):
-        made = {n: group_lib.RankPool(n, 'gloo', timeout_s=POOL_TIMEOUT_S,
-                                      threads=1) for n in (2, 4)}
-        for pool in made.values():
-            pool.run(os.nice, 10, timeout_s=POOL_TIMEOUT_S)
-        yield made
-        for pool in made.values():
-            pool.close()
+    """Rank pools of 2 and 4 at niceness +10, computing under the
+    rank-pool lock (one file's ranks at a time)."""
+    made = {n: torch_rank_lock.LockedPool(__name__, n, POOL_TIMEOUT_S)
+            for n in (2, 4)}
+    yield made
+    for pool in made.values():
+        pool.close()
 
 
 @pytest.fixture(scope='module')

@@ -43,7 +43,13 @@ COPIED = ['sky_logging.py', 'utils/timeline.py', 'server/metrics.py',
           'serve/serve_state.py', 'serve/spot_placer.py',
           'serve/load_balancing_policies.py', 'serve/autoscalers.py',
           'serve/load_balancer.py', 'serve/replica_managers.py',
-          'serve/controller.py', 'serve/core.py', 'serve/slo_sim.py']
+          'serve/controller.py', 'serve/core.py', 'serve/slo_sim.py',
+          # The REST API server, its request store, auth and daemons, and
+          # the client package with the async SDK.
+          'server/constants.py', 'server/payloads.py',
+          'server/requests_db.py', 'utils/auth.py', 'metrics_utils.py',
+          'server/handlers.py', 'server/executor.py', 'server/daemons.py',
+          'client/__init__.py', 'client/sdk_async.py']
 # Modules whose code is the original's with the package renamed (import
 # lines and the constants that name the package), docstrings aside: the
 # analyzer's modules copied from skypilot_tpu/analysis/ (their docstrings
@@ -52,7 +58,8 @@ COPIED = ['sky_logging.py', 'utils/timeline.py', 'server/metrics.py',
 # the launch path's modules whose strings name the package (the task's
 # comment, the catalog's refresh hint, the provisioners' module path),
 # and the dedicated-controller mode's, whose commands name the module
-# they run on the controller host.
+# they run on the controller host; the API server's app and the SDK,
+# whose commands name the server module they start.
 COPIED_CODE = ['obs/alerts.py', 'analysis/core.py', 'analysis/reporters.py',
                'analysis/rules/blocking_async.py',
                'analysis/rules/db_discipline.py',
@@ -60,12 +67,16 @@ COPIED_CODE = ['obs/alerts.py', 'analysis/core.py', 'analysis/reporters.py',
                'analysis/rules/unbounded_io.py',
                'task.py', 'catalog/common.py', 'provision/__init__.py',
                'controller_vm.py', 'jobs/remote_exec.py',
-               'jobs/controller_daemon.py']
-# The launch path's deliberate rewrites (their docstrings say how they
-# differ; tests/test_torch_launch.py and test_torch_control_plane.py
-# hold their behaviour).
-LAUNCH_COUNTERPARTS = ['clouds/__init__.py', 'agent/gang.py',
-                       'agent/server.py', 'backends/tpu_vm_backend.py']
+               'jobs/controller_daemon.py', 'server/app.py', 'client/sdk.py']
+# The port's deliberate rewrites, each a counterpart whose docstring names
+# its twin and says how it differs: the launch path's
+# (tests/test_torch_launch.py and test_torch_control_plane.py hold their
+# behaviour) and the API server slice's: the package docstring, the
+# volumes whose backing stores wait for the other clouds, and the CLI over
+# the port's modules (tests/test_torch_api_server.py).
+COUNTERPARTS = ['clouds/__init__.py', 'agent/gang.py', 'agent/server.py',
+                'backends/tpu_vm_backend.py', 'server/__init__.py',
+                'volumes.py', 'client/cli.py']
 # Every kernel source of the port (csrc/).
 KERNEL_SOURCES = ['flash_attention_bwd_dkv.cu',
                   'flash_attention_bwd_dkv_small.cu',
@@ -452,6 +463,20 @@ def test_analysis_slice_modules_are_covered():
         KERNEL_SOURCES)
 
 
+def assert_covered(rels):
+    """Each of `rels` (paths under the package) is pinned (COPIED,
+    COPIED_CODE) or one of COUNTERPARTS, not both; a counterpart's twin
+    exists in the JAX package and its docstring names it."""
+    pinned = set(COPIED) | set(COPIED_CODE)
+    for rel in rels:
+        assert (rel in pinned) != (rel in COUNTERPARTS), rel
+        if rel in COUNTERPARTS:
+            assert (REPO / 'skypilot_tpu' / rel).exists(), rel
+            doc = ast.get_docstring(ast.parse((PORT / rel).read_text()))
+            assert f'counterpart of `skypilot_tpu/{rel}`' in ' '.join(
+                doc.lower().split()), rel
+
+
 def test_launch_slice_modules_are_covered():
     """The isolation checks above walk every module of the port; the
     launch path's modules are among them, each is pinned (COPIED,
@@ -473,14 +498,7 @@ def test_launch_slice_modules_are_covered():
     launch = [p.relative_to(PORT).as_posix() for sub in (
         'agent', 'backends', 'catalog', 'clouds', 'logs', 'provision')
         for p in (PORT / sub).rglob('*.py')]
-    pinned = set(COPIED) | set(COPIED_CODE)
-    for rel in launch:
-        assert (rel in pinned) != (rel in LAUNCH_COUNTERPARTS), rel
-    for rel in LAUNCH_COUNTERPARTS:
-        assert (REPO / 'skypilot_tpu' / rel).exists(), rel
-        doc = ast.get_docstring(ast.parse((PORT / rel).read_text()))
-        assert f'counterpart of `skypilot_tpu/{rel}`' in ' '.join(
-            doc.lower().split()), rel
+    assert_covered(launch)
     data = sorted(p.name for p in (PORT / 'catalog' / 'data').iterdir())
     assert data == sorted(
         p.name for p in (REPO / 'skypilot_tpu' / 'catalog' / 'data').iterdir())
@@ -562,6 +580,58 @@ def test_jobs_serve_and_views_import_neither_torch_nor_jax():
         'import skypilot_tpu_torch.serve.slo_sim\n'
         'import skypilot_tpu_torch.controller_vm\n'
         'import skypilot_tpu_torch.obs.jobs_top\n'
+        'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
+        '("torch", "jax", "jaxlib", "flax", "skypilot_tpu"))\n'
+        'assert not bad, bad\n'
+        'print("ok")\n')
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == 'ok'
+
+
+def test_api_server_slice_modules_are_covered():
+    """Every module of the JAX package's server/ and client/ has its
+    port path, pinned (COPIED, COPIED_CODE) or a counterpart that names
+    its twin; so do the modules they import (utils/auth.py, volumes.py,
+    metrics_utils.py); the dashboard is the JAX package's byte for byte;
+    and the kernel sources are the known set (this slice adds no
+    kernel)."""
+    jax_side = sorted(
+        p.relative_to(REPO / 'skypilot_tpu').as_posix()
+        for sub in ('server', 'client')
+        for p in (REPO / 'skypilot_tpu' / sub).glob('*.py'))
+    port_side = sorted(
+        p.relative_to(PORT).as_posix()
+        for sub in ('server', 'client') for p in (PORT / sub).glob('*.py'))
+    assert port_side == jax_side
+    assert_covered(jax_side + ['utils/auth.py', 'volumes.py',
+                               'metrics_utils.py'])
+    html = 'server/static/dashboard.html'
+    assert (PORT / html).read_bytes() == (
+        REPO / 'skypilot_tpu' / html).read_bytes()
+    text = (REPO / 'pyproject.toml').read_text()
+    assert ('skytpu-torch = "skypilot_tpu_torch.client.cli:main"' in text)
+    assert '"skypilot_tpu_torch.server" = ["static/*.html"]' in text
+    # The SDK auto-starts the port's server, from the port's checkout.
+    sdk_text = (PORT / 'client' / 'sdk.py').read_text()
+    assert "'-m', 'skypilot_tpu_torch.server.app'" in sdk_text
+    assert sorted(p.name for p in (PORT / 'csrc').glob('*.cu*')) == (
+        KERNEL_SOURCES)
+
+
+def test_api_server_and_cli_import_neither_torch_nor_jax():
+    """The server (and through it every handler a LONG request's worker
+    runs), the CLI and the async SDK import neither torch nor JAX: a
+    request worker starts without paying either import."""
+    code = (
+        'import sys\n'
+        'import skypilot_tpu_torch.server.app, skypilot_tpu_torch.client.cli\n'
+        'import skypilot_tpu_torch.client.sdk_async\n'
+        'import skypilot_tpu_torch.server.daemons, skypilot_tpu_torch.volumes\n'
+        'from skypilot_tpu_torch.server import handlers\n'
+        'from skypilot_tpu_torch import execution, core, jobs, serve\n'
         'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
         '("torch", "jax", "jaxlib", "flax", "skypilot_tpu"))\n'
         'assert not bad, bad\n'

@@ -14,14 +14,12 @@ runs in this process on 4 of the 8 virtual CPU devices of
 tests/conftest.py.  This module imports no JAX at its top: the ranks
 import it by name to find their functions.
 """
-import os
 
 import numpy as np
 import pytest
 import torch
 import torch_rank_lock
 
-from skypilot_tpu_torch.parallel import group as group_lib
 from skypilot_tpu_torch.parallel import pipeline as pipeline_lib
 from skypilot_tpu_torch.parallel.mesh import MeshPlan, build_mesh
 
@@ -134,13 +132,11 @@ def jax_pipeline(per_stage, x, plan_kw, n_micro):
 
 @pytest.fixture(scope='module')
 def pool():
-    """A 4-rank pool at niceness +10, under the rank-pool lock."""
-    with torch_rank_lock.hold(__name__):
-        made = group_lib.RankPool(4, 'gloo', timeout_s=POOL_TIMEOUT_S,
-                                  threads=1)
-        made.run(os.nice, 10, timeout_s=POOL_TIMEOUT_S)
-        yield made
-        made.close()
+    """A 4-rank pool at niceness +10, computing under the rank-pool
+    lock."""
+    made = torch_rank_lock.LockedPool(__name__, 4, POOL_TIMEOUT_S)
+    yield made
+    made.close()
 
 
 def run_pipeline(pool, plan, d, b, n_micro, local=False):

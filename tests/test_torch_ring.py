@@ -14,14 +14,12 @@ throughout.
 
 This module imports no JAX at its top: the ranks import it by name.
 """
-import os
 
 import numpy as np
 import pytest
 import torch
 import torch_rank_lock
 
-from skypilot_tpu_torch.parallel import group as group_lib
 from skypilot_tpu_torch.parallel import ring_attention as ring
 from skypilot_tpu_torch.parallel.mesh import MeshPlan, build_mesh
 
@@ -152,16 +150,13 @@ def mha(q, k, v, causal, g=None):
 def pools():
     """Rank pools of 2 and 4, their processes at a lower CPU priority
     (niceness +10): under xdist they share the machine with tests that
-    poll on wall-clock deadlines.  They live under the rank-pool lock
-    (`tests/torch_rank_lock.py`): one file spawns ranks at a time."""
-    with torch_rank_lock.hold(__name__):
-        made = {n: group_lib.RankPool(n, 'gloo', timeout_s=POOL_TIMEOUT_S,
-                                      threads=1) for n in (2, 4)}
-        for pool in made.values():
-            pool.run(os.nice, 10, timeout_s=POOL_TIMEOUT_S)
-        yield made
-        for pool in made.values():
-            pool.close()
+    poll on wall-clock deadlines.  They compute under the rank-pool lock
+    (`tests/torch_rank_lock.py`): one file's ranks at a time."""
+    made = {n: torch_rank_lock.LockedPool(__name__, n, POOL_TIMEOUT_S)
+            for n in (2, 4)}
+    yield made
+    for pool in made.values():
+        pool.close()
 
 
 def assemble(results, key, shape, tensor, fsdp):

@@ -17,7 +17,6 @@ This module imports no JAX at its top: the ranks import it by name to
 find their functions.
 """
 import dataclasses
-import os
 
 import numpy as np
 import pytest
@@ -26,7 +25,6 @@ import torch_rank_lock
 
 from skypilot_tpu_torch.models import llama as tl
 from skypilot_tpu_torch.models.convert import shard_params
-from skypilot_tpu_torch.parallel import group as group_lib
 from skypilot_tpu_torch.parallel.mesh import MeshPlan, build_mesh
 from skypilot_tpu_torch.train import trainer as tt
 
@@ -286,16 +284,13 @@ def jax_run(plan_kw, tokens, n_steps, ring=False):
 def pools():
     """Rank pools of 2 and 4, their processes at a lower CPU priority
     (niceness +10): under xdist they share the machine with tests that
-    poll on wall-clock deadlines.  They live under the rank-pool lock
-    (`tests/torch_rank_lock.py`): one file spawns ranks at a time."""
-    with torch_rank_lock.hold(__name__):
-        made = {n: group_lib.RankPool(n, 'gloo', timeout_s=POOL_TIMEOUT_S,
-                                      threads=1) for n in (2, 4)}
-        for pool in made.values():
-            pool.run(os.nice, 10, timeout_s=POOL_TIMEOUT_S)
-        yield made
-        for pool in made.values():
-            pool.close()
+    poll on wall-clock deadlines.  They compute under the rank-pool lock
+    (`tests/torch_rank_lock.py`): one file's ranks at a time."""
+    made = {n: torch_rank_lock.LockedPool(__name__, n, POOL_TIMEOUT_S)
+            for n in (2, 4)}
+    yield made
+    for pool in made.values():
+        pool.close()
 
 
 @pytest.fixture(scope='module')
