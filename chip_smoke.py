@@ -112,6 +112,29 @@ followed by its seconds:
    bucket; serve.down: SHUTDOWN, the replica's cluster gone, the LB's
    port closed, the card's memory back once the replica's process (which
    serve.down leaves, as core.down leaves jobs) is killed.
+3g. SSH node pool (SSH_POOL): with a temporary HOME, job A on a host of
+   an SSH node pool, inside a Docker runtime, its weights read from a
+   MOUNTed bucket.  The card machine has no network and no ssh, rsync
+   or docker, so the phase puts PATH shims for those three CLIs in its
+   own directory (printed): `ssh` runs the remote command here in the
+   remote HOME without the caller's PYTHONPATH and makes `-N -L` a real
+   TCP forward, `rsync` copies locally, `docker` logs its argv and runs
+   `exec` here.  The pool (SKYTPU_SSH_NODE_POOLS_FILE) holds one host,
+   a loopback address whose `port` is a TCP listener the phase holds
+   (the provisioner's liveness probe), with the current user and the key
+   authentication.get_or_generate_keys made.  llama3-1b's seed-0 bf16
+   params are saved into gs://smoke-weights/llama3-1b of a fake-GCS root
+   (SKYTPU_FAKE_GCS_ROOT) through CheckpointManager; execution.launch of
+   job A's task with `infra: ssh/smoke-pool`, H100:1, `image_id:
+   docker:...`, a storage mount of the bucket and `--checkpoint` at the
+   mount.  Gates: the optimizer's placement and the pool's allocation;
+   the remote bootstrap's agent running from ~/skytpu_runtime; the
+   docker shim's pull, `run -d --gpus all` and each rank's exec carrying
+   the rank env; the job SUCCEEDED with the launch phase's tokens and
+   launches, its kernels built into the runtime copy's own build/ (the
+   build's seconds printed); core.down releasing the host, the agent
+   (which down leaves on a BYO host) stopped, the listener closed and
+   the card's memory back.
 4. Serving: llama2-7b at full width, 16 of its 32 layers (SERVE; bf16
    random weights from a seed) behind the port's HTTP app on a local port, 8 prompts of 219
    tokens plus one of 300 (chunked prefill), 32 new tokens each; every
@@ -4828,6 +4851,7 @@ from skypilot_tpu_torch.device import device_of
 from skypilot_tpu_torch.inference import server
 from skypilot_tpu_torch.inference.engine import DecodeEngine
 from skypilot_tpu_torch.ops.cuda import flash_attention as fa
+from skypilot_tpu_torch.perf import compile_telemetry
 
 names = ('flash_attention_fwd', 'flash_attention_bwd_dq',
          'flash_attention_bwd_dkv')
@@ -4857,6 +4881,8 @@ finally:
 print(json.dumps({
     'tokens': tokens,
     'launches': {name: getattr(fa, name).launches for name in names},
+    'kernel_build': compile_telemetry.summary().get('kernel_build'),
+    'build_dir': str(fa.BUILD_DIR),
     'device': torch.cuda.get_device_name(),
     'env': {k: v for k, v in sorted(os.environ.items())
             if k.startswith('SKYTPU_')}}))
@@ -4897,6 +4923,15 @@ def _pid_alive(pid) -> bool:
             return f.read().rsplit(')', 1)[1].split()[0] != 'Z'
     except OSError:
         return False
+
+
+def _cmdline(pid) -> str:
+    """A process's command line, '' once it has gone."""
+    try:
+        with open(f'/proc/{pid}/cmdline', 'rb') as f:
+            return f.read().replace(b'\0', b' ').decode(errors='replace')
+    except OSError:
+        return ''
 
 
 def _pids_with_env(marker: str) -> list:
@@ -5779,10 +5814,20 @@ def api_server_phase(device, card, smi, launch_ctx, launch_counts):
         proc.terminate()
         proc.wait(timeout=spec['stop_timeout_s'])
         _wait_port_closed(port, 30, 'after the server\'s SIGTERM')
-        left = _pids_with_env(marker)
+        # The cluster's agent got its SIGTERM from `down` and may still be
+        # closing its connections: every marked process must be gone
+        # within the deadline.
+        deadline = time.monotonic() + spec['stop_timeout_s']
+        while True:
+            left = _pids_with_env(marker)
+            if not left or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
         if left:
-            raise SystemExit(f'processes {left} with {spec["marker"]} left '
-                             f'after the server stopped')
+            raise SystemExit(
+                f'processes with {spec["marker"]} left '
+                f'{spec["stop_timeout_s"]} s after the server stopped: '
+                f'{[(pid, _cmdline(pid)) for pid in left]}')
         phase_s = time.perf_counter() - t_phase
         log(f'  sdk.down {down_s:.2f} s: {cluster} gone; free card memory '
             f'{free_before} bytes before, {free_after} {release_s:.2f} s '
@@ -5799,6 +5844,400 @@ def api_server_phase(device, card, smi, launch_ctx, launch_counts):
         if stray:
             log(f'  killed {stray} process(es) with {spec["marker"]}')
         home.close()
+    return counts
+
+
+# LAUNCH's job A on an SSH node pool (SSH_POOL): one loopback host of a
+# pool, inside a Docker runtime, reading its weights from a MOUNTed
+# bucket.  The host is 127.0.0.2, not 127.0.0.1: the agent client and the
+# gang take their local shortcuts for 127.0.0.1 (a direct connection, a
+# local process), and the phase is there to drive the SSH path: the
+# tunnel to the agent and each rank's command through the SSH runner.
+SSH_POOL = dict(pool='smoke-pool', host='127.0.0.2', cluster='smoke-ssh',
+                accelerators='H100:1', image='skytpu-torch-smoke:latest',
+                bucket='smoke-weights', fwd_launches=48, job_timeout_s=600,
+                release_timeout_s=60, mem_atol_bytes=1 << 30)
+# Stand-ins for the remote host's CLIs, written into the phase's own
+# directory: the card machine has no network and no ssh, rsync or docker.
+SSH_SHIM = r'''#!/usr/bin/env python3
+"""Loopback stand-in for the OpenSSH client: consumes the client's
+options, logs its argv, runs the remote command here in $HOME without
+the caller's PYTHONPATH (a remote login does not carry it), and makes
+`-N -L local:host:remote` a real TCP forward."""
+import json
+import os
+import socket
+import sys
+import threading
+
+args, forward, rest = sys.argv[1:], None, []
+with open(os.environ['SMOKE_SSH_LOG'], 'a') as log:
+    log.write(json.dumps(args) + '\n')
+i = 0
+while i < len(args):
+    if args[i] in ('-o', '-p', '-i'):
+        i += 2
+    elif args[i] == '-L':
+        forward, i = args[i + 1], i + 2
+    elif args[i] in ('-T', '-tt', '-N'):
+        i += 1
+    else:
+        rest.append(args[i])
+        i += 1
+if forward is None:
+    env = dict(os.environ)
+    env.pop('PYTHONPATH', None)
+    os.chdir(os.environ['HOME'])
+    os.execvpe('bash', ['bash', '-c', ' '.join(rest[1:])], env)
+local, host, remote = forward.split(':')
+
+
+def pipe(src, dst):
+    try:
+        while True:
+            data = src.recv(1 << 16)
+            if not data:
+                break
+            dst.sendall(data)
+    except OSError:
+        pass
+    for sock in (src, dst):
+        try:
+            sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+
+
+srv = socket.socket()
+srv.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+srv.bind(('127.0.0.1', int(local)))
+srv.listen(64)
+while True:
+    conn, _ = srv.accept()
+    try:
+        upstream = socket.create_connection((host, int(remote)))
+    except OSError:
+        conn.close()
+        continue
+    for a, b in ((conn, upstream), (upstream, conn)):
+        threading.Thread(target=pipe, args=(a, b), daemon=True).start()
+'''
+RSYNC_SHIM = r'''#!/usr/bin/env python3
+"""Local stand-in for rsync: `-a` and `-e` are accepted, `--delete` and
+`--exclude` honoured, and `user@host:path` is a path here."""
+import fnmatch
+import os
+import shutil
+import sys
+
+args, delete, excludes, paths = sys.argv[1:], False, [], []
+i = 0
+while i < len(args):
+    if args[i] in ('-e', '--exclude'):
+        if args[i] == '--exclude':
+            excludes.append(args[i + 1])
+        i += 2
+        continue
+    if args[i] == '--delete':
+        delete = True
+    elif not args[i].startswith('-'):
+        path = args[i]
+        if ':' in path.split('/', 1)[0]:
+            path = path.split(':', 1)[1]
+        paths.append(os.path.expanduser(path))
+    i += 1
+src, dst = paths
+
+
+def excluded(rel):
+    return any(fnmatch.fnmatch(rel, p) or fnmatch.fnmatch(
+        os.path.basename(rel), p) for p in excludes)
+
+
+def mirror(src, dst, rel=''):
+    if os.path.isdir(src):
+        os.makedirs(dst, exist_ok=True)
+        names = [n for n in os.listdir(src)
+                 if not excluded(os.path.join(rel, n))]
+        if delete:
+            for name in set(os.listdir(dst)) - set(names):
+                target = os.path.join(dst, name)
+                if os.path.isdir(target) and not os.path.islink(target):
+                    shutil.rmtree(target)
+                else:
+                    os.remove(target)
+        for name in names:
+            mirror(os.path.join(src, name), os.path.join(dst, name),
+                   os.path.join(rel, name))
+    else:
+        shutil.copy2(src, dst)
+
+
+if src.endswith('/') or not os.path.isdir(src):
+    mirror(src.rstrip('/') or src, dst)
+else:
+    mirror(src, os.path.join(dst, os.path.basename(src.rstrip('/'))))
+'''
+DOCKER_SHIM = r'''#!/usr/bin/env python3
+"""Stand-in for the docker CLI: logs its argv; `exec` runs the command
+here; no container exists, so `inspect` fails."""
+import json
+import os
+import sys
+
+args = sys.argv[1:]
+with open(os.environ['SMOKE_DOCKER_LOG'], 'a') as log:
+    log.write(json.dumps(args) + '\n')
+if args[:1] == ['inspect']:
+    sys.exit(1)
+if args[:1] == ['exec']:
+    os.execvp(args[2], args[2:])
+'''
+# The gang's per-rank env the job prints.
+RANK_ENV_KEYS = ('SKYTPU_NODE_RANK', 'SKYTPU_NUM_NODES',
+                 'SKYTPU_NUM_TPU_CHIPS', 'SKYTPU_COORDINATOR_ADDR')
+
+
+def _write_shims(directory) -> dict:
+    """The ssh, rsync and docker shims in `directory`; their paths."""
+    os.makedirs(directory)
+    paths = {}
+    for name, text in (('ssh', SSH_SHIM), ('rsync', RSYNC_SHIM),
+                       ('docker', DOCKER_SHIM)):
+        path = os.path.join(directory, name)
+        with open(path, 'w', encoding='utf-8') as f:
+            f.write(text)
+        os.chmod(path, 0o755)
+        paths[name] = path
+    return paths
+
+
+def _port_agents_under(root) -> list:
+    """The port's agents running with an environment under `root` (the
+    command lines the remote bootstrap's pkill matches)."""
+    from skypilot_tpu_torch.backends import tpu_vm_backend
+    return [pid for pid in _pids_with_env(root)
+            if re.search(tpu_vm_backend.AGENT_PKILL_PATTERN, _cmdline(pid))]
+
+
+class _Listener:
+    """A TCP listener on every address standing in for the pool host's
+    sshd (the provisioner probes the pool's `port` for liveness)."""
+
+    def __init__(self) -> None:
+        import threading
+        self.sock = socket.socket()
+        self.sock.bind(('0.0.0.0', 0))
+        self.sock.listen(16)
+        self.port = self.sock.getsockname()[1]
+
+        def accept():
+            while True:
+                try:
+                    conn, _ = self.sock.accept()
+                    conn.close()
+                except OSError:
+                    return
+
+        self._thread = threading.Thread(target=accept, daemon=True)
+        self._thread.start()
+
+    def close(self) -> None:
+        self.sock.close()
+        self._thread.join(timeout=10)
+
+
+def ssh_pool_phase(device, card, smi, launch_ctx, launch_counts):
+    """LAUNCH's job A on a host of an SSH node pool (SSH_POOL), inside a
+    Docker runtime, its weights read from a MOUNTed bucket; returns the
+    job's launch counts."""
+    import getpass
+
+    import torch
+    from skypilot_tpu_torch import authentication, core, execution
+    from skypilot_tpu_torch import global_user_state, ssh_node_pools
+    from skypilot_tpu_torch.agent.job_queue import JobStatus
+    from skypilot_tpu_torch.inference import server
+    from skypilot_tpu_torch.resources import Resources
+    from skypilot_tpu_torch.task import Task
+    from skypilot_tpu_torch.train.checkpoint import CheckpointManager
+
+    spec = SSH_POOL
+    cluster, host = spec['cluster'], spec['host']
+    del device
+    gc.collect()
+    torch.cuda.empty_cache()
+    free_before = torch.cuda.mem_get_info()[0]
+    import tempfile
+    model_name = server.parse_args(LAUNCH['flags']).model
+    root = tempfile.mkdtemp(prefix='skytpu-ssh-')
+    listener = _Listener()
+    home = None
+    t_phase = time.perf_counter()
+    try:
+        shims = _write_shims(os.path.join(root, 'bin'))
+        logs = {n: os.path.join(root, f'{n}.log') for n in ('ssh', 'docker')}
+        gcs_root = os.path.join(root, 'gcs')
+        home = PhaseHome(
+            'skytpu-ssh-home-', SKYTPU_ENABLED_CLOUDS='ssh',
+            SKYTPU_SSH_NODE_POOLS_FILE=os.path.join(root, 'pools.yaml'),
+            SKYTPU_FAKE_GCS_ROOT=gcs_root, SMOKE_SSH_LOG=logs['ssh'],
+            SMOKE_DOCKER_LOG=logs['docker'],
+            PATH=os.path.dirname(shims['ssh']) + os.pathsep +
+            os.environ['PATH'])
+        log(f'  shims for the remote host\'s CLIs (no network, ssh, rsync '
+            f'or docker on this machine): {sorted(shims.values())}')
+        key, _ = authentication.get_or_generate_keys()
+        with open(os.environ['SKYTPU_SSH_NODE_POOLS_FILE'], 'w',
+                  encoding='utf-8') as f:
+            json.dump({spec['pool']: {
+                'hosts': [host], 'user': getpass.getuser(),
+                'identity_file': key, 'port': listener.port}}, f)
+        # The weights: job A's model from its flags, saved into the bucket.
+        t0 = time.perf_counter()
+        model = server.build_model(server.parse_args(LAUNCH['flags']))
+        directory = os.path.join(gcs_root, spec['bucket'], model_name)
+        CheckpointManager(directory).save(0, model)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        save_s = time.perf_counter() - t0
+        size_gb = sum(os.path.getsize(os.path.join(d, f))
+                      for d, _, fs in os.walk(directory) for f in fs) / 1e9
+        mount = os.path.join(root, 'mnt', 'weights')
+        url = f'gs://{spec["bucket"]}/{model_name}'
+        log(f'  key {key}; pool {spec["pool"]}: {host}, user '
+            f'{getpass.getuser()}, liveness port {listener.port}; saved '
+            f'{size_gb:.3f} GB of bf16 params into {url} in {save_s:.2f} s')
+
+        flags = LAUNCH['flags'] + ['--checkpoint', mount]
+        task = Task('smoke-job-a-ssh', run=(
+            'export PYTHONPATH="$HOME/skytpu_runtime" && ' + LAUNCH_JOB_A),
+            envs={'ENGINE_FLAGS': json.dumps(flags),
+                  'PROMPTS': json.dumps(launch_ctx['prompts']),
+                  'MAX_NEW': str(LAUNCH['max_new'])},
+            storage_mounts={mount: {'source': url, 'mode': 'MOUNT'}})
+        task.set_resources(Resources.from_yaml_config({
+            'infra': f'ssh/{spec["pool"]}',
+            'accelerators': spec['accelerators'],
+            'image_id': f'docker:{spec["image"]}'}))
+        t0 = time.perf_counter()
+        job_id, handle = execution.launch(task, cluster, detach_run=True,
+                                          quiet_optimizer=True)
+        launch_s = time.perf_counter() - t0
+        res = handle.launched_resources()
+        allocated = ssh_node_pools.allocation(spec['pool'], cluster)
+        agents = _port_agents_under(root)
+        runtime = os.path.realpath(os.path.join(os.environ['HOME'],
+                                                'skytpu_runtime'))
+        cwds = [os.readlink(f'/proc/{pid}/cwd') for pid in agents]
+        log(f'  launch (optimize, allocate, bootstrap over ssh, mount, '
+            f'submit) {launch_s:.2f} s: {res} on {handle.head_ip}, '
+            f'allocation {allocated}, key {handle.ssh_key_path}; agents '
+            f'{agents} in {cwds}')
+        if (res.cloud, res.region) != ('ssh', spec['pool']):
+            raise SystemExit(f'placed on {res.cloud}/{res.region}, not '
+                             f'ssh/{spec["pool"]}')
+        if allocated != [host] or handle.ssh_key_path != key:
+            raise SystemExit(f'pool allocation {allocated}, key '
+                             f'{handle.ssh_key_path}')
+        if len(agents) != 1 or cwds != [runtime] or not os.path.isdir(
+                os.path.join(runtime, 'skypilot_tpu_torch')):
+            raise SystemExit(f'want one port agent running from {runtime}: '
+                             f'{agents} in {cwds}')
+        rec = _wait_job_status(core, cluster, job_id, spec['job_timeout_s'],
+                               JobStatus.is_terminal)
+        text = _job_log(core, cluster, job_id)
+        if JobStatus(rec['status']) is not JobStatus.SUCCEEDED:
+            raise SystemExit(f'job A on the pool ended {rec["status"]}:\n'
+                             f'{text[-4000:]}')
+        job_s = rec['ended_at'] - rec['started_at']
+        lines = [line for line in text.splitlines()
+                 if line.startswith('{"tokens"')]
+        if len(lines) != 1:
+            raise SystemExit(f'job A on the pool printed {len(lines)} '
+                             f'result lines:\n{text[-4000:]}')
+        out = json.loads(lines[0])
+        counts = {name: out['launches'].get(name, 0)
+                  for name in KERNEL_NAMES}
+        builds, build_s = out['kernel_build'] or (0, 0.0)
+        want_build_dir = os.path.join(runtime, 'build', 'skypilot_tpu_torch')
+        log(f'  job A SUCCEEDED in {job_s:.2f} s on {out["device"]}: '
+            f'launches {counts}; {builds} kernel build(s) in {build_s:.2f} s '
+            f'into {out["build_dir"]}; rank env '
+            f'{ {k: out["env"].get(k) for k in RANK_ENV_KEYS} }')
+        docker, ssh_argv = ([json.loads(line) for line in open(
+            logs[name], encoding='utf-8')] for name in ('docker', 'ssh'))
+        execs = [argv for argv in docker if argv[0] == 'exec']
+        rank_env = ('export SKYTPU_NODE_RANK=0', 'export SKYTPU_NUM_NODES=1',
+                    'export SKYTPU_NUM_TPU_CHIPS=1')
+        tunnels = [argv for argv in ssh_argv if '-L' in argv]
+        log(f'  docker shim: {[argv[:2] for argv in docker]}; ssh shim: '
+            f'{len(ssh_argv)} calls to '
+            f'{sorted({a for argv in ssh_argv for a in argv if "@" in a})}, '
+            f'{len(tunnels)} of them tunnels to the agent')
+        if not (['pull', spec['image']] in docker and any(
+                argv[:4] == ['run', '-d', '--gpus', 'all'] for argv in docker)
+                and execs and all(e in argv[-1] for argv in execs
+                                  for e in rank_env)):
+            raise SystemExit(f'docker shim saw {docker}')
+        if not tunnels or not all(argv[argv.index('-i') + 1] == key
+                                  for argv in ssh_argv):
+            raise SystemExit(f'ssh shim saw no tunnel, or another key: '
+                             f'{ssh_argv}')
+        want_env = {'SKYTPU_NODE_RANK': '0', 'SKYTPU_NUM_NODES': '1',
+                    'SKYTPU_NUM_TPU_CHIPS': '1'}
+        if {k: out['env'].get(k) for k in want_env} != want_env:
+            raise SystemExit(f'job A saw {out["env"]}, want {want_env}')
+        if out['device'] != card:
+            raise SystemExit(f'job A ran on {out["device"]}, not {card}')
+        if out['tokens'] != launch_ctx['tokens']:
+            raise SystemExit(f'job A on the pool gave {out["tokens"]}, the '
+                             f'launch phase {launch_ctx["tokens"]}')
+        want = dict.fromkeys(KERNEL_NAMES, 0)
+        want['flash_attention_fwd'] = spec['fwd_launches']
+        if counts != want or counts != launch_counts:
+            raise SystemExit(f'job A on the pool launched {counts}, want '
+                             f'{want} (the launch phase: {launch_counts})')
+        if out['build_dir'] != want_build_dir or builds < 1:
+            raise SystemExit(f'job A built {builds} time(s) into '
+                             f'{out["build_dir"]}, want a fresh build into '
+                             f'{want_build_dir}')
+        t0 = time.perf_counter()
+        core.down(cluster)
+        down_s = time.perf_counter() - t0
+        left = ssh_node_pools.allocation(spec['pool'], cluster)
+        if global_user_state.get_cluster(cluster) is not None or left:
+            raise SystemExit(f'after down: record '
+                             f'{global_user_state.get_cluster(cluster)}, '
+                             f'allocation {left}')
+        # down releases a BYO host and leaves its agent running (the JAX
+        # backend's teardown signals only a local cluster's agent).
+        for pid in agents:
+            os.kill(pid, 15)
+        deadline = time.monotonic() + 30
+        while any(_pid_alive(pid) for pid in agents):
+            if time.monotonic() > deadline:
+                raise SystemExit(f'agent {agents} alive 30 s after SIGTERM')
+            time.sleep(0.2)
+        listener.close()
+        _wait_port_closed(listener.port, 30, 'after the listener closed')
+        release_s, free_after = _wait_free_memory(
+            free_before, spec['release_timeout_s'], spec['mem_atol_bytes'])
+        phase_s = time.perf_counter() - t_phase
+        log(f'  down {down_s:.2f} s: record gone, no allocation left; agent '
+            f'stopped; listener closed; free card memory {free_before} '
+            f'bytes before, {free_after} {release_s:.2f} s after')
+        log(f'  ssh_pool {phase_s:.2f} s (weights saved {save_s:.2f}, launch '
+            f'{launch_s:.2f}, job {job_s:.2f} of which kernel build '
+            f'{build_s:.2f}, down {down_s:.2f}) on {smi}')
+    finally:
+        listener.close()
+        if home is not None:
+            if global_user_state.get_cluster(cluster) is not None:
+                core.down(cluster)
+            home.close()
+        shutil.rmtree(root, ignore_errors=True)
     return counts
 
 
@@ -6248,6 +6687,11 @@ def main() -> int:
     log(f'[serve] {SERVE_SERVICE}')
     by_path['serve'] = phase('serve', serve_phase, device, card, smi,
                              launch_ctx)
+    # After serve: every earlier phase's clusters and agents are gone, and
+    # the remote bootstrap's pkill stops any port agent on this host.
+    log(f'[ssh_pool] {SSH_POOL}')
+    by_path['ssh_pool'] = phase('ssh_pool', ssh_pool_phase, device, card,
+                                smi, launch_ctx, by_path['launch'])
 
     from skypilot_tpu_torch.perf import compile_telemetry
     log(f'[build] compile telemetry {compile_telemetry.summary()} '
@@ -6319,9 +6763,9 @@ def main() -> int:
     by_path['perf_gate'], small_launches = phase('perf_gate',
                                                  perf_gate_phase, device,
                                                  card)
-    # This run's new path and the kernels it runs (the REST-launched job
-    # serves: the flash forward, no backward).
-    new_paths = {'api_server': ('flash_attention_fwd',)}
+    # This run's new path and the kernels it runs (the job on the SSH
+    # pool serves: the flash forward, no backward).
+    new_paths = {'ssh_pool': ('flash_attention_fwd',)}
     for path, names in new_paths.items():
         for name in names:
             if not by_path[path][name]:

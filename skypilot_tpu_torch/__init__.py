@@ -8,8 +8,10 @@ cost model, build telemetry and recompile sentinel, profiler),
 parallelism (`parallel/`: tensor, data/FSDP, context, pipeline and
 expert axes, placement validation), the graft entry's twin
 (`graft_entry`), the launch path (`execution`, `core`, `task`,
-`resources`, `optimizer`, `provision/` with the local cloud, the head
-agent in `agent/`, `backends/`), managed jobs and SkyServe (`jobs/`,
+`resources`, `optimizer`, the clouds and their provisioners in
+`clouds/` and `provision/` (local, GCP, AWS, Kubernetes, Slurm and SSH
+node pools) with the Docker task runtime, bucket storage in `data/`, the
+head agent in `agent/`, `backends/`), managed jobs and SkyServe (`jobs/`,
 `serve/`), the REST API server (`server/`) with its SDK and the
 `skytpu-torch` CLI (`client/`), and verbatim copies of the JAX-free
 modules they need (`sky_logging`, `utils/timeline`, `server/metrics`,

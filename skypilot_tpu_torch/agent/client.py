@@ -3,9 +3,17 @@
 Parity: SkyletClient (cloud_vm_ray_backend.py:2641) + the SSH tunnel it
 rides (:2392).  For local clusters the agent listens on localhost directly;
 for TPU VMs the client opens `ssh -L` to the head host first.
+
+Counterpart of `skypilot_tpu/agent/client.py`: the same client, but it
+waits for the SSH tunnel's local port to accept a connection before its
+first request (up to TUNNEL_TIMEOUT_S, raising HeadNodeUnreachableError
+if the tunnel exits or never opens).  The JAX client sends its first
+request as soon as it has started `ssh -N -L`, before the forward is
+listening, so that request finds the port closed.
 """
 from __future__ import annotations
 
+import socket
 import subprocess
 import time
 from typing import Any, Dict, List, Optional
@@ -17,6 +25,8 @@ from skypilot_tpu_torch.utils import command_runner as runner_lib
 from skypilot_tpu_torch.utils import common_utils
 
 AGENT_PORT = 8790
+# How long a new SSH tunnel may take to open its local port.
+TUNNEL_TIMEOUT_S = 30.0
 
 
 class AgentClient:
@@ -34,7 +44,29 @@ class AgentClient:
                                                  ssh_key_path)
             self._tunnel_proc = runner.tunnel(local_port, agent_port)
             self._base = f'http://127.0.0.1:{local_port}'
+            self._wait_tunnel(local_port)
         self._session = requests.Session()
+
+    def _wait_tunnel(self, local_port: int) -> None:
+        """Until the tunnel's local port accepts a connection; the tunnel
+        is closed and HeadNodeUnreachableError raised if it exits first or
+        TUNNEL_TIMEOUT_S passes."""
+        deadline = time.monotonic() + TUNNEL_TIMEOUT_S
+        while True:
+            try:
+                with socket.create_connection(('127.0.0.1', local_port),
+                                              timeout=1.0):
+                    return
+            except OSError:
+                pass
+            if (self._tunnel_proc.poll() is not None or
+                    time.monotonic() > deadline):
+                rc = self._tunnel_proc.poll()
+                self.close()
+                raise exceptions.HeadNodeUnreachableError(
+                    f'SSH tunnel to the agent did not open 127.0.0.1:'
+                    f'{local_port} (ssh exit {rc})')
+            time.sleep(0.05)
 
     def close(self) -> None:
         if self._tunnel_proc is not None:

@@ -23,8 +23,9 @@ Where it differs from the JAX module:
   - SKYTPU_NUM_TPU_CHIPS carries the number of cards per host for a GPU
     resource (H100:N gives N), as it carries a TPU slice's chips per host
     (the backend's job spec sets `chips_per_host` either way);
-  - a spec with `docker_image` is refused (NotSupportedError) until
-    provision/docker_utils.py is ported.
+  - a `docker_image` spec's container gets the host's cards when the
+    spec says `docker_gpus` (the backend sets it for a GPU resource):
+    provision/docker_utils.py's `--gpus all` in place of `--privileged`.
 
 The head agent imports this module, and the agent never touches a card:
 it imports neither torch nor JAX (`parallel.distributed` keeps torch
@@ -37,7 +38,6 @@ import shlex
 import subprocess
 from typing import Any, Dict, List, Optional
 
-from skypilot_tpu_torch import exceptions
 from skypilot_tpu_torch import sky_logging
 from skypilot_tpu_torch.parallel import distributed
 from skypilot_tpu_torch.utils import command_runner as runner_lib
@@ -84,6 +84,18 @@ class GangJob:
         return [ip for node in self.spec.get('nodes', [['127.0.0.1']])
                 for ip in node]
 
+    def run_docker_bootstrap(self) -> int:
+        """Start the task container on every host (docker:<image>
+        tasks; provision/docker_utils.py).  Idempotent per host."""
+        image = self.spec.get('docker_image')
+        if not image:
+            return 0
+        from skypilot_tpu_torch.provision import docker_utils
+        cmd = docker_utils.bootstrap_command(
+            image, self.spec.get('workdir_dest'),
+            gpus=bool(self.spec.get('docker_gpus')))
+        return self._fan_out(cmd, phase='docker-init')
+
     def run_setup(self) -> int:
         setup = self.spec.get('setup')
         if not setup:
@@ -113,8 +125,18 @@ class GangJob:
             runner = self._runner_for(ip)
             workdir = self.spec.get('workdir_dest')
             full_cmd = cmd
-            if workdir and not isinstance(runner,
-                                          runner_lib.LocalProcessRunner):
+            docker_image = self.spec.get('docker_image')
+            if docker_image and phase != 'docker-init':
+                # Task phases execute INSIDE the container; env must
+                # cross the docker exec boundary (a host-side export
+                # would not), so it rides the wrapped command and the
+                # runner gets none.
+                from skypilot_tpu_torch.provision import docker_utils
+                full_cmd = docker_utils.wrap(cmd, env=env,
+                                             workdir=workdir)
+                env = {}
+            elif workdir and not isinstance(
+                    runner, runner_lib.LocalProcessRunner):
                 full_cmd = f'cd {shlex.quote(workdir)} && {cmd}'
             procs.append(runner.popen(full_cmd, env=env,
                                       log_path=log_path))
@@ -194,14 +216,12 @@ def run_gang_job(job_id: int, spec: Dict[str, Any], log_dir: str,
     Returns the final returncode."""
     from skypilot_tpu_torch.agent import job_queue
     os.makedirs(log_dir, exist_ok=True)
-    if spec.get('docker_image'):
-        raise exceptions.NotSupportedError(
-            f'docker:{spec["docker_image"]}: the port runs tasks on the '
-            'host; docker tasks wait for provision/docker_utils.py')
     if job is None:
         job = GangJob(job_id, spec, log_dir)
     status_cb(job_queue.JobStatus.SETTING_UP, None)
-    rc = job.run_setup()
+    rc = job.run_docker_bootstrap()
+    if rc == 0:
+        rc = job.run_setup()
     if job._cancelled:  # pylint: disable=protected-access
         status_cb(job_queue.JobStatus.CANCELLED, rc)
         return rc

@@ -12,15 +12,16 @@ Counterpart of `skypilot_tpu/backends/tpu_vm_backend.py` (same class
 name, so a reader finds its twin).  Where it differs:
   - the agent it bootstraps is the port's, `python -m
     skypilot_tpu_torch.agent.server`, with the port's parent directory on
-    PYTHONPATH; the remote `pkill` names that agent too;
+    PYTHONPATH;
+  - the remote bootstrap's `pkill` matches the agent's own command line
+    (AGENT_PKILL_PATTERN): the JAX module's `pkill -f` of its agent's
+    module name also matches the shell that runs the bootstrap, whose
+    command line names the module, and kills it before it starts the
+    agent;
   - `_job_spec` sets `chips_per_host` from a GPU resource's card count
-    (H100:N gives N) as from a TPU slice's chips per host, and refuses a
-    `docker:` image until provision/docker_utils.py is ported;
-  - what needs modules the port does not have yet is refused with
-    NotSupportedError: task `volumes:` (their k8s-pvc and gcp-disk
-    backing stores need the kubernetes and gcp provisioners) and bucket
-    file mounts (data/storage.py's fetch).  The registry holds only the local
-    cloud, so no placement needs authentication.py's SSH key.
+    (H100:N gives N) as from a TPU slice's chips per host, and marks a
+    `docker:` task on a GPU resource `docker_gpus`, so the gang's
+    container gets the cards (provision/docker_utils.py).
 """
 from __future__ import annotations
 
@@ -50,6 +51,13 @@ from skypilot_tpu_torch.utils import command_runner as runner_lib
 from skypilot_tpu_torch.utils import locks
 
 logger = sky_logging.init_logger(__name__)
+
+# What the remote bootstrap's `pkill -f` stops: a running agent, whose
+# command line starts with `python... -m skypilot_tpu_torch.agent.server`.
+# Anchored so that it does not match the shell running the bootstrap,
+# whose own command line holds the module's name.
+AGENT_PKILL_PATTERN = ('^[^ ]*python[^ ]* -m '
+                       'skypilot_tpu_torch[.]agent[.]server( |$)')
 
 _WORKDIR_DEST = '~/sky_workdir'
 
@@ -167,15 +175,21 @@ class TpuVmBackend(backend_lib.Backend):
                           retry_until_up: bool = False,
                           minimize: Optional[OptimizeTarget] = None,
                           ) -> ClusterHandle:
-        if task.volumes:
-            raise exceptions.NotSupportedError(
-                'task volumes live on k8s-pvc or gcp-disk volumes, whose '
-                'provisioners skypilot_tpu_torch does not have yet (ROADMAP '
-                'Queue 1 item 2)')
-
         def provision_fn(candidate: resources_lib.Resources):
-            # Only `local` is registered (clouds/__init__.py), so no
-            # candidate needs the SSH key of authentication.py.
+            authorized_key = None
+            if candidate.cloud != 'local':
+                from skypilot_tpu_torch import authentication
+                _, authorized_key = authentication.get_or_generate_keys()
+            from skypilot_tpu_torch import volumes as volumes_lib
+            try:
+                task_volumes = volumes_lib.validate_task_volumes(
+                    task, candidate)
+            except exceptions.InvalidTaskError as e:
+                # Volume-incompatible *candidate*, not a broken task:
+                # surface inside the failover taxonomy so the engine
+                # moves to the next placement (one of which may host
+                # the volume) instead of aborting the launch.
+                raise exceptions.ProvisionError(str(e)) from e
             config = ProvisionConfig(
                 cluster_name=cluster_name,
                 # Multislice (tpu-...xN): each slice is its own
@@ -186,8 +200,10 @@ class TpuVmBackend(backend_lib.Backend):
                 resources_config=candidate.to_yaml_config(),
                 region=candidate.region,
                 zone=candidate.zone,
+                authorized_key=authorized_key,
                 labels=candidate.labels or {},
                 ports=candidate.ports or [],
+                volumes=task_volumes,
             )
             record = provision_lib.run_instances(candidate.cloud, config)
             provision_lib.wait_instances(candidate.cloud, cluster_name,
@@ -321,7 +337,7 @@ class TpuVmBackend(backend_lib.Backend):
             runner.run('mkdir -p ~/skytpu_runtime ~/.skytpu')
             runner.rsync(pkg_dir, '~/skytpu_runtime/', up=True)
             runner.run(
-                'pkill -f skypilot_tpu_torch.agent.server || true; '
+                f'pkill -f {shlex.quote(AGENT_PKILL_PATTERN)} || true; '
                 'cd ~/skytpu_runtime && '
                 'nohup python3 -m skypilot_tpu_torch.agent.server --port '
                 f'{handle.agent_port} '
@@ -392,9 +408,9 @@ class TpuVmBackend(backend_lib.Backend):
                          file_mounts: Dict[str, str]) -> None:
         for dst, src in (file_mounts or {}).items():
             if src.startswith(('gs://', 's3://', 'r2://')):
-                raise exceptions.NotSupportedError(
-                    f'file mount {dst}: {src}: bucket mounts wait for the '
-                    "port of data/storage.py's fetch")
+                from skypilot_tpu_torch.data import storage as storage_lib
+                storage_lib.fetch_bucket_to_cluster(self, handle, src, dst)
+                continue
             src_path = os.path.expanduser(src)
             if os.path.isdir(src_path):
                 # rsync trailing-slash semantics: sync *contents* to dst,
@@ -461,10 +477,16 @@ class TpuVmBackend(backend_lib.Backend):
             'workdir_dest': (self._workdir_dest(handle)
                              if task.workdir else None),
         }
-        if res.image_id and res.image_id.startswith('docker:'):
-            raise exceptions.NotSupportedError(
-                f'image_id {res.image_id}: the port runs tasks on the '
-                'host; docker tasks wait for provision/docker_utils.py')
+        # docker:<image> task runtime: the gang starts a container per
+        # host and runs setup/run inside it, with the cards for a GPU
+        # resource (provision/docker_utils.py; ref
+        # sky/provision/docker_utils.py).
+        from skypilot_tpu_torch.provision import docker_utils
+        docker_image = docker_utils.image_from_resources(res.image_id)
+        if docker_image:
+            spec['docker_image'] = docker_image
+            if res.accelerators and not tpu:
+                spec['docker_gpus'] = True
         if setup_only:
             spec['setup'] = task.setup
         else:

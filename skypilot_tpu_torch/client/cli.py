@@ -10,10 +10,7 @@ commands over the port's server and modules (`check`'s analyzer,
 `perf`'s gate, `plan`'s placement check, `top`/`jobs top`/`alerts`'
 views, the storage commands' GcsStore).  It differs where the port
 differs: `perf` takes `--device` (its probe runs on the card unless told
-`cpu`), `plan` takes GPU slices (`H100:8`), and the two commands whose
-modules are not ported yet, `rotate-keys` (authentication.py, ssh) and
-`catalog refresh` (catalog/data_fetchers/), exit 1 with a
-NotSupportedError naming ROADMAP Queue 1 item 2.
+`cpu`), and `plan` takes GPU slices (`H100:8`).
 """
 from __future__ import annotations
 
@@ -59,16 +56,6 @@ def _load_task(entrypoint: Tuple[str, ...], **overrides) -> task_lib.Task:
 def cli() -> None:
     """skytpu-torch — run AI workloads on GPU infrastructure."""
 
-
-def _refuse_unported(what: str, modules: str) -> None:
-    """Exit 1 with a NotSupportedError for a command whose modules the
-    port does not have yet."""
-    err = exceptions.NotSupportedError(
-        f'{what} needs {modules}, which skypilot_tpu_torch does not have '
-        f'yet (ROADMAP Queue 1 item 2: the other clouds and '
-        f'provisioners)')
-    click.secho(f'NotSupportedError: {err}', fg='red', err=True)
-    raise SystemExit(1)
 
 
 _task_options = [
@@ -623,8 +610,19 @@ def rotate_keys():
     local keypair only after every reachable cluster accepted it, and
     keeps a timestamped backup of the old private key.  Runs client-side
     (key material never transits the API server)."""
-    _refuse_unported('rotate-keys', 'authentication.py and the ssh '
-                     'command runner')
+    from skypilot_tpu_torch import authentication
+    from skypilot_tpu_torch import exceptions as exc
+    try:
+        result = authentication.rotate_keys()
+    except exc.SkyTpuError as e:
+        click.secho(str(e), fg='red', err=True)
+        raise SystemExit(1)
+    for name in result['rotated']:
+        click.echo(f'  rotated: {name}')
+    for entry in result['skipped']:
+        click.echo(f'  skipped: {entry}')
+    click.echo('Key rotation complete; old key backed up as '
+               f'{authentication.PRIVATE_KEY_PATH}.<stamp>.bak')
 
 
 @cli.command('plan')
@@ -670,7 +668,11 @@ def catalog_refresh():
     the bundled copies; `skytpu check` reports their age.  Requires GCP
     credentials + google-api-python-client (or a recorded fixture via
     SKYTPU_BILLING_FIXTURE)."""
-    _refuse_unported('catalog refresh', 'catalog/data_fetchers/')
+    from skypilot_tpu_torch.catalog.data_fetchers import fetch_gcp
+    rc = fetch_gcp.main()
+    if rc != 0:
+        raise SystemExit(rc)
+    click.echo('Catalogs refreshed; `skytpu-torch check` shows their age.')
 
 
 @cli.group()

@@ -1,23 +1,28 @@
-"""Cloud registry (parity: sky/utils/registry.py cloud registration).
-
-Counterpart of `skypilot_tpu/clouds/__init__.py`: only the local cloud is
-registered.  GCP, AWS, Kubernetes, Slurm and SSH wait for their
-provisioners to be ported; until then a task that names one fails with
-the JAX registry's own error (`InvalidInfraError`, "Unknown cloud").
-"""
+"""Cloud registry (parity: sky/utils/registry.py cloud registration)."""
 from __future__ import annotations
 
 from typing import Dict, List, Optional
 
 from skypilot_tpu_torch import exceptions
+from skypilot_tpu_torch.clouds.aws import AWS
 from skypilot_tpu_torch.clouds.cloud import Cloud, CloudCapability
+from skypilot_tpu_torch.clouds.gcp import GCP
+from skypilot_tpu_torch.clouds.kubernetes import Kubernetes
 from skypilot_tpu_torch.clouds.local import Local
+from skypilot_tpu_torch.clouds.slurm import Slurm
+from skypilot_tpu_torch.clouds.ssh import SSH
 
-__all__ = ['Cloud', 'CloudCapability', 'Local', 'get_cloud',
-           'enabled_clouds', 'CLOUD_REGISTRY']
+__all__ = ['AWS', 'Cloud', 'CloudCapability', 'GCP', 'Kubernetes',
+           'Local', 'SSH', 'Slurm', 'get_cloud', 'enabled_clouds',
+           'CLOUD_REGISTRY']
 
 CLOUD_REGISTRY: Dict[str, Cloud] = {
+    GCP.NAME: GCP(),
+    AWS.NAME: AWS(),
+    Kubernetes.NAME: Kubernetes(),
+    Slurm.NAME: Slurm(),
     Local.NAME: Local(),
+    SSH.NAME: SSH(),
 }
 
 

@@ -2,10 +2,6 @@
 
 Parity: sky/provision/__init__.py:45 `_route_to_cloud_impl` — each function
 dispatches to `skypilot_tpu_torch.provision.<cloud>.instance`.
-
-Counterpart of `skypilot_tpu/provision/__init__.py`, whose API it keeps:
-only `local` has a provisioner in the port, and any other cloud raises
-the JAX module's `InvalidInfraError` ("No provisioner for cloud").
 """
 from __future__ import annotations
 

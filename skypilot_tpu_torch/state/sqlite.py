@@ -9,6 +9,14 @@ idempotency by PRAGMA table_info introspection, not by matching
 sqlite's 'duplicate column' error string (which is dialect- and
 locale-fragile, and was the one sqlite-ism in the old funnel that
 could not translate).
+
+Counterpart of `skypilot_tpu/state/sqlite.py`: the same backend, but
+`_connect` survives `database is locked` on the switch to WAL.  Turning
+WAL on takes an exclusive lock, and sqlite answers a connection that
+asks for it while another process opens the same fresh file with
+SQLITE_BUSY without calling its busy handler, so the connection's 30 s
+timeout does not cover it: the JAX module raises there.  This one retries
+the pragma until that timeout runs out; any other error still raises.
 """
 from __future__ import annotations
 
@@ -17,9 +25,14 @@ import os
 import re
 import sqlite3
 import threading
+import time
 from typing import Iterator, List, Optional, Tuple
 
 _local = threading.local()
+
+# The connection's busy timeout, which also bounds the WAL switch's
+# retries.
+_TIMEOUT_S = 30.0
 
 _ALTER_ADD_RE = re.compile(
     r'ALTER\s+TABLE\s+(\w+)\s+ADD\s+COLUMN\s+(\w+)', re.IGNORECASE)
@@ -39,9 +52,9 @@ class SqliteBackend:
         conn = conns.get(self._path)
         if conn is None:
             os.makedirs(os.path.dirname(self._path) or '.', exist_ok=True)
-            conn = sqlite3.connect(self._path, timeout=30.0)
+            conn = sqlite3.connect(self._path, timeout=_TIMEOUT_S)
             conn.row_factory = sqlite3.Row
-            conn.execute('PRAGMA journal_mode=WAL')
+            _enable_wal(conn)
             conn.execute('PRAGMA synchronous=NORMAL')
             conns[self._path] = conn
         return conn
@@ -88,6 +101,21 @@ class SqliteBackend:
                     if m.group(2) in cols:
                         continue
                 conn.execute(stmt)
+
+
+def _enable_wal(conn: sqlite3.Connection) -> None:
+    """PRAGMA journal_mode=WAL, retried while another connection holds
+    the lock it needs (see the module docstring), up to _TIMEOUT_S."""
+    deadline = time.monotonic() + _TIMEOUT_S
+    while True:
+        try:
+            conn.execute('PRAGMA journal_mode=WAL')
+            return
+        except sqlite3.OperationalError as e:
+            if ('database is locked' not in str(e) or
+                    time.monotonic() > deadline):
+                raise
+        time.sleep(0.01)
 
 
 def reset_connections_for_tests() -> None:

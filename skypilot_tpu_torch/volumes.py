@@ -2,13 +2,6 @@
 sky/volumes/ — Volume spec, apply/ls/delete server core; k8s PVCs as
 the primary type).
 
-This is the port's counterpart of `skypilot_tpu/volumes.py`: the types,
-the table, validation, `get`/`list_volumes` and the placement check of
-`validate_task_volumes` are the original's; the backing-store ops
-(create/delete of a PVC or a GCP disk) raise NotSupportedError, since
-the kubernetes and gcp provisioners are not ported yet (ROADMAP Queue 1
-item 2).  A refused create records nothing.
-
 TPU-first reading: checkpoints and datasets belong on GCS buckets
 (data/storage.py), but two shapes need real block/filesystem volumes —
 Kubernetes PVCs for pod workloads and GCP persistent disks attached to
@@ -103,35 +96,61 @@ class Volume:
 
 
 # ----- backing-store ops -----------------------------------------------------
-# Both types live on clouds this package does not register yet (only
-# `local` is, clouds/__init__.py): a k8s PVC needs provision/kubernetes,
-# a GCP disk provision/gcp, which come with ROADMAP Queue 1 item 2 (the
-# other clouds and provisioners).  Until then the ops refuse by name.
-_BACKING_STORE_MISSING = (
-    'volume {op} of type {vtype!r} on {infra} needs the {cloud} '
-    'provisioner, which skypilot_tpu_torch does not have yet (ROADMAP '
-    'Queue 1 item 2: the other clouds and provisioners)')
-
-
-def _refuse(op: str, volume: Volume, cloud: str) -> None:
-    raise exceptions.NotSupportedError(_BACKING_STORE_MISSING.format(
-        op=op, vtype=volume.vtype, infra=volume.infra, cloud=cloud))
-
-
 def _k8s_create(volume: Volume) -> None:
-    _refuse('create', volume, 'kubernetes')
+    from skypilot_tpu_torch.provision.kubernetes import instance as k8s
+    context = infra_utils.InfraInfo.from_str(volume.infra).region
+    client = k8s._Client(context)  # pylint: disable=protected-access
+    body = {
+        'apiVersion': 'v1',
+        'kind': 'PersistentVolumeClaim',
+        'metadata': {'name': volume.name,
+                     'labels': {'skytpu-volume': volume.name}},
+        'spec': {
+            'accessModes': [volume.config.get('access_mode',
+                                              'ReadWriteOnce')],
+            'resources': {'requests': {
+                'storage': f'{volume.size_gb}Gi'}},
+            **({'storageClassName': volume.config['storage_class']}
+               if volume.config.get('storage_class') else {}),
+        },
+    }
+    resp = client.request('POST', '/persistentvolumeclaims',
+                          data=json.dumps(body))
+    if resp.status_code == 409:
+        raise exceptions.InvalidRequestError(
+            f'PVC {volume.name!r} already exists in context '
+            f'{context!r}')
+    if resp.status_code >= 400:
+        raise exceptions.StorageError(
+            f'PVC create failed ({resp.status_code}): {resp.text}')
 
 
 def _k8s_delete(volume: Volume) -> None:
-    _refuse('delete', volume, 'kubernetes')
+    from skypilot_tpu_torch.provision.kubernetes import instance as k8s
+    context = infra_utils.InfraInfo.from_str(volume.infra).region
+    client = k8s._Client(context)  # pylint: disable=protected-access
+    resp = client.request('DELETE',
+                          f'/persistentvolumeclaims/{volume.name}')
+    if resp.status_code >= 400 and resp.status_code != 404:
+        raise exceptions.StorageError(
+            f'PVC delete failed ({resp.status_code}): {resp.text}')
+
+
+def _gcp_client(volume: Volume):
+    del volume
+    from skypilot_tpu_torch.provision.gcp import gce_client
+    from skypilot_tpu_torch.provision.gcp import tpu_client
+    return gce_client.GceClient(tpu_client.default_project())
 
 
 def _gcp_create(volume: Volume) -> None:
-    _refuse('create', volume, 'gcp')
+    zone = infra_utils.InfraInfo.from_str(volume.infra).zone
+    _gcp_client(volume).create_disk(zone, volume.name, volume.size_gb)
 
 
 def _gcp_delete(volume: Volume) -> None:
-    _refuse('delete', volume, 'gcp')
+    zone = infra_utils.InfraInfo.from_str(volume.infra).zone
+    _gcp_client(volume).delete_disk(zone, volume.name)
 
 
 # ----- public API ------------------------------------------------------------

@@ -98,8 +98,9 @@ def test_health_and_check(api_server):
     assert sdk.api_info()['status'] == 'healthy'
     checks = sdk.check()
     assert checks['local']['enabled']
-    # The port registers the local cloud only.
-    assert sorted(checks) == ['_warnings', 'local']
+    # The port registers the JAX package's six clouds.
+    assert sorted(checks) == ['_warnings', 'aws', 'gcp', 'kubernetes',
+                              'local', 'slurm', 'ssh']
 
 
 def test_launch_via_sdk_end_to_end(launched):
@@ -348,32 +349,63 @@ def test_cli_perf_over_baseline(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize('argv,what', [
-    (['rotate-keys'], 'rotate-keys'),
-    (['catalog', 'refresh'], 'catalog refresh')])
-def test_cli_unported_commands_refuse(argv, what):
-    result = CliRunner().invoke(cli, argv)
-    assert result.exit_code == 1
-    assert not isinstance(result.exception, ImportError)
-    assert f'NotSupportedError: {what} needs' in result.output
-    assert 'ROADMAP Queue 1 item 2' in result.output
+    (['rotate-keys'], 'Key rotation complete'),
+    (['catalog', 'refresh'], 'Catalogs refreshed')])
+def test_cli_unported_commands_refuse(argv, what, tmp_path, monkeypatch):
+    """The two commands the port refused until it had authentication.py
+    and the catalog fetcher now run, as the JAX CLI's do (under a HOME
+    of their own: they write keys and catalogs there)."""
+    home = tmp_path / 'home'
+    home.mkdir()
+    _home_env(monkeypatch, home)
+    monkeypatch.setenv('SKYTPU_BILLING_FIXTURE',
+                       str(REPO / 'tests' / 'fixtures' /
+                           'gcp_billing_skus.json'))
+    sky_config.reset_cache_for_tests()
+    try:
+        result = CliRunner().invoke(cli, argv)
+    finally:
+        sky_config.reset_cache_for_tests()
+    assert result.exit_code == 0, result.output
+    assert what in result.output
+    assert 'NotSupportedError' not in result.output
 
 
-def test_cli_volumes_refused_and_nothing_recorded(api_server):
-    """A k8s PVC's create is refused (the app answers the
-    NotSupportedError as it answers any error it does not map) and
-    leaves no row; the same through the module."""
+def test_cli_volumes_refused_and_nothing_recorded(api_server, monkeypatch):
+    """A k8s PVC and a GCP disk, which the port refused until it had the
+    kubernetes and gcp provisioners, are created and deleted over REST
+    and through the module against the fake APIs (as
+    tests/test_volumes.py does for the JAX package), and a bad spec is a
+    400 that records nothing."""
     from skypilot_tpu_torch import volumes
-    result = CliRunner().invoke(cli, ['volumes', 'apply', 'vol1', '--type',
-                                      'k8s-pvc', '--infra',
-                                      'kubernetes/main', '--size', '10'])
-    assert result.exit_code != 0
-    assert 'NotSupportedError' in str(result.exception)
-    assert 'ROADMAP Queue 1 item 2' in str(result.exception)
-    assert sdk.volumes_list() == []
-    with pytest.raises(exceptions.NotSupportedError, match='gcp'):
+    from tests.fake_gce_api import FakeGceApi
+    from tests.fake_k8s_api import FakeK8sApi
+    k8s, gce = FakeK8sApi(), FakeGceApi()
+    try:
+        monkeypatch.setenv('SKYTPU_K8S_API_ENDPOINT', k8s.endpoint)
+        monkeypatch.setenv('SKYTPU_GCE_API_ENDPOINT', gce.endpoint)
+        monkeypatch.setenv('SKYTPU_GCP_PROJECT', 'proj')
+        result = CliRunner().invoke(cli, ['volumes', 'apply', 'vol1',
+                                          '--type', 'k8s-pvc', '--infra',
+                                          'kubernetes/main', '--size',
+                                          '10'])
+        assert result.exit_code == 0, result.output
+        assert [v['name'] for v in sdk.volumes_list()] == ['vol1']
+        assert k8s.pvc('default', 'vol1')['spec']['resources'][
+            'requests']['storage'] == '10Gi'
         volumes.apply('disk1', 'gcp-disk', 'gcp/us-central1/us-central1-a',
                       5)
-    # Validation still runs first: a bad spec is a 400, not a refusal.
+        assert gce.state.disks['us-central1-a/disk1']['sizeGb'] == '5'
+        result = CliRunner().invoke(cli, ['volumes', 'delete', 'vol1'])
+        assert result.exit_code == 0, result.output
+        volumes.delete('disk1')
+        assert 'us-central1-a/disk1' not in gce.state.disks
+        with pytest.raises(KeyError):
+            k8s.pvc('default', 'vol1')
+    finally:
+        k8s.close()
+        gce.close()
+    # Validation runs first: a bad spec is a 400 and records nothing.
     r = requests_lib.post(f'{api_server}/volumes/apply',
                           json={'name': 'v', 'vtype': 'k8s-pvc',
                                 'infra': 'gcp/us-central1', 'size_gb': 1},
@@ -473,7 +505,8 @@ def _rest_sequence(url, headers, version_header, min_version):
     body = rec(*call('health', 'GET', '/api/health'))
     out.append(('health-status', body['status'], None))
     _, r = call('check', 'GET', '/check')
-    body = rec('check', r, r.json()['local'])
+    rec('check', r)
+    body = r.json()['local']
     out.append(('check-local', body['enabled'], sorted(body['storage'])))
     task = {'name': 'scen', 'run': 'echo scenario-out',
             'resources': {'infra': 'local'}}

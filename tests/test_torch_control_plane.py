@@ -3,6 +3,7 @@ every example task YAML parses to the same config, the optimizer picks
 the same plans with the same estimates, the gang's env block differs only
 as agent/gang.py documents, the backend's job spec carries a GPU's card
 count, and the agent's job queue moves through the same states."""
+import os
 import pathlib
 
 import pytest
@@ -125,16 +126,27 @@ def test_effective_tflops_and_prices_alike(home, accelerators):
 
 
 def test_only_local_is_registered(home, monkeypatch):
+    """The port's registry is the JAX package's: the same six clouds, the
+    same enabled set, and the same refusals of a cloud it does not
+    know (the port registered only `local` until it had the other
+    clouds' provisioners)."""
+    from skypilot_tpu import clouds as jax_clouds
     from skypilot_tpu_torch import clouds
+    assert sorted(clouds.CLOUD_REGISTRY) == sorted(
+        jax_clouds.CLOUD_REGISTRY)
+    assert type(clouds.get_cloud('gcp')).__name__ == 'GCP'
+    monkeypatch.setenv('SKYTPU_ENABLED_CLOUDS', 'gcp,ssh,local')
+    assert [c.NAME for c in clouds.enabled_clouds()] == [
+        c.NAME for c in jax_clouds.enabled_clouds()]
     with pytest.raises(exceptions.InvalidInfraError, match='Unknown cloud'):
-        clouds.get_cloud('gcp')
-    monkeypatch.setenv('SKYTPU_ENABLED_CLOUDS', 'gcp,local')
+        clouds.get_cloud('azure')
+    monkeypatch.setenv('SKYTPU_ENABLED_CLOUDS', 'azure,local')
     with pytest.raises(exceptions.InvalidInfraError, match='Unknown cloud'):
         clouds.enabled_clouds()
     from skypilot_tpu_torch import provision
     with pytest.raises(exceptions.InvalidInfraError,
                        match='No provisioner for cloud'):
-        provision.query_instances('gcp', 'c')
+        provision.query_instances('azure', 'c')
 
 
 MEGASCALE_KEYS = set(jax_distributed.megascale_env_from_cluster(
@@ -185,17 +197,30 @@ def test_job_spec_carries_cards_per_host(home, accelerators, jax_chips,
     assert got == want
 
 
-def test_docker_image_is_refused(home):
+def test_docker_image_is_refused(home, monkeypatch):
+    """A `docker:` image, which the port refused until it had
+    provision/docker_utils.py, now reaches the gang: the job spec names
+    the image, and the gang's first step is the container's bootstrap
+    (here a `docker` that fails, so the job fails its setup)."""
     handle = TorchHandle(cluster_name='c', cloud='local',
                          resources_config={'infra': 'local',
                                            'image_id': 'docker:ubuntu'},
                          node_ips=[['127.0.0.1']])
-    with pytest.raises(exceptions.NotSupportedError, match='docker'):
-        torch_backend.TpuVmBackend()._job_spec(  # pylint: disable=protected-access
-            handle, torch_task.Task('t', run='echo hi'))
-    with pytest.raises(exceptions.NotSupportedError, match='docker'):
-        torch_gang.run_gang_job(1, {'docker_image': 'ubuntu', 'run': 'x'},
-                                str(home / 'logs'), lambda *a: None)
+    spec = torch_backend.TpuVmBackend()._job_spec(  # pylint: disable=protected-access
+        handle, torch_task.Task('t', run='echo hi'))
+    assert spec['docker_image'] == 'ubuntu' and 'docker_gpus' not in spec
+    shim_dir = home / 'shim'
+    shim_dir.mkdir()
+    (shim_dir / 'docker').write_text('#!/usr/bin/env bash\nexit 7\n')
+    (shim_dir / 'docker').chmod(0o755)
+    monkeypatch.setenv('PATH', f'{shim_dir}{os.pathsep}{os.environ["PATH"]}')
+    seen = []
+    rc = torch_gang.run_gang_job(
+        1, {'docker_image': 'ubuntu', 'run': 'x', 'is_local': True,
+            'nodes': [['127.0.0.1']]}, str(home / 'logs'),
+        lambda status, _rc: seen.append(status.value))
+    assert rc == 7 and seen[-1] == 'FAILED_SETUP'
+    assert (home / 'logs' / 'docker-init-0.log').exists()
 
 
 def _queue_trace(mod, monkeypatch, agent_home):

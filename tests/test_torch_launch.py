@@ -85,7 +85,7 @@ def reap_port_agents(tmp_path_factory):
 @pytest.fixture
 def home(tmp_home, monkeypatch):
     """conftest's isolated $HOME, the port's config cache reset, and the
-    local cloud as the one enabled cloud (the port registers no other)."""
+    local cloud as the one enabled cloud (these cases launch there)."""
     monkeypatch.setenv('SKYTPU_ENABLED_CLOUDS', 'local')
     sky_config.reset_cache_for_tests()
     yield tmp_home

@@ -8,8 +8,8 @@ inherits it (each spawn path builds its env from os.environ), and at
 the module's end every process still carrying it is SIGKILLed.
 conftest.py's session reaper knows only the JAX agent's command line.
 `port_home` is conftest's isolated $HOME with the port's config cache
-reset and the local cloud as the one enabled cloud (the port registers
-no other), and it stops the port's controller threads on the way out:
+reset and the local cloud as the one enabled cloud (the cases launch
+there), and it stops the port's controller threads on the way out:
 a controller outliving its test would poll under the next test's $HOME.
 `app_in_thread` serves an aiohttp app (either package's API server) on a
 free port from a daemon thread, and `wait_for` is the bounded poll every
