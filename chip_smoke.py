@@ -135,6 +135,15 @@ followed by its seconds:
    build's seconds printed); core.down releasing the host, the agent
    (which down leaves on a BYO host) stopped, the listener closed and
    the card's memory back.
+3h. Bucket relay (BUCKET_RELAY): with a temporary HOME, llama3-1b's
+   seed-0 bf16 params saved into gs://smoke-relay/llama3-1b of a
+   fake-GCS root, relayed to s3://smoke-relay/llama3-1b of a fake-S3
+   root by data/transfer.py (down into a staging directory, up from it;
+   seconds and GB/s printed): every file's sha256 equal on both sides,
+   the staging directory gone; job A on a local cluster asking for
+   H100:1 with the S3 bucket MOUNTed as its weights (`--checkpoint` at
+   the mount): its tokens and launches the launch phase's; core.down,
+   the agent exited, the card's memory back.
 4. Serving: llama2-7b at full width, 16 of its 32 layers (SERVE; bf16
    random weights from a seed) behind the port's HTTP app on a local port, 8 prompts of 219
    tokens plus one of 300 (chunked prefill), 32 new tokens each; every
@@ -311,6 +320,18 @@ followed by its seconds:
    three live gauges within 5% of the cost model, the roofline rows
    printed; the probe's prefills launch the small-head-dim forward
    (counted, every counter zeroed just before) and no wgmma kernel.
+16b. Fleet (FLEET), host work only, last (the goodput sim resets the
+   port's metrics registry): `python -X importtime -m
+   skypilot_tpu_torch.fleetsim --json` in a subprocess (the canonical
+   fleet, a fresh sqlite file): its result without `profile` and
+   `wall_s` equal to FLEET_REFERENCE (the JAX package's, field by field
+   and by digest, history included), neither torch nor JAX imported,
+   the profile's top three rows and wall_s printed as host times; the
+   goodput sim's planted straggler in this process (GOODPUT_REFERENCE:
+   the ledger tiles the sim wall within 1e-6%, host2 named, goodput_low
+   and straggler firing); the port's fuse proxy built into
+   build/skypilot_tpu_torch/fuse_proxy/ and a mount's fd relayed through
+   shim -> server -> a fake fusermount over SCM_RIGHTS.
 17. Result: the kernels JSON line (per kernel also TFLOP/s, ptxas
    registers and spill-store bytes, shared memory per launch; launches
    by path: serving, paged, checkpoint, tensor_serving (rank 0 of (b)
@@ -319,8 +340,9 @@ followed by its seconds:
    moe_tensor_serving (rank 0 each), graft_entry, tiny_training,
    perf_gate, sync_audit, launch (job A's process), api_server (job A's
    process under the API server), managed_job (the recovered attempt's
-   process) and serve (the replica's process; the new path, api_server,
-   must have launched the flash forward); the three small-head-dim
+   process), serve (the replica's process), ssh_pool and bucket_relay
+   (job A's process; the new paths, ssh_pool and bucket_relay, must have
+   launched the flash forward); the three small-head-dim
    kernels' rows
    launched on tiny_training and sync_audit, the forward's also on
    perf_gate), the nvidia-smi
@@ -6241,6 +6263,376 @@ def ssh_pool_phase(device, card, smi, launch_ctx, launch_counts):
     return counts
 
 
+# The launch phase's job A once more, its weights relayed across clouds:
+# llama3-1b's seed-0 bf16 params saved into a bucket of a fake-GCS root,
+# copied to a fake-S3 root by data/transfer.py's cross-scheme relay (down
+# into a staging directory, up from it), then served by job A on a local
+# H100:1 cluster from the S3 bucket MOUNTed as its weights.
+BUCKET_RELAY = dict(cluster='smoke-relay', accelerators='H100:1',
+                    bucket='smoke-relay', mount='/mnt/weights',
+                    fwd_launches=48, job_timeout_s=300, release_timeout_s=60,
+                    mem_atol_bytes=1 << 30)
+
+
+def _tree_digests(directory) -> dict:
+    """{path under `directory`: sha256} of every file below it."""
+    import hashlib
+    out = {}
+    for base, _, files in os.walk(directory):
+        for name in files:
+            path = os.path.join(base, name)
+            digest = hashlib.sha256()
+            with open(path, 'rb') as f:
+                for block in iter(lambda: f.read(1 << 24), b''):
+                    digest.update(block)
+            out[os.path.relpath(path, directory)] = digest.hexdigest()
+    return out
+
+
+def bucket_relay_phase(device, card, smi, launch_ctx, launch_counts):
+    """BUCKET_RELAY: job A's weights relayed gs:// -> s3:// and served from
+    the S3 mount; returns the job's launch counts."""
+    import tempfile
+
+    import torch
+    from skypilot_tpu_torch import core, execution, global_user_state
+    from skypilot_tpu_torch.agent.job_queue import JobStatus
+    from skypilot_tpu_torch.data import transfer
+    from skypilot_tpu_torch.inference import server
+    from skypilot_tpu_torch.resources import Resources
+    from skypilot_tpu_torch.task import Task
+    from skypilot_tpu_torch.train.checkpoint import CheckpointManager
+
+    spec = BUCKET_RELAY
+    cluster = spec['cluster']
+    del device
+    gc.collect()
+    torch.cuda.empty_cache()
+    free_before = torch.cuda.mem_get_info()[0]
+    model_name = server.parse_args(LAUNCH['flags']).model
+    root = tempfile.mkdtemp(prefix='skytpu-relay-')
+    gcs_root, s3_root, staging_parent = (
+        os.path.join(root, name) for name in ('gcs', 's3', 'tmp'))
+    os.makedirs(staging_parent)
+    home = PhaseHome('skytpu-relay-home-', SKYTPU_FAKE_GCS_ROOT=gcs_root,
+                     SKYTPU_FAKE_S3_ROOT=s3_root)
+    t_phase = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        model = server.build_model(server.parse_args(LAUNCH['flags']))
+        src = os.path.join(gcs_root, spec['bucket'], model_name)
+        CheckpointManager(src).save(0, model)
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        save_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(src) for f in fs)
+        want = _tree_digests(src)
+        src_url = f'gs://{spec["bucket"]}/{model_name}'
+        dst_url = f's3://{spec["bucket"]}/{model_name}'
+        # The relay's staging directory is a mkdtemp: under a directory of
+        # the phase's own, so that what it leaves behind shows.
+        saved_tempdir, tempfile.tempdir = tempfile.tempdir, staging_parent
+        try:
+            t0 = time.perf_counter()
+            transfer.transfer(src_url, dst_url)
+            relay_s = time.perf_counter() - t0
+        finally:
+            tempfile.tempdir = saved_tempdir
+        left = os.listdir(staging_parent)
+        got = _tree_digests(os.path.join(s3_root, spec['bucket'],
+                                         model_name))
+        log(f'  saved {size / 1e9:.3f} GB of bf16 params ({len(want)} '
+            f'files) into {src_url} in {save_s:.2f} s; relayed to {dst_url} '
+            f'through a staging directory in {relay_s:.2f} s '
+            f'({size / 1e9 / relay_s:.3f} GB/s of weights, host disk of '
+            f'the card\'s machine, warm page cache)')
+        if got != want:
+            raise SystemExit(f'relayed tree differs: '
+                             f'{sorted(set(got.items()) ^ set(want.items()))}')
+        if left:
+            raise SystemExit(f'the relay left {left} in its temp directory')
+
+        # On the local cloud a MOUNT lands under the cluster's agent home,
+        # which the job reads from $SKYTPU_AGENT_HOME.
+        weights = '@WEIGHTS@'
+        task = Task('smoke-job-a-relay', run=(
+            f'export ENGINE_FLAGS="${{ENGINE_FLAGS/{weights}/'
+            f'$SKYTPU_AGENT_HOME{spec["mount"]}}}" && ' + LAUNCH_JOB_A),
+            envs={'ENGINE_FLAGS': json.dumps(
+                LAUNCH['flags'] + ['--checkpoint', weights]),
+                  'PROMPTS': json.dumps(launch_ctx['prompts']),
+                  'MAX_NEW': str(LAUNCH['max_new'])},
+            storage_mounts={spec['mount']: {'source': dst_url,
+                                            'mode': 'MOUNT'}})
+        task.set_resources(Resources.from_yaml_config(
+            {'infra': 'local', 'accelerators': spec['accelerators']}))
+        t0 = time.perf_counter()
+        job_id, handle = execution.launch(task, cluster, detach_run=True,
+                                          quiet_optimizer=True)
+        launch_s = time.perf_counter() - t0
+        agent_pid = handle.extras['agent_pid']
+        rec = _wait_job_status(core, cluster, job_id, spec['job_timeout_s'],
+                               JobStatus.is_terminal)
+        text = _job_log(core, cluster, job_id)
+        if JobStatus(rec['status']) is not JobStatus.SUCCEEDED:
+            raise SystemExit(f'job A from the S3 mount ended '
+                             f'{rec["status"]}:\n{text[-4000:]}')
+        job_s = rec['ended_at'] - rec['started_at']
+        lines = [line for line in text.splitlines()
+                 if line.startswith('{"tokens"')]
+        if len(lines) != 1:
+            raise SystemExit(f'job A from the S3 mount printed {len(lines)} '
+                             f'result lines:\n{text[-4000:]}')
+        out = json.loads(lines[0])
+        counts = {name: out['launches'].get(name, 0)
+                  for name in KERNEL_NAMES}
+        log(f'  launch (optimize, provision, mount, submit) {launch_s:.2f} '
+            f's; job A SUCCEEDED in {job_s:.2f} s on {out["device"]}: '
+            f'launches {counts}')
+        if out['device'] != card or 'RANDOM-INIT' in text:
+            raise SystemExit(f'job A ran on {out["device"]}, not {card}, or '
+                             f'without the mounted weights:\n{text[-4000:]}')
+        if out['tokens'] != launch_ctx['tokens']:
+            raise SystemExit(f'job A from the S3 mount gave {out["tokens"]}, '
+                             f'the launch phase {launch_ctx["tokens"]}')
+        want_counts = dict.fromkeys(KERNEL_NAMES, 0)
+        want_counts['flash_attention_fwd'] = spec['fwd_launches']
+        if counts != want_counts or counts != launch_counts:
+            raise SystemExit(f'job A from the S3 mount launched {counts}, '
+                             f'want {want_counts} (the launch phase: '
+                             f'{launch_counts})')
+        t0 = time.perf_counter()
+        core.down(cluster)
+        down_s = time.perf_counter() - t0
+        if global_user_state.get_cluster(cluster) is not None:
+            raise SystemExit('cluster record survived down')
+        deadline = time.monotonic() + 30
+        while _pid_alive(agent_pid):
+            if time.monotonic() > deadline:
+                raise SystemExit(f'agent {agent_pid} alive after down')
+            time.sleep(0.2)
+        release_s, free_after = _wait_free_memory(
+            free_before, spec['release_timeout_s'], spec['mem_atol_bytes'])
+        phase_s = time.perf_counter() - t_phase
+        log(f'  down {down_s:.2f} s: record gone, agent exited; free card '
+            f'memory {free_before} bytes before, {free_after} '
+            f'{release_s:.2f} s after')
+        log(f'  bucket_relay {phase_s:.2f} s (weights saved {save_s:.2f}, '
+            f'relay {relay_s:.2f}, launch {launch_s:.2f}, job {job_s:.2f}, '
+            f'down {down_s:.2f}) on {smi}')
+    finally:
+        if global_user_state.get_cluster(cluster) is not None:
+            for job in core.queue(cluster):
+                if not JobStatus(job['status']).is_terminal():
+                    core.cancel(cluster, job['job_id'])
+            core.down(cluster)
+        home.close()
+        shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
+# The canonical fleet (`fleetsim.sim.fleet_config()`: seed 20260807 and
+# serve/slo_sim.py's FLEET_* constants) as the JAX package computes it;
+# tests/test_torch_fleetsim.py holds every value here against a JAX run.
+# These are outputs of the simulation (virtual replicas costed by
+# slo_sim.FLEET_COSTS), not rates of any device.  `digest` is
+# fleet_digest() of the whole result, its per-second history included.
+FLEET_REFERENCE = dict(
+    headline=('sustains 2803 req/s at SLO with 1798 virtual replicas '
+              'across 2 pools; recovers from a 50% preemption storm in '
+              '8.0 s'),
+    admitted=365562, shed=0, no_ready=0, retried=0, peak_replicas=1798,
+    lease_frozen_s=5.0, prefix_hit_rate=0.3581,
+    alerts=[('tpot_slo_burn', 'decode', 18.0, 45.0),
+            ('tpot_slo_burn', 'decode', 75.0, 92.0),
+            ('dark_scrape', '', 81.0, 84.0)],
+    digest='cc61d3a353cc0af71b2821f0655dddddaf0ece016e8747cb9b5bdeb8240082b4')
+# The goodput sim's planted straggler (GoodputScenario(slow_host=2)), as
+# the JAX package computes it (sim clock: exact).
+GOODPUT_REFERENCE = dict(slow_host='host2', skew=5.0,
+                         alerts=['goodput_low', 'straggler'])
+FLEET = dict(timeout_s=300, goodput_slow_host=2)
+FLEET_FIELDS = ('headline', 'admitted', 'shed', 'no_ready', 'retried',
+                'peak_replicas', 'lease_frozen_s', 'prefix_hit_rate')
+
+
+def fleet_digest(result: dict) -> str:
+    """sha256 of a FleetResult's to_dict(with_history=True) without the
+    host-timed `profile` and `wall_s`."""
+    import hashlib
+    body = {k: v for k, v in result.items() if k not in ('profile', 'wall_s')}
+    return hashlib.sha256(
+        json.dumps(body, sort_keys=True).encode()).hexdigest()
+
+
+def check_fleet(result: dict) -> None:
+    """Raise unless `result` (to_dict(with_history=True)) is the JAX
+    package's canonical fleet, field by field and by digest."""
+    alerts = [(a['rule'], a['pool'], a['fired_at_s'], a['cleared_at_s'])
+              for a in result['alerts']]
+    diff = {k: (result[k], FLEET_REFERENCE[k]) for k in FLEET_FIELDS
+            if result[k] != FLEET_REFERENCE[k]}
+    if alerts != FLEET_REFERENCE['alerts']:
+        diff['alerts'] = (alerts, FLEET_REFERENCE['alerts'])
+    if fleet_digest(result) != FLEET_REFERENCE['digest']:
+        diff['digest'] = (fleet_digest(result), FLEET_REFERENCE['digest'])
+    if diff:
+        raise SystemExit(f'canonical fleet differs from the JAX package\'s '
+                         f'(got, want): {diff}')
+
+
+def check_goodput(res: dict) -> None:
+    """Raise unless the planted-straggler goodput sim tiles exactly and
+    names GOODPUT_REFERENCE's host and alerts."""
+    skew = res['skew'] or {}
+    got = dict(slow_host=skew.get('slow_host'), skew=skew.get('skew'),
+               alerts=sorted(res['active_alerts']))
+    if res['ledger_vs_wall_pct'] >= 1e-6 or got != GOODPUT_REFERENCE:
+        raise SystemExit(f'goodput sim: ledger vs wall '
+                         f'{res["ledger_vs_wall_pct"]}%, {got}, want < 1e-6% '
+                         f'and {GOODPUT_REFERENCE}')
+
+
+def imported_top_level(importtime_stderr: str) -> set:
+    """Top-level packages a `python -X importtime` run imported."""
+    return {line.rsplit('|', 1)[1].strip().split('.')[0]
+            for line in importtime_stderr.splitlines()
+            if line.startswith('import time:') and '|' in line}
+
+
+# A stand-in for fusermount: logs its argv, hands an fd of the payload
+# file back over _FUSE_COMMFD as the real one hands /dev/fuse, exits 0.
+FAKE_FUSERMOUNT = r'''#!/usr/bin/env python3
+import array, os, socket, sys
+with open(os.environ['FAKE_LOG'], 'w') as f:
+    f.write('\n'.join(sys.argv[1:]))
+fd = os.open(os.environ['FAKE_PAYLOAD_FILE'], os.O_RDWR)
+sock = socket.socket(fileno=int(os.environ['_FUSE_COMMFD']))
+sock.sendmsg([b'\0'], [(socket.SOL_SOCKET, socket.SCM_RIGHTS,
+                        array.array('i', [fd]))])
+sock.close()
+'''
+
+
+def fuse_relay_check(root) -> dict:
+    """The port's fuse proxy built from addons/fuse_proxy into its build
+    tree (data/fuse_proxy.py), its server run over FAKE_FUSERMOUNT, and
+    the shim's mount: argv relayed to fusermount, the fd it opened relayed
+    back through both hops over SCM_RIGHTS.  Returns the build's seconds
+    and the binaries' directory."""
+    import array
+    from skypilot_tpu_torch.data import fuse_proxy
+
+    payload = b'fd-through-the-fuse-proxy'
+    fake = os.path.join(root, 'fake-fusermount')
+    with open(fake, 'w', encoding='utf-8') as f:
+        f.write(FAKE_FUSERMOUNT)
+    os.chmod(fake, 0o755)
+    with open(os.path.join(root, 'payload.bin'), 'wb') as f:
+        f.write(payload)
+    env = {'FAKE_LOG': os.path.join(root, 'argv.log'),
+           'FAKE_PAYLOAD_FILE': os.path.join(root, 'payload.bin')}
+    t0 = time.perf_counter()
+    bin_dir = fuse_proxy.build(force=True)
+    build_s = time.perf_counter() - t0
+    sock_path = os.path.join(root, 'fp.sock')
+    # The server forks the fake with its own environment.
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    server = fuse_proxy.FuseProxyServer(sock_path, fusermount_bin=fake)
+    ours, theirs = socket.socketpair()
+    try:
+        server.start()
+        proc = subprocess.run(
+            [fuse_proxy.shim_binary(), '-o', 'rw', '/mnt/bucket'],
+            env=dict(os.environ, FUSE_PROXY_SOCKET=sock_path,
+                     _FUSE_COMMFD=str(theirs.fileno())),
+            pass_fds=(theirs.fileno(),), capture_output=True, timeout=30)
+        theirs.close()
+        if proc.returncode != 0:
+            raise SystemExit(f'fuse shim exited {proc.returncode}: '
+                             f'{proc.stderr[-2000:]!r}')
+        ours.settimeout(10)
+        _, ancdata, _, _ = ours.recvmsg(
+            1, socket.CMSG_SPACE(array.array('i').itemsize))
+        if not ancdata:
+            raise SystemExit('no fd arrived over _FUSE_COMMFD')
+        fds = array.array('i')
+        fds.frombytes(ancdata[0][2])
+        data = os.read(fds[0], 64)
+        os.close(fds[0])
+    finally:
+        theirs.close()
+        ours.close()
+        server.stop()
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    with open(env['FAKE_LOG'], encoding='utf-8') as f:
+        argv = f.read().splitlines()
+    if data != payload or argv != ['-o', 'rw', '/mnt/bucket']:
+        raise SystemExit(f'fuse proxy relayed {data!r} with argv {argv}')
+    return {'build_s': build_s, 'bin_dir': bin_dir}
+
+
+def fleet_phase(smi):
+    """The canonical fleet through `python -m skypilot_tpu_torch.fleetsim
+    --json` in a subprocess, the goodput sim in this process, and the
+    fuse proxy's fd relay; host work only (no card)."""
+    import tempfile
+    from skypilot_tpu_torch.fleetsim import goodput_run
+
+    with tempfile.TemporaryDirectory(prefix='skytpu-fleet-') as root:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, '-X', 'importtime', '-m',
+             'skypilot_tpu_torch.fleetsim', '--json', '--db',
+             os.path.join(root, 'fleet.db')],
+            cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+            capture_output=True, text=True, timeout=FLEET['timeout_s'])
+        cli_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise SystemExit(f'fleetsim CLI exited {proc.returncode}:\n'
+                             f'{proc.stderr[-4000:]}')
+        result = json.loads(proc.stdout)
+        bad = imported_top_level(proc.stderr) & {
+            'torch', 'jax', 'jaxlib', 'flax', 'skypilot_tpu'}
+        if bad:
+            raise SystemExit(f'the fleetsim CLI imported {sorted(bad)}')
+        log(f'  canonical fleet (simulation outputs: virtual replicas '
+            f'costed by slo_sim.FLEET_COSTS): {result["headline"]}; '
+            f'admitted {result["admitted"]}, shed {result["shed"]}, '
+            f'lease frozen {result["lease_frozen_s"]} s, alerts '
+            f'{[(a["rule"], a["fired_at_s"]) for a in result["alerts"]]}')
+        check_fleet(result)
+        log(f'  equal to the JAX package\'s result (digest '
+            f'{FLEET_REFERENCE["digest"][:16]}, history included); neither '
+            f'torch nor JAX imported. Host times of the card\'s machine: '
+            f'CLI {cli_s:.2f} s, wall_s {result["wall_s"]}, profile top 3 '
+            f'{result["profile"][:3]}')
+
+        t0 = time.perf_counter()
+        res = goodput_run.run_goodput_sim(
+            goodput_run.GoodputScenario(slow_host=FLEET['goodput_slow_host']),
+            ledger_dsn=os.path.join(root, 'ledger.db'),
+            store_dsn=os.path.join(root, 'store.db'))
+        goodput_s = time.perf_counter() - t0
+        check_goodput(res)
+        log(f'  goodput sim (sim clock): goodput {res["goodput_pct"]:.2f}%, '
+            f'ledger vs wall {res["ledger_vs_wall_pct"]}%, skew '
+            f'{res["skew"]}, alerts {res["active_alerts"]}; '
+            f'{goodput_s:.2f} s of host time')
+
+        fuse = fuse_relay_check(root)
+        log(f'  fuse proxy built into {fuse["bin_dir"]} in '
+            f'{fuse["build_s"]:.2f} s (host); argv and the mount fd relayed '
+            f'through shim -> server -> fake fusermount; {smi}')
+
+
 def hbm_probe():
     """(free, total) bytes of the card as torch.cuda.mem_get_info reads
     them once this process holds its CUDA context, the caching allocator
@@ -6692,6 +7084,12 @@ def main() -> int:
     log(f'[ssh_pool] {SSH_POOL}')
     by_path['ssh_pool'] = phase('ssh_pool', ssh_pool_phase, device, card,
                                 smi, launch_ctx, by_path['launch'])
+    # After ssh_pool, whose remote bootstrap's pkill stops every port agent
+    # on this host.
+    log(f'[bucket_relay] {BUCKET_RELAY}')
+    by_path['bucket_relay'] = phase('bucket_relay', bucket_relay_phase,
+                                    device, card, smi, launch_ctx,
+                                    by_path['launch'])
 
     from skypilot_tpu_torch.perf import compile_telemetry
     log(f'[build] compile telemetry {compile_telemetry.summary()} '
@@ -6763,9 +7161,13 @@ def main() -> int:
     by_path['perf_gate'], small_launches = phase('perf_gate',
                                                  perf_gate_phase, device,
                                                  card)
-    # This run's new path and the kernels it runs (the job on the SSH
-    # pool serves: the flash forward, no backward).
-    new_paths = {'ssh_pool': ('flash_attention_fwd',)}
+    # Last: the goodput sim resets the port's metrics registry.
+    log(f'[fleet] {FLEET}')
+    phase('fleet', fleet_phase, smi)
+    # The newest paths and the kernels they run (the jobs on the SSH pool
+    # and from the relayed bucket serve: the flash forward, no backward).
+    new_paths = {'ssh_pool': ('flash_attention_fwd',),
+                 'bucket_relay': ('flash_attention_fwd',)}
     for path, names in new_paths.items():
         for name in names:
             if not by_path[path][name]:

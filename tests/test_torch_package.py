@@ -65,7 +65,12 @@ COPIED = ['sky_logging.py', 'utils/timeline.py', 'server/metrics.py',
           'provision/ssh/instance.py', 'catalog/aws_catalog.py',
           'catalog/data_fetchers/__init__.py', 'authentication.py',
           'ssh_node_pools.py', 'data/__init__.py', 'data/storage.py',
-          'volumes.py']
+          'volumes.py',
+          # The fleet simulator and the goodput sim, and the cross-cloud
+          # bucket transfer.
+          'fleetsim/traffic.py', 'fleetsim/scenario.py',
+          'fleetsim/profile.py', 'fleetsim/sim.py',
+          'fleetsim/goodput_run.py', 'data/transfer.py']
 # Modules whose code is the original's with the package renamed (import
 # lines and the constants that name the package), docstrings aside: the
 # analyzer's modules copied from skypilot_tpu/analysis/ (their docstrings
@@ -76,7 +81,8 @@ COPIED = ['sky_logging.py', 'utils/timeline.py', 'server/metrics.py',
 # and the dedicated-controller mode's, whose commands name the module
 # they run on the controller host; the API server's app and the SDK,
 # whose commands name the server module they start; the GCP catalog
-# fetcher, whose usage line names its module.
+# fetcher, whose usage line names its module; the fleet simulator's
+# package and CLI, which name the module a user runs.
 COPIED_CODE = ['obs/alerts.py', 'analysis/core.py', 'analysis/reporters.py',
                'analysis/rules/blocking_async.py',
                'analysis/rules/db_discipline.py',
@@ -85,7 +91,8 @@ COPIED_CODE = ['obs/alerts.py', 'analysis/core.py', 'analysis/reporters.py',
                'task.py', 'catalog/common.py', 'provision/__init__.py',
                'controller_vm.py', 'jobs/remote_exec.py',
                'jobs/controller_daemon.py', 'server/app.py', 'client/sdk.py',
-               'catalog/data_fetchers/fetch_gcp.py']
+               'catalog/data_fetchers/fetch_gcp.py', 'fleetsim/__init__.py',
+               'fleetsim/__main__.py']
 # The port's deliberate rewrites, each a counterpart whose docstring names
 # its twin and says how it differs: the launch path's
 # (tests/test_torch_launch.py and test_torch_control_plane.py hold their
@@ -93,12 +100,14 @@ COPIED_CODE = ['obs/alerts.py', 'analysis/core.py', 'analysis/reporters.py',
 # over the port's modules (tests/test_torch_api_server.py), the sqlite
 # store whose WAL switch survives a concurrent open
 # (tests/test_torch_sqlite.py), the Docker runtime that hands a GPU task
-# the cards (tests/test_torch_docker.py), and the agent client that waits
-# for its SSH tunnel to open (tests/test_torch_ssh.py).
+# the cards (tests/test_torch_docker.py), the agent client that waits
+# for its SSH tunnel to open (tests/test_torch_ssh.py), and the fuse proxy
+# that builds into the port's own build tree
+# (tests/test_torch_fuse_proxy.py).
 COUNTERPARTS = ['agent/gang.py', 'agent/server.py', 'agent/client.py',
                 'backends/tpu_vm_backend.py', 'server/__init__.py',
                 'client/cli.py', 'state/sqlite.py',
-                'provision/docker_utils.py']
+                'provision/docker_utils.py', 'data/fuse_proxy.py']
 # Every kernel source of the port (csrc/).
 KERNEL_SOURCES = ['flash_attention_bwd_dkv.cu',
                   'flash_attention_bwd_dkv_small.cu',
@@ -687,10 +696,9 @@ def test_clouds_slice_modules_are_covered():
     pinned or a counterpart that names its twin, as are the modules this
     slice turned back into copies (the registry, bucket storage, volumes)
     and the sqlite store it repaired; the JAX package's paths the port
-    still lacks are fleetsim/, the transfer and FUSE-proxy modules and the
-    Pallas kernels (replaced by ops/cuda/); no module of the port refers a
-    reader to the queue item this slice closed; the kernel sources are the
-    known set (this slice adds no kernel)."""
+    lacks are only the Pallas kernels (replaced by ops/cuda/); no module
+    of the port refers a reader to the queue item this slice closed; the
+    kernel sources are the known set (this slice adds no kernel)."""
     assert len(CLOUD_SLICE) == 27
     assert_covered(CLOUD_SLICE + ['clouds/__init__.py', 'data/storage.py',
                                   'data/__init__.py', 'volumes.py',
@@ -700,12 +708,8 @@ def test_clouds_slice_modules_are_covered():
     jax_side = {p.relative_to(REPO / 'skypilot_tpu').as_posix()
                 for p in (REPO / 'skypilot_tpu').rglob('*.py')}
     port_side = {p.relative_to(PORT).as_posix() for p in PORT.rglob('*.py')}
-    assert sorted(jax_side - port_side) == sorted(
-        ['data/fuse_proxy.py', 'data/transfer.py', 'ops/pallas/__init__.py',
-         'ops/pallas/flash_attention.py'] +
-        [f'fleetsim/{m}.py' for m in ('__init__', '__main__', 'goodput_run',
-                                      'profile', 'scenario', 'sim',
-                                      'traffic')])
+    assert sorted(jax_side - port_side) == [
+        'ops/pallas/__init__.py', 'ops/pallas/flash_attention.py']
     for path in sorted(PORT.rglob('*.py')):
         text = ' '.join(path.read_text().split())
         assert 'Queue 1 item 2' not in text, path
@@ -727,6 +731,49 @@ def test_clouds_and_provisioners_import_neither_torch_nor_jax():
         'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
         '("torch", "jax", "jaxlib", "flax", "skypilot_tpu", "boto3", '
         '"botocore") or m.startswith("google.auth"))\n'
+        'assert not bad, bad\n'
+        'print("ok")\n')
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, '-c', code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == 'ok'
+
+
+# The fleet simulator, the goodput sim, the transfer and the fuse proxy.
+LAST_SLICE = [f'fleetsim/{m}.py' for m in ('__init__', '__main__',
+                                           'goodput_run', 'profile',
+                                           'scenario', 'sim', 'traffic')] + [
+    'data/transfer.py', 'data/fuse_proxy.py']
+
+
+def test_last_slice_modules_are_covered():
+    """The port has every module path of the JAX package but the two
+    Pallas modules that ops/cuda/ replaces; the last slice's nine paths
+    are each pinned or a counterpart that names its twin; the kernel
+    sources are the known set (this slice adds no kernel)."""
+    assert len(LAST_SLICE) == 9
+    assert_covered(LAST_SLICE)
+    jax_side = {p.relative_to(REPO / 'skypilot_tpu').as_posix()
+                for p in (REPO / 'skypilot_tpu').rglob('*.py')}
+    port_side = {p.relative_to(PORT).as_posix() for p in PORT.rglob('*.py')}
+    assert jax_side - port_side == {'ops/pallas/__init__.py',
+                                    'ops/pallas/flash_attention.py'}
+    assert sorted(p.name for p in (PORT / 'csrc').glob('*.cu*')) == (
+        KERNEL_SOURCES)
+
+
+def test_last_slice_imports_neither_torch_nor_jax():
+    """The fleet simulator (its CLI too), the goodput sim, the transfer
+    and the fuse proxy import neither torch nor JAX: they run on any host
+    beside the head agent, a request worker and the load balancer."""
+    mods = ', '.join(f'skypilot_tpu_torch.{rel[:-3].replace("/", ".")}'
+                     .replace('.__init__', '') for rel in LAST_SLICE)
+    code = (
+        'import sys\n'
+        f'import {mods}\n'
+        'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
+        '("torch", "jax", "jaxlib", "flax", "skypilot_tpu"))\n'
         'assert not bad, bad\n'
         'print("ok")\n')
     env = dict(os.environ, PYTHONPATH=str(REPO))
