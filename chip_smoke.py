@@ -45,6 +45,25 @@ followed by its seconds:
    kernel exactly once; then the three small kernels, their plain
    versions and SDPA timed at `tiny`'s training shape (TINY_TRAIN_SHAPE)
    beside the bounds, one profiled launch each.
+3b'. Head dims (HEAD_DIM_*): every head_dim up to 256 on a CUDA tensor.
+   (a) the forward (out, lse), dq and dk/dv at head_dims 8, 24, 48, 72,
+   80, 96, 100, 112, 160, 200 and 256 (S = 1, 17, 63, 64, 65, 129, 1000;
+   GQA groups 1, 4, 8; causal and not; bf16, fp16 too at 96 and 256)
+   against their plain versions under the kernel phase's gates, each
+   call launching the kernel of its head_dim's width exactly once (the
+   wide mma.sync kernels at 80/96/256, csrc/flash_attention_*_wide.cu;
+   the other head_dims zero-padded to the next width, counted on the
+   public wrapper's padded_launches), head_dim 257 refused; (b) the wide
+   kernels, their plain versions and SDPA timed beside the bounds at
+   Phi-2's, Phi-3-mini's, Gemma-2B's and Gemma-7B's attention shapes at
+   B=2 x 4096 and B=8 x 256, and at Phi-3-mini's the padded route 96 ->
+   128 (the wgmma kernels on zero-padded inputs); one profiled launch
+   each; (c) Llama blocks at Phi-3-mini's and Gemma-2B's widths, 2
+   layers, random weights from SEED: the dense engine (graph decode)
+   serves 4 prompts of 219 ids, 16 greedy tokens, with exact launches
+   per kernel and route and prefill logits within LOGITS_RTOL of
+   attention_impl='xla'; Trainer.run takes 3 steps at 2 x 2048 with
+   exact launches, then the gradient check of phase 8.
 3c. Sync audit (SYNC_AUDIT): first which synchronizing forms
    torch.cuda.set_sync_debug_mode('warn') reports on this torch (.item(),
    .cpu(), .tolist(), torch.cuda.synchronize(), .nonzero(), a pinned
@@ -144,7 +163,7 @@ followed by its seconds:
    H100:1 with the S3 bucket MOUNTed as its weights (`--checkpoint` at
    the mount): its tokens and launches the launch phase's; core.down,
    the agent exited, the card's memory back.
-4. Serving: llama2-7b at full width, 16 of its 32 layers (SERVE; bf16
+4. Serving: llama2-7b at full width, 8 of its 32 layers (SERVE; bf16
    random weights from a seed) behind the port's HTTP app on a local port, 8 prompts of 219
    tokens plus one of 300 (chunked prefill), 32 new tokens each; every
    response checked; kernel launch counts read around this run; prefill
@@ -164,7 +183,7 @@ followed by its seconds:
    every engine is prewarmed, and its traffic must build nothing (no
    counted build, no perf.recompile event).
 5. Paged serving, over the same prompts and the first 8 of the serving
-   weights' 16 layers (PAGED): the dense
+   weights' 8 layers (PAGED): the dense
    and the 64-token-paged engine on the engine API, each with its decode
    call as a CUDA graph and eager (identical tokens all four ways; out-
    tok/s, TTFT p50 and one profiled decode call each, its decode-only
@@ -298,14 +317,14 @@ followed by its seconds:
    PIPELINE_RTOL per tensor), exact launches per rank.
 13. Expert parallelism (EXPERT): (a) whether gloo runs all_to_all_single
    on CUDA tensors (it must: the expert exchange hands them over as they
-   are); MOE_TRAIN's model at expert=2, fsdp=1, two gloo ranks on
+   are); MOE_TRAIN's model at 2 layers, expert=2, fsdp=1, two gloo ranks on
    cuda:0 through Trainer(..., mesh=), 1 + 2 steps at 4 x 2048, each
    step's loss and grad norm against the one-device trainer's (SHARDED's
    gates), 4 experts a rank, exact launches.
-14. MoE serving over tensor=2 (MOE_TENSOR): MOE_SERVE's model at 4 of 16
+14. MoE serving over tensor=2 (MOE_TENSOR): MOE_SERVE's model at 2 of 16
    layers, two gloo ranks on cuda:0: bf16 first-step logits
    bit-identical to one device computing the same arithmetic, within
-   LOGITS_RTOL of the plain model, 4 flash launches on rank 0; f32
+   LOGITS_RTOL of the plain model, one flash launch a layer on rank 0; f32
    ('xla') greedy tokens of MOE_SERVE's traffic identical to one device,
    dense and paged.
 15. Graft entry: the port's `graft_entry.entry()` (llama-250m, [1,
@@ -345,7 +364,9 @@ followed by its seconds:
    launched the flash forward); the three small-head-dim
    kernels' rows
    launched on tiny_training and sync_audit, the forward's also on
-   perf_gate), the nvidia-smi
+   perf_gate; the three wide kernels' rows launched on head_dims, with
+   their times at every timed shape, the padded route's, ptxas registers
+   per head_dim), the nvidia-smi
    line, then {"ok": true, "device": {...}} as the last line.
 
 Needs one CUDA device; exits non-zero without one and imports nothing of
@@ -445,15 +466,16 @@ BWD_SHAPES = [(4, 16, 8, 4096, 128, True, 'bfloat16'),
               (4, 16, 4, 2048, 64, True, 'bfloat16'),
               (2, 32, 8, 1024, 64, True, 'bfloat16'),
               (*PIPE_MICRO_SHAPE, True, 'bfloat16')]
-# llama2-7b at full width with its depth cut 32 -> 16 layers (the
+# llama2-7b at full width with its depth cut 32 -> 8 layers (the
 # serving, paged, checkpoint and tensor_serving phases share the model;
-# their time is about proportional to depth, and the cut keeps the whole
-# run near half its limit).
-SERVE = dict(model='llama2-7b', n_layers=16, max_seq_len=448, n_slots=8,
+# their time is about proportional to depth: 16 layers before the
+# head_dims phase came, 8 since, to keep the run's script near 1000 s of
+# its 1200 s limit).
+SERVE = dict(model='llama2-7b', n_layers=8, max_seq_len=448, n_slots=8,
              steps_per_call=32, prefill_buckets=(256,), prompt_len=219,
              n_prompts=8, long_prompt_len=300, max_tokens=32)
 # The paged serving phase, over the serving phase's prompts and the
-# first n_layers of its weights' 16 layers (model and max_seq_len are
+# first n_layers of its weights' 8 layers (model and max_seq_len are
 # SERVE's; the depth cut keeps the smoke near half its time limit as
 # phases are added): 64-token pages divide the bucket
 # and max_seq_len, so full backing is 8 * 448/64 + 1 = 57 pages.  The
@@ -579,24 +601,26 @@ PIPELINE_RTOL = 1e-2
 # Expert parallelism, the EP x DP mesh of
 # examples/train_moe_expert_parallel.yaml:19 (fsdp=1) with its expert=8
 # cut to the one card's two ranks (4 experts a rank): MOE_TRAIN's model
-# (llama3-1b x 8 experts at full width, 4 of 16 layers, remat 'none'),
-# two gloo ranks on cuda:0 through Trainer(..., mesh=), 1 + 2 steps at
-# the global batch 4 x 2048 (2 rows a rank), each against the one-device
-# trainer's 3 steps on the same weights and batch (run first and freed)
-# with SHARDED's gates.  One device: 1.915B params, 30.6 GB of f32 AdamW
-# state; a rank: 0.805B expert and 0.305B dense params, ~17.8 GB.
-EXPERT = dict(model='llama3-1b', n_experts=8, n_layers=4, expert=2, batch=4,
+# (llama3-1b x 8 experts at full width, remat 'none') at 2 of its 16
+# layers (4 before the head_dims phase came: the ranks' gloo staging
+# scales with the params), two gloo ranks on cuda:0 through
+# Trainer(..., mesh=), 1 + 2 steps at the global batch 4 x 2048 (2 rows
+# a rank), each against the one-device trainer's 3 steps on the same
+# weights and batch (run first and freed) with SHARDED's gates.  The
+# phase prints the parameters a device and a rank hold.
+EXPERT = dict(model='llama3-1b', n_experts=8, n_layers=2, expert=2, batch=4,
               seq=2048, steps=3, warmup_steps=5, total_steps=1000,
               device='cuda:0')
 # MoE serving over tensor=2, both gloo ranks on cuda:0: MOE_SERVE's model
-# cut to 4 of 16 layers (as TENSOR's (c)) with MOE_SERVE's traffic.  (b)
+# cut to 2 of 16 layers (4 before the head_dims phase came: its eager
+# gloo decode scales with depth) with MOE_SERVE's traffic.  (b)
 # bf16 params and compute, the flash prefill: first-step logits
 # bit-identical to one device computing the same arithmetic (o and each
 # expert's w_down as two bf16 half products added in bf16) and within
 # LOGITS_RTOL of the plain one-device model; (c) f32 with attention
 # 'xla' (the kernel takes bf16/fp16): greedy tokens identical to the
 # one-device engine, dense and 64-token paged.
-MOE_TENSOR = dict(model='llama3-1b', n_experts=8, n_layers=4, tensor=2,
+MOE_TENSOR = dict(model='llama3-1b', n_experts=8, n_layers=2, tensor=2,
                   device='cuda:0')
 # The graft entry's forward (llama-250m, [1, 512]) against
 # attention_impl='xla' on the same params: LOGITS_RTOL of max |logit|.
@@ -676,12 +700,17 @@ def cold_l2_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 # Kernel symbols as ptxas and the profiler name them, by wrapper.
+# The small and the wide wrappers launch one mma.sync template each (at
+# head_dim 16/32 and 80/96/256).
 KERNEL_SYMBOLS = {'flash_attention_fwd': 'fa_fwd_kernel',
-                  'flash_attention_fwd_small': 'fa_fwd_small_kernel',
+                  'flash_attention_fwd_small': 'fa_fwd_mma_kernel',
+                  'flash_attention_fwd_wide': 'fa_fwd_mma_kernel',
                   'flash_attention_bwd_dq': 'fa_bwd_dq_kernel',
-                  'flash_attention_bwd_dq_small': 'fa_bwd_dq_small_kernel',
+                  'flash_attention_bwd_dq_small': 'fa_bwd_dq_mma_kernel',
+                  'flash_attention_bwd_dq_wide': 'fa_bwd_dq_mma_kernel',
                   'flash_attention_bwd_dkv': 'fa_bwd_dkv_kernel',
-                  'flash_attention_bwd_dkv_small': 'fa_bwd_dkv_small_kernel'}
+                  'flash_attention_bwd_dkv_small': 'fa_bwd_dkv_mma_kernel',
+                  'flash_attention_bwd_dkv_wide': 'fa_bwd_dkv_mma_kernel'}
 
 
 def ptxas_report(build_log: str) -> dict:
@@ -1241,6 +1270,438 @@ def small_kernel_phase(device):
     }
 
 
+# ----- head_dims: every head_dim up to 256 ------------------------------------
+
+# Each head_dim's kernel width (the smallest width a kernel takes that is
+# at least the head_dim) and that width's wrappers' suffix: the checker's
+# own table of the routes ops/cuda/flash_attention.py must take.
+WIDTH_SUFFIX = {16: '_small', 32: '_small', 64: '', 80: '_wide',
+                96: '_wide', 128: '', 256: '_wide'}
+# Every native width of the mma.sync kernels and every padded route: 8 ->
+# 16, 24 -> 32, 48 -> 64, 72 -> 80, 100 and 112 -> 128, 160 and 200 ->
+# 256.  Cases (b, hq, hkv, s, causal): one row, S on both sides of the
+# 32-row (D = 256) and 64-row tiles and of 128, and S = 1000; GQA groups
+# 1, 4 and 8 (Gemma-2B's 8 query heads over 1 kv head); causal and not;
+# bf16, and fp16 too at 96 and 256.  Held to PERF.md section 2's gates.
+HEAD_DIM_SWEEP = (8, 24, 48, 72, 80, 96, 100, 112, 160, 200, 256)
+HEAD_DIM_CASES = [
+    (b, hq, hkv, s, d, causal, dtype)
+    for d in HEAD_DIM_SWEEP
+    for b, hq, hkv, s, causal in ((2, 4, 4, 1, True), (2, 8, 2, 17, False),
+                                  (1, 8, 1, 63, True), (2, 4, 4, 64, False),
+                                  (1, 8, 2, 65, True), (1, 8, 1, 129, False),
+                                  (1, 8, 2, 1000, True))
+    for dtype in (('bfloat16', 'float16') if d in (96, 256)
+                  else ('bfloat16',))]
+# (hq, hkv, d) of public models' attention, timed at the training shape
+# (b, s) = (2, 4096) and at the serving bucket's (8, 256), causal bf16;
+# at Phi-3-mini's also through the padded route 96 -> 128 (the wgmma
+# kernels on zero-padded inputs), for a redesign to start from.
+HEAD_DIM_FAMILIES = {'phi-2': (32, 32, 80), 'phi-3-mini': (32, 32, 96),
+                     'gemma-2b': (8, 1, 256), 'gemma-7b': (16, 16, 256)}
+HEAD_DIM_TIMED = {'training': (2, 4096), 'serving': (8, 256)}
+# Llama blocks (RMSNorm, RoPE, SwiGLU, untied or tied embeddings) at the
+# attention widths of two public model families, from their config.json:
+# Phi-3-mini (3072 = 32 heads x 96, 32 kv heads, ffn 8192, vocab 32064,
+# untied) and Gemma-2B (2048 = 8 heads x 256 over 1 kv head, ffn 16384,
+# vocab 256000, tied, norm eps 1e-6).  Depth cut to 2 of their 32 and 18
+# layers; they are not those models (Phi-3's fused qkv, Gemma's GeGLU and
+# embedding scale are not reproduced).  Random weights from SEED; bf16
+# params to serve, f32 params and bf16 compute to train.
+HEAD_DIM_MODELS = {
+    'phi-3-mini': dict(vocab_size=32064, dim=3072, n_heads=32, n_kv_heads=32,
+                       ffn_dim=8192, rope_theta=10000.0, norm_eps=1e-5),
+    'gemma-2b': dict(vocab_size=256000, dim=2048, n_heads=8, n_kv_heads=1,
+                     ffn_dim=16384, rope_theta=10000.0, norm_eps=1e-6,
+                     tie_embeddings=True),
+}
+# Serving: 4 prompts of 219 ids in the 256 bucket, 16 greedy tokens on the
+# dense engine (its decode call a CUDA graph); training: 3 Trainer steps
+# at 2 x 2048, then grad_check at batch 1.
+HEAD_DIM_E2E = dict(n_layers=2, max_seq_len=448, n_slots=4,
+                    steps_per_call=16, prefill_buckets=(256,), n_prompts=4,
+                    prompt_len=219, max_new=16, train_batch=2,
+                    train_seq=2048, train_steps=3, grad_batch=1,
+                    warmup_steps=5, total_steps=1000)
+
+
+def route_launches(d, calls=1, kernels=('fwd', 'bwd_dq', 'bwd_dkv')):
+    """The launch and padded counts `calls` calls of each of `kernels` at
+    head_dim d must leave (read_route_launches' keys)."""
+    width = min(w for w in WIDTH_SUFFIX if w >= d)
+    want = dict.fromkeys(KERNEL_NAMES + SMALL_KERNELS + WIDE_KERNELS + PADDED,
+                         0)
+    for kernel in kernels:
+        want[f'flash_attention_{kernel}{WIDTH_SUFFIX[width]}'] += calls
+        if width != d:
+            want[f'flash_attention_{kernel}.padded'] += calls
+    return want
+
+
+def head_dims_kernel_checks(device):
+    """(a) The forward (out, lse), dq and dk/dv at HEAD_DIM_CASES against
+    their plain versions, each call launching the kernel of its head_dim's
+    width once (and the padded count once where the head_dim is no
+    width); head_dim 257 refused.  Returns {kind: max |kernel - plain|}
+    over the wide kernels' native widths, and {head_dim: worst numbers}."""
+    import torch
+    from skypilot_tpu_torch.ops.cuda import flash_attention as fa
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    errs = {'fwd': 0.0, 'dq': 0.0, 'dkv': 0.0}
+    worst = {}
+    for shape in HEAD_DIM_CASES:
+        b, hq, hkv, s, d, causal, dtype_name = shape
+        dtype = getattr(torch, dtype_name)
+        q, g = (torch.randn((b, hq, s, d), generator=gen,
+                            device=device).to(dtype) for _ in range(2))
+        k, v = (torch.randn((b, hkv, s, d), generator=gen,
+                            device=device).to(dtype) for _ in range(2))
+        zero_launches()
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                          block_size=s, return_residuals=True)
+        delta = (g.float() * out.float()).sum(-1)
+        dq = fa.flash_attention_bwd_dq(q, k, v, g, lse, delta, causal)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal)
+        torch.cuda.synchronize()
+        launched = read_route_launches()
+        if launched != route_launches(d):
+            raise SystemExit(f'head_dim {d} at {shape} launched {launched}, '
+                             f'expected {route_launches(d)}')
+        ref, ref_lse = fa.flash_attention_fwd_reference(
+            q, k, v, causal=causal, return_residuals=True)
+        diff = (out.float() - ref.float()).abs()
+        nums = {'out': diff.max().item(),
+                'lse': (lse - ref_lse).abs().max().item()}
+        if not (out.shape == q.shape and bool(torch.isfinite(out).all()) and
+                bool((diff <= OUT_ATOL + OUT_RTOL * ref.float().abs()).all())
+                and nums['lse'] <= LSE_ATOL):
+            raise SystemExit(f'the forward at head_dim {d} disagrees with '
+                             f'its plain version at {shape}: {nums}')
+        refs = (fa.flash_attention_bwd_dq_reference(q, k, v, g, lse, delta,
+                                                    causal),
+                *fa.flash_attention_bwd_dkv_reference(q, k, v, g, lse,
+                                                      delta, causal))
+        for name, x, want in zip(('dq', 'dk', 'dv'), (dq, dk, dv), refs):
+            err = (x.float() - want.float()).abs().max().item()
+            zero = want.float().abs().max().item() <= SMALL_BWD_ZERO_ATOL
+            rel = 0.0 if zero else _norm_rel(x, want)
+            if not (x.shape == want.shape and bool(torch.isfinite(x).all())
+                    and (err <= SMALL_BWD_ZERO_ATOL if zero
+                         else rel <= BWD_NORM_RTOL)):
+                raise SystemExit(f'the {name} kernel at head_dim {d} '
+                                 f'disagrees with its plain version at '
+                                 f'{shape}: norm-rel {rel}, max_abs_err '
+                                 f'{err}')
+            nums[name] = rel
+            if d in WIDTH_SUFFIX and WIDTH_SUFFIX[d] == '_wide':
+                key = 'dq' if name == 'dq' else 'dkv'
+                errs[key] = max(errs[key], err)
+        if d in WIDTH_SUFFIX and WIDTH_SUFFIX[d] == '_wide':
+            errs['fwd'] = max(errs['fwd'], nums['out'], nums['lse'])
+        row = worst.setdefault(d, dict.fromkeys(nums, 0.0))
+        for key, x in nums.items():
+            row[key] = max(row[key], x)
+    for d, row in worst.items():
+        width = min(w for w in WIDTH_SUFFIX if w >= d)
+        route = (f'{WIDTH_SUFFIX[width] or "wgmma"} kernel at {width}'
+                 + (' (zero-padded)' if width != d else ''))
+        log(f'  head_dim {d:3d} -> {route.lstrip("_")}: '
+            f'{sum(c[4] == d for c in HEAD_DIM_CASES)} cases, worst out '
+            f'max_abs_err {row["out"]:.3e} lse {row["lse"]:.3e}, norm-rel dq '
+            f'{row["dq"]:.3e} dk {row["dk"]:.3e} dv {row["dv"]:.3e}; '
+            f'launches exact')
+    q = torch.zeros((1, 2, 16, 257), dtype=torch.bfloat16, device=device)
+    try:
+        fa.flash_attention_fwd(q, q, q)
+    except ValueError as e:
+        log(f'  head_dim 257 refused: {e}')
+    else:
+        raise SystemExit('head_dim 257 was not refused')
+    return errs, worst
+
+
+def padded_route_calls(q, k, v, g, lse, delta, width):
+    """The forward, dq and dk/dv through the kernels of `width` on q, k, v
+    (and dO) zero-padded to it with the real head_dim's scale, sliced back
+    (what the wrappers do for a head_dim no kernel takes), as callables."""
+    from skypilot_tpu_torch.ops.cuda import flash_attention as fa
+    d = q.shape[-1]
+
+    def fwd():
+        qp, kp, vp = fa._pad_head_dim(width, q, k, v)
+        out, lse_ = fa._launch_fwd(*fa._route('fwd', width), qp, kp, vp,
+                                   True, True, d**-0.5)
+        return out[..., :d].contiguous(), lse_
+
+    def dq():
+        qp, kp, vp, gp = fa._pad_head_dim(width, q, k, v, g)
+        return fa._launch_dq(*fa._route('bwd_dq', width), qp, kp, vp, gp,
+                             lse, delta, True, d**-0.5)[..., :d].contiguous()
+
+    def dkv():
+        qp, kp, vp, gp = fa._pad_head_dim(width, q, k, v, g)
+        dk, dv = fa._launch_dkv(*fa._route('bwd_dkv', width), qp, kp, vp, gp,
+                                lse, delta, True, d**-0.5)
+        return dk[..., :d].contiguous(), dv[..., :d].contiguous()
+
+    return {'fwd': fwd, 'dq': dq, 'dkv': dkv}
+
+
+def head_dims_times(device):
+    """(b) The wide kernels, their plain versions and SDPA at
+    HEAD_DIM_FAMILIES' shapes beside the bounds; at Phi-3-mini's also the
+    padded route 96 -> 128 (checked against the native kernels' results);
+    one profiled launch of each wide kernel at Phi-3-mini's training
+    shape.  Returns ({(family, shape label): {kind: numbers}}, {shape
+    label: {kind: padded-route ms}}, {symbol: launch attributes})."""
+    import torch
+    from skypilot_tpu_torch.ops.cuda import flash_attention as fa
+
+    times, padded = {}, {}
+    for family, (hq, hkv, d) in HEAD_DIM_FAMILIES.items():
+        for label, (b, s) in HEAD_DIM_TIMED.items():
+            times[(family, label)] = kernel_times(
+                device, (b, hq, hkv, s, d), f'{family} {label}',
+                plain_iters=3 if label == 'training' else 20)
+    hq, hkv, d = HEAD_DIM_FAMILIES['phi-3-mini']
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    for label, (b, s) in HEAD_DIM_TIMED.items():
+        q, g = (torch.randn((b, hq, s, d), generator=gen,
+                            device=device).to(torch.bfloat16)
+                for _ in range(2))
+        k, v = (torch.randn((b, hkv, s, d), generator=gen,
+                            device=device).to(torch.bfloat16)
+                for _ in range(2))
+        out, lse = fa.flash_attention_fwd(q, k, v, return_residuals=True)
+        delta = (g.float() * out.float()).sum(-1)
+        calls = padded_route_calls(q, k, v, g, lse, delta, 128)
+        native = {'fwd': (out,),
+                  'dq': (fa.flash_attention_bwd_dq(q, k, v, g, lse, delta),),
+                  'dkv': fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta)}
+        got = {kind: call() for kind, call in calls.items()}
+        got['fwd'] = got['fwd'][:1]
+        got['dq'] = (got['dq'],)
+        rels = {kind: max(_norm_rel(x, y) for x, y in zip(got[kind],
+                                                          native[kind]))
+                for kind in calls}
+        if max(rels.values()) > BWD_NORM_RTOL:
+            raise SystemExit(f'the padded route 96 -> 128 disagrees with the '
+                             f'native kernels at {label}: {rels}')
+        padded[label] = {kind: cuda_time_ms(call)
+                         for kind, call in calls.items()}
+        native_ms = {kind: times[('phi-3-mini', label)][kind]['ms']
+                     for kind in calls}
+        log(f'  the padded route 96 -> 128 (wgmma on zero-padded inputs, '
+            f'padding and slicing included) at phi-3-mini {label} b={b} '
+            f's={s}: ' + ', '.join(
+                f'{kind} {padded[label][kind]:.4f} ms (native wide '
+                f'{native_ms[kind]:.4f} ms, norm-rel to it {rels[kind]:.1e})'
+                for kind in calls))
+        del q, k, v, g, out, lse, delta, calls, native, got
+        torch.cuda.empty_cache()
+    b, s = HEAD_DIM_TIMED['training']
+    q, g = (torch.randn((b, hq, s, d), generator=gen,
+                        device=device).to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((b, hkv, s, d), generator=gen,
+                        device=device).to(torch.bfloat16) for _ in range(2))
+    out, lse = fa.flash_attention_fwd(q, k, v, return_residuals=True)
+    bwd_args = (q, k, v, g, lse, (g.float() * out.float()).sum(-1))
+    attrs = launch_attrs({
+        'fa_fwd_mma_kernel': lambda: fa.flash_attention_fwd(
+            q, k, v, return_residuals=True),
+        'fa_bwd_dq_mma_kernel': lambda: fa.flash_attention_bwd_dq(*bwd_args),
+        'fa_bwd_dkv_mma_kernel':
+            lambda: fa.flash_attention_bwd_dkv(*bwd_args)})
+    for symbol, attr in attrs.items():
+        log(f'  launch of {symbol} at head_dim {d}: {attr}')
+    del q, k, v, g, out, lse, bwd_args
+    torch.cuda.empty_cache()
+    return times, padded, attrs
+
+
+def head_dims_models(device, card, smi):
+    """(c) HEAD_DIM_MODELS through the entry points: the dense engine
+    serves HEAD_DIM_E2E's prompts (counts zeroed just before, read just
+    after: exactly n_layers flash forwards per prefill group, on the
+    kernel of the model's head_dim, nothing else), its prefill logits
+    within LOGITS_RTOL of attention_impl='xla'; Trainer.run takes 3 steps
+    (exactly 2 forwards per layer under remat and one dq and dk/dv per
+    layer and step), finite losses, then grad_check (the plain backward
+    and xla).  Returns the summed launch counts."""
+    import numpy as np
+    import torch
+    from skypilot_tpu_torch.inference.engine import DecodeEngine, EngineConfig
+    from skypilot_tpu_torch.models.llama import LlamaConfig, Llama, init_params
+    from skypilot_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    spec = HEAD_DIM_E2E
+    total = dict.fromkeys(KERNEL_NAMES + SMALL_KERNELS + WIDE_KERNELS + PADDED,
+                          0)
+    for family, widths in HEAD_DIM_MODELS.items():
+        t0 = time.perf_counter()
+        cfg = LlamaConfig(**widths, n_layers=spec['n_layers'],
+                          max_seq_len=spec['max_seq_len'],
+                          param_dtype=torch.bfloat16)
+        params = init_params(cfg, device,
+                             torch.Generator(device=device).manual_seed(SEED))
+        model = Llama(cfg, params)
+        engine = DecodeEngine(model, EngineConfig(
+            n_slots=spec['n_slots'], steps_per_call=spec['steps_per_call'],
+            prefill_buckets=spec['prefill_buckets']), device=device)
+        engine.prewarm()
+        rng = np.random.default_rng(SEED)
+        prompts = [rng.integers(0, cfg.vocab_size,
+                                spec['prompt_len']).tolist()
+                   for _ in range(spec['n_prompts'])]
+        zero_launches()
+        groups = engine.prefill_groups
+        streams, wall, ttfts, _ = _drive(engine, prompts, spec['max_new'])
+        counts = read_route_launches()
+        groups = engine.prefill_groups - groups
+        want = route_launches(cfg.head_dim, cfg.n_layers * groups, ('fwd',))
+        if counts != want or groups < 1:
+            raise SystemExit(f'{family} serving launched {counts} over '
+                             f'{groups} prefill groups, expected {want}')
+        if any(len(t) != spec['max_new'] or
+               not all(0 <= i < cfg.vocab_size for i in t) for t in streams):
+            raise SystemExit(f'{family} served {streams}')
+        for name, n in counts.items():
+            total[name] += n
+        xla = Llama(dataclasses.replace(cfg, attention_impl='xla'), params)
+        bucket = spec['prefill_buckets'][0]
+        toks = torch.zeros((2, bucket), dtype=torch.long, device=device)
+        for j in range(2):
+            toks[j, :spec['prompt_len']] = torch.tensor(prompts[j])
+        with torch.no_grad():
+            got = model(toks, decode=True)[0][:, :spec['prompt_len']]
+            want_logits = xla(toks, decode=True)[0][:, :spec['prompt_len']]
+        err = (got - want_logits).abs().max().item()
+        scale = want_logits.abs().max().item()
+        log(f'  {family} widths ({cfg.n_layers} layers, dim {cfg.dim}, heads '
+            f'{cfg.n_heads}/{cfg.n_kv_heads} x {cfg.head_dim}, ffn '
+            f'{cfg.ffn_dim}, vocab {cfg.vocab_size}; '
+            f'{cfg.num_params() / 1e9:.3f}B params bf16) on {card}: '
+            f'{len(prompts)} x {spec["prompt_len"]} ids, {spec["max_new"]} '
+            f'greedy tokens each, graph decode: wall {wall:.3f} s, TTFT p50 '
+            f'{_p50(ttfts) * 1e3:.1f} ms; launches {counts} over {groups} '
+            f'prefill groups; prefill logits flash vs xla max_abs_err '
+            f'{err:.4f} of max |logit| {scale:.3f} (rel {err / scale:.2e}, '
+            f'gate {LOGITS_RTOL}); init + prewarm + serve '
+            f'{time.perf_counter() - t0:.1f} s')
+        if not (torch.isfinite(got).all() and err <= LOGITS_RTOL * scale):
+            raise SystemExit(f'{family} prefill logits through the kernel '
+                             f'disagree with attention_impl=xla')
+        del engine, model, xla, params, got, want_logits
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(cfg, max_seq_len=spec['train_seq'],
+                                  param_dtype=torch.float32)
+        model = Llama(cfg, init_params(
+            cfg, device, torch.Generator(device=device).manual_seed(SEED)))
+        trainer = Trainer(model, TrainConfig(
+            warmup_steps=spec['warmup_steps'],
+            total_steps=spec['total_steps']), device=device)
+        tokens = torch.randint(
+            0, cfg.vocab_size, (spec['train_batch'], spec['train_seq']),
+            device=device,
+            generator=torch.Generator(device=device).manual_seed(SEED + 2))
+        steps = spec['train_steps']
+        losses = []
+        train_step = trainer.train_step
+
+        def recording_step(state, tokens_, train_step=train_step,
+                           losses=losses):
+            state, metrics = train_step(state, tokens_)
+            losses.append(metrics['loss'])
+            return state, metrics
+
+        trainer.train_step = recording_step
+        zero_launches()
+        t1 = time.perf_counter()
+        trainer.run(iter([tokens] * steps), steps, log_every=steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        counts = read_route_launches()
+        trainer.train_step = train_step
+        losses = [float(x) for x in losses]
+        fwd_per_layer = 2 if cfg.remat else 1
+        want = route_launches(cfg.head_dim, cfg.n_layers * steps,
+                              ('bwd_dq', 'bwd_dkv'))
+        want = {name: n + (route_launches(cfg.head_dim, fwd_per_layer *
+                                          cfg.n_layers * steps,
+                                          ('fwd',))[name])
+                for name, n in want.items()}
+        log(f'  {family} widths trained: {cfg.num_params() / 1e9:.3f}B params '
+            f'f32, compute {cfg.dtype}, remat {cfg.remat}; {steps} steps at '
+            f'{spec["train_batch"]} x {spec["train_seq"]} on {smi}: '
+            f'{wall / steps * 1e3:.1f} ms a step; losses '
+            f'{[round(x, 4) for x in losses]}; launches {counts}')
+        if counts != want:
+            raise SystemExit(f'{family} training launched {counts}, '
+                             f'expected {want}')
+        if not all(map(math.isfinite, losses)):
+            raise SystemExit(f'{family}: non-finite loss {losses}')
+        for name, n in counts.items():
+            total[name] += n
+        grad_check(trainer.model, cfg, tokens[:spec['grad_batch']])
+        log(f'  {family} widths: train + gradient check '
+            f'{time.perf_counter() - t0:.1f} s')
+        del trainer, model, tokens
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+def head_dims_phase(device, card, smi, ptxas):
+    """(a), (b), (c) above; returns (the three wide kernels' kernels-line
+    entries, launches aside; the launch counts of (c))."""
+    t0 = time.perf_counter()
+    errs, worst = head_dims_kernel_checks(device)
+    t1 = time.perf_counter()
+    times, padded, attrs = head_dims_times(device)
+    t2 = time.perf_counter()
+    counts = head_dims_models(device, card, smi)
+    log(f'  head_dims split: (a) checks {t1 - t0:.1f} s, (b) times '
+        f'{t2 - t1:.1f} s, (c) models {time.perf_counter() - t2:.1f} s')
+    entries = {}
+    for kind, kernel, line in (('fwd', 'fwd', 37), ('dq', 'bwd_dq', 196),
+                               ('dkv', 'bwd_dkv', 225)):
+        name = f'flash_attention_{kernel}_wide'
+        symbol = KERNEL_SYMBOLS[name]
+        at = {f'{family} {label}': times[(family, label)][kind]
+              for family, label in times}
+        report = {d: ptxas.get((symbol, dtype, d), {})
+                  for d in (80, 96, 256) for dtype in ('bf16',)}
+        entries[kind] = {
+            'name': name, 'route': 'cuda',
+            'source': f'skypilot_tpu_torch/csrc/flash_attention_{kernel}'
+                      f'_wide.cu',
+            'replaces': f'skypilot_tpu/ops/pallas/flash_attention.py:{line}',
+            'max_abs_err': errs[kind],
+            # The kernels-line numbers at Phi-3-mini's training shape; every
+            # timed shape under at_shapes.
+            **{key: times[('phi-3-mini', 'training')][kind][key] for key in (
+                'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
+                'tflops', 'shape')},
+            'at_shapes': at,
+            'padded_route_96_to_128_ms': {label: padded[label][kind]
+                                          for label in padded},
+            'registers': max((r.get('registers') or 0)
+                             for r in report.values()) or None,
+            'registers_by_head_dim': {d: r.get('registers')
+                                      for d, r in report.items()},
+            'spill_bytes': max((r.get('spill_stores') or 0)
+                               for r in report.values())
+                           if any(report.values()) else None,
+            'smem_bytes': attrs[symbol].get('shared memory'),
+            'launch': attrs[symbol],
+            'head_dims_checked': {d: worst[d] for d in worst}}
+    return entries, counts
+
+
 def _free_port() -> int:
     with socket.socket() as sock:
         sock.bind(('127.0.0.1', 0))
@@ -1386,10 +1847,30 @@ SMALL_KERNELS = (SMALL_KERNEL, 'flash_attention_bwd_dq_small',
                  'flash_attention_bwd_dkv_small')
 
 
+# The wide-head-dim kernels' wrappers (head_dim 80, 96 and 256), and the
+# public wrappers' counts of calls that took the zero-padded route (a
+# head_dim no kernel takes, padded to the next width).
+WIDE_KERNELS = ('flash_attention_fwd_wide', 'flash_attention_bwd_dq_wide',
+                'flash_attention_bwd_dkv_wide')
+PADDED = tuple(f'{name}.padded' for name in KERNEL_NAMES)
+
+
 def zero_launches() -> None:
     from skypilot_tpu_torch.ops.cuda import flash_attention as fa
-    for name in KERNEL_NAMES + SMALL_KERNELS:
+    for name in KERNEL_NAMES + SMALL_KERNELS + WIDE_KERNELS:
         getattr(fa, name).launches = 0
+    for name in KERNEL_NAMES:
+        getattr(fa, name).padded_launches = 0
+
+
+def read_route_launches() -> dict:
+    """Every flash wrapper's launches and every padded-route count."""
+    from skypilot_tpu_torch.ops.cuda import flash_attention as fa
+    counts = {name: getattr(fa, name).launches
+              for name in KERNEL_NAMES + SMALL_KERNELS + WIDE_KERNELS}
+    counts.update({f'{name}.padded': getattr(fa, name).padded_launches
+                   for name in KERNEL_NAMES})
+    return counts
 
 
 def read_launches() -> dict:
@@ -3037,11 +3518,13 @@ def profile_train_step(trainer, tokens, card):
         log(f'    {dev_ms:9.3f} ms  x{count:<6d} {name[:90]}')
 
 
-def kernel_times(device, shape, label, kinds=('fwd', 'dq', 'dkv')):
+def kernel_times(device, shape, label, kinds=('fwd', 'dq', 'dkv'),
+                 plain_iters=20):
     """CUDA-event times of the forward, dq and dk/dv kernels (`kinds`)
     at `shape` (b, hq, hkv, s, d; causal bf16), of their plain versions
-    and of SDPA (forward; backward: one call for dq, dk and dv), beside
-    the bounds.  Returns {kind: numbers}."""
+    (the mean of `plain_iters` calls) and of SDPA (forward; backward: one
+    call for dq, dk and dv), beside the bounds.  Returns {kind:
+    numbers}."""
     import torch
     import torch.nn.functional as F
     from skypilot_tpu_torch.ops.cuda import flash_attention as fa
@@ -3085,7 +3568,9 @@ def kernel_times(device, shape, label, kinds=('fwd', 'dq', 'dkv')):
             bound_ms, bound_by, flops, nbytes = bwd_bound(kind, b, hq, hkv,
                                                           s, d, True)
         times[kind] = {'ms': cuda_time_ms(kernel),
-                       'plain_ms': cuda_time_ms(plain),
+                       'plain_ms': cuda_time_ms(
+                           plain, iters=plain_iters,
+                           warmup=min(3, plain_iters)),
                        'bound_ms': bound_ms, 'bound_by': bound_by,
                        'library_ms': lib_fwd_ms if kind == 'fwd'
                        else lib_bwd_ms,
@@ -7063,8 +7548,16 @@ def main() -> int:
                            MOE_PREFILL_SHAPE, 'MoE prefill', ('fwd',))
     at_moe_train = phase('kernels', kernel_times, device, MOE_TRAIN_SHAPE,
                          'MoE training')
-    log(f'[sync_audit] {SYNC_AUDIT}')
     by_path = {}
+    log(f'[head_dims] every head_dim up to 256: {len(HEAD_DIM_CASES)} cases '
+        f'at head_dims {HEAD_DIM_SWEEP} vs the plain versions (forward out '
+        f'|d| <= {OUT_ATOL} + {OUT_RTOL}*|ref|, lse {LSE_ATOL}; dq, dk/dv '
+        f'norm-rel {BWD_NORM_RTOL}); the wide kernels timed at '
+        f'{HEAD_DIM_FAMILIES} x {HEAD_DIM_TIMED}; {list(HEAD_DIM_MODELS)} '
+        f'widths served and trained ({HEAD_DIM_E2E})')
+    wide, by_path['head_dims'] = phase('head_dims', head_dims_phase, device,
+                                       card, smi, ptxas)
+    log(f'[sync_audit] {SYNC_AUDIT}')
     by_path['sync_audit'] = phase('sync_audit', sync_audit_phase, device,
                                   card)
     log(f'[launch] {LAUNCH}')
@@ -7167,7 +7660,8 @@ def main() -> int:
     # The newest paths and the kernels they run (the jobs on the SSH pool
     # and from the relayed bucket serve: the flash forward, no backward).
     new_paths = {'ssh_pool': ('flash_attention_fwd',),
-                 'bucket_relay': ('flash_attention_fwd',)}
+                 'bucket_relay': ('flash_attention_fwd',),
+                 'head_dims': WIDE_KERNELS}
     for path, names in new_paths.items():
         for name in names:
             if not by_path[path][name]:
@@ -7225,6 +7719,18 @@ def main() -> int:
                      smem_bytes=entry['launch'].get('shared memory'),
                      launches=sum(counts.values()),
                      launches_by_path=counts)
+        rows.append({**{key: entry[key] for key in keys},
+                     **{key: entry[key] for key in entry if key not in keys}})
+    # The wide kernels (head_dim 80, 96, 256): launched on the head_dims
+    # path's serving and training runs.
+    for entry in (wide['fwd'], wide['dq'], wide['dkv']):
+        counts = {path: c.get(entry['name'], 0)
+                  for path, c in by_path.items()
+                  if c.get(entry['name'], 0)}
+        if not counts:
+            raise SystemExit(f'{entry["name"]} was never launched on the '
+                             f'main paths')
+        entry.update(launches=sum(counts.values()), launches_by_path=counts)
         rows.append({**{key: entry[key] for key in keys},
                      **{key: entry[key] for key in entry if key not in keys}})
     kernels = {'kernels': rows}

@@ -1,10 +1,11 @@
-// The mma.sync building blocks of the small-head-dim flash-attention
-// kernels (forward, dq, dk/dv at D = 16 and 32): cp.async copies of 16
-// bytes into shared memory, the m16n8k16 bf16/fp16 -> f32 product, and
-// 32-bit fragment loads from shared rows.  The wgmma layout of
-// sm90_common.cuh assumes 128-byte rows, which a 16- or 32-wide row is not,
-// so these kernels use the warp-level product and plain padded rows (no
-// swizzle).
+// The mma.sync building blocks of the flash-attention kernels that are
+// not wgmma (forward, dq, dk/dv at D = 16, 32, 80, 96 and 256; the
+// kernel templates are in flash_attention_{fwd,bwd_dq,bwd_dkv}_mma.cuh):
+// cp.async copies of 16 bytes into shared memory, the m16n8k16 bf16/fp16
+// -> f32 product, and 32-bit fragment loads from shared rows.  The wgmma
+// layout of sm90_common.cuh assumes 64-element rows of 128 bytes (D = 64
+// and 128), which a 16-, 32-, 80-, 96- or 256-wide row is not, so these
+// kernels use the warp-level product and plain padded rows (no swizzle).
 //
 // m16n8k16 fragments, per lane l of the warp (g = l / 4, c = l % 4):
 // - A (16 x 16, row-major): register r holds row g + 8 (r % 2), columns
@@ -71,19 +72,19 @@ __device__ __forceinline__ uint32_t pack_u16(const void* lo, const void* hi) {
          (uint32_t(*reinterpret_cast<const uint16_t*>(hi)) << 16);
 }
 
-// Shared-memory rows are padded by kPad elements (48 or 80 bytes at D = 16
-// or 32), which makes both the row-wise 32-bit fragment reads (one word
-// per row) and the column-wise 16-bit reads of pack_u16 conflict-free.
+// Shared-memory rows are padded by kPad elements: for every D that is a
+// multiple of 16, a row of D + 8 elements is 4 words past a multiple of 8,
+// which makes both the row-wise 32-bit fragment reads (one word per row,
+// the 8 rows of a fragment on 8 distinct groups of 4 banks) and the
+// column-wise 16-bit reads of pack_u16 conflict-free.
 constexpr int kPad = 8;
 
-// Rows row0 .. row0 + kRows - 1 of two [s_len, D] heads `a` and `b` into
-// the padded shared tiles `a_s` and `b_s` (row stride D + kPad) by
-// cp.async, 16 bytes a thread and copy, rows past S zero-filled; one
-// commit group.
+// Rows row0 .. row0 + kRows - 1 of a [s_len, D] head `a` into the padded
+// shared tile `a_s` (row stride D + kPad) by cp.async, 16 bytes a thread
+// and copy, rows past S zero-filled; joins the open commit group.
 template <int D, int kRows, int kThreads, typename T>
-__device__ __forceinline__ void load_tile_pair(T* a_s, T* b_s, const T* a,
-                                               const T* b, int row0,
-                                               int s_len) {
+__device__ __forceinline__ void load_rows(T* a_s, const T* a, int row0,
+                                          int s_len) {
   constexpr int kChunks = D / 8;  // 16-byte chunks per row
   for (int c = threadIdx.x; c < kRows * kChunks; c += kThreads) {
     const int row = c / kChunks;
@@ -91,9 +92,40 @@ __device__ __forceinline__ void load_tile_pair(T* a_s, T* b_s, const T* a,
     const bool valid = row0 + row < s_len;
     const size_t off = size_t(valid ? row0 + row : 0) * D + col;
     cp_async16(&a_s[row * (D + kPad) + col], a + off, valid);
-    cp_async16(&b_s[row * (D + kPad) + col], b + off, valid);
   }
+}
+
+// The same rows of two heads `a` and `b` into `a_s` and `b_s`; closes one
+// commit group.
+template <int D, int kRows, int kThreads, typename T>
+__device__ __forceinline__ void load_tile_pair(T* a_s, T* b_s, const T* a,
+                                               const T* b, int row0,
+                                               int s_len) {
+  load_rows<D, kRows, kThreads>(a_s, a, row0, s_len);
+  load_rows<D, kRows, kThreads>(b_s, b, row0, s_len);
   cp_async_commit();
+}
+
+// The A fragment of k-step kk (columns 16 kk .. 16 kk + 15) of the 16
+// rows row0 .. row0 + 15 of a padded shared tile (row stride ld).
+template <typename T>
+__device__ __forceinline__ void load_a_smem(uint32_t (&frag)[4], const T* tile,
+                                            int ld, int row0, int kk, int g,
+                                            int quad) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    frag[r] = load_u32(tile + (row0 + g + 8 * (r % 2)) * ld + 16 * kk +
+                       2 * quad + 8 * (r / 2));
+}
+
+// Opts `kernel` in to `bytes` of dynamic shared memory where that is past
+// the 48 KB every launch may take.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
 }
 
 // The A fragments of rows `rows` (this lane's two) of a [s_len, D] head

@@ -6,10 +6,7 @@ PyTorch/CUDA counterparts of `skypilot_tpu/ops/pallas/flash_attention.py`:
   [B, Hkv, S, D] -> out [B, Hq, S, D] in q's dtype and, with
   `return_residuals=True`, the row logsumexp [B, Hq, S] f32 (+inf for
   all-masked rows).  Source `csrc/flash_attention_fwd.cu` (wgmma, a TMA
-  ring of K/V stages, the softmax in registers) at head_dim 64 and 128;
-  at head_dim 16 and 32 it hands the call to `flash_attention_fwd_small`
-  (`csrc/flash_attention_fwd_small.cu`: mma.sync m16n8k16, K/V tiles by
-  cp.async), whose launches it counts apart.
+  ring of K/V stages, the softmax in registers) at head_dim 64 and 128.
 - `flash_attention_bwd` (the Pallas `flash_attention_bwd`): the same
   contract minus `interpret`; delta = rowsum(dO * O) in PyTorch, then
   `flash_attention_bwd_dq` (`_fa_bwd_dq_kernel`; source
@@ -17,13 +14,26 @@ PyTorch/CUDA counterparts of `skypilot_tpu/ops/pallas/flash_attention.py`:
   in registers) and `flash_attention_bwd_dkv` (`_fa_bwd_dkv_kernel`,
   dk/dv already summed to Hkv heads; source
   `csrc/flash_attention_bwd_dkv.cu`, wgmma with P^T and dS^T in
-  registers).  At head_dim 16 and 32 they hand the call to
-  `flash_attention_bwd_dq_small` and `flash_attention_bwd_dkv_small`
-  (`csrc/flash_attention_bwd_{dq,dkv}_small.cu`, mma.sync as the small
-  forward), whose launches they count apart.  The Hopper building blocks
-  the three wgmma kernels share are in `csrc/sm90_common.cuh`; the
-  mma.sync ones of the three small kernels in `csrc/sm80_mma.cuh`.  Any
-  other head_dim is refused.
+  registers), at head_dim 64 and 128.
+
+The same three kernels in mma.sync m16n8k16 (K/V or Q/dO tiles by
+cp.async; templates in `csrc/flash_attention_{fwd,bwd_dq,bwd_dkv}_mma.cuh`)
+take the widths the wgmma kernels' 64-element swizzled rows do not: 16
+and 32 (`csrc/*_small.cu`, the wrappers `flash_attention_fwd_small`,
+`flash_attention_bwd_dq_small`, `flash_attention_bwd_dkv_small`) and 80,
+96 and 256 (`csrc/*_wide.cu`, the `*_wide` wrappers).  The public
+wrappers route by head_dim alone (`kernel_width`): a kernel width (16,
+32, 64, 80, 96, 128, 256) goes to its kernel; any other head_dim up to
+256 is zero-padded in q, k, v (and dO) to the smallest wider width, runs
+that width's kernel with the real head_dim^-1/2 as its scale (zero
+columns add nothing to Q K^T or dO V^T, so out, lse and the gradients
+are the same function), and out, dq, dk and dv are sliced back; past 256
+the call is refused.  The padded route is no fallback: no route is
+tried after another fails.  Each launch counts on the `.launches` of
+the wrapper of the kernel that ran; each padded call also on the public
+wrapper's `.padded_launches`.  The Hopper building blocks the three
+wgmma kernels share are in `csrc/sm90_common.cuh`; the mma.sync ones in
+`csrc/sm80_mma.cuh`.
 
 GQA reads kv head h // (Hq // Hkv) inside the kernels.  Every source in
 `csrc/` is compiled with nvcc for sm_90a (one process per source, in
@@ -67,12 +77,18 @@ COMPILE_FLAGS = ARCH_FLAGS + ('-std=c++17', '-O3', '-Xcompiler', '-fPIC',
                               '-Xptxas', '-v', '-c')
 LINK_FLAGS = ARCH_FLAGS + ('-shared',)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1}
-# Head dims of the wgmma kernels (forward, dq, dk/dv), of the mma.sync
-# ones (the same three at the small head dims), and of the wrappers that
-# hand each call to one or the other.
+# Head dims of the wgmma kernels (forward, dq, dk/dv), and of the mma.sync
+# ones (the same three) at the small and at the wide widths.  Every other
+# head_dim up to the widest is zero-padded to the next of these widths.
 _HEAD_DIMS = (64, 128)
 _SMALL_HEAD_DIMS = (16, 32)
-_ALL_HEAD_DIMS = _SMALL_HEAD_DIMS + _HEAD_DIMS
+_WIDE_HEAD_DIMS = (80, 96, 256)
+KERNEL_WIDTHS = tuple(sorted(_HEAD_DIMS + _SMALL_HEAD_DIMS + _WIDE_HEAD_DIMS))
+MAX_HEAD_DIM = KERNEL_WIDTHS[-1]
+# The suffix of each width's C entry and wrapper.
+_ROUTE_SUFFIX = {**dict.fromkeys(_HEAD_DIMS, ''),
+                 **dict.fromkeys(_SMALL_HEAD_DIMS, '_small'),
+                 **dict.fromkeys(_WIDE_HEAD_DIMS, '_wide')}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argtypes.
@@ -81,13 +97,19 @@ _SIGNATURES = {
         [_P] * 5 + [_I] * 6 + [ctypes.c_float, _I, _P],
     'skytpu_flash_attention_fwd_small':
         [_P] * 5 + [_I] * 6 + [ctypes.c_float, _I, _P],
+    'skytpu_flash_attention_fwd_wide':
+        [_P] * 5 + [_I] * 6 + [ctypes.c_float, _I, _P],
     'skytpu_flash_attention_bwd_dq':
         [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I, _P],
     'skytpu_flash_attention_bwd_dq_small':
         [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I, _P],
+    'skytpu_flash_attention_bwd_dq_wide':
+        [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I, _P],
     'skytpu_flash_attention_bwd_dkv':
         [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _P],
     'skytpu_flash_attention_bwd_dkv_small':
+        [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _P],
+    'skytpu_flash_attention_bwd_dkv_wide':
         [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _P],
 }
 
@@ -208,10 +230,11 @@ def _device_type(*tensors: torch.Tensor) -> str:
                      f'(all on one), got {sorted(devices)}')
 
 
-def _check_cuda_inputs(q, k, v, *same_as_q, head_dims) -> None:
+def _check_cuda_inputs(q, k, v, *same_as_q, head_dims=None) -> None:
     """q and same_as_q [B,Hq,S,D], k/v [B,Hkv,S,D]: one device and dtype
-    (bf16/fp16), head_dim in `head_dims`, contiguous and 16-byte
-    aligned."""
+    (bf16/fp16), head_dim in `head_dims` (any with None: the public
+    wrappers' `kernel_width` refuses past MAX_HEAD_DIM), contiguous and
+    16-byte aligned."""
     b, hq, s, d = q.shape
     for name, t in (('q', q), ('k', k), ('v', v),
                     *((f'arg{i}', t) for i, t in enumerate(same_as_q))):
@@ -226,7 +249,7 @@ def _check_cuda_inputs(q, k, v, *same_as_q, head_dims) -> None:
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f'flash-attention kernels take bf16/fp16, '
                          f'got {q.dtype}')
-    if d not in head_dims:
+    if head_dims is not None and d not in head_dims:
         raise ValueError(f'head_dim {d} not in {head_dims}: the kernel '
                          f'takes head_dim {", ".join(map(str, head_dims))}')
     if (k.dim() != 4 or k.shape != v.shape or k.shape[0] != b or
@@ -247,6 +270,32 @@ def _check_rows(q, *rows) -> None:
                              f'{t.dtype} {tuple(t.shape)} on {t.device}')
 
 
+def kernel_width(head_dim: int) -> int:
+    """The kernel width a CUDA call at `head_dim` runs: head_dim itself
+    where a kernel takes it, else the smallest wider one (the wrappers
+    zero-pad to it); refused past MAX_HEAD_DIM."""
+    for width in KERNEL_WIDTHS:
+        if head_dim <= width:
+            return width
+    raise ValueError(f'head_dim {head_dim} is past {MAX_HEAD_DIM}, the '
+                     f'widest flash-attention kernel: the kernels take '
+                     f'head_dim 1 to {MAX_HEAD_DIM}')
+
+
+def _route(kernel: str, width: int):
+    """(C entry, the wrapper that counts its launches) of `kernel` ('fwd',
+    'bwd_dq' or 'bwd_dkv') at a kernel width."""
+    name = f'flash_attention_{kernel}{_ROUTE_SUFFIX[width]}'
+    return f'skytpu_{name}', globals()[name]
+
+
+def _pad_head_dim(width: int, *tensors: torch.Tensor) -> List[torch.Tensor]:
+    """Each [..., D] tensor zero-padded to [..., width] (a new contiguous
+    tensor)."""
+    return [torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+            for t in tensors]
+
+
 def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -261,15 +310,18 @@ def _raise_on(err: int, name: str) -> None:
 
 def flash_attention_fwd_reference(q: torch.Tensor, k: torch.Tensor,
                                   v: torch.Tensor, causal: bool = True,
-                                  return_residuals: bool = False):
+                                  return_residuals: bool = False,
+                                  scale: Optional[float] = None):
     """Plain PyTorch version of the kernel's function, in f32: -1e30
     masking, 0 output and +inf lse for rows whose denominator is 0, then
-    out cast to q's dtype."""
+    out cast to q's dtype.  `scale` is the C entries' (head_dim^-1/2 when
+    None)."""
     b, hq, s, d = q.shape
     group = hq // k.shape[1]
     kf = k.float().repeat_interleave(group, dim=1)
     vf = v.float().repeat_interleave(group, dim=1)
-    logits = torch.einsum('bhqd,bhkd->bhqk', q.float(), kf) * d**-0.5
+    logits = torch.einsum('bhqd,bhkd->bhqk', q.float(), kf) * (
+        d**-0.5 if scale is None else scale)
     if causal:
         keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
         logits = logits.masked_fill(~keep, _NEG_INF)
@@ -292,25 +344,38 @@ def flash_attention_fwd(q: torch.Tensor,
                         block_size: int = 512,
                         return_residuals: bool = False):
     """q [B,Hq,S,D], k/v [B,Hkv,S,D] -> [B,Hq,S,D] (and the row
-    logsumexp [B,Hq,S] f32 with `return_residuals=True`)."""
+    logsumexp [B,Hq,S] f32 with `return_residuals=True`).  On a CUDA
+    tensor the kernel of `kernel_width(D)` runs, on q, k, v zero-padded
+    to that width where it is wider than D."""
     if q.dim() != 4:
         raise ValueError(f'q must be [B, H, S, D], got {tuple(q.shape)}')
     _check_block(q.shape[2], block_size)
     if _device_type(q, k, v) == 'cpu':
         return flash_attention_fwd_reference(
             q, k, v, causal=causal, return_residuals=return_residuals)
-    _check_cuda_inputs(q, k, v, head_dims=_ALL_HEAD_DIMS)
-    if q.shape[3] in _SMALL_HEAD_DIMS:
-        return flash_attention_fwd_small(q, k, v, causal=causal,
-                                         return_residuals=return_residuals)
-    return _launch_fwd('skytpu_flash_attention_fwd', flash_attention_fwd,
-                       q, k, v, causal, return_residuals)
+    _check_cuda_inputs(q, k, v)
+    d = q.shape[3]
+    width = kernel_width(d)
+    if width != d:
+        q, k, v = _pad_head_dim(width, q, k, v)
+        flash_attention_fwd.padded_launches += 1
+    result = _launch_fwd(*_route('fwd', width), q, k, v, causal,
+                         return_residuals, d**-0.5)
+    if width == d:
+        return result
+    if return_residuals:
+        return result[0][..., :d].contiguous(), result[1]
+    return result[..., :d].contiguous()
 
 
 flash_attention_fwd.launches = 0
+# Calls on CUDA tensors that took the zero-padded route (their launches
+# count on the wrapper of the width that ran).
+flash_attention_fwd.padded_launches = 0
 
 
-def _launch_fwd(entry: str, wrapper, q, k, v, causal, return_residuals):
+def _launch_fwd(entry: str, wrapper, q, k, v, causal, return_residuals,
+                scale):
     """Launch a forward kernel through its C entry on checked CUDA inputs
     and count the launch on `wrapper`."""
     b, hq, s, d = q.shape
@@ -322,7 +387,7 @@ def _launch_fwd(entry: str, wrapper, q, k, v, causal, return_residuals):
         err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if lse is not None else None,
-            b, hq, k.shape[1], s, d, _DTYPE_CODES[q.dtype], d**-0.5,
+            b, hq, k.shape[1], s, d, _DTYPE_CODES[q.dtype], scale,
             int(causal), _stream(q.device))
     _raise_on(err, wrapper.__name__)
     wrapper.launches += 1
@@ -334,30 +399,51 @@ def flash_attention_fwd_small(q: torch.Tensor,
                               v: torch.Tensor,
                               causal: bool = True,
                               return_residuals: bool = False):
-    """The forward at head_dim 16 or 32
+    """The mma.sync forward at head_dim 16 or 32
     (`csrc/flash_attention_fwd_small.cu`): `flash_attention_fwd`'s
-    contract, which calls it at those head dims."""
+    contract, whose launches at those widths it counts."""
     if _device_type(q, k, v) == 'cpu':
         return flash_attention_fwd_reference(
             q, k, v, causal=causal, return_residuals=return_residuals)
     _check_cuda_inputs(q, k, v, head_dims=_SMALL_HEAD_DIMS)
     return _launch_fwd('skytpu_flash_attention_fwd_small',
                        flash_attention_fwd_small, q, k, v, causal,
-                       return_residuals)
+                       return_residuals, q.shape[3]**-0.5)
 
 
 flash_attention_fwd_small.launches = 0
 
+
+def flash_attention_fwd_wide(q: torch.Tensor,
+                             k: torch.Tensor,
+                             v: torch.Tensor,
+                             causal: bool = True,
+                             return_residuals: bool = False):
+    """The mma.sync forward at head_dim 80, 96 or 256
+    (`csrc/flash_attention_fwd_wide.cu`): `flash_attention_fwd`'s
+    contract, whose launches at those widths it counts."""
+    if _device_type(q, k, v) == 'cpu':
+        return flash_attention_fwd_reference(
+            q, k, v, causal=causal, return_residuals=return_residuals)
+    _check_cuda_inputs(q, k, v, head_dims=_WIDE_HEAD_DIMS)
+    return _launch_fwd('skytpu_flash_attention_fwd_wide',
+                       flash_attention_fwd_wide, q, k, v, causal,
+                       return_residuals, q.shape[3]**-0.5)
+
+
+flash_attention_fwd_wide.launches = 0
+
 # ----- backward ---------------------------------------------------------------
 
 
-def _recompute_p_ds(q, k, v, g, lse, delta, causal):
+def _recompute_p_ds(q, k, v, g, lse, delta, causal, scale=None):
     """The backward's recompute in f32 (the Pallas `_recompute_p_ds`):
     P = exp(mask(Q K^T scale) - lse) with -1e30 masking, dS = P (dO V^T -
-    delta) scale, at Hq heads; also returns K repeated to Hq heads."""
+    delta) scale (head_dim^-1/2 when None), at Hq heads; also returns K
+    repeated to Hq heads."""
     hq, s, d = q.shape[1], q.shape[2], q.shape[3]
     group = hq // k.shape[1]
-    scale = d**-0.5
+    scale = d**-0.5 if scale is None else scale
     kf = k.float().repeat_interleave(group, dim=1)
     vf = v.float().repeat_interleave(group, dim=1)
     logits = torch.einsum('bhqd,bhkd->bhqk', q.float(), kf) * scale
@@ -379,21 +465,26 @@ def _group_sum(x: torch.Tensor, hkv: int) -> torch.Tensor:
 
 
 def flash_attention_bwd_dq_reference(q, k, v, g, lse, delta,
-                                     causal: bool = True) -> torch.Tensor:
+                                     causal: bool = True,
+                                     scale: Optional[float] = None
+                                     ) -> torch.Tensor:
     """Plain version of the dq kernel, in f32: dS rounded to k's dtype
-    before dS K (as the TPU kernel's `ds.astype(k.dtype)`)."""
-    _, ds, kf = _recompute_p_ds(q, k, v, g, lse, delta, causal)
+    before dS K (as the TPU kernel's `ds.astype(k.dtype)`); `scale` as
+    `flash_attention_fwd_reference`'s."""
+    _, ds, kf = _recompute_p_ds(q, k, v, g, lse, delta, causal, scale)
     dq = torch.einsum('bhqk,bhkd->bhqd', ds.to(k.dtype).float(), kf)
     return dq.to(q.dtype)
 
 
 def flash_attention_bwd_dkv_reference(q, k, v, g, lse, delta,
-                                      causal: bool = True
+                                      causal: bool = True,
+                                      scale: Optional[float] = None
                                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the dk/dv kernel, in f32: P rounded to dO's dtype
     before P^T dO and dS to q's before dS^T Q (as the TPU kernel does),
-    then summed over each kv head's group of query heads."""
-    p, ds, _ = _recompute_p_ds(q, k, v, g, lse, delta, causal)
+    then summed over each kv head's group of query heads; `scale` as
+    `flash_attention_fwd_reference`'s."""
+    p, ds, _ = _recompute_p_ds(q, k, v, g, lse, delta, causal, scale)
     dv = torch.einsum('bhqk,bhqd->bhkd', p.to(g.dtype).float(), g.float())
     del p
     dk = torch.einsum('bhqk,bhqd->bhkd', ds.to(q.dtype).float(), q.float())
@@ -420,26 +511,32 @@ def flash_attention_bwd_reference(q, k, v, out, lse, g, causal: bool = True):
 def flash_attention_bwd_dq(q, k, v, g, lse, delta,
                            causal: bool = True) -> torch.Tensor:
     """dq [B,Hq,S,D] from q/g [B,Hq,S,D], k/v [B,Hkv,S,D] and the per-row
-    lse, delta [B,Hq,S] f32."""
+    lse, delta [B,Hq,S] f32; on a CUDA tensor routed by
+    `kernel_width(D)` as `flash_attention_fwd` is."""
     if _device_type(q, k, v, g, lse, delta) == 'cpu':
         return flash_attention_bwd_dq_reference(q, k, v, g, lse, delta,
                                                 causal)
-    _check_cuda_inputs(q, k, v, g, head_dims=_ALL_HEAD_DIMS)
+    _check_cuda_inputs(q, k, v, g)
     _check_rows(q, lse, delta)
-    if q.shape[3] in _SMALL_HEAD_DIMS:
-        return flash_attention_bwd_dq_small(q, k, v, g, lse, delta, causal)
-    return _launch_dq('skytpu_flash_attention_bwd_dq', flash_attention_bwd_dq,
-                      q, k, v, g, lse, delta, causal)
+    d = q.shape[3]
+    width = kernel_width(d)
+    if width != d:
+        q, k, v, g = _pad_head_dim(width, q, k, v, g)
+        flash_attention_bwd_dq.padded_launches += 1
+    dq = _launch_dq(*_route('bwd_dq', width), q, k, v, g, lse, delta, causal,
+                    d**-0.5)
+    return dq if width == d else dq[..., :d].contiguous()
 
 
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.padded_launches = 0
 
 
 def flash_attention_bwd_dq_small(q, k, v, g, lse, delta,
                                  causal: bool = True) -> torch.Tensor:
-    """The dq kernel at head_dim 16 or 32
+    """The mma.sync dq kernel at head_dim 16 or 32
     (`csrc/flash_attention_bwd_dq_small.cu`): `flash_attention_bwd_dq`'s
-    contract, which calls it at those head dims."""
+    contract, whose launches at those widths it counts."""
     if _device_type(q, k, v, g, lse, delta) == 'cpu':
         return flash_attention_bwd_dq_reference(q, k, v, g, lse, delta,
                                                 causal)
@@ -447,13 +544,31 @@ def flash_attention_bwd_dq_small(q, k, v, g, lse, delta,
     _check_rows(q, lse, delta)
     return _launch_dq('skytpu_flash_attention_bwd_dq_small',
                       flash_attention_bwd_dq_small, q, k, v, g, lse, delta,
-                      causal)
+                      causal, q.shape[3]**-0.5)
 
 
 flash_attention_bwd_dq_small.launches = 0
 
 
-def _launch_dq(entry: str, wrapper, q, k, v, g, lse, delta, causal):
+def flash_attention_bwd_dq_wide(q, k, v, g, lse, delta,
+                                causal: bool = True) -> torch.Tensor:
+    """The mma.sync dq kernel at head_dim 80, 96 or 256
+    (`csrc/flash_attention_bwd_dq_wide.cu`): `flash_attention_bwd_dq`'s
+    contract, whose launches at those widths it counts."""
+    if _device_type(q, k, v, g, lse, delta) == 'cpu':
+        return flash_attention_bwd_dq_reference(q, k, v, g, lse, delta,
+                                                causal)
+    _check_cuda_inputs(q, k, v, g, head_dims=_WIDE_HEAD_DIMS)
+    _check_rows(q, lse, delta)
+    return _launch_dq('skytpu_flash_attention_bwd_dq_wide',
+                      flash_attention_bwd_dq_wide, q, k, v, g, lse, delta,
+                      causal, q.shape[3]**-0.5)
+
+
+flash_attention_bwd_dq_wide.launches = 0
+
+
+def _launch_dq(entry: str, wrapper, q, k, v, g, lse, delta, causal, scale):
     """Launch a dq kernel through its C entry on checked CUDA inputs and
     count the launch on `wrapper`."""
     b, hq, s, d = q.shape
@@ -463,7 +578,7 @@ def _launch_dq(entry: str, wrapper, q, k, v, g, lse, delta, causal):
         err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            b, hq, k.shape[1], s, d, _DTYPE_CODES[q.dtype], d**-0.5,
+            b, hq, k.shape[1], s, d, _DTYPE_CODES[q.dtype], scale,
             int(causal), _stream(q.device))
     _raise_on(err, wrapper.__name__)
     wrapper.launches += 1
@@ -473,28 +588,34 @@ def _launch_dq(entry: str, wrapper, q, k, v, g, lse, delta, causal):
 def flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal: bool = True
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dk, dv) [B,Hkv,S,D], each summed over its kv head's query heads;
-    inputs as `flash_attention_bwd_dq`."""
+    inputs and routing as `flash_attention_bwd_dq`."""
     if _device_type(q, k, v, g, lse, delta) == 'cpu':
         return flash_attention_bwd_dkv_reference(q, k, v, g, lse, delta,
                                                  causal)
-    _check_cuda_inputs(q, k, v, g, head_dims=_ALL_HEAD_DIMS)
+    _check_cuda_inputs(q, k, v, g)
     _check_rows(q, lse, delta)
-    if q.shape[3] in _SMALL_HEAD_DIMS:
-        return flash_attention_bwd_dkv_small(q, k, v, g, lse, delta, causal)
-    return _launch_dkv('skytpu_flash_attention_bwd_dkv',
-                       flash_attention_bwd_dkv, q, k, v, g, lse, delta,
-                       causal)
+    d = q.shape[3]
+    width = kernel_width(d)
+    if width != d:
+        q, k, v, g = _pad_head_dim(width, q, k, v, g)
+        flash_attention_bwd_dkv.padded_launches += 1
+    dk, dv = _launch_dkv(*_route('bwd_dkv', width), q, k, v, g, lse, delta,
+                         causal, d**-0.5)
+    if width == d:
+        return dk, dv
+    return dk[..., :d].contiguous(), dv[..., :d].contiguous()
 
 
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.padded_launches = 0
 
 
 def flash_attention_bwd_dkv_small(q, k, v, g, lse, delta,
                                   causal: bool = True
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The dk/dv kernel at head_dim 16 or 32
+    """The mma.sync dk/dv kernel at head_dim 16 or 32
     (`csrc/flash_attention_bwd_dkv_small.cu`): `flash_attention_bwd_dkv`'s
-    contract, which calls it at those head dims."""
+    contract, whose launches at those widths it counts."""
     if _device_type(q, k, v, g, lse, delta) == 'cpu':
         return flash_attention_bwd_dkv_reference(q, k, v, g, lse, delta,
                                                  causal)
@@ -502,13 +623,33 @@ def flash_attention_bwd_dkv_small(q, k, v, g, lse, delta,
     _check_rows(q, lse, delta)
     return _launch_dkv('skytpu_flash_attention_bwd_dkv_small',
                        flash_attention_bwd_dkv_small, q, k, v, g, lse, delta,
-                       causal)
+                       causal, q.shape[3]**-0.5)
 
 
 flash_attention_bwd_dkv_small.launches = 0
 
 
-def _launch_dkv(entry: str, wrapper, q, k, v, g, lse, delta, causal):
+def flash_attention_bwd_dkv_wide(q, k, v, g, lse, delta,
+                                 causal: bool = True
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The mma.sync dk/dv kernel at head_dim 80, 96 or 256
+    (`csrc/flash_attention_bwd_dkv_wide.cu`): `flash_attention_bwd_dkv`'s
+    contract, whose launches at those widths it counts."""
+    if _device_type(q, k, v, g, lse, delta) == 'cpu':
+        return flash_attention_bwd_dkv_reference(q, k, v, g, lse, delta,
+                                                 causal)
+    _check_cuda_inputs(q, k, v, g, head_dims=_WIDE_HEAD_DIMS)
+    _check_rows(q, lse, delta)
+    return _launch_dkv('skytpu_flash_attention_bwd_dkv_wide',
+                       flash_attention_bwd_dkv_wide, q, k, v, g, lse, delta,
+                       causal, q.shape[3]**-0.5)
+
+
+flash_attention_bwd_dkv_wide.launches = 0
+
+
+def _launch_dkv(entry: str, wrapper, q, k, v, g, lse, delta, causal,
+                scale):
     """Launch a dk/dv kernel through its C entry on checked CUDA inputs and
     count the launch on `wrapper`."""
     b, hq, s, d = q.shape
@@ -519,7 +660,7 @@ def _launch_dkv(entry: str, wrapper, q, k, v, g, lse, delta, causal):
         err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, hq, k.shape[1], s, d, _DTYPE_CODES[q.dtype], d**-0.5,
+            b, hq, k.shape[1], s, d, _DTYPE_CODES[q.dtype], scale,
             int(causal), _stream(q.device))
     _raise_on(err, wrapper.__name__)
     wrapper.launches += 1

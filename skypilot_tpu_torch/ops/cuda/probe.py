@@ -1,16 +1,24 @@
 """Quick check and timing of the flash-attention kernels on one GPU.
 
     python -m skypilot_tpu_torch.ops.cuda.probe build  # nvcc, ptxas report
+    python -m skypilot_tpu_torch.ops.cuda.probe build DIR  # fresh, timed
     python -m skypilot_tpu_torch.ops.cuda.probe check  # kernels vs plain
     python -m skypilot_tpu_torch.ops.cuda.probe check small  # D = 16, 32
+    python -m skypilot_tpu_torch.ops.cuda.probe check wide  # D 80/96/256,
+                                                            # padded D
     python -m skypilot_tpu_torch.ops.cuda.probe time   # CUDA-event times
     python -m skypilot_tpu_torch.ops.cuda.probe time dq  # only names with 'dq'
 
+`build DIR` compiles the sources of the csrc directory DIR afresh into a
+temporary directory (nvcc's processes in parallel, as the library's build)
+and prints the seconds, the way to compare two trees' build times.
 `check` holds the forward (out, lse) and the dk/dv and dq kernels against
 their plain versions at shapes on the edges of the kernels' tiles, up to
 bench-1b's training shape, then the small-head-dim kernels (head_dim 16
-and 32: forward, dq and dk/dv) at their tile edges; `check small` runs
-only the latter; `time` times the forward, dq and dk/dv at
+and 32: forward, dq and dk/dv) at their tile edges, then the wide ones
+(head_dim 80, 96, 256) and the zero-padded route (head_dims that no
+kernel takes); `check small` and `check wide` run only those; `time`
+times the forward, dq and dk/dv at
 bench-1b's shape (B=4, Hq=16, Hkv=8, S=4096, D=128, causal bf16) and the
 forward at the serving shape (B=8, H=32, S=256), each the mean of 20 calls
 queued behind a spin kernel, so the device runs them back to back.  To
@@ -21,7 +29,10 @@ call; each tree builds its own library under its own `build/`.
 """
 from __future__ import annotations
 
+import pathlib
 import sys
+import tempfile
+import time
 
 import torch
 
@@ -53,6 +64,24 @@ SMALL_CHECK_SHAPES = [
     for dtype in (torch.bfloat16, torch.float16)
 ] + [(1, 8, 2, 1024, 16, True, torch.bfloat16),
      (3, 4, 4, 300, 32, False, torch.float16)]
+# The wide kernels (head_dim 80, 96 and 256: 64-row K/V tiles, 32 at 256)
+# at S on both sides of 32, 64 and 128, GQA groups 1, 4 and 8, causal and
+# not, bf16 and fp16; then head_dims that no kernel takes, each through
+# its zero-padded route (8 -> 16, 24 -> 32, 48 -> 64, 72 -> 80, 100 and
+# 112 -> 128, 160 and 200 -> 256).
+WIDE_CHECK_SHAPES = [
+    (b, hq, hkv, s, d, causal, dtype)
+    for d in (80, 96, 256)
+    for b, hq, hkv in ((2, 4, 4), (1, 8, 2), (1, 8, 1))
+    for s in (1, 17, 31, 33, 63, 65, 129)
+    for causal in (True, False)
+    for dtype in ((torch.bfloat16, torch.float16) if hkv == 2
+                  else (torch.bfloat16,))
+] + [(1, 8, 1, 1024, 256, True, torch.bfloat16),
+     (1, 8, 8, 1024, 96, True, torch.bfloat16)] + [
+    (2, 4, 2, s, d, causal, torch.bfloat16)
+    for d in (8, 24, 48, 72, 100, 112, 160, 200)
+    for s in (17, 65) for causal in (True, False)]
 SPIN_CYCLES = 20_000_000
 
 
@@ -114,6 +143,67 @@ def check_small() -> None:
           f'worst norm-rel {worst["bwd"]:.3e}', flush=True)
 
 
+WIDE_KERNELS = ('flash_attention_fwd_wide', 'flash_attention_bwd_dq_wide',
+                'flash_attention_bwd_dkv_wide')
+ROUTE_COUNTERS = (*(f'flash_attention_{k}{suffix}.launches'
+                    for suffix in ('', '_small', '_wide')
+                    for k in ('fwd', 'bwd_dq', 'bwd_dkv')),
+                  *(f'flash_attention_{k}.padded_launches'
+                    for k in ('fwd', 'bwd_dq', 'bwd_dkv')))
+
+
+def _counters() -> dict:
+    return {name: getattr(getattr(fa, name.split('.')[0]),
+                          name.split('.')[1]) for name in ROUTE_COUNTERS}
+
+
+def check_wide() -> None:
+    """The forward, dq and dk/dv at WIDE_CHECK_SHAPES against their plain
+    versions (forward max-abs beyond one output ulp, lse max-abs;
+    backward norm-relative), with the counters each case moved: the
+    kernel of kernel_width(D) launched once per call, and the padded
+    counters once per call where D is no kernel width."""
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    worst = {'fwd': 0.0, 'lse': 0.0, 'bwd': 0.0}
+    for b, hq, hkv, s, d, causal, dtype in WIDE_CHECK_SHAPES:
+        q, k, v, g = _inputs(gen, b, hq, hkv, s, d, dtype)
+        before = _counters()
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                          return_residuals=True)
+        delta = (g.float() * out.float()).sum(-1)
+        dq = fa.flash_attention_bwd_dq(q, k, v, g, lse, delta, causal)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal)
+        torch.cuda.synchronize()
+        moved = {name: n - before[name] for name, n in _counters().items()
+                 if n != before[name]}
+        ref, ref_lse = fa.flash_attention_fwd_reference(
+            q, k, v, causal=causal, return_residuals=True)
+        ref = ref.float()
+        ulp = torch.finfo(dtype).eps * torch.exp2(torch.floor(torch.log2(
+            ref.abs().clamp_min(torch.finfo(dtype).tiny))))
+        beyond = ((out.float() - ref).abs() - ulp).max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        worst['fwd'] = max(worst['fwd'], beyond)
+        worst['lse'] = max(worst['lse'], lse_err)
+        refs = (fa.flash_attention_bwd_dq_reference(q, k, v, g, lse, delta,
+                                                    causal),
+                *fa.flash_attention_bwd_dkv_reference(q, k, v, g, lse,
+                                                      delta, causal))
+        bwd = []
+        for name, x, r in zip(('dq', 'dk', 'dv'), (dq, dk, dv), refs):
+            rel = _norm_rel(x, r) if r.float().abs().max() > 1e-5 else 0.0
+            worst['bwd'] = max(worst['bwd'], rel)
+            bwd.append(f'{name} {rel:.3e}/'
+                       f'{(x.float() - r.float()).abs().max().item():.3e}')
+        print(f'{(b, hq, hkv, s, d, causal, str(dtype)[6:])} -> width '
+              f'{fa.kernel_width(d)}: out beyond one ulp {beyond:.3e} lse '
+              f'{lse_err:.3e} | norm-rel/max-abs {" ".join(bwd)} | '
+              f'{moved}', flush=True)
+    print(f'wide/padded forward worst beyond one ulp {worst["fwd"]:.3e}, '
+          f'lse {worst["lse"]:.3e}; backward worst norm-rel '
+          f'{worst["bwd"]:.3e}', flush=True)
+
+
 def check() -> None:
     gen = torch.Generator(device='cuda').manual_seed(0)
     for b, hq, hkv, s, d, causal, dtype in CHECK_SHAPES:
@@ -142,6 +232,22 @@ def check() -> None:
         del ref_dq
         torch.cuda.empty_cache()
     check_small()
+    check_wide()
+
+
+def build_fresh(csrc: pathlib.Path) -> None:
+    """Compile and link every source of `csrc` afresh (the library's own
+    build steps, into a temporary directory) and print nvcc's report and
+    the seconds."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        log = fa._LIBRARY._compile_and_link(  # pylint: disable=protected-access
+            sorted(csrc.glob('*.cu')), pathlib.Path(tmp),
+            pathlib.Path(tmp) / fa.library_name(csrc))
+        seconds = time.perf_counter() - t0
+    print(log)
+    print(f'fresh build of {csrc} ({len(list(csrc.glob("*.cu")))} sources): '
+          f'{seconds:.2f} s', flush=True)
 
 
 def _time_ms(fn, iters: int = 20) -> float:
@@ -183,10 +289,13 @@ def time_kernels(only: str = '') -> None:
 
 def main(argv) -> int:
     mode = argv[1] if len(argv) > 1 else 'check'
-    if mode == 'build':
+    if mode == 'build' and len(argv) > 2:
+        build_fresh(pathlib.Path(argv[2]))
+    elif mode == 'build':
         print(fa.build())
     elif mode == 'check':
-        check_small() if argv[2:] == ['small'] else check()
+        {'small': check_small, 'wide': check_wide}.get(
+            ''.join(argv[2:3]), check)()
     elif mode == 'time':
         time_kernels(argv[2] if len(argv) > 2 else '')
     else:

@@ -1,6 +1,7 @@
 """GPU-only checks of the PyTorch port: the hand-written flash-attention
-kernels (forward, dq, dk/dv, and the three at head_dim 16/32) against
-their plain versions, the autograd
+kernels (forward, dq, dk/dv, the three at head_dim 16/32 and at 80/96/256,
+and the zero-padded route of the other head_dims) against their plain
+versions, the autograd
 op against autograd through `mha_reference`, the engine's kernel path
 against attention_impl='xla', a narrow model trained through the
 kernels, the engine's decode call as a CUDA graph against its eager
@@ -217,9 +218,78 @@ def test_small_head_dim_bwd_kernels_match_plain(cuda, s, d, hq, causal,
             assert _norm_rel(got, ref) <= BWD_NORM_RTOL
 
 
+# The wide mma.sync kernels (head_dim 80, 96, 256: 64-row K/V tiles, 32 at
+# 256) and the zero-padded route (head_dims no kernel takes, each to the
+# next width) at the edges of their tiles: one row, both sides of 32, 64
+# and 128, GQA groups 1, 4 and 8 (Gemma-2B's 8 query heads over 1 kv
+# head), causal and not, bf16 and fp16.  The forward within SMALL_ATOL
+# beyond one output ulp and its lse within SMALL_ATOL, dq and dk/dv within
+# BWD_NORM_RTOL; each call launches the kernel of kernel_width(d) once,
+# and a padded head_dim also counts once on the public wrapper's
+# padded_launches.
+WIDE_EDGE_CASES = [(80, 4, 4, True, torch.bfloat16),
+                   (96, 8, 2, False, torch.float16),
+                   (96, 8, 2, True, torch.bfloat16),
+                   (256, 8, 1, True, torch.bfloat16),
+                   (256, 4, 4, False, torch.float16),
+                   (8, 4, 2, True, torch.bfloat16),
+                   (48, 4, 2, False, torch.bfloat16),
+                   (72, 4, 1, True, torch.float16),
+                   (100, 8, 2, True, torch.bfloat16),
+                   (200, 8, 1, False, torch.bfloat16)]
+
+
+@pytest.mark.parametrize('s', [1, 17, 31, 33, 63, 65, 129])
+@pytest.mark.parametrize('d,hq,hkv,causal,dtype', WIDE_EDGE_CASES)
+def test_wide_and_padded_head_dim_kernels_match_plain(cuda, s, d, hq, hkv,
+                                                      causal, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, g = (torch.randn((2, hq, s, d), generator=gen, device=cuda).to(dtype)
+            for _ in range(2))
+    k, v = (torch.randn((2, hkv, s, d), generator=gen,
+                        device=cuda).to(dtype) for _ in range(2))
+    width = fa.kernel_width(d)
+    suffix = {16: '_small', 32: '_small', 64: '', 128: '', 80: '_wide',
+              96: '_wide', 256: '_wide'}[width]
+    counters = [getattr(fa, f'flash_attention_{kernel}{suffix}')
+                for kernel in ('fwd', 'bwd_dq', 'bwd_dkv')]
+    publics = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv)
+    before = ([c.launches for c in counters],
+              [p.padded_launches for p in publics])
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                      return_residuals=True)
+    delta = (g.float() * out.float()).sum(-1)
+    dq = fa.flash_attention_bwd_dq(q, k, v, g, lse, delta, causal)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before[0])] == [1] * 3
+    assert [p.padded_launches - n for p, n in zip(publics, before[1])] == (
+        [int(width != d)] * 3)
+    ref, ref_lse = fa.flash_attention_fwd_reference(q, k, v, causal=causal,
+                                                    return_residuals=True)
+    ref = ref.float()
+    ulp = torch.finfo(dtype).eps * torch.exp2(torch.floor(torch.log2(
+        ref.abs().clamp_min(torch.finfo(dtype).tiny))))
+    assert out.shape == q.shape and out.dtype == dtype
+    assert bool(((out.float() - ref).abs() <= SMALL_ATOL + ulp).all())
+    torch.testing.assert_close(lse, ref_lse, atol=SMALL_ATOL, rtol=0)
+    refs = (fa.flash_attention_bwd_dq_reference(q, k, v, g, lse, delta,
+                                                causal),
+            *fa.flash_attention_bwd_dkv_reference(q, k, v, g, lse, delta,
+                                                  causal))
+    for got, want in zip((dq, dk, dv), refs):
+        assert got.dtype == dtype and got.shape == want.shape
+        assert torch.isfinite(got).all()
+        if want.float().abs().max() <= SMALL_BWD_ZERO_ATOL:
+            assert got.float().abs().max() <= SMALL_BWD_ZERO_ATOL
+        else:
+            assert _norm_rel(got, want) <= BWD_NORM_RTOL
+
+
 def test_flash_kernel_rejects_what_it_cannot_run(cuda):
-    q = torch.zeros((1, 2, 64, 80), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match='head_dim'):
+    q = torch.zeros((1, 2, 64, 257), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match='head_dim 257 is past 256'):
         fa.flash_attention_fwd(q, q, q)
     q = torch.zeros((1, 2, 64, 64), dtype=torch.float32, device=cuda)
     with pytest.raises(ValueError, match='bf16/fp16'):

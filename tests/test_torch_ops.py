@@ -93,98 +93,174 @@ def test_flash_fwd_plain_matches_pallas_interpret(causal, hkv):
 
 
 # The `tiny` configs' head_dim 16 (and 32) go to the small-head-dim
-# kernel on the card; its plain version on the CPU is the same function.
+# kernel on the card, 80, 96 (Phi-2's and Phi-3-mini's widths) and 256
+# (Gemma's) to the wide one, and any other head_dim (8, 48, 100 here)
+# zero-padded to the next kernel width; the plain version the CPU takes
+# is the same function at every head_dim, GQA 4 -> 2.
 @pytest.mark.parametrize('s,d,causal', [(8, 16, True), (16, 16, True),
                                         (16, 16, False), (128, 16, True),
-                                        (128, 32, False), (16, 32, True)])
+                                        (128, 32, False), (16, 32, True),
+                                        (16, 8, True), (64, 48, False),
+                                        (64, 80, True), (16, 96, False),
+                                        (128, 96, True), (64, 100, True),
+                                        (16, 256, True), (64, 256, False)])
 def test_flash_fwd_small_head_dims_plain_match_pallas_interpret(s, d,
                                                                 causal):
     q, k, v = _qkv(b=2, h=4, s=s, d=d, hkv=2, seed=5)
     want_out, want_lse = jax_fa.flash_attention_fwd(
         q, k, v, causal=causal, interpret=True, return_residuals=True)
-    before = (torch_fa.flash_attention_fwd.launches,
-              torch_fa.flash_attention_fwd_small.launches)
+    names = ('flash_attention_fwd', 'flash_attention_fwd_small',
+             'flash_attention_fwd_wide')
+    before = [getattr(torch_fa, name).launches for name in names]
     for fn in (torch_fa.flash_attention_fwd,
-               torch_fa.flash_attention_fwd_small):
+               torch_fa.flash_attention_fwd_small,
+               torch_fa.flash_attention_fwd_wide):
         got_out, got_lse = fn(*_t(q, k, v), causal=causal,
                               return_residuals=True)
         np.testing.assert_allclose(got_out.numpy(), np.asarray(want_out),
                                    atol=FLASH_ATOL, rtol=0)
         np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse),
                                    atol=FLASH_ATOL, rtol=0)
-    assert (torch_fa.flash_attention_fwd.launches,
-            torch_fa.flash_attention_fwd_small.launches) == before
+    assert [getattr(torch_fa, name).launches for name in names] == before
+    assert torch_fa.flash_attention_fwd.padded_launches == 0
+
+
+# head_dim -> (the kernel width that runs it, its C entries' suffix):
+# every kernel width natively, every other head_dim up to 256 zero-padded
+# to the next width.
+ROUTES = {16: (16, '_small'), 32: (32, '_small'), 64: (64, ''),
+          80: (80, '_wide'), 96: (96, '_wide'), 128: (128, ''),
+          256: (256, '_wide'), 8: (16, '_small'), 24: (32, '_small'),
+          48: (64, ''), 72: (80, '_wide'), 100: (128, ''),
+          160: (256, '_wide'), 200: (256, '_wide')}
 
 
 def test_forward_dispatches_small_head_dims_to_their_kernel(monkeypatch):
-    """On a CUDA tensor the forward takes head_dim 16 and 32 to the
-    small kernel's C entry (counted on `flash_attention_fwd_small`), 64
-    and 128 to the wgmma kernel's, and refuses any other head_dim naming
-    the supported set; the backward's dq and dk/dv route the same way to
-    their small kernels' entries (counted on `flash_attention_bwd_dq_small`
-    and `_dkv_small`) and refuse the same head dims.  (The launches
-    themselves are stubbed: the checks and the routing are host code.)"""
+    """On a CUDA tensor the forward, dq and dk/dv take each head_dim to
+    the C entry of `kernel_width(head_dim)` (ROUTES): 16 and 32 to the
+    small mma.sync kernels (counted on the `_small` wrappers), 80, 96 and
+    256 to the wide ones (the `_wide` wrappers), 64 and 128 to the wgmma
+    kernels, with the real head_dim^-1/2 as the scale; any other head_dim
+    up to 256 reaches the next width's entry on inputs zero-padded to
+    that width, counted on that kernel's wrapper and once on the public
+    wrapper's `padded_launches`, and comes back at its own head_dim; 257
+    is refused naming the limit, and each route's own wrapper refuses
+    the other widths.  (The launches themselves are stubbed: the checks,
+    the padding and the routing are host code.)"""
     calls = []
+
+    def stub(entry, wrapper, q, *args):
+        calls.append((entry, wrapper, q.shape[-1], args[-1]))
+        if entry.startswith('skytpu_flash_attention_fwd'):
+            out = torch.zeros_like(q)
+            return (out, torch.zeros(q.shape[:3])) if args[-2] else out
+        if entry.startswith('skytpu_flash_attention_bwd_dq'):
+            return torch.zeros_like(q)
+        return torch.zeros_like(args[0]), torch.zeros_like(args[0])
+
     monkeypatch.setattr(torch_fa, '_device_type', lambda *ts: 'cuda')
     for launch in ('_launch_fwd', '_launch_dq', '_launch_dkv'):
-        monkeypatch.setattr(
-            torch_fa, launch,
-            lambda entry, wrapper, *args: calls.append((entry, wrapper)))
-    for d, entry, wrapper in (
-            (16, 'skytpu_flash_attention_fwd_small',
-             torch_fa.flash_attention_fwd_small),
-            (32, 'skytpu_flash_attention_fwd_small',
-             torch_fa.flash_attention_fwd_small),
-            (64, 'skytpu_flash_attention_fwd', torch_fa.flash_attention_fwd),
-            (128, 'skytpu_flash_attention_fwd',
-             torch_fa.flash_attention_fwd)):
+        monkeypatch.setattr(torch_fa, launch, stub)
+    publics = (torch_fa.flash_attention_fwd, torch_fa.flash_attention_bwd_dq,
+               torch_fa.flash_attention_bwd_dkv)
+    for d, (width, suffix) in ROUTES.items():
+        assert torch_fa.kernel_width(d) == width
         q, k, v = (t.to(torch.bfloat16)
                    for t in _t(*_qkv(b=2, h=4, s=16, d=d, hkv=2)))
-        torch_fa.flash_attention_fwd(q, k, v)
-        assert calls.pop() == (entry, wrapper), d
-    for d in (48, 8, 256):
-        q, k, v = (t.to(torch.bfloat16)
-                   for t in _t(*_qkv(b=2, h=4, s=16, d=d, hkv=2)))
-        with pytest.raises(ValueError, match='head_dim 16, 32, 64, 128'):
-            torch_fa.flash_attention_fwd(q, k, v)
-        with pytest.raises(ValueError, match='head_dim 16, 32'):
-            torch_fa.flash_attention_fwd_small(q, k, v)
-    assert not calls
-    lse = torch.zeros(2, 4, 16)
-    for d, suffix, (dq_wrapper, dkv_wrapper) in (
-            (16, '_small', (torch_fa.flash_attention_bwd_dq_small,
-                            torch_fa.flash_attention_bwd_dkv_small)),
-            (32, '_small', (torch_fa.flash_attention_bwd_dq_small,
-                            torch_fa.flash_attention_bwd_dkv_small)),
-            (64, '', (torch_fa.flash_attention_bwd_dq,
-                      torch_fa.flash_attention_bwd_dkv)),
-            (128, '', (torch_fa.flash_attention_bwd_dq,
-                       torch_fa.flash_attention_bwd_dkv))):
-        q, k, v = (t.to(torch.bfloat16)
-                   for t in _t(*_qkv(b=2, h=4, s=16, d=d, hkv=2)))
-        torch_fa.flash_attention_bwd_dq(q, k, v, q, lse, lse)
-        torch_fa.flash_attention_bwd_dkv(q, k, v, q, lse, lse)
+        lse = torch.zeros(2, 4, 16)
+        padded = [fn.padded_launches for fn in publics]
+        out, got_lse = torch_fa.flash_attention_fwd(q, k, v,
+                                                    return_residuals=True)
+        dq = torch_fa.flash_attention_bwd_dq(q, k, v, q, lse, lse)
+        dk, dv = torch_fa.flash_attention_bwd_dkv(q, k, v, q, lse, lse)
         assert calls == [
-            (f'skytpu_flash_attention_bwd_dq{suffix}', dq_wrapper),
-            (f'skytpu_flash_attention_bwd_dkv{suffix}', dkv_wrapper)], d
+            (f'skytpu_flash_attention_{kernel}{suffix}',
+             getattr(torch_fa, f'flash_attention_{kernel}{suffix}'), width,
+             d**-0.5) for kernel in ('fwd', 'bwd_dq', 'bwd_dkv')], d
         calls.clear()
-    for d in (48, 8, 256):
-        q, k, v = (t.to(torch.bfloat16)
-                   for t in _t(*_qkv(b=2, h=4, s=16, d=d, hkv=2)))
-        for fn in (torch_fa.flash_attention_bwd_dq,
-                   torch_fa.flash_attention_bwd_dkv):
-            with pytest.raises(ValueError, match='head_dim 16, 32, 64, 128'):
-                fn(q, k, v, q, lse, lse)
-        for fn in (torch_fa.flash_attention_bwd_dq_small,
-                   torch_fa.flash_attention_bwd_dkv_small):
-            with pytest.raises(ValueError, match='head_dim 16, 32'):
-                fn(q, k, v, q, lse, lse)
+        assert out.shape == dq.shape == q.shape, d
+        assert dk.shape == dv.shape == k.shape and got_lse.shape == (2, 4, 16)
+        assert all(x.is_contiguous() for x in (out, dq, dk, dv)), d
+        assert [fn.padded_launches - n for fn, n in zip(publics, padded)] == (
+            [int(width != d)] * 3), d
+        # Each route's own wrapper takes its widths and refuses the others.
+        for suffix_, widths in (('_small', (16, 32)),
+                                ('_wide', (80, 96, 256))):
+            if d in widths:
+                continue
+            with pytest.raises(ValueError, match=', '.join(map(str, widths))):
+                getattr(torch_fa, f'flash_attention_fwd{suffix_}')(q, k, v)
+            for kernel in ('bwd_dq', 'bwd_dkv'):
+                with pytest.raises(ValueError,
+                                   match=', '.join(map(str, widths))):
+                    getattr(torch_fa, f'flash_attention_{kernel}{suffix_}')(
+                        q, k, v, q, lse, lse)
+    assert not calls
+    q, k, v = (t.to(torch.bfloat16)
+               for t in _t(*_qkv(b=1, h=2, s=16, d=257, hkv=1)))
+    lse = torch.zeros(1, 2, 16)
+    for call in (lambda: torch_fa.flash_attention_fwd(q, k, v),
+                 lambda: torch_fa.flash_attention_bwd_dq(q, k, v, q, lse, lse),
+                 lambda: torch_fa.flash_attention_bwd_dkv(q, k, v, q, lse,
+                                                          lse)):
+        with pytest.raises(ValueError, match='head_dim 257 is past 256'):
+            call()
     assert not calls
     for kernel in ('fwd', 'bwd_dq', 'bwd_dkv'):
-        assert torch_fa._SIGNATURES[f'skytpu_flash_attention_{kernel}_small'] \
-            == torch_fa._SIGNATURES[f'skytpu_flash_attention_{kernel}']
-        assert (torch_fa.CSRC_DIR / f'flash_attention_{kernel}_small.cu') in (
-            torch_fa.sources())
+        for suffix in ('_small', '_wide'):
+            assert torch_fa._SIGNATURES[
+                f'skytpu_flash_attention_{kernel}{suffix}'] == (
+                    torch_fa._SIGNATURES[f'skytpu_flash_attention_{kernel}'])
+            assert (torch_fa.CSRC_DIR /
+                    f'flash_attention_{kernel}{suffix}.cu') in (
+                        torch_fa.sources())
+
+
+# Zero columns add nothing to Q K^T or to dO V^T: the plain versions on q,
+# k, v and dO zero-padded to the kernel width, with the real head_dim's
+# scale, give the unpadded call's out, lse and gradients (f32 on both
+# sides: the einsums may sum in another order) and zero in the padding;
+# with the padded width's own scale they give another function.
+PAD_ATOL = 1e-5
+
+
+@pytest.mark.parametrize('d,causal', [(8, True), (24, False), (48, True),
+                                      (72, False), (100, True),
+                                      (160, False), (200, True)])
+def test_zero_padding_to_the_kernel_width_is_the_same_function(d, causal):
+    width = torch_fa.kernel_width(d)
+    assert width > d
+    q, k, v = _t(*_qkv(b=2, h=4, s=32, d=d, hkv=2, seed=8))
+    g = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        q.shape).astype(np.float32))
+    qp, kp, vp, gp = torch_fa._pad_head_dim(width, q, k, v, g)
+    assert qp.shape == (2, 4, 32, width) and kp.shape == (2, 2, 32, width)
+    assert not qp[..., d:].any() and torch.equal(gp[..., :d], g)
+    out, lse = torch_fa.flash_attention_fwd_reference(
+        q, k, v, causal=causal, return_residuals=True)
+    delta = torch_fa._delta(out, g)
+    want = (out, lse,
+            torch_fa.flash_attention_bwd_dq_reference(q, k, v, g, lse, delta,
+                                                      causal),
+            *torch_fa.flash_attention_bwd_dkv_reference(q, k, v, g, lse,
+                                                        delta, causal))
+    for scale, same in ((d**-0.5, True), (None, False)):
+        out_p, lse_p = torch_fa.flash_attention_fwd_reference(
+            qp, kp, vp, causal=causal, return_residuals=True, scale=scale)
+        got = (out_p, lse_p,
+               torch_fa.flash_attention_bwd_dq_reference(
+                   qp, kp, vp, gp, lse_p, delta, causal, scale=scale),
+               *torch_fa.flash_attention_bwd_dkv_reference(
+                   qp, kp, vp, gp, lse_p, delta, causal, scale=scale))
+        for name, x, ref in zip(('out', 'lse', 'dq', 'dk', 'dv'), got, want):
+            if name != 'lse':
+                assert not x[..., d:].any(), name
+                x = x[..., :d]
+            if same:
+                torch.testing.assert_close(x, ref, atol=PAD_ATOL, rtol=0,
+                                           msg=name)
+            elif name in ('out', 'lse'):
+                assert (x - ref).abs().max() > 1e-2, name
 
 
 def test_flash_fwd_block_contract_and_devices():
@@ -234,10 +310,14 @@ def test_flash_bwd_plain_matches_pallas_interpret(causal, hkv):
 # The `tiny` configs train at head_dim 16: the backward's small kernels'
 # plain versions (what CPU tensors take, through both the public wrappers
 # and the small ones) against the Pallas backward in interpret mode, GQA
-# 4 -> 2.  Each S with both head dims, each head dim causal and not.
+# 4 -> 2.  Each S with both head dims, each head dim causal and not; then
+# the wide kernels' head dims (80, 96, 256) and head dims that take the
+# zero-padded route (8, 48, 100).
 @pytest.mark.parametrize('s,d,causal', [
     (8, 16, True), (8, 32, False), (16, 16, False), (16, 32, True),
-    (64, 16, True), (64, 32, False), (128, 16, False), (128, 32, True)])
+    (64, 16, True), (64, 32, False), (128, 16, False), (128, 32, True),
+    (16, 8, True), (64, 48, False), (64, 80, True), (16, 96, False),
+    (128, 96, True), (64, 100, True), (16, 256, True), (64, 256, False)])
 def test_flash_bwd_small_head_dims_plain_match_pallas_interpret(s, d,
                                                                 causal):
     q, k, v = _qkv(b=2, h=4, s=s, d=d, hkv=2, seed=6)
@@ -250,19 +330,24 @@ def test_flash_bwd_small_head_dims_plain_match_pallas_interpret(s, d,
                                       interpret=True)
     args = _t(q, k, v, g, lse)
     names = ('flash_attention_bwd_dq', 'flash_attention_bwd_dkv',
-             'flash_attention_bwd_dq_small', 'flash_attention_bwd_dkv_small')
+             'flash_attention_bwd_dq_small', 'flash_attention_bwd_dkv_small',
+             'flash_attention_bwd_dq_wide', 'flash_attention_bwd_dkv_wide')
     before = [getattr(torch_fa, name).launches for name in names]
     got = torch_fa.flash_attention_bwd(*_t(q, k, v, out, lse, g),
                                        causal=causal)
     delta = torch_fa._delta(torch.from_numpy(out), args[3])
-    small = (torch_fa.flash_attention_bwd_dq_small(*args, delta, causal),
-             *torch_fa.flash_attention_bwd_dkv_small(*args, delta, causal))
+    for suffix in ('_small', '_wide'):
+        route = (getattr(torch_fa, f'flash_attention_bwd_dq{suffix}')(
+            *args, delta, causal),
+                 *getattr(torch_fa, f'flash_attention_bwd_dkv{suffix}')(
+                     *args, delta, causal))
+        for name, x, y in zip(('dq', 'dk', 'dv'), got, route):
+            torch.testing.assert_close(y, x, atol=0, rtol=0, msg=name)
     assert [getattr(torch_fa, name).launches for name in names] == before
-    for name, x, y, ref in zip(('dq', 'dk', 'dv'), got, small, want):
+    for name, x, ref in zip(('dq', 'dk', 'dv'), got, want):
         assert x.shape == ref.shape and x.dtype == torch.float32, name
         np.testing.assert_allclose(x.numpy(), np.asarray(ref),
                                    atol=FLASH_ATOL, rtol=0, err_msg=name)
-        torch.testing.assert_close(y, x, atol=0, rtol=0, msg=name)
 
 
 def test_flash_bwd_contract():

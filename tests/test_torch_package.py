@@ -110,10 +110,16 @@ COUNTERPARTS = ['agent/gang.py', 'agent/server.py', 'agent/client.py',
                 'provision/docker_utils.py', 'data/fuse_proxy.py']
 # Every kernel source of the port (csrc/).
 KERNEL_SOURCES = ['flash_attention_bwd_dkv.cu',
+                  'flash_attention_bwd_dkv_mma.cuh',
                   'flash_attention_bwd_dkv_small.cu',
+                  'flash_attention_bwd_dkv_wide.cu',
                   'flash_attention_bwd_dq.cu',
+                  'flash_attention_bwd_dq_mma.cuh',
                   'flash_attention_bwd_dq_small.cu',
-                  'flash_attention_fwd.cu', 'flash_attention_fwd_small.cu',
+                  'flash_attention_bwd_dq_wide.cu',
+                  'flash_attention_fwd.cu', 'flash_attention_fwd_mma.cuh',
+                  'flash_attention_fwd_small.cu',
+                  'flash_attention_fwd_wide.cu',
                   'sm80_mma.cuh', 'sm90_common.cuh']
 
 
@@ -420,14 +426,25 @@ def test_gate_ledger_and_storage_slice_modules_are_covered():
                  'jobs_dsn'):
         assert callable(getattr(goodput, name)), name
     # The small-head-dim kernels (the forward, then dq and dk/dv) are
-    # mma.sync + cp.async kernels on the helpers of csrc/sm80_mma.cuh.
+    # mma.sync + cp.async kernels on the helpers of csrc/sm80_mma.cuh:
+    # one template each (flash_attention_{kernel}_mma.cuh), instantiated
+    # at head_dim 16/32 in its `_small` source and at 80/96/256 in its
+    # `_wide` source, each with its own C entry.
     helpers = (PORT / 'csrc' / 'sm80_mma.cuh').read_text()
     assert 'mma.sync.aligned.m16n8k16' in helpers and 'cp.async' in helpers
     for kernel in ('fwd', 'bwd_dq', 'bwd_dkv'):
-        src = (PORT / 'csrc' /
-               f'flash_attention_{kernel}_small.cu').read_text()
-        assert f'extern "C" int skytpu_flash_attention_{kernel}_small(' in src
-        assert '#include "sm80_mma.cuh"' in src and 'sm80::mma16816' in src
+        template = (PORT / 'csrc' /
+                    f'flash_attention_{kernel}_mma.cuh').read_text()
+        assert '#include "sm80_mma.cuh"' in template
+        assert 'sm80::mma16816' in template
+        for suffix, widths in (('small', (16, 32)), ('wide', (80, 96, 256))):
+            src = (PORT / 'csrc' /
+                   f'flash_attention_{kernel}_{suffix}.cu').read_text()
+            assert (f'extern "C" int skytpu_flash_attention_{kernel}_'
+                    f'{suffix}(') in src
+            assert f'#include "flash_attention_{kernel}_mma.cuh"' in src
+            for width in widths:
+                assert f'<{width}>(' in src, (kernel, suffix, width)
 
 
 def _code_without_docstrings(text):
