@@ -64,6 +64,20 @@ followed by its seconds:
    per kernel and route and prefill logits within LOGITS_RTOL of
    attention_impl='xla'; Trainer.run takes 3 steps at 2 x 2048 with
    exact launches, then the gradient check of phase 8.
+3b''. f32 (F32_*): the three kernels on f32 inputs, the mma.sync family in
+   3xTF32 (csrc/flash_attention_*_f32.cu, *_f32_wide.cu) at every width.
+   (a) `probe check f32`'s 377 cases (the JAX tests' Pallas shapes, every
+   native f32 width at S one short of and one past its tiles, GQA 1, 4
+   and 8, causal and not, head_dims 8-200 through the padded route)
+   against the plain versions in full f32 (TF32 matmuls off): out and
+   lse within 5e-5 + 5e-5*|ref|, dq, dk, dv norm-rel 5e-5, each call
+   launching its f32 kernel once; f64 and head_dim 257 refused; (b) the
+   three timed at the f32 serving (8, 32, 32, 256, 128), tensor_serving
+   (c)'s per-rank (8, 16, 16, 256, 128) and training (2, 16, 8, 4096,
+   128) shapes beside their plain versions, each held to them there
+   under (a)'s gates, SDPA in f32 (the kernel it ran named) and the f32
+   bounds (4-byte elements, TF32's 495 TFLOP/s); one profiled launch
+   each.
 3c. Sync audit (SYNC_AUDIT): first which synchronizing forms
    torch.cuda.set_sync_debug_mode('warn') reports on this torch (.item(),
    .cpu(), .tolist(), torch.cuda.synchronize(), .nonzero(), a pinned
@@ -224,10 +238,11 @@ followed by its seconds:
    (eager: gloo syncs the host) on the serving cell's traffic, every
    rank's tokens equal to rank 0's, greedy agreement with the one-device
    engine printed, one flash launch per layer and prefill group on rank
-   0; (c)
-   the model cut to 4 layers in f32 (attention_impl 'xla'): tokens
-   identical to the one-device engine; (d) tensor=1 over a one-rank NCCL
-   group in this process: the decode call a CUDA graph with its
+   0; (c) the model (4 layers) in f32 through the f32 kernels: tokens
+   identical to the one-device engine (also through them), one f32
+   forward per layer and prefill group on rank 0, one device's prefill
+   logits within F32_LOGITS_RTOL of attention_impl='xla'; (d) tensor=1 over
+   a one-rank NCCL group in this process: the decode call a CUDA graph with its
    collectives, tokens identical to the mesh-free engine; (e) the flash
    forward at one rank's prefill shape (TP_SHAPE) against its plain
    version, timed beside its bound.  Each rank's peak memory printed.
@@ -259,6 +274,15 @@ followed by its seconds:
    counts and numbers (MFU counts all experts, 6N, as the JAX package
    does), and its gradients against the plain backward; against xla
    reported only (its rounding may flip a routing choice).
+8a. f32 training (F32_TRAIN, bench.py:58-115): bench-1b at full width,
+   2 of its 14 layers, f32 params and compute, 3 Trainer.run steps at
+   2 x 4096, first with attention_impl='xla' (then freed), then through
+   the f32 kernels on the same weights and batch: exactly 2 f32 forwards
+   (remat), 1 dq and 1 dk/dv per layer and step, nothing else; each
+   step's loss within F32_LOSS_RTOL of xla's; one step's gradients
+   within F32_GRAD_RTOL of the plain backward on every tensor (and each
+   attention backward on its own inputs), within F32_XLA_GRAD_RTOL of
+   xla's.
 8b. Tiny training (TINY_TRAIN, bench.py:64-67): `tiny` (head_dim 16)
    through Trainer.run at B=4 x S=64 and S=128, 2 untimed and 5 timed
    steps each: the small forward, dq and dk/dv launched exactly n_layers
@@ -325,8 +349,10 @@ followed by its seconds:
    layers, two gloo ranks on cuda:0: bf16 first-step logits
    bit-identical to one device computing the same arithmetic, within
    LOGITS_RTOL of the plain model, one flash launch a layer on rank 0; f32
-   ('xla') greedy tokens of MOE_SERVE's traffic identical to one device,
-   dense and paged.
+   greedy tokens of MOE_SERVE's traffic through the f32 kernels identical
+   to one device, dense and paged, one f32 forward per layer and prefill
+   group on rank 0, one device's prefill logits within F32_LOGITS_RTOL of
+   attention_impl='xla'.
 15. Graft entry: the port's `graft_entry.entry()` (llama-250m, [1,
    512]) on the card, its logits against attention_impl='xla' on its
    example arguments and on seeded tokens; validate.py's h100 entry
@@ -366,7 +392,11 @@ followed by its seconds:
    launched on tiny_training and sync_audit, the forward's also on
    perf_gate; the three wide kernels' rows launched on head_dims, with
    their times at every timed shape, the padded route's, ptxas registers
-   per head_dim), the nvidia-smi
+   per head_dim; the three f32 kernels' rows launched on f32_training,
+   the forward's also on tensor_serving and moe_tensor_serving (rank 0's
+   (c)), with their times at both f32 shapes, ptxas registers per width
+   and the worst numbers of (3b'')), the run's seconds beside PR 20's
+   807.5, the nvidia-smi
    line, then {"ok": true, "device": {...}} as the last line.
 
 Needs one CUDA device; exits non-zero without one and imports nothing of
@@ -394,6 +424,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 # Published H100 SXM peaks (dense): the roofline bound's denominators.
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES_S = 3.35e12
 # bf16 kernel vs its f32 plain version on the same bf16 inputs: the
 # kernel rounds P to bf16 before P.V (as the TPU kernel does) and the
@@ -617,9 +648,10 @@ EXPERT = dict(model='llama3-1b', n_experts=8, n_layers=2, expert=2, batch=4,
 # bf16 params and compute, the flash prefill: first-step logits
 # bit-identical to one device computing the same arithmetic (o and each
 # expert's w_down as two bf16 half products added in bf16) and within
-# LOGITS_RTOL of the plain one-device model; (c) f32 with attention
-# 'xla' (the kernel takes bf16/fp16): greedy tokens identical to the
-# one-device engine, dense and 64-token paged.
+# LOGITS_RTOL of the plain one-device model; (c) f32 params and compute
+# through the f32 kernels: greedy tokens identical to the one-device
+# engine, dense and 64-token paged, one device's prefill logits within
+# F32_LOGITS_RTOL of attention_impl='xla'.
 MOE_TENSOR = dict(model='llama3-1b', n_experts=8, n_layers=2, tensor=2,
                   device='cuda:0')
 # The graft entry's forward (llama-250m, [1, 512]) against
@@ -700,8 +732,9 @@ def cold_l2_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 # Kernel symbols as ptxas and the profiler name them, by wrapper.
-# The small and the wide wrappers launch one mma.sync template each (at
-# head_dim 16/32 and 80/96/256).
+# The small, the wide and the f32 wrappers launch one mma.sync template
+# each (at head_dim 16/32 and 80/96/256 in bf16/fp16; at every width in
+# f32).
 KERNEL_SYMBOLS = {'flash_attention_fwd': 'fa_fwd_kernel',
                   'flash_attention_fwd_small': 'fa_fwd_mma_kernel',
                   'flash_attention_fwd_wide': 'fa_fwd_mma_kernel',
@@ -710,19 +743,23 @@ KERNEL_SYMBOLS = {'flash_attention_fwd': 'fa_fwd_kernel',
                   'flash_attention_bwd_dq_wide': 'fa_bwd_dq_mma_kernel',
                   'flash_attention_bwd_dkv': 'fa_bwd_dkv_kernel',
                   'flash_attention_bwd_dkv_small': 'fa_bwd_dkv_mma_kernel',
-                  'flash_attention_bwd_dkv_wide': 'fa_bwd_dkv_mma_kernel'}
+                  'flash_attention_bwd_dkv_wide': 'fa_bwd_dkv_mma_kernel',
+                  'flash_attention_fwd_f32': 'fa_fwd_mma_kernel',
+                  'flash_attention_bwd_dq_f32': 'fa_bwd_dq_mma_kernel',
+                  'flash_attention_bwd_dkv_f32': 'fa_bwd_dkv_mma_kernel'}
 
 
 def ptxas_report(build_log: str) -> dict:
-    """{(symbol, 'bf16' | 'fp16', head_dim): {'registers', 'stack',
+    """{(symbol, 'bf16' | 'fp16' | 'f32', head_dim): {'registers', 'stack',
     'spill_stores', 'spill_loads'}} from nvcc's -Xptxas -v output."""
     report, cur = {}, None
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '\S*?(fa_\w+?_kernel)I"
                       r"(\w+?)Li(\d+)E", line)
         if m:
-            cur = (m.group(1), 'bf16' if 'bfloat16' in m.group(2) else 'fp16',
-                   int(m.group(3)))
+            dtype = ('bf16' if 'bfloat16' in m.group(2) else
+                     'f32' if m.group(2) == 'f' else 'fp16')
+            cur = (m.group(1), dtype, int(m.group(3)))
             report[cur] = {}
             continue
         m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
@@ -776,33 +813,36 @@ def launch_attrs(calls: dict, attempts: int = 3, repeats: int = 3) -> dict:
     return attrs
 
 
-def attention_bound(b, hq, hkv, s, d, causal, itemsize=2):
+def attention_bound(b, hq, hkv, s, d, causal, itemsize=2,
+                    peak=PEAK_BF16_FLOPS):
     """Least time for the forward: q, k, v read once and out written
     once over HBM bandwidth, vs the QK^T and PV flops this input needs
-    (causal: s(s+1)/2 query-key pairs) over the bf16 tensor-core peak."""
+    (causal: s(s+1)/2 query-key pairs) over the tensor-core peak of the
+    inputs' type (bf16's; PEAK_TF32_FLOPS for f32)."""
     pairs = s * (s + 1) // 2 if causal else s * s
     flops = 4 * b * hq * pairs * d
     nbytes = (2 * b * hq * s * d + 2 * b * hkv * s * d) * itemsize
-    t_flops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES_S
+    t_flops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES_S
     return (max(t_flops, t_bytes) * 1e3,
             'operations' if t_flops > t_bytes else 'bytes', flops, nbytes)
 
 
-def bwd_bound(kind, b, hq, hkv, s, d, causal, itemsize=2):
+def bwd_bound(kind, b, hq, hkv, s, d, causal, itemsize=2,
+              peak=PEAK_BF16_FLOPS):
     """Least time for one backward kernel: its inputs (q, dO [B,Hq,S,D],
     k, v [B,Hkv,S,D], lse and delta [B,Hq,S] f32) read once and its
     outputs (dq [B,Hq,S,D], or dk and dv [B,Hkv,S,D]) written once over
     HBM bandwidth, vs the products over the (q, k) pairs this input needs
-    (causal: s(s+1)/2) over the bf16 tensor-core peak: dq recomputes
-    Q K^T and dO V^T and forms dS K (6 D flops per pair), dk/dv also forms
-    P^T dO and dS^T Q (8 D)."""
+    (causal: s(s+1)/2) over the tensor-core peak of the inputs' type
+    (`peak`): dq recomputes Q K^T and dO V^T and forms dS K (6 D flops per
+    pair), dk/dv also forms P^T dO and dS^T Q (8 D)."""
     pairs = s * (s + 1) // 2 if causal else s * s
     flops = (6 if kind == 'dq' else 8) * b * hq * pairs * d
     in_bytes = (2 * b * hq * s * d + 2 * b * hkv * s * d) * itemsize
     in_bytes += 2 * b * hq * s * 4
     out_bytes = (b * hq * s * d if kind == 'dq' else 2 * b * hkv * s * d)
     nbytes = in_bytes + out_bytes * itemsize
-    t_flops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES_S
+    t_flops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES_S
     return (max(t_flops, t_bytes) * 1e3,
             'operations' if t_flops > t_bytes else 'bytes', flops, nbytes)
 
@@ -1329,8 +1369,7 @@ def route_launches(d, calls=1, kernels=('fwd', 'bwd_dq', 'bwd_dkv')):
     """The launch and padded counts `calls` calls of each of `kernels` at
     head_dim d must leave (read_route_launches' keys)."""
     width = min(w for w in WIDTH_SUFFIX if w >= d)
-    want = dict.fromkeys(KERNEL_NAMES + SMALL_KERNELS + WIDE_KERNELS + PADDED,
-                         0)
+    want = dict.fromkeys(ROUTED + PADDED, 0)
     for kernel in kernels:
         want[f'flash_attention_{kernel}{WIDTH_SUFFIX[width]}'] += calls
         if width != d:
@@ -1430,19 +1469,20 @@ def padded_route_calls(q, k, v, g, lse, delta, width):
 
     def fwd():
         qp, kp, vp = fa._pad_head_dim(width, q, k, v)
-        out, lse_ = fa._launch_fwd(*fa._route('fwd', width), qp, kp, vp,
-                                   True, True, d**-0.5)
+        out, lse_ = fa._launch_fwd(*fa._route('fwd', width, q.dtype), qp,
+                                   kp, vp, True, True, d**-0.5)
         return out[..., :d].contiguous(), lse_
 
     def dq():
         qp, kp, vp, gp = fa._pad_head_dim(width, q, k, v, g)
-        return fa._launch_dq(*fa._route('bwd_dq', width), qp, kp, vp, gp,
-                             lse, delta, True, d**-0.5)[..., :d].contiguous()
+        return fa._launch_dq(*fa._route('bwd_dq', width, q.dtype), qp, kp,
+                             vp, gp, lse, delta, True,
+                             d**-0.5)[..., :d].contiguous()
 
     def dkv():
         qp, kp, vp, gp = fa._pad_head_dim(width, q, k, v, g)
-        dk, dv = fa._launch_dkv(*fa._route('bwd_dkv', width), qp, kp, vp, gp,
-                                lse, delta, True, d**-0.5)
+        dk, dv = fa._launch_dkv(*fa._route('bwd_dkv', width, q.dtype), qp,
+                                kp, vp, gp, lse, delta, True, d**-0.5)
         return dk[..., :d].contiguous(), dv[..., :d].contiguous()
 
     return {'fwd': fwd, 'dq': dq, 'dkv': dkv}
@@ -1536,8 +1576,7 @@ def head_dims_models(device, card, smi):
     from skypilot_tpu_torch.train.trainer import TrainConfig, Trainer
 
     spec = HEAD_DIM_E2E
-    total = dict.fromkeys(KERNEL_NAMES + SMALL_KERNELS + WIDE_KERNELS + PADDED,
-                          0)
+    total = dict.fromkeys(ROUTED + PADDED, 0)
     for family, widths in HEAD_DIM_MODELS.items():
         t0 = time.perf_counter()
         cfg = LlamaConfig(**widths, n_layers=spec['n_layers'],
@@ -1702,6 +1741,207 @@ def head_dims_phase(device, card, smi, ptxas):
     return entries, counts
 
 
+# ----- f32: the three kernels in 3xTF32 ---------------------------------------
+
+# The f32 kernels (csrc/flash_attention_*_f32.cu, 3xTF32 mma.sync at every
+# width) timed at the f32 serving shape (llama2-7b's prefill bucket on one
+# device: 8 x 256, 32 heads of 128), at one rank's share of it in
+# tensor_serving (c) (TP_SHAPE: 16 of the 32 heads) and at the f32
+# training shape (F32_TRAIN's: bench-1b at 2 x 4096, 16 query heads over 8
+# kv heads of 128), causal, beside their plain versions in full f32 (TF32
+# matmuls off), SDPA in f32 and the f32 bounds (4-byte elements over
+# 3.35 TB/s, the flops over TF32's 495 TFLOP/s).  At each shape every
+# kernel's outputs are held to its plain version's under the probe's f32
+# gates (F32_OUT_TOL, F32_NORM_RTOL).
+F32_TIMED = {'serving': (8, 32, 32, 256, 128),
+             'tensor_serving': TP_SHAPE,
+             'training': (2, 16, 8, 4096, 128)}
+# f32 training: bench-1b (bench.py:58-115) at full width, 2 of its 14
+# layers, f32 params and compute, its remat, 3 steps at 2 x 4096 through
+# Trainer.run; attention_impl 'xla' on the same weights and batch first.
+F32_TRAIN = dict(model='bench-1b', n_layers=2, batch=2, seq=4096, steps=3,
+                 grad_batch=1, warmup_steps=5, total_steps=1000)
+# Its gates: each step's loss within F32_LOSS_RTOL (relative) of 'xla';
+# one step's gradients within F32_GRAD_RTOL (norm-relative, every tensor)
+# of the same step through the backward kernels' plain versions, each
+# attention backward within it on its own inputs; against 'xla' the worst
+# tensor and the whole gradient within F32_XLA_GRAD_RTOL.  All f32 on
+# both sides: 3xTF32's rounding (near 2^-21) against f32's, a
+# thousandth of the bf16 gates'.
+F32_LOSS_RTOL = 1e-4
+F32_GRAD_RTOL = 1e-4
+F32_XLA_GRAD_RTOL = 1e-3
+# f32 prefill logits through the f32 kernels against attention_impl='xla'
+# on the same params (tensor_serving (c), moe_tensor_serving (c)): max
+# |difference| over max |logit|, f32 class (the bf16 paths' LOGITS_RTOL
+# is 500 times wider).
+F32_LOGITS_RTOL = 1e-4
+
+
+def f32_kernel_phase(device, ptxas):
+    """(a) `python -m skypilot_tpu_torch.ops.cuda.probe check f32`'s cases
+    (probe.F32_CHECK_SHAPES: the JAX tests' Pallas shapes, every native
+    f32 width at its tile edges, the padded head_dims) under the f32
+    gates, each call launching its f32 kernel once, f64 and head_dim 257
+    refused; (b) the three f32 kernels timed at F32_TIMED and held to
+    their plain versions there under the same gates; (c) one profiled
+    launch of each at the training shape.  Returns the three f32
+    kernels' kernels-line entries, launches aside."""
+    import torch
+    from skypilot_tpu_torch.ops.cuda import flash_attention as fa
+    from skypilot_tpu_torch.ops.cuda import probe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    worst = probe.check_f32(quiet=True)
+    t1 = time.perf_counter()
+    times = {label: kernel_times(device, shape, f'f32 {label}',
+                                 plain_iters=3 if label == 'training' else 20,
+                                 dtype_name='float32')
+             for label, shape in F32_TIMED.items()}
+    b, hq, hkv, s, d = F32_TIMED['training']
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    q, g = (torch.randn((b, hq, s, d), generator=gen, device=device)
+            for _ in range(2))
+    k, v = (torch.randn((b, hkv, s, d), generator=gen, device=device)
+            for _ in range(2))
+    out, lse = fa.flash_attention_fwd(q, k, v, return_residuals=True)
+    bwd_args = (q, k, v, g, lse, (g * out).sum(-1))
+    attrs = launch_attrs({
+        'fa_fwd_mma_kernel': lambda: fa.flash_attention_fwd(
+            q, k, v, return_residuals=True),
+        'fa_bwd_dq_mma_kernel': lambda: fa.flash_attention_bwd_dq(*bwd_args),
+        'fa_bwd_dkv_mma_kernel':
+            lambda: fa.flash_attention_bwd_dkv(*bwd_args)})
+    for symbol, attr in attrs.items():
+        log(f'  launch of {symbol} in f32 at head_dim {d}: {attr}')
+    del q, k, v, g, out, lse, bwd_args
+    torch.cuda.empty_cache()
+    log(f'  f32 split: (a) checks {t1 - t0:.1f} s, (b) and (c) times '
+        f'{time.perf_counter() - t1:.1f} s')
+    entries = {}
+    for kind, kernel, line, abs_key in (('fwd', 'fwd', 37, None),
+                                        ('dq', 'bwd_dq', 196, 'dq_abs'),
+                                        ('dkv', 'bwd_dkv', 225, 'dkv_abs')):
+        name = f'flash_attention_{kernel}_f32'
+        symbol = KERNEL_SYMBOLS[name]
+        report = {w: ptxas.get((symbol, 'f32', w), {})
+                  for w in fa.KERNEL_WIDTHS}
+        entries[kind] = {
+            'name': name, 'route': 'cuda',
+            'source': f'skypilot_tpu_torch/csrc/flash_attention_{kernel}'
+                      f'_f32.cu',
+            'replaces': f'skypilot_tpu/ops/pallas/flash_attention.py:{line}',
+            'max_abs_err': (max(worst['out_abs'], worst['lse_abs'])
+                            if abs_key is None else worst[abs_key]),
+            # The kernels-line numbers at the f32 training shape; the
+            # serving shape's under at_shapes.
+            **{key: times['training'][kind][key] for key in (
+                'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
+                'library_kernel', 'tflops', 'shape')},
+            'at_shapes': {f'f32 {label}': times[label][kind]
+                          for label in times},
+            'registers': max((r.get('registers') or 0)
+                             for r in report.values()) or None,
+            'registers_by_head_dim': {w: r.get('registers')
+                                      for w, r in report.items()},
+            'spill_bytes': max((r.get('spill_stores') or 0)
+                               for r in report.values())
+                           if any(report.values()) else None,
+            'smem_bytes': attrs[symbol].get('shared memory'),
+            'launch': attrs[symbol],
+            'f32_check': {key: worst[key] for key in (
+                'out_abs', 'lse_abs', 'dq', 'dk', 'dv', 'zero_abs')}}
+    return entries
+
+
+def f32_training_phase(device, card, smi):
+    """F32_TRAIN: bench-1b at full width and 2 layers in f32 through
+    Trainer.run, first with attention_impl='xla' (its losses kept, the
+    trainer freed), then through the kernels on the same weights and batch
+    with every counter zeroed just before and read just after: exactly
+    the f32 forward (2 a layer under remat), dq and dk/dv (1 a layer) per
+    step and nothing else; each step's loss within F32_LOSS_RTOL of xla's;
+    then grad_check at the f32 gates.  Returns the launch counts."""
+    import torch
+    from skypilot_tpu_torch.models.llama import LLAMA_CONFIGS, Llama, init_params
+    from skypilot_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    spec = F32_TRAIN
+    cfg = dataclasses.replace(LLAMA_CONFIGS[spec['model']],
+                              n_layers=spec['n_layers'],
+                              max_seq_len=spec['seq'], dtype=torch.float32,
+                              param_dtype=torch.float32)
+    steps = spec['steps']
+    tokens = torch.randint(
+        0, cfg.vocab_size, (spec['batch'], spec['seq']), device=device,
+        generator=torch.Generator(device=device).manual_seed(SEED + 2))
+
+    def run(c, before_run=None):
+        model = Llama(c, init_params(
+            c, device, torch.Generator(device=device).manual_seed(SEED)))
+        trainer = Trainer(model, TrainConfig(
+            warmup_steps=spec['warmup_steps'],
+            total_steps=spec['total_steps']), device=device)
+        losses = []
+        train_step = trainer.train_step
+
+        def recording_step(state, tokens_):
+            state, metrics = train_step(state, tokens_)
+            losses.append(metrics['loss'])
+            return state, metrics
+
+        trainer.train_step = recording_step
+        if before_run:
+            before_run()
+        t0 = time.perf_counter()
+        trainer.run(iter([tokens] * steps), steps, log_every=steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        trainer.train_step = train_step
+        return trainer, [float(x) for x in losses], wall
+
+    trainer, losses_x, wall_x = run(dataclasses.replace(
+        cfg, attention_impl='xla'))
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer, losses, wall = run(cfg, zero_launches)
+    counts = read_route_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    fwd_per_layer = 2 if cfg.remat else 1
+    want = dict(dict.fromkeys(ROUTED + PADDED, 0),
+                flash_attention_fwd_f32=fwd_per_layer * cfg.n_layers * steps,
+                flash_attention_bwd_dq_f32=cfg.n_layers * steps,
+                flash_attention_bwd_dkv_f32=cfg.n_layers * steps)
+    rels = [abs(a - b) / abs(b) for a, b in zip(losses, losses_x)]
+    log(f'  {spec["model"]} in f32 ({cfg.n_layers} of 14 layers, '
+        f'{cfg.num_params() / 1e9:.3f}B params, remat {cfg.remat}), '
+        f'{steps} steps at {spec["batch"]} x {spec["seq"]} on {smi}: '
+        f'kernels {wall / steps * 1e3:.1f} ms a step, xla '
+        f'{wall_x / steps * 1e3:.1f} ms; peak {peak_gb:.2f} GB; losses '
+        f'{losses} against xla {losses_x}: rel {[f"{r:.2e}" for r in rels]} '
+        f'(gate {F32_LOSS_RTOL}); launches '
+        f'{ {n: c for n, c in counts.items() if c} }')
+    if counts != want:
+        raise SystemExit(f'f32 training launched {counts}, expected {want}')
+    if not (len(losses) == len(losses_x) == steps and
+            all(map(math.isfinite, losses)) and
+            max(rels) <= F32_LOSS_RTOL):
+        raise SystemExit(f'f32 training losses {losses} disagree with '
+                         f'attention_impl=xla {losses_x}')
+    grad_check(trainer.model, cfg, tokens[:spec['grad_batch']],
+               plain_rtol=F32_GRAD_RTOL, call_rtol=F32_GRAD_RTOL,
+               xla_rtols=(F32_LOSS_RTOL, F32_XLA_GRAD_RTOL,
+                          F32_XLA_GRAD_RTOL))
+    del trainer, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def _free_port() -> int:
     with socket.socket() as sock:
         sock.bind(('127.0.0.1', 0))
@@ -1853,11 +2093,16 @@ SMALL_KERNELS = (SMALL_KERNEL, 'flash_attention_bwd_dq_small',
 WIDE_KERNELS = ('flash_attention_fwd_wide', 'flash_attention_bwd_dq_wide',
                 'flash_attention_bwd_dkv_wide')
 PADDED = tuple(f'{name}.padded' for name in KERNEL_NAMES)
+# The f32 kernels' wrappers (3xTF32 mma.sync at every width): every f32
+# call on a CUDA tensor launches one of these.
+F32_KERNELS = ('flash_attention_fwd_f32', 'flash_attention_bwd_dq_f32',
+               'flash_attention_bwd_dkv_f32')
+ROUTED = KERNEL_NAMES + SMALL_KERNELS + WIDE_KERNELS + F32_KERNELS
 
 
 def zero_launches() -> None:
     from skypilot_tpu_torch.ops.cuda import flash_attention as fa
-    for name in KERNEL_NAMES + SMALL_KERNELS + WIDE_KERNELS:
+    for name in ROUTED:
         getattr(fa, name).launches = 0
     for name in KERNEL_NAMES:
         getattr(fa, name).padded_launches = 0
@@ -1866,8 +2111,7 @@ def zero_launches() -> None:
 def read_route_launches() -> dict:
     """Every flash wrapper's launches and every padded-route count."""
     from skypilot_tpu_torch.ops.cuda import flash_attention as fa
-    counts = {name: getattr(fa, name).launches
-              for name in KERNEL_NAMES + SMALL_KERNELS + WIDE_KERNELS}
+    counts = {name: getattr(fa, name).launches for name in ROUTED}
     counts.update({f'{name}.padded': getattr(fa, name).padded_launches
                    for name in KERNEL_NAMES})
     return counts
@@ -2865,7 +3109,8 @@ def tp_rank(prompts, logits_tokens, logits_at):
     SEED, this rank's slices: the first-step logits of `logits_tokens`
     at `logits_at`, then the dense and the paged engine over `prompts`
     (prewarmed; flash launches counted around them on rank 0); (c) the
-    4-layer f32 model's dense tokens.  Returns what the caller checks."""
+    4-layer f32 model's dense tokens through the f32 kernels (launches
+    counted around the run).  Returns what the caller checks."""
     import torch
     from skypilot_tpu_torch.inference.engine import DecodeEngine, EngineConfig
     from skypilot_tpu_torch.models.llama import LLAMA_CONFIGS, Llama, init_params
@@ -2910,10 +3155,13 @@ def tp_rank(prompts, logits_tokens, logits_at):
     del model
     torch.cuda.empty_cache()
     cfg4 = dataclasses.replace(cfg, n_layers=TENSOR['f32_layers'],
-                               dtype=torch.float32, param_dtype=torch.float32,
-                               attention_impl='xla')
-    out['f32'], _ = _tp_traffic(engine(build(cfg4)), prompts,
-                                TENSOR['max_tokens'])
+                               dtype=torch.float32, param_dtype=torch.float32)
+    e = engine(build(cfg4))
+    zero_launches()
+    out['f32'], _ = _tp_traffic(e, prompts, TENSOR['max_tokens'])
+    out['f32_launches'] = read_route_launches()
+    out['f32_groups'] = e.prefill_groups
+    del e
     out['peak_gb'] = torch.cuda.max_memory_allocated() / 1e9
     return out
 
@@ -2945,14 +3193,17 @@ def tensor_serving_phase(device, card, ctx):
     serving cell's traffic: first-step logits bit-identical to one
     device computing the same arithmetic and within LOGITS_RTOL of the
     plain one-device model, greedy agreement with the one-device engine
-    printed; (c) the model cut to 4 layers in f32
-    (attention_impl 'xla': the kernel takes bf16/fp16): tokens identical
-    to the one-device engine; (d) tensor=1 over a one-rank NCCL group in
+    printed; (c) the model cut to 4 layers in f32 through the f32 kernels:
+    tokens identical to the one-device engine (also through them), rank
+    0's launches exactly one f32 forward per layer and prefill group, and
+    one device's prefill logits within F32_LOGITS_RTOL of
+    attention_impl='xla' on the same params; (d) tensor=1 over a one-rank
+    NCCL group in
     this process, over the serving weights: the decode call captured as a
     CUDA graph with its collectives, tokens identical to the mesh-free
     engine; (e) the flash forward at the per-rank prefill shape against
     its plain version, timed beside its bound.  Returns (rank 0's launch
-    counts over (b) and (d), the (e) numbers)."""
+    counts over (b), (c) and (d), the (e) numbers)."""
     import torch
     from skypilot_tpu_torch.inference.engine import DecodeEngine, EngineConfig
     from skypilot_tpu_torch.models.llama import Llama, init_params
@@ -2990,19 +3241,23 @@ def tensor_serving_phase(device, card, ctx):
     finally:
         for dense in rows:
             del dense.forward
-    # (c)'s one-device reference: the same 4-layer f32 draw from SEED.
+    # (c)'s one-device reference: the same 4-layer f32 draw from SEED,
+    # through the f32 kernels; its prefill logits against 'xla' on the
+    # same params.
     cfg4 = dataclasses.replace(cfg, n_layers=TENSOR['f32_layers'],
-                               dtype=torch.float32, param_dtype=torch.float32,
-                               attention_impl='xla')
-    one = DecodeEngine(Llama(cfg4, init_params(
-        cfg4, device, torch.Generator(device=device).manual_seed(SEED))),
-        EngineConfig(n_slots=TENSOR['n_slots'],
-                     steps_per_call=TENSOR['steps_per_call'],
-                     prefill_buckets=TENSOR['prefill_buckets']),
-        device=device)
+                               dtype=torch.float32, param_dtype=torch.float32)
+    params4 = init_params(cfg4, device,
+                          torch.Generator(device=device).manual_seed(SEED))
+    model4 = Llama(cfg4, params4)
+    f32_logits = first_logits(model4)
+    f32_xla_logits = first_logits(Llama(
+        dataclasses.replace(cfg4, attention_impl='xla'), params4))
+    one = DecodeEngine(model4, EngineConfig(
+        n_slots=TENSOR['n_slots'], steps_per_call=TENSOR['steps_per_call'],
+        prefill_buckets=TENSOR['prefill_buckets']), device=device)
     one.prewarm()
     want_f32, _, _, _ = _drive(one, prompts, n_new)
-    del one
+    del one, model4, params4
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3066,11 +3321,27 @@ def tensor_serving_phase(device, card, ctx):
             lead['groups']:
         raise SystemExit(f'rank 0 launched flash {lead["launches"]} over '
                          f'{lead["groups"]} prefill groups')
-    log(f'  (c) {TENSOR["f32_layers"]} of {cfg.n_layers} layers in f32, '
-        f'tensor={t}: tokens equal to the one-device engine\'s '
-        f'{_share_equal(lead["f32"], want_f32):.4f}')
+    f32_scale = f32_xla_logits.abs().max().item()
+    f32_err = (f32_logits - f32_xla_logits).abs().max().item() / f32_scale
+    f32_want = dict(dict.fromkeys(ROUTED + PADDED, 0),
+                    flash_attention_fwd_f32=TENSOR['f32_layers'] *
+                    lead['f32_groups'])
+    log(f'  (c) {TENSOR["f32_layers"]} of {cfg.n_layers} layers in f32 '
+        f'through the f32 kernels, tensor={t}: tokens equal to the '
+        f'one-device engine\'s {_share_equal(lead["f32"], want_f32):.4f}; '
+        f'rank 0 launches '
+        f'{ {n: c for n, c in lead["f32_launches"].items() if c} } over '
+        f'{lead["f32_groups"]} prefill groups; one device\'s prefill '
+        f'logits against attention_impl=xla: rel {f32_err:.2e} of max '
+        f'|logit| {f32_scale:.3f} (gate {F32_LOGITS_RTOL})')
     if lead['f32'] != want_f32:
         raise SystemExit('f32 tensor=2 tokens differ from one device')
+    if lead['f32_launches'] != f32_want or lead['f32_groups'] < 1:
+        raise SystemExit(f'f32 tensor=2 rank 0 launched '
+                         f'{lead["f32_launches"]}, expected {f32_want}')
+    if not (torch.isfinite(f32_logits).all() and f32_err <= F32_LOGITS_RTOL):
+        raise SystemExit('f32 prefill logits through the kernel disagree '
+                         'with attention_impl=xla')
 
     # (d) tensor=1 over a real NCCL group: this process is its one rank,
     # and the serving weights are its (whole) slices.
@@ -3131,6 +3402,7 @@ def tensor_serving_phase(device, card, ctx):
     torch.cuda.empty_cache()
     counts = {name: lead['launches'][name] + counts1[name]
               for name in KERNEL_NAMES}
+    counts.update({name: lead['f32_launches'][name] for name in F32_KERNELS})
     return counts, times
 
 
@@ -3431,12 +3703,17 @@ def kernel_vs_plain_grads(model, loss_of):
     return loss_f, grads_f, loss_p, grads_p, per_call[::-1]
 
 
-def grad_check(model, cfg, tokens, gate_xla=True):
+def grad_check(model, cfg, tokens, gate_xla=True, plain_rtol=GRAD_PLAIN_RTOL,
+               call_rtol=BWD_NORM_RTOL,
+               xla_rtols=(LOSS_RTOL, GRAD_NORM_RTOL, GRAD_GLOBAL_RTOL)):
     """One step's loss and per-tensor gradients through the kernels vs
     (a) the same model with the attention backward through the kernels'
     plain versions on the same CUDA tensors (the same forward, so the
-    same routing), and (b) attention_impl='xla', on the same (trained)
-    weights; (b) gates only with `gate_xla`."""
+    same routing): every tensor within `plain_rtol`, each attention
+    backward within `call_rtol` on its own inputs; and (b)
+    attention_impl='xla', on the same (trained) weights: the loss, the
+    worst tensor and the whole gradient within `xla_rtols`, gated only
+    with `gate_xla`."""
     import torch
     from skypilot_tpu_torch.models.llama import Llama
     from skypilot_tpu_torch.train.trainer import lm_loss
@@ -3473,13 +3750,14 @@ def grad_check(model, cfg, tokens, gate_xla=True):
         f'{[(n, round(r, 5)) for n, r in worst_x]}')
     log(f'  plain backward vs xla: global norm-rel {total_px:.3e}; worst '
         f'tensors {[(n, round(r, 5)) for n, r in worst_px]}')
-    if not (math.isfinite(loss_f) and worst_p[0][1] <= GRAD_PLAIN_RTOL and
-            max(map(max, per_call)) <= BWD_NORM_RTOL):
+    if not (math.isfinite(loss_f) and worst_p[0][1] <= plain_rtol and
+            max(map(max, per_call)) <= call_rtol):
         raise SystemExit('training gradients through the backward kernels '
                          'disagree with their plain versions')
-    if gate_xla and (abs(loss_f - loss_x) > LOSS_RTOL * abs(loss_x) or
-                     worst_x[0][1] > GRAD_NORM_RTOL or
-                     total_x > GRAD_GLOBAL_RTOL):
+    loss_rtol, tensor_rtol, global_rtol = xla_rtols
+    if gate_xla and (abs(loss_f - loss_x) > loss_rtol * abs(loss_x) or
+                     worst_x[0][1] > tensor_rtol or
+                     total_x > global_rtol):
         raise SystemExit('training gradients through the kernels disagree '
                          'with attention_impl=xla')
     del grads_f, grads_p, grads_x
@@ -3518,23 +3796,46 @@ def profile_train_step(trainer, tokens, card):
         log(f'    {dev_ms:9.3f} ms  x{count:<6d} {name[:90]}')
 
 
+def top_kernel(fn):
+    """The name of the kernel that took most of one call of `fn`'s device
+    time under torch.profiler (None where the trace holds no kernel): a
+    record of which backend a library call chose, not a gate."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = kernel_rows(prof)
+    return rows[0][2] if rows else None
+
+
 def kernel_times(device, shape, label, kinds=('fwd', 'dq', 'dkv'),
-                 plain_iters=20):
+                 plain_iters=20, dtype_name='bfloat16'):
     """CUDA-event times of the forward, dq and dk/dv kernels (`kinds`)
-    at `shape` (b, hq, hkv, s, d; causal bf16), of their plain versions
-    (the mean of `plain_iters` calls) and of SDPA (forward; backward: one
-    call for dq, dk and dv), beside the bounds.  Returns {kind:
-    numbers}."""
+    at `shape` (b, hq, hkv, s, d; causal, in `dtype_name`), of their
+    plain versions (the mean of `plain_iters` calls) and of SDPA
+    (forward; backward: one call for dq, dk and dv), beside the bounds
+    (f32: its bytes, and TF32's peak).  In f32 also the kernel that took
+    most of one SDPA forward's and backward's device time (the backend
+    PyTorch chose), and each kernel held to its plain version (TF32
+    matmuls off) under the probe's f32 gates: out and lse within
+    F32_OUT_TOL + F32_OUT_TOL * |ref|, dq, dk and dv within F32_NORM_RTOL
+    norm-relative; a miss raises.  Returns {kind: numbers}."""
     import torch
     import torch.nn.functional as F
     from skypilot_tpu_torch.ops.cuda import flash_attention as fa
+    from skypilot_tpu_torch.ops.cuda import probe
 
     b, hq, hkv, s, d = shape
+    dtype = getattr(torch, dtype_name)
+    peak = PEAK_TF32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
     q, g = (torch.randn((b, hq, s, d), generator=gen,
-                        device=device).to(torch.bfloat16) for _ in range(2))
+                        device=device).to(dtype) for _ in range(2))
     k, v = (torch.randn((b, hkv, s, d), generator=gen,
-                        device=device).to(torch.bfloat16) for _ in range(2))
+                        device=device).to(dtype) for _ in range(2))
     out, lse = fa.flash_attention_fwd(q, k, v, return_residuals=True)
     delta = (g.float() * out.float()).sum(-1)
     calls = {
@@ -3552,21 +3853,29 @@ def kernel_times(device, shape, label, kinds=('fwd', 'dq', 'dkv'),
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
                                               enable_gqa=True)
-    lib_bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(
-        sdpa_out, leaves, g, retain_graph=True))
+
+    def sdpa_bwd():
+        return torch.autograd.grad(sdpa_out, leaves, g, retain_graph=True)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+
+    lib_bwd_ms = cuda_time_ms(sdpa_bwd)
+    backend = ({'fwd': top_kernel(sdpa_fwd), 'bwd': top_kernel(sdpa_bwd)}
+               if dtype == torch.float32 else None)
     del sdpa_out, leaves
-    with torch.no_grad():
-        lib_fwd_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True))
+    lib_fwd_ms = cuda_time_ms(sdpa_fwd)
     times = {}
     for kind in kinds:
         kernel, plain = calls[kind]
         if kind == 'fwd':
             bound_ms, bound_by, flops, nbytes = attention_bound(
-                b, hq, hkv, s, d, True)
+                b, hq, hkv, s, d, True, dtype.itemsize, peak)
         else:
-            bound_ms, bound_by, flops, nbytes = bwd_bound(kind, b, hq, hkv,
-                                                          s, d, True)
+            bound_ms, bound_by, flops, nbytes = bwd_bound(
+                kind, b, hq, hkv, s, d, True, dtype.itemsize, peak)
         times[kind] = {'ms': cuda_time_ms(kernel),
                        'plain_ms': cuda_time_ms(
                            plain, iters=plain_iters,
@@ -3574,19 +3883,59 @@ def kernel_times(device, shape, label, kinds=('fwd', 'dq', 'dkv'),
                        'bound_ms': bound_ms, 'bound_by': bound_by,
                        'library_ms': lib_fwd_ms if kind == 'fwd'
                        else lib_bwd_ms,
-                       'shape': [b, hq, hkv, s, d, True, 'bfloat16']}
+                       'shape': [b, hq, hkv, s, d, True, dtype_name]}
         t = times[kind]
         t['tflops'] = flops / t['ms'] / 1e9
+        if backend:
+            t['library_kernel'] = backend['fwd' if kind == 'fwd' else 'bwd']
+        if dtype == torch.float32:
+            t['f32_check'] = f32_against_plain(kind, kernel(), plain(),
+                                               probe, shape)
         log(f'  timing {kind} at the {label} shape b={b} hq={hq} '
-            f'hkv={hkv} s={s} d={d} causal bf16: kernel {t["ms"]:.4f} ms '
-            f'({t["tflops"]:.1f} TFLOP/s), plain {t["plain_ms"]:.4f} ms, sdpa '
+            f'hkv={hkv} s={s} d={d} causal {dtype_name}: kernel '
+            f'{t["ms"]:.4f} ms ({t["tflops"]:.1f} TFLOP/s), plain '
+            f'{t["plain_ms"]:.4f} ms, sdpa '
             f'{"forward" if kind == "fwd" else "backward (dq+dk+dv)"} '
-            f'{t["library_ms"]:.4f} ms, bound {bound_ms:.6f} ms '
-            f'({bound_by}: {flops / 1e6:.1f} MFLOP, {nbytes / 1e6:.3f} MB), '
-            f'{bound_ms / t["ms"]:.1%} of bound')
+            f'{t["library_ms"]:.4f} ms'
+            + (f' ({t["library_kernel"]})' if backend else '') +
+            f', bound {bound_ms:.6f} ms ({bound_by}: {flops / 1e6:.1f} '
+            f'MFLOP, {nbytes / 1e6:.3f} MB), {bound_ms / t["ms"]:.1%} of '
+            f'bound' + (f'; against plain {t["f32_check"]}'
+                        if 'f32_check' in t else ''))
     del q, k, v, g, out, lse, delta
     torch.cuda.empty_cache()
     return times
+
+
+def f32_against_plain(kind, got, want, probe, shape):
+    """The f32 kernel's outputs of `kind` ('fwd': (out, lse); 'dq': dq;
+    'dkv': (dk, dv)) against its plain version's under the probe's f32
+    gates (TF32 matmuls off, as f32_kernel_phase sets): the forward's
+    max(|d| - F32_OUT_TOL * |ref|) within F32_OUT_TOL, the gradients'
+    norm-rel within F32_NORM_RTOL; raises on a miss or a non-finite value.
+    Returns the numbers."""
+    import torch
+
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    names = {'fwd': ('out', 'lse'), 'dq': ('dq',), 'dkv': ('dk', 'dv')}[kind]
+    nums, ok = {}, True
+    for name, x, r in zip(names, got, want):
+        ok &= bool(torch.isfinite(x).all()) and x.dtype == r.dtype
+        if kind == 'fwd':
+            diff = (x - r).abs()
+            nums[f'{name}_abs'] = diff.max().item()
+            beyond = (diff - probe.F32_OUT_TOL * r.abs()).max().item()
+            ok &= beyond <= probe.F32_OUT_TOL
+        else:
+            nums[name] = probe._norm_rel(x, r)
+            ok &= nums[name] <= probe.F32_NORM_RTOL
+    if not ok:
+        raise SystemExit(f'the f32 {kind} kernel disagrees with its plain '
+                         f'version at {shape}: {nums} (gates out/lse '
+                         f'{probe.F32_OUT_TOL} + {probe.F32_OUT_TOL}*|ref|, '
+                         f'norm-rel {probe.F32_NORM_RTOL})')
+    return nums
 
 
 def rl_phase(device, card):
@@ -5080,7 +5429,7 @@ def expert_parallel_phase(device, card, smi):
 
 
 def moe_tensor_case():
-    """(bf16 config, f32 'xla' config, prompts, padded prompts, last
+    """(bf16 config, f32 config, prompts, padded prompts, last
     positions) of MOE_TENSOR, MOE_SERVE's traffic."""
     import numpy as np
     import torch
@@ -5092,8 +5441,7 @@ def moe_tensor_case():
                               max_seq_len=spec['max_seq_len'],
                               param_dtype=torch.bfloat16)
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32,
-                                param_dtype=torch.float32,
-                                attention_impl='xla')
+                                param_dtype=torch.float32)
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab_size, spec['prompt_len']).tolist()
                for _ in range(spec['n_prompts'])]
@@ -5117,7 +5465,8 @@ def moe_tp_rank():
     """One rank of MOE_TENSOR's gloo pair on cuda:0: (b) the bf16 model's
     first-step logits of the padded prompts (its slices of the SEED draw;
     launches zeroed just before, read just after); (c) the f32 model's
-    dense and paged tokens of every prompt."""
+    dense and paged tokens of every prompt through the f32 kernels (the
+    launches and prefill groups counted around both runs)."""
     import torch
     from skypilot_tpu_torch.models.llama import Llama, init_params
     from skypilot_tpu_torch.parallel.mesh import build_serve_mesh
@@ -5144,10 +5493,16 @@ def moe_tp_rank():
     del model, logits
     torch.cuda.empty_cache()
     model = build(cfg32)
+    zero_launches()
+    out['f32_groups'] = 0
     for name, kw in (('dense', {}),
                      ('paged', {'kv_page_size': MOE_SERVE['kv_page_size']})):
+        e = _moe_engine(model, mesh, **kw)
         out[name], out[name + '_wall'] = _tp_traffic(
-            _moe_engine(model, mesh, **kw), prompts, MOE_SERVE['max_tokens'])
+            e, prompts, MOE_SERVE['max_tokens'])
+        out['f32_groups'] += e.prefill_groups
+        del e
+    out['f32_launches'] = read_route_launches()
     out['peak_gb'] = torch.cuda.max_memory_allocated() / 1e9
     return out
 
@@ -5189,8 +5544,12 @@ def moe_tensor_serving_phase(device, card):
     card: (b) bf16 first-step logits bit-identical to one device
     computing the same arithmetic and within LOGITS_RTOL of the plain
     one-device model, n_layers flash launches on rank 0; (c) f32 greedy
-    tokens of MOE_SERVE's traffic identical to the one-device engine,
-    dense and paged, on every rank.  Returns rank 0's launches."""
+    tokens of MOE_SERVE's traffic through the f32 kernels identical to
+    the one-device engine's (also through them), dense and paged, on
+    every rank, rank 0's launches exactly one f32 forward per layer and
+    prefill group, and one device's f32 prefill logits within F32_LOGITS_RTOL
+    of attention_impl='xla' on the same params.  Returns rank 0's
+    launches."""
     import torch
     from skypilot_tpu_torch.models.llama import Llama, init_params
     from skypilot_tpu_torch.parallel import group as group_lib
@@ -5222,12 +5581,17 @@ def moe_tensor_serving_phase(device, card):
                 del m.forward
         del model
         torch.cuda.empty_cache()
-        one = _moe_engine(Llama(cfg32, init_params(
-            cfg32, device, torch.Generator(device=device).manual_seed(SEED))),
-            device=device)
+        params32 = init_params(
+            cfg32, device, torch.Generator(device=device).manual_seed(SEED))
+        model = Llama(cfg32, params32)
+        f32_logits = first_logits()
+        model = Llama(dataclasses.replace(cfg32, attention_impl='xla'),
+                      params32)
+        f32_xla_logits = first_logits()
+        one = _moe_engine(Llama(cfg32, params32), device=device)
         one.prewarm()
         want_toks, _, _, _ = _drive(one, prompts, MOE_SERVE['max_tokens'])
-        del one
+        del one, model, params32
         gc.collect()
         torch.cuda.empty_cache()
         log(f'  {MOE_TENSOR["model"]} x {cfg.n_experts} experts at '
@@ -5275,7 +5639,24 @@ def moe_tensor_serving_phase(device, card):
                          f'{cfg.n_layers} flash forwards')
     if lead['dense'] != want_toks or lead['paged'] != want_toks:
         raise SystemExit('MoE f32 tensor=2 tokens differ from one device')
-    return lead['launches'], kernel_times(
+    f32_scale = f32_xla_logits.abs().max().item()
+    f32_err = (f32_logits - f32_xla_logits).abs().max().item() / f32_scale
+    f32_want = dict(dict.fromkeys(ROUTED + PADDED, 0),
+                    flash_attention_fwd_f32=cfg.n_layers * lead['f32_groups'])
+    log(f'  (c) f32 through the f32 kernels: rank 0 launches '
+        f'{ {n: c for n, c in lead["f32_launches"].items() if c} } over '
+        f'{lead["f32_groups"]} prefill groups; one device\'s prefill logits '
+        f'against attention_impl=xla: rel {f32_err:.2e} of max |logit| '
+        f'{f32_scale:.3f} (gate {F32_LOGITS_RTOL})')
+    if lead['f32_launches'] != f32_want or lead['f32_groups'] < 1:
+        raise SystemExit(f'MoE f32 tensor=2 rank 0 launched '
+                         f'{lead["f32_launches"]}, expected {f32_want}')
+    if not (torch.isfinite(f32_logits).all() and f32_err <= F32_LOGITS_RTOL):
+        raise SystemExit('MoE f32 prefill logits through the kernel '
+                         'disagree with attention_impl=xla')
+    launches = dict(lead['launches'], **{
+        name: lead['f32_launches'][name] for name in F32_KERNELS})
+    return launches, kernel_times(
         device, MOE_TP_PREFILL_SHAPE, f'MoE tensor={t} per-rank prefill',
         ('fwd',))['fwd']
 
@@ -7557,6 +7938,10 @@ def main() -> int:
         f'widths served and trained ({HEAD_DIM_E2E})')
     wide, by_path['head_dims'] = phase('head_dims', head_dims_phase, device,
                                        card, smi, ptxas)
+    log(f'[f32] the three kernels in f32 (3xTF32 mma.sync) vs their plain '
+        f'versions in full f32 (out, lse |d| <= 5e-5 + 5e-5*|ref|; dq, '
+        f'dk/dv norm-rel 5e-5); timed at {F32_TIMED}')
+    f32k = phase('f32', f32_kernel_phase, device, ptxas)
     log(f'[sync_audit] {SYNC_AUDIT}')
     by_path['sync_audit'] = phase('sync_audit', sync_audit_phase, device,
                                   card)
@@ -7628,6 +8013,9 @@ def main() -> int:
     log(f'[tiny_training] {TINY_TRAIN}')
     by_path['tiny_training'] = phase('tiny_training', tiny_training_phase,
                                      device, card, smi)
+    log(f'[f32_training] {F32_TRAIN}')
+    by_path['f32_training'] = phase('f32_training', f32_training_phase,
+                                    device, card, smi)
     log(f'[rl] {RL}')
     by_path['rl'] = phase('rl', rl_phase, device, card)
     at_rl_shape = kernel_times(device, RL_SHAPE, 'REINFORCE')
@@ -7661,7 +8049,10 @@ def main() -> int:
     # and from the relayed bucket serve: the flash forward, no backward).
     new_paths = {'ssh_pool': ('flash_attention_fwd',),
                  'bucket_relay': ('flash_attention_fwd',),
-                 'head_dims': WIDE_KERNELS}
+                 'head_dims': WIDE_KERNELS,
+                 'f32_training': F32_KERNELS,
+                 'tensor_serving': ('flash_attention_fwd_f32',),
+                 'moe_tensor_serving': ('flash_attention_fwd_f32',)}
     for path, names in new_paths.items():
         for name in names:
             if not by_path[path][name]:
@@ -7722,8 +8113,11 @@ def main() -> int:
         rows.append({**{key: entry[key] for key in keys},
                      **{key: entry[key] for key in entry if key not in keys}})
     # The wide kernels (head_dim 80, 96, 256): launched on the head_dims
-    # path's serving and training runs.
-    for entry in (wide['fwd'], wide['dq'], wide['dkv']):
+    # path's serving and training runs; the f32 kernels on f32_training's
+    # and (the forward) on the f32 serving runs of tensor_serving and
+    # moe_tensor_serving.
+    for entry in (wide['fwd'], wide['dq'], wide['dkv'], f32k['fwd'],
+                  f32k['dq'], f32k['dkv']):
         counts = {path: c.get(entry['name'], 0)
                   for path, c in by_path.items()
                   if c.get(entry['name'], 0)}
@@ -7734,7 +8128,8 @@ def main() -> int:
         rows.append({**{key: entry[key] for key in keys},
                      **{key: entry[key] for key in entry if key not in keys}})
     kernels = {'kernels': rows}
-    log(f'[done] {time.perf_counter() - t_start:.1f} s')
+    log(f'[done] {time.perf_counter() - t_start:.1f} s (PR 20\'s smoke: '
+        f'807.5 s)')
     log(json.dumps(kernels))
     log(smi)
     log(json.dumps({'ok': True, 'device': {

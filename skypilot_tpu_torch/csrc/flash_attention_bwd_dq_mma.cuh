@@ -1,23 +1,27 @@
-// Flash-attention backward, dq kernel, in mma.sync on Hopper (sm_90a), at
-// the head dims the wgmma kernel (flash_attention_bwd_dq.cu, D = 64 and
-// 128) does not take: D = 16 and 32 (instantiated in
+// Flash-attention backward, dq kernel, in mma.sync on Hopper (sm_90a),
+// where the wgmma kernel (flash_attention_bwd_dq.cu: bf16/fp16 at D = 64
+// and 128) does not reach: bf16/fp16 at D = 16 and 32 (instantiated in
 // flash_attention_bwd_dq_small.cu) and D = 80, 96 and 256
-// (flash_attention_bwd_dq_wide.cu).  m16n8k16 products, K/V tiles through
-// shared memory by cp.async, dS in f32 registers.  (The dk/dv kernel of the
-// family is flash_attention_bwd_dkv_mma.cuh.)
+// (flash_attention_bwd_dq_wide.cu), and f32 at D = 16, 32, 64 and 128
+// (flash_attention_bwd_dq_f32.cu) and 80, 96 and 256
+// (flash_attention_bwd_dq_f32_wide.cu).  m16n8k16 products, or m16n8k8
+// tf32 ones taken three times for f32 (3xTF32, sm80_mma.cuh), K/V tiles
+// through shared memory by cp.async, dS in f32 registers.  (The dk/dv
+// kernel of the family is flash_attention_bwd_dkv_mma.cuh.)
 //
 // Replaces the Pallas TPU kernel `_fa_bwd_dq_kernel`, driven by
 // `flash_attention_bwd` in skypilot_tpu/ops/pallas/flash_attention.py, at
 // those head dims: the wgmma kernel's shared-memory layout and descriptors
-// assume 128-byte swizzled rows of 64 elements.  The Pallas kernel takes
-// any D.  Same function:
+// assume 128-byte swizzled rows of 64 16-bit elements.  The Pallas kernel
+// takes any D and the input's dtype.  Same function:
 //   P  = exp(mask(Q K^T * scale) - lse)       (-1e30 mask; lse = +inf -> 0)
 //   dP = dO V^T
 //   dS = P * (dP - delta) * scale             (delta = rowsum(dO * O), f32,
 //                                              computed outside the kernel)
 //   dQ = dS K
 // with dS rounded to the input type before its product (the TPU kernel's
-// ds.astype(k.dtype)), f32 sums, and dq written in the input type.
+// ds.astype(k.dtype); f32 keeps it, split into tf32 hi and lo), f32 sums,
+// and dq written in the input type.
 // `scale` is the caller's (the real head_dim^-1/2 when the wrapper
 // zero-pads a narrower head_dim up to one of these).
 //
@@ -29,22 +33,29 @@
 //
 // Design (the family's forward's, simple and correct first):
 // - One CTA of 4 warps per (batch * q-head, 64-row q tile); each warp owns
-//   16 q rows.  Up to D = 128 Q and dO stay in registers as the A
-//   fragments of m16n8k16.  At D = 256 the 16 x 256 f32 dq accumulator is
-//   128 registers a thread, and Q's and dO's fragments (128 more) would
+//   16 q rows.  Up to D = 128 (16-bit) Q and dO stay in registers as the
+//   A fragments of m16n8k16.  At D = 256 the 16 x 256 f32 dq accumulator
+//   is 128 registers a thread, and Q's and dO's fragments (128 more) would
 //   spill: both go into shared memory with the first K/V tile, and each
-//   k-step's A fragments are read from there.  Each thread keeps its two
-//   rows' -lse log2 e (-inf past S) and delta (0 past S) for the sweep.
+//   k-step's A fragments are read from there.  f32 always takes that
+//   route (the tf32 hi and lo parts of Q and dO are 2 D registers).
+//   Each thread keeps its two rows' -lse log2 e (-inf past S) and delta
+//   (0 past S) for the sweep.
 // - K and V tiles of kBlockN rows (64; 32 at D = 256, which keeps S and dP
-//   at 16 registers each) go through two shared-memory stages filled by
-//   cp.async (rows past S zero-filled), rows padded by 8 elements
-//   (sm80_mma.cuh); dynamic shared memory (52 KB at D = 96, 132 KB at
-//   D = 256).  GQA: the CTA reads kv head h / (Hq / Hkv).
+//   at 16 registers each; in f32 32 from D = 80 and 16 at D = 256, which
+//   keeps the stages and Q/dO within 227 KB) go through two shared-memory
+//   stages filled by cp.async (rows past S zero-filled), rows padded by 8
+//   16-bit or 4 f32 elements (sm80_mma.cuh); dynamic shared memory (52 KB
+//   at D = 96, 132 KB at D = 256 in bf16; 30-195 KB in f32).  GQA: the
+//   CTA reads kv head h / (Hq / Hkv).
 // - Per tile: S = Q K^T and dP = dO V^T (kBlockN / 8 n-tiles of 8 keys,
 //   k-steps outer); P = 2^(S scale log2 e - lse log2 e); dS = P (dP -
 //   delta) scale, rounded to the input type in registers, is the A
-//   fragment of dQ += dS K as it stands (the forward's reuse of P); K's B
-//   fragments are two 16-bit shared loads each.
+//   fragment of dQ += dS K as it stands (the forward's reuse of P, in the
+//   permuted k order for tf32); K's B fragments are two shared loads
+//   each.  In f32 each n8 tile of dQ takes a K/V tile's products in a sum
+//   of its own, added in f32 (sm80::mma_sum_f32: the tensor core's
+//   accumulation rounds toward zero, which over S keys would bias dQ).
 // - Masking, explicit and only where needed: on the causal tiles that
 //   cross the diagonal (key > row) and on the ragged tile (keys past S:
 //   zero-filled K rows would give P = exp(-lse) != 0) P is set to 0, never
@@ -66,15 +77,19 @@ constexpr int kDqBlockM = 64;  // q rows per CTA: 4 warps x 16
 constexpr int kDqThreads = 128;
 constexpr int kDqStages = 2;
 
-// The dq kernel's tiles at head dim D.
-template <int D>
+// The dq kernel's tiles at element type T and head dim D.
+template <typename T, int D>
 struct DqCfg {
-  static constexpr int kBlockN = D > 128 ? 32 : 64;  // k/v rows per tile
-  static constexpr bool kQdoInSmem = D > 128;
-  static constexpr int kLd = D + sm80::kPad;  // shared row, in elements
+  static constexpr bool kF32 = sm80::kIsF32<T>;
+  // k/v rows per tile
+  static constexpr int kBlockN =
+      kF32 ? (D > 128 ? 16 : D > 64 ? 32 : 64) : (D > 128 ? 32 : 64);
+  static constexpr bool kQdoInSmem = kF32 || D > 128;
+  static constexpr int kLd = D + sm80::kPad<T>;  // shared row, in elements
   static constexpr int kKvTile = kBlockN * kLd;
   static constexpr int kSmemBytes =
-      (2 * kDqStages * kKvTile + (kQdoInSmem ? 2 * kDqBlockM * kLd : 0)) * 2;
+      (2 * kDqStages * kKvTile + (kQdoInSmem ? 2 * kDqBlockM * kLd : 0)) *
+      int(sizeof(T));
 };
 
 template <typename T, int D>
@@ -85,8 +100,9 @@ __global__ void __launch_bounds__(kDqThreads)
                          const float* __restrict__ delta,
                          T* __restrict__ dq, int hq, int hkv, int s_len,
                          float scale, int causal) {
-  using Cfg = DqCfg<D>;
+  using Cfg = DqCfg<T, D>;
   constexpr int kBlockM = kDqBlockM;
+  constexpr int kK = sm80::kStep<T>;  // k per product
   constexpr int kBlockN = Cfg::kBlockN;
   constexpr int kLd = Cfg::kLd;
   constexpr float kLog2e = 1.4426950408889634f;
@@ -131,8 +147,9 @@ __global__ void __launch_bounds__(kDqThreads)
   const int row_base = q0 + warp * 16 + g;
   const int rows[2] = {row_base, row_base + 8};
 
-  // Q and dO as the A fragments of S = Q K^T and dP = dO V^T (up to
-  // D = 128; at D = 256 they are read from q_s and do_s per k-step).
+  // Q and dO as the A fragments of S = Q K^T and dP = dO V^T (16-bit up to
+  // D = 128; at D = 256 and in f32 they are read from q_s and do_s per
+  // k-step).
   constexpr int kFrags = Cfg::kQdoInSmem ? 1 : D / 16;
   uint32_t q_frag[kFrags][4], do_frag[kFrags][4];
   if constexpr (!Cfg::kQdoInSmem) {
@@ -170,26 +187,25 @@ __global__ void __launch_bounds__(kDqThreads)
 #pragma unroll
     for (int i = 0; i < kBlockN / 2; ++i) s[i] = dp[i] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a_q[4], a_do[4];
+    for (int kk = 0; kk < D / kK; ++kk) {
+      sm80::FragA<T> a_q, a_do;
       if constexpr (Cfg::kQdoInSmem) {
-        sm80::load_a_smem(a_q, q_s, kLd, warp * 16, kk, g, quad);
-        sm80::load_a_smem(a_do, do_s, kLd, warp * 16, kk, g, quad);
+        sm80::load_a(a_q, q_s, kLd, warp * 16, kk, g, quad);
+        sm80::load_a(a_do, do_s, kLd, warp * 16, kk, g, quad);
       } else {
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
-          a_q[r] = q_frag[kk][r];
-          a_do[r] = do_frag[kk][r];
+          a_q.r[r] = q_frag[kk][r];
+          a_do.r[r] = do_frag[kk][r];
         }
       }
 #pragma unroll
       for (int j = 0; j < kBlockN / 8; ++j) {
-        const T* k_row = ks + (8 * j + g) * kLd + 16 * kk + 2 * quad;
-        const T* v_row = vs + (8 * j + g) * kLd + 16 * kk + 2 * quad;
-        sm80::mma16816<T>(s, 4 * j, a_q, sm80::load_u32(k_row),
-                          sm80::load_u32(k_row + 8));
-        sm80::mma16816<T>(dp, 4 * j, a_do, sm80::load_u32(v_row),
-                          sm80::load_u32(v_row + 8));
+        sm80::FragB<T> b_k, b_v;
+        sm80::load_b_row(b_k, ks + (8 * j + g) * kLd, kk, quad);
+        sm80::load_b_row(b_v, vs + (8 * j + g) * kLd, kk, quad);
+        sm80::mma(s, 4 * j, a_q, b_k);
+        sm80::mma(dp, 4 * j, a_do, b_v);
       }
     }
 
@@ -211,22 +227,21 @@ __global__ void __launch_bounds__(kDqThreads)
           s[idx] = p * (dp[idx] - delta_r[i]) * scale;
         }
 
-    // dQ += dS K: k16 step kk covers keys 16 kk .. 16 kk + 15 of the tile;
-    // n8 tile n covers columns 8 n .. 8 n + 7 of D.
+    // dQ += dS K: k-step kk covers keys kK kk .. kK kk + kK - 1 of the
+    // tile; n8 tile n covers columns 8 n .. 8 n + 7 of D.
+    if constexpr (Cfg::kF32) {
+      sm80::mma_sum_f32<kBlockN / kK>(dq_acc, s, ks, kLd, g, quad);
+    } else {
 #pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      uint32_t ds_frag[4];
+      for (int kk = 0; kk < kBlockN / kK; ++kk) {
+        sm80::FragA<T> ds_frag;
+        sm80::a_from_acc(ds_frag, s, kk);
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-        ds_frag[r] =
-            sm90::pack2<T>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
-      const T* k_k = ks + (16 * kk + 2 * quad) * kLd + g;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const T* k_col = k_k + 8 * n;
-        sm80::mma16816<T>(dq_acc, 4 * n, ds_frag,
-                          sm80::pack_u16(k_col, k_col + kLd),
-                          sm80::pack_u16(k_col + 8 * kLd, k_col + 9 * kLd));
+        for (int n = 0; n < D / 8; ++n) {
+          sm80::FragB<T> b;
+          sm80::load_b_col(b, ks, kLd, kk, 8 * n + g, quad);
+          sm80::mma(dq_acc, 4 * n, ds_frag, b);
+        }
       }
     }
     // The next iteration's cp.async overwrites this stage.
@@ -239,8 +254,8 @@ __global__ void __launch_bounds__(kDqThreads)
     T* dq_row = dq + (size_t(bh) * s_len + rows[i]) * D + 2 * quad;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(dq_row + 8 * n) = sm90::pack2<T>(
-          dq_acc[4 * n + 2 * i], dq_acc[4 * n + 2 * i + 1]);
+      sm80::store2(dq_row + 8 * n, dq_acc[4 * n + 2 * i],
+                   dq_acc[4 * n + 2 * i + 1]);
   }
 }
 
@@ -250,7 +265,7 @@ cudaError_t launch_dq_typed(const void* q, const void* k, const void* v,
                             const void* delta, void* dq, int b, int hq,
                             int hkv, int s_len, float scale, int causal,
                             cudaStream_t stream) {
-  constexpr int smem = DqCfg<D>::kSmemBytes;
+  constexpr int smem = DqCfg<T, D>::kSmemBytes;
   cudaError_t err = sm80::allow_smem(fa_bwd_dq_mma_kernel<T, D>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(b * hq, (s_len + kDqBlockM - 1) / kDqBlockM);
@@ -283,5 +298,13 @@ inline bool dq_args_ok(int b, int hq, int hkv, int s_len) {
   return b > 0 && hkv > 0 && hq % hkv == 0 && s_len > 0 &&
          s_len <= 65535 * kDqBlockM;
 }
+
+// The f32 dq kernel at head dim 80, 96 or 256 (cudaErrorInvalidValue at
+// any other), compiled in flash_attention_bwd_dq_f32_wide.cu.
+cudaError_t launch_dq_f32_wide(const void* q, const void* k, const void* v,
+                               const void* dout, const void* lse,
+                               const void* delta, void* dq, int b, int hq,
+                               int hkv, int s_len, int head_dim, float scale,
+                               int causal, cudaStream_t stream);
 
 }  // namespace flash_mma

@@ -1,19 +1,27 @@
-// Flash-attention forward in mma.sync on Hopper (sm_90a), at the head dims
-// the wgmma kernel (flash_attention_fwd.cu, D = 64 and 128) does not take:
-// D = 16 and 32 (instantiated in flash_attention_fwd_small.cu) and D = 80,
-// 96 and 256 (flash_attention_fwd_wide.cu).  m16n8k16 products, K/V tiles
-// through shared memory by cp.async, the online softmax in f32 registers.
+// Flash-attention forward in mma.sync on Hopper (sm_90a), where the wgmma
+// kernel (flash_attention_fwd.cu: bf16/fp16 at D = 64 and 128) does not
+// reach: bf16/fp16 at D = 16 and 32 (instantiated in
+// flash_attention_fwd_small.cu) and at D = 80, 96 and 256
+// (flash_attention_fwd_wide.cu), and f32 at D = 16, 32, 64 and 128
+// (flash_attention_fwd_f32.cu) and 80, 96 and 256
+// (flash_attention_fwd_f32_wide.cu).  m16n8k16 products (bf16/fp16) or
+// m16n8k8 tf32 products taken three times (3xTF32, f32 class: see
+// sm80_mma.cuh), K/V tiles through shared memory by cp.async, the online
+// softmax in f32 registers.
 //
 // Replaces the Pallas TPU kernel `_fa_kernel`, driven by
 // `flash_attention_fwd` in skypilot_tpu/ops/pallas/flash_attention.py, at
 // those head dims: the wgmma kernel's shared-memory layout and descriptors
 // assume 128-byte swizzled rows of 64 elements, and a 16-, 32-, 80-, 96- or
-// 256-wide bf16 row is 32, 64, 160, 192 or 512 bytes.  The Pallas kernel
-// takes any D; the `tiny` configs have D = 16, Phi-2's widths D = 80,
-// Phi-3-mini's 96 and Gemma's 256.  Same function: softmax(Q K^T * scale) V,
-// causal or not, GQA, -1e30 masking, causal tiles above the diagonal
-// skipped, rows whose denominator is 0 emitting 0 and lse +inf, the row
-// logsumexp in natural log units when lse is not null.  `scale` is the
+// 256-wide bf16 row is 32, 64, 160, 192 or 512 bytes, and wgmma takes tf32
+// only with both operands K-major (P V would need V transposed in shared
+// memory).  The Pallas kernel takes any D and the input's dtype (bf16,
+// fp16 or f32: out in q's dtype, P cast to v's); the `tiny` configs have
+// D = 16, Phi-2's widths D = 80, Phi-3-mini's 96 and Gemma's 256.  Same
+// function: softmax(Q K^T * scale) V, causal or not, GQA, -1e30 masking,
+// causal tiles above the diagonal skipped, rows whose denominator is 0
+// emitting 0 and lse +inf, the row logsumexp in natural log units when
+// lse is not null.  `scale` is the
 // caller's (the wrapper passes the real head_dim^-1/2 when it zero-pads a
 // narrower head_dim up to one of these).
 //
@@ -21,32 +29,42 @@
 // per row of q, k, v and out, S / 4 flops a byte when causal, so the bytes
 // bound it up to S of about 1200 (989 TFLOP/s against 3.35 TB/s) and the
 // tensor cores past that; at the `tiny` models' shapes (S <= 128) one
-// launch is launch latency.
+// launch is launch latency.  In f32 the rows are 4 D bytes and the peak
+// is TF32's 495 TFLOP/s, with three products where the bound counts one.
 //
 // Design (simple, correct first):
 // - One CTA of 4 warps per (batch * q-head, 64-row q tile); each warp owns
-//   16 q rows.  Up to D = 128 Q stays in registers as the A fragments of
-//   m16n8k16 (D/16 k-steps, read once from global memory).  At D = 256
-//   the 16 x 256 f32 output accumulator alone is 128 registers a thread,
-//   so Q's fragments (64 more) would spill: Q goes into shared memory with
-//   the first K/V tile and each k-step's A fragment is read from there.
+//   16 q rows.  Up to D = 128 (16-bit) Q stays in registers as the A
+//   fragments of m16n8k16 (D/16 k-steps, read once from global memory).
+//   At D = 256 the 16 x 256 f32 output accumulator alone is 128 registers
+//   a thread, so Q's fragments (64 more) would spill: Q goes into shared
+//   memory with the first K/V tile and each k-step's A fragment is read
+//   from there.  f32 always takes that route: Q's tf32 hi and lo parts
+//   are D registers, split from shared memory per k-step instead.
 // - K and V tiles of kBlockN rows (64; 32 at D = 256, which keeps the S
-//   tile at 16 registers and the two stages at 66 KB) go through two
+//   tile at 16 registers and the stages at 66 KB; in f32 32 from D = 80
+//   and 16 at D = 256, stages of 20-68 KB) go through two
 //   shared-memory stages filled by cp.async (16 bytes a thread and copy;
 //   rows past S zero-filled), so tile t + 1 loads while tile t computes.
-//   Rows are padded by 8 elements (sm80_mma.cuh), which makes both the K
-//   fragment reads (one 32-bit word per row) and the V column reads
-//   conflict-free.  The stages (and Q) are dynamic shared memory: 52 KB at
-//   D = 96, 99 KB at D = 256, past the 48 KB a launch gets unasked.
-// - S = Q K^T by m16n8k16, kBlockN / 8 n-tiles of 8 keys, k-steps outer so
+//   Rows are padded by 8 16-bit elements or 4 f32 ones (sm80_mma.cuh),
+//   which makes both the K fragment reads (one 32-bit word per row) and
+//   the V column reads conflict-free.  The stages (and Q) are dynamic
+//   shared memory: 52 KB at D = 96, 99 KB at D = 256 (bf16); 25-130 KB in
+//   f32; past the 48 KB a launch gets unasked.
+// - S = Q K^T by mma.sync, kBlockN / 8 n-tiles of 8 keys, k-steps outer so
 //   each A fragment is formed once; the online softmax on the accumulator
 //   as the wgmma kernel's softmax_tile (2^x with log2 e folded into the
 //   scale, the row max over the 4 lanes of a quad by two xor-shuffles,
 //   the row sum reduced once at the end).
 // - P is rounded to the input type in registers (the TPU kernel's
-//   p.astype(v.dtype)) and is the A fragment of O += P V as it stands
-//   (the accumulator layout of two n8 tiles is the A layout of one k16
-//   step); V's B fragments are two 16-bit shared loads each.
+//   p.astype(v.dtype); in f32, split into tf32 hi and lo) and is the A
+//   fragment of O += P V as it stands (16-bit: the accumulator layout of
+//   two n8 tiles is the A layout of one k16 step; tf32: one n8 tile in a
+//   permuted k order, matched by the rows V's B fragment reads); V's B
+//   fragments are two 16-bit shared loads each, or two f32 ones.  In f32
+//   each n8 tile of O takes a K/V tile's products in a sum of its own,
+//   added in f32 (sm80::mma_sum_f32: the tensor core's accumulation
+//   rounds toward zero, which over S keys would bias O).
 // - Causal: tiles wholly above the diagonal are skipped; only the tiles
 //   that cross it and the ragged tile past S are masked element by
 //   element.
@@ -66,15 +84,19 @@ constexpr int kFwdBlockM = 64;  // q rows per CTA: 4 warps x 16
 constexpr int kFwdThreads = 128;
 constexpr int kFwdStages = 2;
 
-// The forward's tiles at head dim D.
-template <int D>
+// The forward's tiles at element type T and head dim D.
+template <typename T, int D>
 struct FwdCfg {
-  static constexpr int kBlockN = D > 128 ? 32 : 64;  // kv rows per tile
-  static constexpr bool kQInSmem = D > 128;
-  static constexpr int kLd = D + sm80::kPad;  // shared row, in elements
+  static constexpr bool kF32 = sm80::kIsF32<T>;
+  // kv rows per tile
+  static constexpr int kBlockN =
+      kF32 ? (D > 128 ? 16 : D > 64 ? 32 : 64) : (D > 128 ? 32 : 64);
+  static constexpr bool kQInSmem = kF32 || D > 128;
+  static constexpr int kLd = D + sm80::kPad<T>;  // shared row, in elements
   static constexpr int kKvTile = kBlockN * kLd;
   static constexpr int kSmemBytes =
-      (2 * kFwdStages * kKvTile + (kQInSmem ? kFwdBlockM * kLd : 0)) * 2;
+      (2 * kFwdStages * kKvTile + (kQInSmem ? kFwdBlockM * kLd : 0)) *
+      int(sizeof(T));
 };
 
 template <typename T, int D>
@@ -83,8 +105,9 @@ __global__ void __launch_bounds__(kFwdThreads)
                       const T* __restrict__ v, T* __restrict__ o,
                       float* __restrict__ lse, int hq, int hkv, int s_len,
                       float scale_log2, int causal) {
-  using Cfg = FwdCfg<D>;
+  using Cfg = FwdCfg<T, D>;
   constexpr int kBlockM = kFwdBlockM;
+  constexpr int kK = sm80::kStep<T>;  // k per product
   constexpr int kBlockN = Cfg::kBlockN;
   constexpr int kLd = Cfg::kLd;
   constexpr float kNegInf = -1e30f;  // the TPU kernel's mask value
@@ -126,8 +149,8 @@ __global__ void __launch_bounds__(kFwdThreads)
   const int row_base = q0 + warp * 16 + g;
   const int rows[2] = {row_base, row_base + 8};
 
-  // Q as the A fragments of the D / 16 k-steps of S = Q K^T (up to
-  // D = 128; at D = 256 they are read from q_s per k-step).
+  // Q as the A fragments of the D / 16 k-steps of S = Q K^T (16-bit up to
+  // D = 128; at D = 256 and in f32 they are read from q_s per k-step).
   uint32_t q_frag[Cfg::kQInSmem ? 1 : D / 16][4];
   if constexpr (!Cfg::kQInSmem)
     sm80::load_a_rows<D>(q_frag, q_head, rows, quad, s_len);
@@ -155,19 +178,19 @@ __global__ void __launch_bounds__(kFwdThreads)
 #pragma unroll
     for (int i = 0; i < kBlockN / 2; ++i) s[i] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
+    for (int kk = 0; kk < D / kK; ++kk) {
+      sm80::FragA<T> a;
       if constexpr (Cfg::kQInSmem) {
-        sm80::load_a_smem(a, q_s, kLd, warp * 16, kk, g, quad);
+        sm80::load_a(a, q_s, kLd, warp * 16, kk, g, quad);
       } else {
 #pragma unroll
-        for (int r = 0; r < 4; ++r) a[r] = q_frag[kk][r];
+        for (int r = 0; r < 4; ++r) a.r[r] = q_frag[kk][r];
       }
 #pragma unroll
       for (int j = 0; j < kBlockN / 8; ++j) {
-        const T* k_row = ks + (8 * j + g) * kLd + 16 * kk + 2 * quad;
-        sm80::mma16816<T>(s, 4 * j, a, sm80::load_u32(k_row),
-                          sm80::load_u32(k_row + 8));
+        sm80::FragB<T> b;
+        sm80::load_b_row(b, ks + (8 * j + g) * kLd, kk, quad);
+        sm80::mma(s, 4 * j, a, b);
       }
     }
 
@@ -217,22 +240,21 @@ __global__ void __launch_bounds__(kFwdThreads)
         o_acc[4 * n + 2 * i + 1] *= corr[i];
       }
 
-    // O += P V: k16 step kk covers keys 16 kk .. 16 kk + 15 of the tile;
-    // n8 tile n covers columns 8 n .. 8 n + 7 of D.
+    // O += P V: k-step kk covers keys kK kk .. kK kk + kK - 1 of the
+    // tile; n8 tile n covers columns 8 n .. 8 n + 7 of D.
+    if constexpr (Cfg::kF32) {
+      sm80::mma_sum_f32<kBlockN / kK>(o_acc, s, vs, kLd, g, quad);
+    } else {
 #pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      uint32_t p_frag[4];
+      for (int kk = 0; kk < kBlockN / kK; ++kk) {
+        sm80::FragA<T> p_frag;
+        sm80::a_from_acc(p_frag, s, kk);
 #pragma unroll
-      for (int r = 0; r < 4; ++r)
-        p_frag[r] =
-            sm90::pack2<T>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
-      const T* v_k = vs + (16 * kk + 2 * quad) * kLd + g;
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const T* v_col = v_k + 8 * n;
-        sm80::mma16816<T>(o_acc, 4 * n, p_frag,
-                          sm80::pack_u16(v_col, v_col + kLd),
-                          sm80::pack_u16(v_col + 8 * kLd, v_col + 9 * kLd));
+        for (int n = 0; n < D / 8; ++n) {
+          sm80::FragB<T> b;
+          sm80::load_b_col(b, vs, kLd, kk, 8 * n + g, quad);
+          sm80::mma(o_acc, 4 * n, p_frag, b);
+        }
       }
     }
     // The next iteration's cp.async overwrites this stage.
@@ -253,8 +275,8 @@ __global__ void __launch_bounds__(kFwdThreads)
     T* o_row = o + (size_t(bh) * s_len + rows[i]) * D + 2 * quad;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(o_row + 8 * n) = sm90::pack2<T>(
-          o_acc[4 * n + 2 * i] * inv[i], o_acc[4 * n + 2 * i + 1] * inv[i]);
+      sm80::store2(o_row + 8 * n, o_acc[4 * n + 2 * i] * inv[i],
+                   o_acc[4 * n + 2 * i + 1] * inv[i]);
     if (lse != nullptr && quad == 0)
       lse[size_t(bh) * s_len + rows[i]] =
           l[i] == 0.f ? INFINITY : (m[i] + log2f(l[i])) * kLn2;
@@ -266,7 +288,7 @@ cudaError_t launch_fwd_typed(const void* q, const void* k, const void* v,
                              void* o, void* lse, int b, int hq, int hkv,
                              int s_len, float scale, int causal,
                              cudaStream_t stream) {
-  constexpr int smem = FwdCfg<D>::kSmemBytes;
+  constexpr int smem = FwdCfg<T, D>::kSmemBytes;
   cudaError_t err = sm80::allow_smem(fa_fwd_mma_kernel<T, D>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(b * hq, (s_len + kFwdBlockM - 1) / kFwdBlockM);
@@ -297,5 +319,13 @@ inline bool fwd_args_ok(int b, int hq, int hkv, int s_len) {
   return b > 0 && hkv > 0 && hq % hkv == 0 && s_len > 0 &&
          s_len <= 65535 * kFwdBlockM;
 }
+
+// The f32 forward at head dim 80, 96 or 256 (cudaErrorInvalidValue at any
+// other), compiled in flash_attention_fwd_f32_wide.cu so that nvcc builds
+// it beside flash_attention_fwd_f32.cu.
+cudaError_t launch_fwd_f32_wide(const void* q, const void* k, const void* v,
+                                void* o, void* lse, int b, int hq, int hkv,
+                                int s_len, int head_dim, float scale,
+                                int causal, cudaStream_t stream);
 
 }  // namespace flash_mma

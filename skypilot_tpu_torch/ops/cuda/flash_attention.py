@@ -16,33 +16,43 @@ PyTorch/CUDA counterparts of `skypilot_tpu/ops/pallas/flash_attention.py`:
   `csrc/flash_attention_bwd_dkv.cu`, wgmma with P^T and dS^T in
   registers), at head_dim 64 and 128.
 
-The same three kernels in mma.sync m16n8k16 (K/V or Q/dO tiles by
-cp.async; templates in `csrc/flash_attention_{fwd,bwd_dq,bwd_dkv}_mma.cuh`)
-take the widths the wgmma kernels' 64-element swizzled rows do not: 16
-and 32 (`csrc/*_small.cu`, the wrappers `flash_attention_fwd_small`,
-`flash_attention_bwd_dq_small`, `flash_attention_bwd_dkv_small`) and 80,
-96 and 256 (`csrc/*_wide.cu`, the `*_wide` wrappers).  The public
-wrappers route by head_dim alone (`kernel_width`): a kernel width (16,
-32, 64, 80, 96, 128, 256) goes to its kernel; any other head_dim up to
-256 is zero-padded in q, k, v (and dO) to the smallest wider width, runs
-that width's kernel with the real head_dim^-1/2 as its scale (zero
-columns add nothing to Q K^T or dO V^T, so out, lse and the gradients
-are the same function), and out, dq, dk and dv are sliced back; past 256
-the call is refused.  The padded route is no fallback: no route is
-tried after another fails.  Each launch counts on the `.launches` of
-the wrapper of the kernel that ran; each padded call also on the public
-wrapper's `.padded_launches`.  The Hopper building blocks the three
-wgmma kernels share are in `csrc/sm90_common.cuh`; the mma.sync ones in
-`csrc/sm80_mma.cuh`.
+The same three kernels in mma.sync (K/V or Q/dO tiles by cp.async;
+templates in `csrc/flash_attention_{fwd,bwd_dq,bwd_dkv}_mma.cuh`) take
+what the wgmma kernels' 64-element 16-bit swizzled rows do not: bf16 and
+fp16 at 16 and 32 (m16n8k16; `csrc/*_small.cu`, the wrappers
+`flash_attention_fwd_small`, `flash_attention_bwd_dq_small`,
+`flash_attention_bwd_dkv_small`) and 80, 96 and 256 (`csrc/*_wide.cu`,
+the `*_wide` wrappers), and f32 at every width, 16, 32, 64, 80, 96, 128
+and 256 (m16n8k8 tf32 taken three times, 3xTF32: each operand split into
+tf32 hi and lo parts, f32-class error; `csrc/*_f32.cu` and
+`csrc/*_f32_wide.cu`, the `*_f32` wrappers).  The public wrappers route
+by dtype and head_dim (`kernel_width`, the same widths in every dtype):
+f32 goes to the f32 kernels, bf16 and fp16 to the others; a kernel
+width goes to its kernel; any other head_dim up to 256 is zero-padded
+in q, k, v (and dO) to the smallest wider width, runs that width's
+kernel with the real head_dim^-1/2 as its scale (zero columns add
+nothing to Q K^T or dO V^T, so out, lse and the gradients are the same
+function), and out, dq, dk and dv are sliced back; past 256 the call is
+refused, and so is any other dtype (f64 included) or a mix of dtypes.
+Nothing is cast: f32 never runs as bf16.  The padded route is no
+fallback: no route is tried after another fails.  Each launch counts on
+the `.launches` of the wrapper of the kernel that ran; each padded call
+also on the public wrapper's `.padded_launches`.  The mma.sync kernels'
+wrappers (`*_small`, `*_wide`, `*_f32`) are built by `_route_wrapper`
+from one table of head dims and dtypes.  The Hopper building blocks the
+three wgmma kernels share are in `csrc/sm90_common.cuh`; the mma.sync
+ones in `csrc/sm80_mma.cuh`.
 
 GQA reads kv head h // (Hq // Hkv) inside the kernels.  Every source in
 `csrc/` is compiled with nvcc for sm_90a (one process per source, in
 parallel) and linked into one shared library with a plain C interface,
 named by a hash of all sources, headers and flags, at first use, under
-`build/skypilot_tpu_torch/` beside the package; kernels launch on
-PyTorch's current stream.  `block_size` keeps the TPU wrappers' contract
-(S must divide min(block_size, S)); the CUDA kernels pick their own tiles
-and mask the ragged edge themselves.
+`build/skypilot_tpu_torch/` beside the package (the repo's `build/` when
+the package runs from the tree; an installed package carries `csrc/` as
+package data); kernels launch on PyTorch's current stream.
+`block_size` keeps the TPU wrappers' contract (S must divide
+min(block_size, S)); the CUDA kernels pick their own tiles and mask the
+ragged edge themselves.
 
 The library's build is the one `nvcc` site of the port: it runs inside
 `perf.compile_telemetry.compiling('kernel_build', ...)`, so it counts as
@@ -76,16 +86,20 @@ ARCH_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a')
 COMPILE_FLAGS = ARCH_FLAGS + ('-std=c++17', '-O3', '-Xcompiler', '-fPIC',
                               '-Xptxas', '-v', '-c')
 LINK_FLAGS = ARCH_FLAGS + ('-shared',)
-_DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1}
-# Head dims of the wgmma kernels (forward, dq, dk/dv), and of the mma.sync
-# ones (the same three) at the small and at the wide widths.  Every other
-# head_dim up to the widest is zero-padded to the next of these widths.
+_DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+_HALF_DTYPES = (torch.bfloat16, torch.float16)
+_F32_DTYPES = (torch.float32,)
+# bf16/fp16 head dims of the wgmma kernels (forward, dq, dk/dv), and of
+# the mma.sync ones (the same three) at the small and at the wide widths;
+# f32 (the mma.sync kernels in 3xTF32) takes every one of these widths.
+# Every other head_dim up to the widest is zero-padded to the next width.
 _HEAD_DIMS = (64, 128)
 _SMALL_HEAD_DIMS = (16, 32)
 _WIDE_HEAD_DIMS = (80, 96, 256)
 KERNEL_WIDTHS = tuple(sorted(_HEAD_DIMS + _SMALL_HEAD_DIMS + _WIDE_HEAD_DIMS))
 MAX_HEAD_DIM = KERNEL_WIDTHS[-1]
-# The suffix of each width's C entry and wrapper.
+# The suffix of each bf16/fp16 width's C entry and wrapper (every f32
+# width's is '_f32').
 _ROUTE_SUFFIX = {**dict.fromkeys(_HEAD_DIMS, ''),
                  **dict.fromkeys(_SMALL_HEAD_DIMS, '_small'),
                  **dict.fromkeys(_WIDE_HEAD_DIMS, '_wide')}
@@ -99,17 +113,23 @@ _SIGNATURES = {
         [_P] * 5 + [_I] * 6 + [ctypes.c_float, _I, _P],
     'skytpu_flash_attention_fwd_wide':
         [_P] * 5 + [_I] * 6 + [ctypes.c_float, _I, _P],
+    'skytpu_flash_attention_fwd_f32':
+        [_P] * 5 + [_I] * 6 + [ctypes.c_float, _I, _P],
     'skytpu_flash_attention_bwd_dq':
         [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I, _P],
     'skytpu_flash_attention_bwd_dq_small':
         [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I, _P],
     'skytpu_flash_attention_bwd_dq_wide':
         [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I, _P],
+    'skytpu_flash_attention_bwd_dq_f32':
+        [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I, _P],
     'skytpu_flash_attention_bwd_dkv':
         [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _P],
     'skytpu_flash_attention_bwd_dkv_small':
         [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _P],
     'skytpu_flash_attention_bwd_dkv_wide':
+        [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _P],
+    'skytpu_flash_attention_bwd_dkv_f32':
         [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _P],
 }
 
@@ -230,11 +250,12 @@ def _device_type(*tensors: torch.Tensor) -> str:
                      f'(all on one), got {sorted(devices)}')
 
 
-def _check_cuda_inputs(q, k, v, *same_as_q, head_dims=None) -> None:
-    """q and same_as_q [B,Hq,S,D], k/v [B,Hkv,S,D]: one device and dtype
-    (bf16/fp16), head_dim in `head_dims` (any with None: the public
-    wrappers' `kernel_width` refuses past MAX_HEAD_DIM), contiguous and
-    16-byte aligned."""
+def _check_cuda_inputs(q, k, v, *same_as_q, head_dims=None,
+                       dtypes=tuple(_DTYPE_CODES)) -> None:
+    """q and same_as_q [B,Hq,S,D], k/v [B,Hkv,S,D]: one device and one
+    dtype of `dtypes` (the public wrappers': bf16, fp16 or f32), head_dim
+    in `head_dims` (any with None: the public wrappers' `kernel_width`
+    refuses past MAX_HEAD_DIM), contiguous and 16-byte aligned."""
     b, hq, s, d = q.shape
     for name, t in (('q', q), ('k', k), ('v', v),
                     *((f'arg{i}', t) for i, t in enumerate(same_as_q))):
@@ -246,9 +267,12 @@ def _check_cuda_inputs(q, k, v, *same_as_q, head_dims=None) -> None:
             raise ValueError(f'{name} must be contiguous')
         if t.data_ptr() % 16:
             raise ValueError(f'{name} must be 16-byte aligned')
-    if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f'flash-attention kernels take bf16/fp16, '
-                         f'got {q.dtype}')
+    if q.dtype not in dtypes:
+        names = {torch.bfloat16: 'bf16', torch.float16: 'fp16',
+                 torch.float32: 'f32'}
+        raise ValueError(f'this flash-attention kernel takes '
+                         f'{"/".join(names[t] for t in dtypes)}, got '
+                         f'{q.dtype}')
     if head_dims is not None and d not in head_dims:
         raise ValueError(f'head_dim {d} not in {head_dims}: the kernel '
                          f'takes head_dim {", ".join(map(str, head_dims))}')
@@ -271,9 +295,9 @@ def _check_rows(q, *rows) -> None:
 
 
 def kernel_width(head_dim: int) -> int:
-    """The kernel width a CUDA call at `head_dim` runs: head_dim itself
-    where a kernel takes it, else the smallest wider one (the wrappers
-    zero-pad to it); refused past MAX_HEAD_DIM."""
+    """The kernel width a CUDA call at `head_dim` runs (in any dtype):
+    head_dim itself where a kernel takes it, else the smallest wider one
+    (the wrappers zero-pad to it); refused past MAX_HEAD_DIM."""
     for width in KERNEL_WIDTHS:
         if head_dim <= width:
             return width
@@ -282,10 +306,11 @@ def kernel_width(head_dim: int) -> int:
                      f'head_dim 1 to {MAX_HEAD_DIM}')
 
 
-def _route(kernel: str, width: int):
+def _route(kernel: str, width: int, dtype: torch.dtype):
     """(C entry, the wrapper that counts its launches) of `kernel` ('fwd',
-    'bwd_dq' or 'bwd_dkv') at a kernel width."""
-    name = f'flash_attention_{kernel}{_ROUTE_SUFFIX[width]}'
+    'bwd_dq' or 'bwd_dkv') at a kernel width of `dtype`."""
+    suffix = '_f32' if dtype == torch.float32 else _ROUTE_SUFFIX[width]
+    name = f'flash_attention_{kernel}{suffix}'
     return f'skytpu_{name}', globals()[name]
 
 
@@ -345,8 +370,9 @@ def flash_attention_fwd(q: torch.Tensor,
                         return_residuals: bool = False):
     """q [B,Hq,S,D], k/v [B,Hkv,S,D] -> [B,Hq,S,D] (and the row
     logsumexp [B,Hq,S] f32 with `return_residuals=True`).  On a CUDA
-    tensor the kernel of `kernel_width(D)` runs, on q, k, v zero-padded
-    to that width where it is wider than D."""
+    tensor the kernel of `kernel_width(D)` runs (f32: the `_f32` kernel
+    of that width), on q, k, v zero-padded to that width where it is
+    wider than D."""
     if q.dim() != 4:
         raise ValueError(f'q must be [B, H, S, D], got {tuple(q.shape)}')
     _check_block(q.shape[2], block_size)
@@ -359,7 +385,7 @@ def flash_attention_fwd(q: torch.Tensor,
     if width != d:
         q, k, v = _pad_head_dim(width, q, k, v)
         flash_attention_fwd.padded_launches += 1
-    result = _launch_fwd(*_route('fwd', width), q, k, v, causal,
+    result = _launch_fwd(*_route('fwd', width, q.dtype), q, k, v, causal,
                          return_residuals, d**-0.5)
     if width == d:
         return result
@@ -394,44 +420,7 @@ def _launch_fwd(entry: str, wrapper, q, k, v, causal, return_residuals,
     return (out, lse) if return_residuals else out
 
 
-def flash_attention_fwd_small(q: torch.Tensor,
-                              k: torch.Tensor,
-                              v: torch.Tensor,
-                              causal: bool = True,
-                              return_residuals: bool = False):
-    """The mma.sync forward at head_dim 16 or 32
-    (`csrc/flash_attention_fwd_small.cu`): `flash_attention_fwd`'s
-    contract, whose launches at those widths it counts."""
-    if _device_type(q, k, v) == 'cpu':
-        return flash_attention_fwd_reference(
-            q, k, v, causal=causal, return_residuals=return_residuals)
-    _check_cuda_inputs(q, k, v, head_dims=_SMALL_HEAD_DIMS)
-    return _launch_fwd('skytpu_flash_attention_fwd_small',
-                       flash_attention_fwd_small, q, k, v, causal,
-                       return_residuals, q.shape[3]**-0.5)
 
-
-flash_attention_fwd_small.launches = 0
-
-
-def flash_attention_fwd_wide(q: torch.Tensor,
-                             k: torch.Tensor,
-                             v: torch.Tensor,
-                             causal: bool = True,
-                             return_residuals: bool = False):
-    """The mma.sync forward at head_dim 80, 96 or 256
-    (`csrc/flash_attention_fwd_wide.cu`): `flash_attention_fwd`'s
-    contract, whose launches at those widths it counts."""
-    if _device_type(q, k, v) == 'cpu':
-        return flash_attention_fwd_reference(
-            q, k, v, causal=causal, return_residuals=return_residuals)
-    _check_cuda_inputs(q, k, v, head_dims=_WIDE_HEAD_DIMS)
-    return _launch_fwd('skytpu_flash_attention_fwd_wide',
-                       flash_attention_fwd_wide, q, k, v, causal,
-                       return_residuals, q.shape[3]**-0.5)
-
-
-flash_attention_fwd_wide.launches = 0
 
 # ----- backward ---------------------------------------------------------------
 
@@ -523,8 +512,8 @@ def flash_attention_bwd_dq(q, k, v, g, lse, delta,
     if width != d:
         q, k, v, g = _pad_head_dim(width, q, k, v, g)
         flash_attention_bwd_dq.padded_launches += 1
-    dq = _launch_dq(*_route('bwd_dq', width), q, k, v, g, lse, delta, causal,
-                    d**-0.5)
+    dq = _launch_dq(*_route('bwd_dq', width, q.dtype), q, k, v, g, lse,
+                    delta, causal, d**-0.5)
     return dq if width == d else dq[..., :d].contiguous()
 
 
@@ -532,40 +521,7 @@ flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dq.padded_launches = 0
 
 
-def flash_attention_bwd_dq_small(q, k, v, g, lse, delta,
-                                 causal: bool = True) -> torch.Tensor:
-    """The mma.sync dq kernel at head_dim 16 or 32
-    (`csrc/flash_attention_bwd_dq_small.cu`): `flash_attention_bwd_dq`'s
-    contract, whose launches at those widths it counts."""
-    if _device_type(q, k, v, g, lse, delta) == 'cpu':
-        return flash_attention_bwd_dq_reference(q, k, v, g, lse, delta,
-                                                causal)
-    _check_cuda_inputs(q, k, v, g, head_dims=_SMALL_HEAD_DIMS)
-    _check_rows(q, lse, delta)
-    return _launch_dq('skytpu_flash_attention_bwd_dq_small',
-                      flash_attention_bwd_dq_small, q, k, v, g, lse, delta,
-                      causal, q.shape[3]**-0.5)
 
-
-flash_attention_bwd_dq_small.launches = 0
-
-
-def flash_attention_bwd_dq_wide(q, k, v, g, lse, delta,
-                                causal: bool = True) -> torch.Tensor:
-    """The mma.sync dq kernel at head_dim 80, 96 or 256
-    (`csrc/flash_attention_bwd_dq_wide.cu`): `flash_attention_bwd_dq`'s
-    contract, whose launches at those widths it counts."""
-    if _device_type(q, k, v, g, lse, delta) == 'cpu':
-        return flash_attention_bwd_dq_reference(q, k, v, g, lse, delta,
-                                                causal)
-    _check_cuda_inputs(q, k, v, g, head_dims=_WIDE_HEAD_DIMS)
-    _check_rows(q, lse, delta)
-    return _launch_dq('skytpu_flash_attention_bwd_dq_wide',
-                      flash_attention_bwd_dq_wide, q, k, v, g, lse, delta,
-                      causal, q.shape[3]**-0.5)
-
-
-flash_attention_bwd_dq_wide.launches = 0
 
 
 def _launch_dq(entry: str, wrapper, q, k, v, g, lse, delta, causal, scale):
@@ -599,8 +555,8 @@ def flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal: bool = True
     if width != d:
         q, k, v, g = _pad_head_dim(width, q, k, v, g)
         flash_attention_bwd_dkv.padded_launches += 1
-    dk, dv = _launch_dkv(*_route('bwd_dkv', width), q, k, v, g, lse, delta,
-                         causal, d**-0.5)
+    dk, dv = _launch_dkv(*_route('bwd_dkv', width, q.dtype), q, k, v, g,
+                         lse, delta, causal, d**-0.5)
     if width == d:
         return dk, dv
     return dk[..., :d].contiguous(), dv[..., :d].contiguous()
@@ -610,42 +566,7 @@ flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dkv.padded_launches = 0
 
 
-def flash_attention_bwd_dkv_small(q, k, v, g, lse, delta,
-                                  causal: bool = True
-                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The mma.sync dk/dv kernel at head_dim 16 or 32
-    (`csrc/flash_attention_bwd_dkv_small.cu`): `flash_attention_bwd_dkv`'s
-    contract, whose launches at those widths it counts."""
-    if _device_type(q, k, v, g, lse, delta) == 'cpu':
-        return flash_attention_bwd_dkv_reference(q, k, v, g, lse, delta,
-                                                 causal)
-    _check_cuda_inputs(q, k, v, g, head_dims=_SMALL_HEAD_DIMS)
-    _check_rows(q, lse, delta)
-    return _launch_dkv('skytpu_flash_attention_bwd_dkv_small',
-                       flash_attention_bwd_dkv_small, q, k, v, g, lse, delta,
-                       causal, q.shape[3]**-0.5)
 
-
-flash_attention_bwd_dkv_small.launches = 0
-
-
-def flash_attention_bwd_dkv_wide(q, k, v, g, lse, delta,
-                                 causal: bool = True
-                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The mma.sync dk/dv kernel at head_dim 80, 96 or 256
-    (`csrc/flash_attention_bwd_dkv_wide.cu`): `flash_attention_bwd_dkv`'s
-    contract, whose launches at those widths it counts."""
-    if _device_type(q, k, v, g, lse, delta) == 'cpu':
-        return flash_attention_bwd_dkv_reference(q, k, v, g, lse, delta,
-                                                 causal)
-    _check_cuda_inputs(q, k, v, g, head_dims=_WIDE_HEAD_DIMS)
-    _check_rows(q, lse, delta)
-    return _launch_dkv('skytpu_flash_attention_bwd_dkv_wide',
-                       flash_attention_bwd_dkv_wide, q, k, v, g, lse, delta,
-                       causal, q.shape[3]**-0.5)
-
-
-flash_attention_bwd_dkv_wide.launches = 0
 
 
 def _launch_dkv(entry: str, wrapper, q, k, v, g, lse, delta, causal,
@@ -685,3 +606,71 @@ def flash_attention_bwd(q: torch.Tensor,
     dq = flash_attention_bwd_dq(q, k, v, g, lse, delta, causal)
     dk, dv = flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal)
     return dq, dk, dv
+
+
+# ----- the per-route wrappers -------------------------------------------------
+
+# The mma.sync kernels' wrappers, one per kernel and route suffix: the
+# head dims and dtypes each takes, and the sources of its kernels.
+_ROUTE_WRAPPERS = {
+    '_small': (_SMALL_HEAD_DIMS, _HALF_DTYPES, 'at head_dim 16 or 32',
+               '{}_small.cu'),
+    '_wide': (_WIDE_HEAD_DIMS, _HALF_DTYPES, 'at head_dim 80, 96 or 256',
+              '{}_wide.cu'),
+    '_f32': (KERNEL_WIDTHS, _F32_DTYPES,
+             'in f32 (3xTF32) at head_dim 16, 32, 64, 80, 96, 128 or 256',
+             '{}_f32.cu`, `{}_f32_wide.cu'),
+}
+
+
+def _route_wrapper(kernel: str, suffix: str):
+    """The wrapper of `kernel`'s ('fwd', 'bwd_dq' or 'bwd_dkv') mma.sync
+    route `suffix`: the public wrapper's contract at that route's head
+    dims and dtypes (CPU tensors take the plain version), the launches of
+    its C entry counted in `.launches`."""
+    head_dims, dtypes, what, files = _ROUTE_WRAPPERS[suffix]
+    name = f'flash_attention_{kernel}{suffix}'
+    entry = f'skytpu_{name}'
+    if kernel == 'fwd':
+
+        def wrapper(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, return_residuals: bool = False):
+            if _device_type(q, k, v) == 'cpu':
+                return flash_attention_fwd_reference(
+                    q, k, v, causal=causal, return_residuals=return_residuals)
+            _check_cuda_inputs(q, k, v, head_dims=head_dims, dtypes=dtypes)
+            return _launch_fwd(entry, wrapper, q, k, v, causal,
+                               return_residuals, q.shape[3]**-0.5)
+    else:
+        reference, launch = {
+            'bwd_dq': (flash_attention_bwd_dq_reference, '_launch_dq'),
+            'bwd_dkv': (flash_attention_bwd_dkv_reference, '_launch_dkv'),
+        }[kernel]
+
+        def wrapper(q, k, v, g, lse, delta, causal: bool = True):
+            if _device_type(q, k, v, g, lse, delta) == 'cpu':
+                return reference(q, k, v, g, lse, delta, causal)
+            _check_cuda_inputs(q, k, v, g, head_dims=head_dims,
+                               dtypes=dtypes)
+            _check_rows(q, lse, delta)
+            return globals()[launch](entry, wrapper, q, k, v, g, lse, delta,
+                                     causal, q.shape[3]**-0.5)
+    sources_ = files.format(f'csrc/flash_attention_{kernel}',
+                            f'csrc/flash_attention_{kernel}')
+    wrapper.__name__ = wrapper.__qualname__ = name
+    wrapper.__doc__ = (f'The mma.sync {kernel} kernel {what} (`{sources_}`): '
+                       f'`flash_attention_{kernel}`\'s contract, whose '
+                       f'launches on this route it counts.')
+    wrapper.launches = 0
+    return wrapper
+
+
+flash_attention_fwd_small = _route_wrapper('fwd', '_small')
+flash_attention_fwd_wide = _route_wrapper('fwd', '_wide')
+flash_attention_fwd_f32 = _route_wrapper('fwd', '_f32')
+flash_attention_bwd_dq_small = _route_wrapper('bwd_dq', '_small')
+flash_attention_bwd_dq_wide = _route_wrapper('bwd_dq', '_wide')
+flash_attention_bwd_dq_f32 = _route_wrapper('bwd_dq', '_f32')
+flash_attention_bwd_dkv_small = _route_wrapper('bwd_dkv', '_small')
+flash_attention_bwd_dkv_wide = _route_wrapper('bwd_dkv', '_wide')
+flash_attention_bwd_dkv_f32 = _route_wrapper('bwd_dkv', '_f32')

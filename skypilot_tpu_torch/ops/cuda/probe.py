@@ -6,6 +6,7 @@
     python -m skypilot_tpu_torch.ops.cuda.probe check small  # D = 16, 32
     python -m skypilot_tpu_torch.ops.cuda.probe check wide  # D 80/96/256,
                                                             # padded D
+    python -m skypilot_tpu_torch.ops.cuda.probe check f32  # the f32 route
     python -m skypilot_tpu_torch.ops.cuda.probe time   # CUDA-event times
     python -m skypilot_tpu_torch.ops.cuda.probe time dq  # only names with 'dq'
 
@@ -17,7 +18,10 @@ their plain versions at shapes on the edges of the kernels' tiles, up to
 bench-1b's training shape, then the small-head-dim kernels (head_dim 16
 and 32: forward, dq and dk/dv) at their tile edges, then the wide ones
 (head_dim 80, 96, 256) and the zero-padded route (head_dims that no
-kernel takes); `check small` and `check wide` run only those; `time`
+kernel takes), then the f32 kernels (3xTF32) under their own f32-class
+gates (F32_OUT_TOL, F32_NORM_RTOL) against plain versions in full f32
+(TF32 matmuls off); `check small`, `check wide` and `check f32` run only
+those; `time`
 times the forward, dq and dk/dv at
 bench-1b's shape (B=4, Hq=16, Hkv=8, S=4096, D=128, causal bf16) and the
 forward at the serving shape (B=8, H=32, S=256), each the mean of 20 calls
@@ -82,6 +86,41 @@ WIDE_CHECK_SHAPES = [
     (2, 4, 2, s, d, causal, torch.bfloat16)
     for d in (8, 24, 48, 72, 100, 112, 160, 200)
     for s in (17, 65) for causal in (True, False)]
+# The f32 kernels: the JAX package's own Pallas test shapes
+# (tests/test_ops.py: (2, 4, 4, 256, 64) and GQA (2, 4, 2, 256, 64),
+# causal and not; the backward's (1, 2, 2, 256, 64) and (1, 4, 2, 256,
+# 64)); every native f32 width at S one short of and one past its tiles
+# (16-, 32- and 64-row tiles, and 128), GQA groups 1, 4 and 8, causal and
+# not; the training shape of the f32 bench-1b run at S = 1024; then
+# head_dims 8-200 through the zero-padded route (8 -> 16, 24 -> 32,
+# 48 -> 64, 72 -> 80, 100 and 112 -> 128, 160 and 200 -> 256).
+F32_CHECK_SHAPES = [
+    (b, hq, hkv, 256, 64, causal, torch.float32)
+    for b, hq, hkv in ((2, 4, 4), (2, 4, 2), (1, 2, 2), (1, 4, 2))
+    for causal in (True, False)
+] + [
+    (b, hq, hkv, s, d, causal, torch.float32)
+    for d in fa.KERNEL_WIDTHS
+    for b, hq, hkv in ((2, 4, 4), (1, 8, 2), (1, 8, 1))
+    for s in (1, 15, 17, 31, 33, 63, 65, 129)
+    for causal in (True, False)
+] + [(1, 16, 8, 1024, 128, True, torch.float32)] + [
+    (2, 4, 2, s, d, causal, torch.float32)
+    for d in (8, 24, 48, 72, 100, 112, 160, 200)
+    for s in (17, 65) for causal in (True, False)]
+# The f32 route's gates, which a tf32-only product (about 1e-3 at these
+# shapes) would fail: out and lse within F32_OUT_TOL + F32_OUT_TOL * |ref|
+# of the plain version, dq, dk and dv within F32_NORM_RTOL of its norm.
+# An output that is 0 in exact arithmetic (dq and dk at S = 1, where
+# dP - delta = dO.V - dO.O cancels) is held to F32_ZERO_ATOL in max-abs:
+# the terms cancelled are dot products of D randn pairs (|dO.V| up to
+# about 3 sqrt(D), 48 at D = 256), an f32-class dot's error is about
+# 2^-21 of that (2.3e-5), and dq and dk scale it by D^-1/2 and |K| or
+# |Q| (up to about 4): near 2e-5 at D = 256; 1e-4 leaves room and is
+# still far below a wrong kernel's O(1).
+F32_OUT_TOL = 5e-5
+F32_NORM_RTOL = 5e-5
+F32_ZERO_ATOL = 1e-4
 SPIN_CYCLES = 20_000_000
 
 
@@ -146,7 +185,7 @@ def check_small() -> None:
 WIDE_KERNELS = ('flash_attention_fwd_wide', 'flash_attention_bwd_dq_wide',
                 'flash_attention_bwd_dkv_wide')
 ROUTE_COUNTERS = (*(f'flash_attention_{k}{suffix}.launches'
-                    for suffix in ('', '_small', '_wide')
+                    for suffix in ('', '_small', '_wide', '_f32')
                     for k in ('fwd', 'bwd_dq', 'bwd_dkv')),
                   *(f'flash_attention_{k}.padded_launches'
                     for k in ('fwd', 'bwd_dq', 'bwd_dkv')))
@@ -204,6 +243,125 @@ def check_wide() -> None:
           f'{worst["bwd"]:.3e}', flush=True)
 
 
+def f32_case(gen, shape) -> dict:
+    """One F32_CHECK_SHAPES case on the card: the forward (out, lse), dq and
+    dk/dv against their plain versions in full f32, and the counters the
+    calls moved.  Returns {'out', 'lse': max(|d| - F32_OUT_TOL * |ref|),
+    which the gate holds to F32_OUT_TOL; 'out_abs', 'lse_abs': max-abs;
+    'dq', 'dk', 'dv': norm-rel (0 where the output is 0 in exact
+    arithmetic and the kernel's within F32_ZERO_ATOL, inf where it is
+    not); 'dq_abs', 'dkv_abs': max-abs; 'zero_abs': max |kernel| of the
+    outputs that are 0 in exact arithmetic; 'moved': counters}."""
+    b, hq, hkv, s, d, causal, dtype = shape
+    q, k, v, g = _inputs(gen, b, hq, hkv, s, d, dtype)
+    before = _counters()
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                      block_size=s, return_residuals=True)
+    delta = (g.float() * out.float()).sum(-1)
+    dq = fa.flash_attention_bwd_dq(q, k, v, g, lse, delta, causal)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal)
+    torch.cuda.synchronize()
+    nums = {'moved': {name: n - before[name]
+                      for name, n in _counters().items()
+                      if n != before[name]}}
+    ref, ref_lse = fa.flash_attention_fwd_reference(
+        q, k, v, causal=causal, return_residuals=True)
+    for key, x, r in (('out', out, ref), ('lse', lse, ref_lse)):
+        diff = (x - r).abs()
+        nums[f'{key}_abs'] = diff.max().item()
+        nums[key] = (diff - F32_OUT_TOL * r.abs()).max().item()
+    refs = (fa.flash_attention_bwd_dq_reference(q, k, v, g, lse, delta,
+                                                causal),
+            *fa.flash_attention_bwd_dkv_reference(q, k, v, g, lse, delta,
+                                                  causal))
+    nums['zero_abs'] = 0.0
+    for name, x, r in zip(('dq', 'dk', 'dv'), (dq, dk, dv), refs):
+        key = 'dq_abs' if name == 'dq' else 'dkv_abs'
+        nums[key] = max(nums.get(key, 0.0), (x - r).abs().max().item())
+        if not (x.dtype == dtype and bool(torch.isfinite(x).all())):
+            nums[name] = float('inf')
+        elif r.abs().max().item() <= F32_ZERO_ATOL:
+            nums['zero_abs'] = max(nums['zero_abs'], x.abs().max().item())
+            nums[name] = (0.0 if x.abs().max().item() <= F32_ZERO_ATOL
+                          else float('inf'))
+        else:
+            nums[name] = _norm_rel(x, r)
+    if not (out.dtype == dtype and bool(torch.isfinite(out).all())):
+        nums['out'] = float('inf')
+    return nums
+
+
+def f32_want(d, calls=1) -> dict:
+    """The counters `calls` calls of the forward, dq and dk/dv in f32 at
+    head_dim d must move: the f32 wrappers, and the public ones' padded
+    counts where d is no f32 width."""
+    want = {f'flash_attention_{k}_f32.launches': calls
+            for k in ('fwd', 'bwd_dq', 'bwd_dkv')}
+    if fa.kernel_width(d) != d:
+        want.update({f'flash_attention_{k}.padded_launches': calls
+                     for k in ('fwd', 'bwd_dq', 'bwd_dkv')})
+    return want
+
+
+def check_f32(quiet: bool = False) -> dict:
+    """Every F32_CHECK_SHAPES case under the f32 gates, each call launching
+    its f32 kernel once (f32_want); f64 and head_dim 257 refused.  Prints
+    each case (with `quiet`, the worst numbers of each head_dim instead)
+    and the worst numbers, raises on the first case past a gate; returns
+    the worst numbers."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    keys = ('out', 'lse', 'out_abs', 'lse_abs', 'dq', 'dk', 'dv', 'dq_abs',
+            'dkv_abs', 'zero_abs')
+    worst = dict.fromkeys(keys, -float('inf'))
+    by_d = {}
+    for shape in F32_CHECK_SHAPES:
+        nums = f32_case(gen, shape)
+        moved = nums.pop('moved')
+        if not quiet:
+            print(f'{(*shape[:6], "f32")} -> width '
+                  f'{fa.kernel_width(shape[4])}: out '
+                  f'{nums["out_abs"]:.3e} lse {nums["lse_abs"]:.3e} | '
+                  f'norm-rel dq {nums["dq"]:.3e} dk {nums["dk"]:.3e} dv '
+                  f'{nums["dv"]:.3e} | {moved}', flush=True)
+        row = by_d.setdefault(shape[4], dict.fromkeys(keys, -float('inf')))
+        for key, x in nums.items():
+            worst[key] = max(worst[key], x)
+            row[key] = max(row[key], x)
+        if moved != f32_want(shape[4]):
+            raise SystemExit(f'f32 at {shape} moved {moved}, expected '
+                             f'{f32_want(shape[4])}')
+        if max(nums['out'], nums['lse']) > F32_OUT_TOL or max(
+                nums['dq'], nums['dk'], nums['dv']) > F32_NORM_RTOL:
+            raise SystemExit(f'the f32 kernels disagree with their plain '
+                             f'versions at {shape}: {nums}')
+    if quiet:
+        for d, row in sorted(by_d.items()):
+            print(f'  f32 head_dim {d} -> width '
+                  f'{fa.kernel_width(d)}: '
+                  f'{sum(c[4] == d for c in F32_CHECK_SHAPES)} cases, worst '
+                  f'out max-abs {row["out_abs"]:.3e} lse '
+                  f'{row["lse_abs"]:.3e}, norm-rel dq {row["dq"]:.3e} dk '
+                  f'{row["dk"]:.3e} dv {row["dv"]:.3e}', flush=True)
+    for dtype, d in ((torch.float64, 64), (torch.float32, 257)):
+        q = torch.zeros((1, 2, 16, d), dtype=dtype, device='cuda')
+        try:
+            fa.flash_attention_fwd(q, q, q)
+        except ValueError as e:
+            print(f'{dtype} at head_dim {d} refused: {e}', flush=True)
+        else:
+            raise SystemExit(f'{dtype} at head_dim {d} was not refused')
+    print(f'f32 ({len(F32_CHECK_SHAPES)} cases): worst out max-abs '
+          f'{worst["out_abs"]:.3e}, lse {worst["lse_abs"]:.3e} (gate '
+          f'{F32_OUT_TOL} + {F32_OUT_TOL}*|ref|); norm-rel dq '
+          f'{worst["dq"]:.3e} dk {worst["dk"]:.3e} dv {worst["dv"]:.3e} '
+          f'(gate {F32_NORM_RTOL}); outputs 0 in exact arithmetic max-abs '
+          f'{worst["zero_abs"]:.3e} (gate {F32_ZERO_ATOL}); launches exact',
+          flush=True)
+    return worst
+
+
 def check() -> None:
     gen = torch.Generator(device='cuda').manual_seed(0)
     for b, hq, hkv, s, d, causal, dtype in CHECK_SHAPES:
@@ -233,6 +391,7 @@ def check() -> None:
         torch.cuda.empty_cache()
     check_small()
     check_wide()
+    check_f32()
 
 
 def build_fresh(csrc: pathlib.Path) -> None:
@@ -285,6 +444,26 @@ def time_kernels(only: str = '') -> None:
         qs, ks, vs, _ = _inputs(gen, 8, 32, 32, 256, 128, torch.bfloat16)
         print(f'serving fwd ms '
               f'{_time_ms(lambda: fa.flash_attention_fwd(qs, ks, vs)):.4f}')
+    del q, k, v, g, out, lse, delta
+    # f32 (3xTF32) at the f32 serving and training shapes.
+    for label, shape in (('f32 serving', (8, 32, 32, 256, 128)),
+                         ('f32 training', (2, 16, 8, 4096, 128))):
+        if not any(only in f'{label} {kind}' for kind in ('fwd', 'dq',
+                                                          'dkv')):
+            continue
+        q, k, v, g = _inputs(gen, *shape, torch.float32)
+        out, lse = fa.flash_attention_fwd(q, k, v, return_residuals=True)
+        delta = (g * out).sum(-1)
+        for kind, fn in (
+                ('fwd', lambda: fa.flash_attention_fwd(
+                    q, k, v, return_residuals=True)),
+                ('dq', lambda: fa.flash_attention_bwd_dq(
+                    q, k, v, g, lse, delta)),
+                ('dkv', lambda: fa.flash_attention_bwd_dkv(
+                    q, k, v, g, lse, delta))):
+            if only in f'{label} {kind}':
+                print(f'{label} {kind} ms {_time_ms(fn):.4f}', flush=True)
+        del q, k, v, g, out, lse, delta
 
 
 def main(argv) -> int:
@@ -294,7 +473,7 @@ def main(argv) -> int:
     elif mode == 'build':
         print(fa.build())
     elif mode == 'check':
-        {'small': check_small, 'wide': check_wide}.get(
+        {'small': check_small, 'wide': check_wide, 'f32': check_f32}.get(
             ''.join(argv[2:3]), check)()
     elif mode == 'time':
         time_kernels(argv[2] if len(argv) > 2 else '')

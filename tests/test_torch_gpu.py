@@ -1,7 +1,7 @@
 """GPU-only checks of the PyTorch port: the hand-written flash-attention
 kernels (forward, dq, dk/dv, the three at head_dim 16/32 and at 80/96/256,
-and the zero-padded route of the other head_dims) against their plain
-versions, the autograd
+the zero-padded route of the other head_dims, and the three in f32, 3xTF32,
+under f32-class gates) against their plain versions, the autograd
 op against autograd through `mha_reference`, the engine's kernel path
 against attention_impl='xla', a narrow model trained through the
 kernels, the engine's decode call as a CUDA graph against its eager
@@ -34,6 +34,7 @@ import torch
 from skypilot_tpu_torch.inference.engine import DecodeEngine, EngineConfig
 from skypilot_tpu_torch.models.llama import LlamaConfig, Llama, init_params
 from skypilot_tpu_torch.ops.cuda import flash_attention as fa
+from skypilot_tpu_torch.ops.cuda import probe
 from skypilot_tpu_torch.perf import compile_telemetry
 from skypilot_tpu_torch.perf import profiler as profiler_lib
 from skypilot_tpu_torch.server import metrics as metrics_lib
@@ -44,6 +45,14 @@ pytestmark = pytest.mark.gpu
 # bf16 kernel vs f32 plain version on the same inputs: P and the output
 # are rounded to bf16 in the kernel; one bf16 ulp is 2^-7 of a value.
 OUT_ATOL, OUT_RTOL, LSE_ATOL = 1e-2, 1e-2, 1e-3
+# f32 kernels (3xTF32) vs their plain versions in full f32 (TF32 matmuls
+# off by default): the f32 route's gates, which `probe check f32` holds
+# too (out and lse within F32_OUT_TOL + F32_OUT_TOL * |ref|; dq, dk, dv
+# norm-rel F32_NORM_RTOL; an output that is 0 in exact arithmetic within
+# F32_ZERO_ATOL).
+F32_OUT_TOL = probe.F32_OUT_TOL
+F32_NORM_RTOL = probe.F32_NORM_RTOL
+F32_ZERO_ATOL = probe.F32_ZERO_ATOL
 
 
 @pytest.fixture
@@ -83,6 +92,26 @@ MOE_SHAPES = [(8, 32, 8, 256, 64, True, torch.bfloat16),
 # heads (GQA group 4), head_dim 128, 8 prompts in the 256 bucket.
 TP_SHAPES = [(8, 16, 16, 256, 128, True, torch.bfloat16),
              (8, 16, 4, 256, 128, True, torch.bfloat16)]
+# f32 through the f32 kernels: the f32 serving shape (one device of
+# tensor_serving (c)), bench-1b's heads at S = 1024, the JAX tests' Pallas
+# shapes, and S on both sides of the f32 tiles (64-row q tiles; K/V tiles
+# of 64 rows at D <= 64, 32 at 80-128), GQA 4 and 8, non-causal.
+F32_SHAPES = [
+    (8, 32, 32, 256, 128, True, torch.float32),
+    (1, 16, 8, 1024, 128, True, torch.float32),
+    (2, 4, 4, 256, 64, True, torch.float32),
+    (2, 4, 2, 256, 64, False, torch.float32),
+    (2, 4, 2, 5, 128, True, torch.float32),
+    (1, 4, 2, 31, 128, False, torch.float32),
+    (1, 4, 2, 33, 96, True, torch.float32),
+    (1, 8, 1, 63, 64, True, torch.float32),
+    (1, 8, 2, 65, 16, False, torch.float32),
+    (1, 4, 4, 129, 32, True, torch.float32),
+]
+
+
+def _f32(dtype):
+    return dtype == torch.float32
 
 
 @pytest.mark.parametrize('b,hq,hkv,s,d,causal,dtype', [
@@ -98,20 +127,31 @@ TP_SHAPES = [(8, 16, 16, 256, 128, True, torch.bfloat16),
     # A single row: forward only, since with one key the softmax is
     # constant and dq, dk are 0 up to rounding (no relative error).
     (2, 4, 2, 1, 128, True, torch.bfloat16),
+    *F32_SHAPES,
+    (2, 4, 2, 1, 128, True, torch.float32),
 ])
 def test_flash_kernel_matches_plain(cuda, b, hq, hkv, s, d, causal, dtype):
     gen = torch.Generator(device=cuda).manual_seed(0)
     q = torch.randn((b, hq, s, d), generator=gen, device=cuda).to(dtype)
     k = torch.randn((b, hkv, s, d), generator=gen, device=cuda).to(dtype)
     v = torch.randn((b, hkv, s, d), generator=gen, device=cuda).to(dtype)
-    before = fa.flash_attention_fwd.launches
+    # bf16/fp16 at 64 and 128 run the wgmma kernel, f32 the f32 one.
+    counter = fa.flash_attention_fwd_f32 if _f32(dtype) else (
+        fa.flash_attention_fwd)
+    before = counter.launches
     out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
                                       return_residuals=True)
     torch.cuda.synchronize()
-    assert fa.flash_attention_fwd.launches == before + 1
+    assert counter.launches == before + 1
     ref, ref_lse = fa.flash_attention_fwd_reference(q, k, v, causal=causal,
                                                     return_residuals=True)
     assert out.dtype == dtype and lse.dtype == torch.float32
+    if _f32(dtype):
+        torch.testing.assert_close(out, ref, atol=F32_OUT_TOL,
+                                   rtol=F32_OUT_TOL)
+        torch.testing.assert_close(lse, ref_lse, atol=F32_OUT_TOL,
+                                   rtol=F32_OUT_TOL)
+        return
     torch.testing.assert_close(out.float(), ref.float(), atol=OUT_ATOL,
                                rtol=OUT_RTOL)
     torch.testing.assert_close(lse, ref_lse, atol=LSE_ATOL, rtol=0)
@@ -236,7 +276,17 @@ WIDE_EDGE_CASES = [(80, 4, 4, True, torch.bfloat16),
                    (48, 4, 2, False, torch.bfloat16),
                    (72, 4, 1, True, torch.float16),
                    (100, 8, 2, True, torch.bfloat16),
-                   (200, 8, 1, False, torch.bfloat16)]
+                   (200, 8, 1, False, torch.bfloat16),
+                   # f32: every f32 width is native (16, 32, 64, 80, 96,
+                   # 128, 256), the others padded to the next of them.
+                   (80, 4, 4, True, torch.float32),
+                   (96, 8, 2, False, torch.float32),
+                   (256, 8, 1, True, torch.float32),
+                   (16, 4, 2, False, torch.float32),
+                   (128, 8, 2, True, torch.float32),
+                   (8, 4, 2, True, torch.float32),
+                   (48, 4, 2, False, torch.float32),
+                   (200, 8, 1, False, torch.float32)]
 
 
 @pytest.mark.parametrize('s', [1, 17, 31, 33, 63, 65, 129])
@@ -249,8 +299,9 @@ def test_wide_and_padded_head_dim_kernels_match_plain(cuda, s, d, hq, hkv,
     k, v = (torch.randn((2, hkv, s, d), generator=gen,
                         device=cuda).to(dtype) for _ in range(2))
     width = fa.kernel_width(d)
-    suffix = {16: '_small', 32: '_small', 64: '', 128: '', 80: '_wide',
-              96: '_wide', 256: '_wide'}[width]
+    suffix = '_f32' if _f32(dtype) else {
+        16: '_small', 32: '_small', 64: '', 128: '', 80: '_wide',
+        96: '_wide', 256: '_wide'}[width]
     counters = [getattr(fa, f'flash_attention_{kernel}{suffix}')
                 for kernel in ('fwd', 'bwd_dq', 'bwd_dkv')]
     publics = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
@@ -269,31 +320,44 @@ def test_wide_and_padded_head_dim_kernels_match_plain(cuda, s, d, hq, hkv,
     ref, ref_lse = fa.flash_attention_fwd_reference(q, k, v, causal=causal,
                                                     return_residuals=True)
     ref = ref.float()
-    ulp = torch.finfo(dtype).eps * torch.exp2(torch.floor(torch.log2(
-        ref.abs().clamp_min(torch.finfo(dtype).tiny))))
     assert out.shape == q.shape and out.dtype == dtype
-    assert bool(((out.float() - ref).abs() <= SMALL_ATOL + ulp).all())
-    torch.testing.assert_close(lse, ref_lse, atol=SMALL_ATOL, rtol=0)
+    if _f32(dtype):
+        torch.testing.assert_close(out, ref, atol=F32_OUT_TOL,
+                                   rtol=F32_OUT_TOL)
+        torch.testing.assert_close(lse, ref_lse, atol=F32_OUT_TOL,
+                                   rtol=F32_OUT_TOL)
+    else:
+        ulp = torch.finfo(dtype).eps * torch.exp2(torch.floor(torch.log2(
+            ref.abs().clamp_min(torch.finfo(dtype).tiny))))
+        assert bool(((out.float() - ref).abs() <= SMALL_ATOL + ulp).all())
+        torch.testing.assert_close(lse, ref_lse, atol=SMALL_ATOL, rtol=0)
     refs = (fa.flash_attention_bwd_dq_reference(q, k, v, g, lse, delta,
                                                 causal),
             *fa.flash_attention_bwd_dkv_reference(q, k, v, g, lse, delta,
                                                   causal))
+    zero_atol, norm_rtol = ((F32_ZERO_ATOL, F32_NORM_RTOL) if _f32(dtype)
+                            else (SMALL_BWD_ZERO_ATOL, BWD_NORM_RTOL))
     for got, want in zip((dq, dk, dv), refs):
         assert got.dtype == dtype and got.shape == want.shape
         assert torch.isfinite(got).all()
-        if want.float().abs().max() <= SMALL_BWD_ZERO_ATOL:
-            assert got.float().abs().max() <= SMALL_BWD_ZERO_ATOL
+        if want.float().abs().max() <= zero_atol:
+            assert got.float().abs().max() <= zero_atol
         else:
-            assert _norm_rel(got, want) <= BWD_NORM_RTOL
+            assert _norm_rel(got, want) <= norm_rtol
 
 
 def test_flash_kernel_rejects_what_it_cannot_run(cuda):
-    q = torch.zeros((1, 2, 64, 257), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match='head_dim 257 is past 256'):
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.zeros((1, 2, 64, 257), dtype=dtype, device=cuda)
+        with pytest.raises(ValueError, match='head_dim 257 is past 256'):
+            fa.flash_attention_fwd(q, q, q)
+    # f32 runs its own kernels; f64 has none, and nothing is cast.
+    q = torch.zeros((1, 2, 64, 64), dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match='bf16/fp16/f32'):
         fa.flash_attention_fwd(q, q, q)
     q = torch.zeros((1, 2, 64, 64), dtype=torch.float32, device=cuda)
-    with pytest.raises(ValueError, match='bf16/fp16'):
-        fa.flash_attention_fwd(q, q, q)
+    with pytest.raises(ValueError, match='q is torch.float32'):
+        fa.flash_attention_fwd(q, q.to(torch.bfloat16), q)
     q = torch.zeros((1, 64, 2, 64), dtype=torch.bfloat16,
                     device=cuda).transpose(1, 2)
     with pytest.raises(ValueError, match='contiguous'):
@@ -334,6 +398,7 @@ DQ_EDGE_SHAPES = [
     *DQ_EDGE_SHAPES,
     *RL_SHAPES,
     MOE_SHAPES[1],
+    *F32_SHAPES,
 ])
 def test_flash_bwd_kernels_match_plain(cuda, b, hq, hkv, s, d, causal,
                                        dtype):
@@ -345,22 +410,23 @@ def test_flash_bwd_kernels_match_plain(cuda, b, hq, hkv, s, d, causal,
     out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
                                       return_residuals=True)
     delta = (g.float() * out.float()).sum(-1)
-    before = (fa.flash_attention_bwd_dq.launches,
-              fa.flash_attention_bwd_dkv.launches)
+    counters = ((fa.flash_attention_bwd_dq_f32, fa.flash_attention_bwd_dkv_f32)
+                if _f32(dtype) else
+                (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv))
+    before = [c.launches for c in counters]
     dq = fa.flash_attention_bwd_dq(q, k, v, g, lse, delta, causal)
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal)
     torch.cuda.synchronize()
-    assert (fa.flash_attention_bwd_dq.launches,
-            fa.flash_attention_bwd_dkv.launches) == (before[0] + 1,
-                                                     before[1] + 1)
+    assert [c.launches - n for c, n in zip(counters, before)] == [1, 1]
     ref_dq = fa.flash_attention_bwd_dq_reference(q, k, v, g, lse, delta,
                                                  causal)
     ref_dk, ref_dv = fa.flash_attention_bwd_dkv_reference(
         q, k, v, g, lse, delta, causal)
+    rtol = F32_NORM_RTOL if _f32(dtype) else BWD_NORM_RTOL
     for got, ref in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
         assert got.dtype == dtype and got.shape == ref.shape
         assert torch.isfinite(got).all()
-        assert _norm_rel(got, ref) <= BWD_NORM_RTOL
+        assert _norm_rel(got, ref) <= rtol
 
 
 @pytest.mark.parametrize('causal', [True, False])

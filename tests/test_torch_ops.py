@@ -96,14 +96,17 @@ def test_flash_fwd_plain_matches_pallas_interpret(causal, hkv):
 # kernel on the card, 80, 96 (Phi-2's and Phi-3-mini's widths) and 256
 # (Gemma's) to the wide one, and any other head_dim (8, 48, 100 here)
 # zero-padded to the next kernel width; the plain version the CPU takes
-# is the same function at every head_dim, GQA 4 -> 2.
+# is the same function at every head_dim, GQA 4 -> 2.  In f32 (these
+# inputs) every width is native on the card (16, 32, 64, 80, 96, 128,
+# 256): 128 is here too, 64 in the test above.
 @pytest.mark.parametrize('s,d,causal', [(8, 16, True), (16, 16, True),
                                         (16, 16, False), (128, 16, True),
                                         (128, 32, False), (16, 32, True),
                                         (16, 8, True), (64, 48, False),
                                         (64, 80, True), (16, 96, False),
                                         (128, 96, True), (64, 100, True),
-                                        (16, 256, True), (64, 256, False)])
+                                        (16, 256, True), (64, 256, False),
+                                        (64, 128, True), (16, 128, False)])
 def test_flash_fwd_small_head_dims_plain_match_pallas_interpret(s, d,
                                                                 causal):
     q, k, v = _qkv(b=2, h=4, s=s, d=d, hkv=2, seed=5)
@@ -216,6 +219,85 @@ def test_forward_dispatches_small_head_dims_to_their_kernel(monkeypatch):
                         torch_fa.sources())
 
 
+def test_f32_dispatches_every_head_dim_to_the_f32_kernels(monkeypatch):
+    """On a CUDA tensor f32 goes to the f32 kernels (3xTF32) at every
+    head_dim 1-256: the forward, dq and dk/dv each reach the `_f32` C
+    entry at `kernel_width(d)` (d itself at 16, 32, 64, 80, 96, 128 and
+    256, else the next of those, on inputs zero-padded to it and counted
+    on the public wrapper's `padded_launches`), in f32 (nothing cast),
+    with the real head_dim^-1/2 as the scale, and come back at their own
+    head_dim.  f64, a mix of dtypes and head_dim 257 are refused, as are
+    f32 on the bf16/fp16 wrappers and bf16 or a head_dim that is no
+    kernel width on the f32 ones.  (The launches are stubbed: the checks,
+    the padding and the routing are host code.)"""
+    calls = []
+
+    def stub(entry, wrapper, q, *args):
+        calls.append((entry, wrapper, q.shape[-1], q.dtype, args[-1]))
+        if entry.startswith('skytpu_flash_attention_fwd'):
+            out = torch.zeros_like(q)
+            return (out, torch.zeros(q.shape[:3])) if args[-2] else out
+        if entry.startswith('skytpu_flash_attention_bwd_dq'):
+            return torch.zeros_like(q)
+        return torch.zeros_like(args[0]), torch.zeros_like(args[0])
+
+    monkeypatch.setattr(torch_fa, '_device_type', lambda *ts: 'cuda')
+    for launch in ('_launch_fwd', '_launch_dq', '_launch_dkv'):
+        monkeypatch.setattr(torch_fa, launch, stub)
+    publics = (torch_fa.flash_attention_fwd, torch_fa.flash_attention_bwd_dq,
+               torch_fa.flash_attention_bwd_dkv)
+    assert torch_fa.KERNEL_WIDTHS == (16, 32, 64, 80, 96, 128, 256)
+    for d in range(1, 257):
+        width = torch_fa.kernel_width(d)
+        assert width == min(w for w in torch_fa.KERNEL_WIDTHS if w >= d)
+        q = torch.full((1, 2, 4, d), 0.5)
+        k = torch.full((1, 1, 4, d), 0.25)
+        lse = torch.zeros(1, 2, 4)
+        padded = [fn.padded_launches for fn in publics]
+        out, got_lse = torch_fa.flash_attention_fwd(q, k, k,
+                                                    return_residuals=True)
+        dq = torch_fa.flash_attention_bwd_dq(q, k, k, q, lse, lse)
+        dk, dv = torch_fa.flash_attention_bwd_dkv(q, k, k, q, lse, lse)
+        assert calls == [
+            (f'skytpu_flash_attention_{kernel}_f32',
+             getattr(torch_fa, f'flash_attention_{kernel}_f32'), width,
+             torch.float32, d**-0.5)
+            for kernel in ('fwd', 'bwd_dq', 'bwd_dkv')], d
+        calls.clear()
+        assert out.shape == dq.shape == q.shape, d
+        assert dk.shape == dv.shape == k.shape and got_lse.shape == (1, 2, 4)
+        assert [fn.padded_launches - n for fn, n in zip(publics, padded)] == (
+            [int(width != d)] * 3), d
+    q = torch.zeros(1, 2, 4, 64)
+    lse = torch.zeros(1, 2, 4)
+    for bad, match in ((q.double(), 'bf16/fp16/f32, got torch.float64'),
+                       (torch.zeros(1, 2, 4, 257), 'head_dim 257 is past')):
+        for call in (lambda: torch_fa.flash_attention_fwd(bad, bad, bad),
+                     lambda: torch_fa.flash_attention_bwd_dq(
+                         bad, bad, bad, bad, lse, lse),
+                     lambda: torch_fa.flash_attention_bwd_dkv(
+                         bad, bad, bad, bad, lse, lse)):
+            with pytest.raises(ValueError, match=match):
+                call()
+    with pytest.raises(ValueError, match='is torch.bfloat16, q is'):
+        torch_fa.flash_attention_fwd(q, q.to(torch.bfloat16), q)
+    with pytest.raises(ValueError, match='takes bf16/fp16, got'):
+        torch_fa.flash_attention_fwd_wide(*[torch.zeros(1, 2, 4, 96)] * 3)
+    with pytest.raises(ValueError, match='takes f32, got'):
+        torch_fa.flash_attention_fwd_f32(*[q.to(torch.bfloat16)] * 3)
+    with pytest.raises(ValueError, match='head_dim 48 not in'):
+        torch_fa.flash_attention_bwd_dkv_f32(*[torch.zeros(1, 2, 4, 48)] * 4,
+                                             lse, lse)
+    assert not calls
+    for kernel in ('fwd', 'bwd_dq', 'bwd_dkv'):
+        assert torch_fa._SIGNATURES[f'skytpu_flash_attention_{kernel}_f32'] \
+            == torch_fa._SIGNATURES[f'skytpu_flash_attention_{kernel}']
+        for suffix in ('_f32', '_f32_wide'):
+            assert (torch_fa.CSRC_DIR /
+                    f'flash_attention_{kernel}{suffix}.cu') in (
+                        torch_fa.sources())
+
+
 # Zero columns add nothing to Q K^T or to dO V^T: the plain versions on q,
 # k, v and dO zero-padded to the kernel width, with the real head_dim's
 # scale, give the unpadded call's out, lse and gradients (f32 on both
@@ -312,12 +394,14 @@ def test_flash_bwd_plain_matches_pallas_interpret(causal, hkv):
 # and the small ones) against the Pallas backward in interpret mode, GQA
 # 4 -> 2.  Each S with both head dims, each head dim causal and not; then
 # the wide kernels' head dims (80, 96, 256) and head dims that take the
-# zero-padded route (8, 48, 100).
+# zero-padded route (8, 48, 100); and 128, the f32 width the others do not
+# cover.
 @pytest.mark.parametrize('s,d,causal', [
     (8, 16, True), (8, 32, False), (16, 16, False), (16, 32, True),
     (64, 16, True), (64, 32, False), (128, 16, False), (128, 32, True),
     (16, 8, True), (64, 48, False), (64, 80, True), (16, 96, False),
-    (128, 96, True), (64, 100, True), (16, 256, True), (64, 256, False)])
+    (128, 96, True), (64, 100, True), (16, 256, True), (64, 256, False),
+    (64, 128, True), (16, 128, False)])
 def test_flash_bwd_small_head_dims_plain_match_pallas_interpret(s, d,
                                                                 causal):
     q, k, v = _qkv(b=2, h=4, s=s, d=d, hkv=2, seed=6)

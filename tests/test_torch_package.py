@@ -110,14 +110,20 @@ COUNTERPARTS = ['agent/gang.py', 'agent/server.py', 'agent/client.py',
                 'provision/docker_utils.py', 'data/fuse_proxy.py']
 # Every kernel source of the port (csrc/).
 KERNEL_SOURCES = ['flash_attention_bwd_dkv.cu',
+                  'flash_attention_bwd_dkv_f32.cu',
+                  'flash_attention_bwd_dkv_f32_wide.cu',
                   'flash_attention_bwd_dkv_mma.cuh',
                   'flash_attention_bwd_dkv_small.cu',
                   'flash_attention_bwd_dkv_wide.cu',
                   'flash_attention_bwd_dq.cu',
+                  'flash_attention_bwd_dq_f32.cu',
+                  'flash_attention_bwd_dq_f32_wide.cu',
                   'flash_attention_bwd_dq_mma.cuh',
                   'flash_attention_bwd_dq_small.cu',
                   'flash_attention_bwd_dq_wide.cu',
-                  'flash_attention_fwd.cu', 'flash_attention_fwd_mma.cuh',
+                  'flash_attention_fwd.cu', 'flash_attention_fwd_f32.cu',
+                  'flash_attention_fwd_f32_wide.cu',
+                  'flash_attention_fwd_mma.cuh',
                   'flash_attention_fwd_small.cu',
                   'flash_attention_fwd_wide.cu',
                   'sm80_mma.cuh', 'sm90_common.cuh']
@@ -429,14 +435,26 @@ def test_gate_ledger_and_storage_slice_modules_are_covered():
     # mma.sync + cp.async kernels on the helpers of csrc/sm80_mma.cuh:
     # one template each (flash_attention_{kernel}_mma.cuh), instantiated
     # at head_dim 16/32 in its `_small` source and at 80/96/256 in its
-    # `_wide` source, each with its own C entry.
+    # `_wide` source, each with its own C entry.  The templates' products
+    # go through sm80::mma: m16n8k16 for bf16/fp16, m16n8k8 tf32 three
+    # times (3xTF32) for f32, whose C entry (`_f32` source, 16/32/64/128)
+    # reaches 80/96/256 in its `_f32_wide` source.
     helpers = (PORT / 'csrc' / 'sm80_mma.cuh').read_text()
     assert 'mma.sync.aligned.m16n8k16' in helpers and 'cp.async' in helpers
+    assert 'mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32' in helpers
+    assert 'cvt.rna.tf32.f32' in helpers
     for kernel in ('fwd', 'bwd_dq', 'bwd_dkv'):
         template = (PORT / 'csrc' /
                     f'flash_attention_{kernel}_mma.cuh').read_text()
         assert '#include "sm80_mma.cuh"' in template
-        assert 'sm80::mma16816' in template
+        assert 'sm80::mma(' in template
+        src = (PORT / 'csrc' / f'flash_attention_{kernel}_f32.cu').read_text()
+        wide = (PORT / 'csrc' /
+                f'flash_attention_{kernel}_f32_wide.cu').read_text()
+        assert f'extern "C" int skytpu_flash_attention_{kernel}_f32(' in src
+        for width, text in ((16, src), (32, src), (64, src), (128, src),
+                            (80, wide), (96, wide), (256, wide)):
+            assert f'<float, {width}>(' in text, (kernel, width)
         for suffix, widths in (('small', (16, 32)), ('wide', (80, 96, 256))):
             src = (PORT / 'csrc' /
                    f'flash_attention_{kernel}_{suffix}.cu').read_text()
@@ -778,6 +796,24 @@ def test_last_slice_modules_are_covered():
                                     'ops/pallas/flash_attention.py'}
     assert sorted(p.name for p in (PORT / 'csrc').glob('*.cu*')) == (
         KERNEL_SOURCES)
+
+
+def test_kernel_sources_are_package_data():
+    """An installed port carries its kernel sources: every file under
+    skypilot_tpu_torch/csrc/ matches a package-data pattern of
+    pyproject.toml, so a wheel built from the tree holds them, and the
+    library's build finds them beside the installed package."""
+    tomllib = pytest.importorskip(
+        'tomllib', reason='tomllib is in the standard library from 3.11')
+    data = tomllib.loads((REPO / 'pyproject.toml').read_text())
+    setuptools = data['tool']['setuptools']
+    assert any(pathlib.PurePath('skypilot_tpu_torch').match(pattern)
+               for pattern in setuptools['packages']['find']['include'])
+    patterns = setuptools['package-data']['skypilot_tpu_torch']
+    files = sorted(p.relative_to(PORT) for p in (PORT / 'csrc').iterdir())
+    assert [p.name for p in files] == KERNEL_SOURCES
+    for rel in files:
+        assert any(rel.match(pattern) for pattern in patterns), rel
 
 
 def test_last_slice_imports_neither_torch_nor_jax():
