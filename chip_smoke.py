@@ -51,12 +51,18 @@ followed by its seconds:
    GQA groups 1, 4, 8; causal and not; bf16, fp16 too at 96 and 256)
    against their plain versions under the kernel phase's gates, each
    call launching the kernel of its head_dim's width exactly once (the
-   wide mma.sync kernels at 80/96/256, csrc/flash_attention_*_wide.cu;
-   the other head_dims zero-padded to the next width, counted on the
-   public wrapper's padded_launches), head_dim 257 refused; (b) the wide
-   kernels, their plain versions and SDPA timed beside the bounds at
-   Phi-2's, Phi-3-mini's, Gemma-2B's and Gemma-7B's attention shapes at
-   B=2 x 4096 and B=8 x 256, and at Phi-3-mini's the padded route 96 ->
+   wide mma.sync kernels at 80/96 and the forward's at 256,
+   csrc/flash_attention_*_wide.cu; dq and dk/dv at 256 on the wgmma
+   kernels csrc/flash_attention_bwd_{dq,dkv}_256.cu; the other head_dims
+   zero-padded to the next width, counted on the public wrapper's
+   padded_launches), head_dim 257 refused; then, at Gemma-2B's training
+   and serving shapes (where dk/dv at 256 splits its grid), two calls of
+   dq and dk/dv at 256 bit for bit; (b) the wide kernels and those at
+   256, their plain versions and SDPA timed beside the bounds at Phi-2's,
+   Phi-3-mini's, Gemma-2B's and Gemma-7B's attention shapes at B=2 x 4096
+   and B=8 x 256 (with dq + dk/dv against SDPA's backward at Gemma's),
+   at Gemma-2B's dk/dv at 256's main kernel and its partials' reduce
+   apart (torch.profiler), and at Phi-3-mini's the padded route 96 ->
    128 (the wgmma kernels on zero-padded inputs); one profiled launch
    each; (c) Llama blocks at Phi-3-mini's and Gemma-2B's widths, 2
    layers, random weights from SEED: the dense engine (graph decode)
@@ -746,20 +752,28 @@ KERNEL_SYMBOLS = {'flash_attention_fwd': 'fa_fwd_kernel',
                   'flash_attention_bwd_dkv_wide': 'fa_bwd_dkv_mma_kernel',
                   'flash_attention_fwd_f32': 'fa_fwd_mma_kernel',
                   'flash_attention_bwd_dq_f32': 'fa_bwd_dq_mma_kernel',
-                  'flash_attention_bwd_dkv_f32': 'fa_bwd_dkv_mma_kernel'}
+                  'flash_attention_bwd_dkv_f32': 'fa_bwd_dkv_mma_kernel',
+                  'flash_attention_bwd_dq_256': 'fa_bwd_dq_256_kernel',
+                  'flash_attention_bwd_dkv_256': 'fa_bwd_dkv_256_kernel'}
 
 
 def ptxas_report(build_log: str) -> dict:
     """{(symbol, 'bf16' | 'fp16' | 'f32', head_dim): {'registers', 'stack',
-    'spill_stores', 'spill_loads'}} from nvcc's -Xptxas -v output."""
+    'spill_stores', 'spill_loads'}} from nvcc's -Xptxas -v output.  The
+    kernels of one width (fa_*_256_kernel, and dk/dv's partials' reduce,
+    fa_bwd_dkv_256_reduce) are templated on the type alone: their head_dim
+    is 256."""
     report, cur = {}, None
     for line in build_log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?(fa_\w+?_kernel)I"
-                      r"(\w+?)Li(\d+)E", line)
+        m = (re.search(r"Compiling entry function '\S*?(fa_\w+?_kernel)I"
+                       r"(\w+?)Li(\d+)E", line) or
+             re.search(r"Compiling entry function '\S*?(fa_\w+?_256_"
+                       r"(?:kernel|reduce))I(\w+?)EEv", line))
         if m:
             dtype = ('bf16' if 'bfloat16' in m.group(2) else
                      'f32' if m.group(2) == 'f' else 'fp16')
-            cur = (m.group(1), dtype, int(m.group(3)))
+            cur = (m.group(1), dtype,
+                   int(m.group(3)) if m.lastindex == 3 else 256)
             report[cur] = {}
             continue
         m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
@@ -1312,11 +1326,16 @@ def small_kernel_phase(device):
 
 # ----- head_dims: every head_dim up to 256 ------------------------------------
 
-# Each head_dim's kernel width (the smallest width a kernel takes that is
-# at least the head_dim) and that width's wrappers' suffix: the checker's
-# own table of the routes ops/cuda/flash_attention.py must take.
+# Each kernel width's wrapper suffix, per kernel (the kernel width of a
+# head_dim is the smallest width a kernel takes that is at least the
+# head_dim): the checker's own table of the routes
+# ops/cuda/flash_attention.py must take.  At 256 the forward runs the
+# mma.sync kernel, dq and dk/dv the wgmma kernels of that width.
 WIDTH_SUFFIX = {16: '_small', 32: '_small', 64: '', 80: '_wide',
                 96: '_wide', 128: '', 256: '_wide'}
+ROUTE_SUFFIX = {'fwd': WIDTH_SUFFIX,
+                'bwd_dq': {**WIDTH_SUFFIX, 256: '_256'},
+                'bwd_dkv': {**WIDTH_SUFFIX, 256: '_256'}}
 # Every native width of the mma.sync kernels and every padded route: 8 ->
 # 16, 24 -> 32, 48 -> 64, 72 -> 80, 100 and 112 -> 128, 160 and 200 ->
 # 256.  Cases (b, hq, hkv, s, causal): one row, S on both sides of the
@@ -1340,6 +1359,9 @@ HEAD_DIM_CASES = [
 HEAD_DIM_FAMILIES = {'phi-2': (32, 32, 80), 'phi-3-mini': (32, 32, 96),
                      'gemma-2b': (8, 1, 256), 'gemma-7b': (16, 16, 256)}
 HEAD_DIM_TIMED = {'training': (2, 4096), 'serving': (8, 256)}
+# The families whose dq and dk/dv run the wgmma kernels at 256 (the others
+# the wide mma.sync ones).
+HEAD_DIM_256_FAMILIES = ('gemma-2b', 'gemma-7b')
 # Llama blocks (RMSNorm, RoPE, SwiGLU, untied or tied embeddings) at the
 # attention widths of two public model families, from their config.json:
 # Phi-3-mini (3072 = 32 heads x 96, 32 kv heads, ffn 8192, vocab 32064,
@@ -1371,7 +1393,8 @@ def route_launches(d, calls=1, kernels=('fwd', 'bwd_dq', 'bwd_dkv')):
     width = min(w for w in WIDTH_SUFFIX if w >= d)
     want = dict.fromkeys(ROUTED + PADDED, 0)
     for kernel in kernels:
-        want[f'flash_attention_{kernel}{WIDTH_SUFFIX[width]}'] += calls
+        want[f'flash_attention_{kernel}{ROUTE_SUFFIX[kernel][width]}'] += (
+            calls)
         if width != d:
             want[f'flash_attention_{kernel}.padded'] += calls
     return want
@@ -1381,13 +1404,16 @@ def head_dims_kernel_checks(device):
     """(a) The forward (out, lse), dq and dk/dv at HEAD_DIM_CASES against
     their plain versions, each call launching the kernel of its head_dim's
     width once (and the padded count once where the head_dim is no
-    width); head_dim 257 refused.  Returns {kind: max |kernel - plain|}
-    over the wide kernels' native widths, and {head_dim: worst numbers}."""
+    width); head_dim 257 refused.  Returns {wrapper: max |kernel - plain|}
+    over the native widths of the `_wide` and `_256` routes, and
+    {head_dim: worst numbers}."""
     import torch
     from skypilot_tpu_torch.ops.cuda import flash_attention as fa
 
     gen = torch.Generator(device=device).manual_seed(SEED + 7)
-    errs = {'fwd': 0.0, 'dq': 0.0, 'dkv': 0.0}
+    errs = {f'flash_attention_{kernel}{suffix}': 0.0
+            for kernel, routes in ROUTE_SUFFIX.items()
+            for suffix in set(routes.values()) if suffix in ('_wide', '_256')}
     worst = {}
     for shape in HEAD_DIM_CASES:
         b, hq, hkv, s, d, causal, dtype_name = shape
@@ -1433,19 +1459,23 @@ def head_dims_kernel_checks(device):
                                  f'{shape}: norm-rel {rel}, max_abs_err '
                                  f'{err}')
             nums[name] = rel
-            if d in WIDTH_SUFFIX and WIDTH_SUFFIX[d] == '_wide':
-                key = 'dq' if name == 'dq' else 'dkv'
+            kernel = 'bwd_dq' if name == 'dq' else 'bwd_dkv'
+            key = f'flash_attention_{kernel}{ROUTE_SUFFIX[kernel].get(d)}'
+            if key in errs:
                 errs[key] = max(errs[key], err)
-        if d in WIDTH_SUFFIX and WIDTH_SUFFIX[d] == '_wide':
-            errs['fwd'] = max(errs['fwd'], nums['out'], nums['lse'])
+        key = f'flash_attention_fwd{WIDTH_SUFFIX.get(d)}'
+        if key in errs:
+            errs[key] = max(errs[key], nums['out'], nums['lse'])
         row = worst.setdefault(d, dict.fromkeys(nums, 0.0))
         for key, x in nums.items():
             row[key] = max(row[key], x)
     for d, row in worst.items():
         width = min(w for w in WIDTH_SUFFIX if w >= d)
-        route = (f'{WIDTH_SUFFIX[width] or "wgmma"} kernel at {width}'
+        route = ('/'.join(dict.fromkeys(
+            (ROUTE_SUFFIX[kernel][width] or '_wgmma').lstrip('_')
+            for kernel in ROUTE_SUFFIX)) + f' kernels at {width}'
                  + (' (zero-padded)' if width != d else ''))
-        log(f'  head_dim {d:3d} -> {route.lstrip("_")}: '
+        log(f'  head_dim {d:3d} -> {route}: '
             f'{sum(c[4] == d for c in HEAD_DIM_CASES)} cases, worst out '
             f'max_abs_err {row["out"]:.3e} lse {row["lse"]:.3e}, norm-rel dq '
             f'{row["dq"]:.3e} dk {row["dk"]:.3e} dv {row["dv"]:.3e}; '
@@ -1458,6 +1488,51 @@ def head_dims_kernel_checks(device):
     else:
         raise SystemExit('head_dim 257 was not refused')
     return errs, worst
+
+
+def bwd_256_repeats(device):
+    """At Gemma-2B's attention (HEAD_DIM_FAMILIES) at HEAD_DIM_TIMED's
+    training and serving shapes, where dk/dv at 256 splits its grid
+    (plan_dkv_256_split > 1): two calls each of dq and dk/dv, each call
+    launching the `_256` kernel once, give the same bits.  Returns
+    {shape label: split}."""
+    import torch
+    from skypilot_tpu_torch.ops.cuda import flash_attention as fa
+
+    hq, hkv, d = HEAD_DIM_FAMILIES['gemma-2b']
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    splits = {}
+    for label, (b, s) in HEAD_DIM_TIMED.items():
+        q, g = (torch.randn((b, hq, s, d), generator=gen,
+                            device=device).to(torch.bfloat16)
+                for _ in range(2))
+        k, v = (torch.randn((b, hkv, s, d), generator=gen,
+                            device=device).to(torch.bfloat16)
+                for _ in range(2))
+        out, lse = fa.flash_attention_fwd(q, k, v, return_residuals=True)
+        delta = (g.float() * out.float()).sum(-1)
+        split = fa.plan_dkv_256_split(b, hq, hkv, s, True,
+                                      fa._sm_count(q.device))
+        zero_launches()
+        first, second = (
+            (fa.flash_attention_bwd_dq(q, k, v, g, lse, delta),
+             *fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta))
+            for _ in range(2))
+        torch.cuda.synchronize()
+        launched = read_route_launches()
+        want = route_launches(d, 2, ('bwd_dq', 'bwd_dkv'))
+        same = [bool(torch.equal(x, y)) for x, y in zip(first, second)]
+        log(f'  gemma-2b {label} b={b} s={s}: dk/dv split {split}; two calls '
+            f'of dq, dk, dv at 256 bit-identical {same}; launches '
+            f'{ {n: c for n, c in launched.items() if c} }')
+        if split < 2 or launched != want or not all(same):
+            raise SystemExit(f'dq/dk/dv at 256 at gemma-2b {label}: split '
+                             f'{split}, bit-identical {same}, launched '
+                             f'{launched}, expected {want}')
+        splits[label] = split
+        del q, k, v, g, out, lse, delta, first, second
+        torch.cuda.empty_cache()
+    return splits
 
 
 def padded_route_calls(q, k, v, g, lse, delta, width):
@@ -1489,14 +1564,18 @@ def padded_route_calls(q, k, v, g, lse, delta, width):
 
 
 def head_dims_times(device):
-    """(b) The wide kernels, their plain versions and SDPA at
-    HEAD_DIM_FAMILIES' shapes beside the bounds; at Phi-3-mini's also the
-    padded route 96 -> 128 (checked against the native kernels' results);
-    one profiled launch of each wide kernel at Phi-3-mini's training
-    shape.  Returns ({(family, shape label): {kind: numbers}}, {shape
-    label: {kind: padded-route ms}}, {symbol: launch attributes})."""
+    """(b) The wide kernels and those at 256, their plain versions and
+    SDPA at HEAD_DIM_FAMILIES' shapes beside the bounds (at Gemma's, dq +
+    dk/dv against SDPA's backward); at Gemma-2B's the dk/dv kernel at 256
+    and its partials' reduce apart (torch.profiler); at Phi-3-mini's also
+    the padded route 96 -> 128 (checked against the native kernels'
+    results); one profiled launch of each wide kernel at Phi-3-mini's
+    training shape and of each kernel at 256 at Gemma-7B's.  Returns
+    ({(family, shape label): {kind: numbers}}, {shape label: {kind:
+    padded-route ms}}, {symbol: launch attributes})."""
     import torch
     from skypilot_tpu_torch.ops.cuda import flash_attention as fa
+    from skypilot_tpu_torch.ops.cuda import probe
 
     times, padded = {}, {}
     for family, (hq, hkv, d) in HEAD_DIM_FAMILIES.items():
@@ -1504,6 +1583,43 @@ def head_dims_times(device):
             times[(family, label)] = kernel_times(
                 device, (b, hq, hkv, s, d), f'{family} {label}',
                 plain_iters=3 if label == 'training' else 20)
+            if family not in HEAD_DIM_256_FAMILIES:
+                continue
+            row = times[(family, label)]
+            pair = row['dq']['ms'] + row['dkv']['ms']
+            row['dkv']['split'] = fa.plan_dkv_256_split(
+                b, hq, hkv, s, True, fa._sm_count(device))
+            row['pair_ms'] = pair
+            row['pair_over_sdpa'] = pair / row['dq']['library_ms']
+            if row['dkv']['split'] > 1:
+                gen = torch.Generator(device=device).manual_seed(SEED + 10)
+                q, g = (torch.randn((b, hq, s, d), generator=gen,
+                                    device=device).to(torch.bfloat16)
+                        for _ in range(2))
+                k, v = (torch.randn((b, hkv, s, d), generator=gen,
+                                    device=device).to(torch.bfloat16)
+                        for _ in range(2))
+                out, lse = fa.flash_attention_fwd(q, k, v,
+                                                  return_residuals=True)
+                delta = (g.float() * out.float()).sum(-1)
+                row['dkv']['parts_ms'] = probe.device_ms_by_kernel(
+                    lambda: fa.flash_attention_bwd_dkv_256(q, k, v, g, lse,
+                                                           delta),
+                    ('fa_bwd_dkv_256_kernel', 'fa_bwd_dkv_256_reduce'))
+                row['dkv']['partial_bytes'] = (row['dkv']['split'] * b *
+                                               hkv * s * d * 8)
+                del q, k, v, g, out, lse, delta
+                torch.cuda.empty_cache()
+            log(f'  {family} {label}: dq + dk/dv at 256 {pair:.4f} ms against '
+                f'SDPA\'s backward {row["dq"]["library_ms"]:.4f} ms (x'
+                f'{row["pair_over_sdpa"]:.2f}); dq x'
+                f'{row["dq"]["ms"] / row["dq"]["bound_ms"]:.2f}, dk/dv x'
+                f'{row["dkv"]["ms"] / row["dkv"]["bound_ms"]:.2f} their '
+                f'bounds; dk/dv split {row["dkv"]["split"]}' + (
+                    f', main kernel / partials\' reduce (torch.profiler) '
+                    f'{row["dkv"]["parts_ms"]} ms per call, partials '
+                    f'{row["dkv"]["partial_bytes"] / 1e6:.1f} MB'
+                    if 'parts_ms' in row['dkv'] else ''))
     hq, hkv, d = HEAD_DIM_FAMILIES['phi-3-mini']
     gen = torch.Generator(device=device).manual_seed(SEED + 8)
     for label, (b, s) in HEAD_DIM_TIMED.items():
@@ -1555,6 +1671,22 @@ def head_dims_times(device):
             lambda: fa.flash_attention_bwd_dkv(*bwd_args)})
     for symbol, attr in attrs.items():
         log(f'  launch of {symbol} at head_dim {d}: {attr}')
+    del q, k, v, g, out, lse, bwd_args
+    torch.cuda.empty_cache()
+    hq, hkv, d = HEAD_DIM_FAMILIES['gemma-7b']
+    q, g = (torch.randn((b, hq, s, d), generator=gen,
+                        device=device).to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((b, hkv, s, d), generator=gen,
+                        device=device).to(torch.bfloat16) for _ in range(2))
+    out, lse = fa.flash_attention_fwd(q, k, v, return_residuals=True)
+    bwd_args = (q, k, v, g, lse, (g.float() * out.float()).sum(-1))
+    at_256 = launch_attrs({
+        'fa_bwd_dq_256_kernel': lambda: fa.flash_attention_bwd_dq(*bwd_args),
+        'fa_bwd_dkv_256_kernel':
+            lambda: fa.flash_attention_bwd_dkv(*bwd_args)})
+    for symbol, attr in at_256.items():
+        log(f'  launch of {symbol} at gemma-7b training: {attr}')
+    attrs.update(at_256)
     del q, k, v, g, out, lse, bwd_args
     torch.cuda.empty_cache()
     return times, padded, attrs
@@ -1695,10 +1827,12 @@ def head_dims_models(device, card, smi):
 
 
 def head_dims_phase(device, card, smi, ptxas):
-    """(a), (b), (c) above; returns (the three wide kernels' kernels-line
-    entries, launches aside; the launch counts of (c))."""
+    """(a) with the bit-identity check at 256, (b), (c) above; returns
+    (the kernels-line entries of the three wide kernels and of dq and
+    dk/dv at 256, launches aside; the launch counts of (c))."""
     t0 = time.perf_counter()
     errs, worst = head_dims_kernel_checks(device)
+    splits = bwd_256_repeats(device)
     t1 = time.perf_counter()
     times, padded, attrs = head_dims_times(device)
     t2 = time.perf_counter()
@@ -1710,18 +1844,20 @@ def head_dims_phase(device, card, smi, ptxas):
                                ('dkv', 'bwd_dkv', 225)):
         name = f'flash_attention_{kernel}_wide'
         symbol = KERNEL_SYMBOLS[name]
+        widths = tuple(w for w, sfx in ROUTE_SUFFIX[kernel].items()
+                       if sfx == '_wide')
         at = {f'{family} {label}': times[(family, label)][kind]
-              for family, label in times}
-        report = {d: ptxas.get((symbol, dtype, d), {})
-                  for d in (80, 96, 256) for dtype in ('bf16',)}
+              for family, label in times
+              if HEAD_DIM_FAMILIES[family][2] in widths}
+        report = {d: ptxas.get((symbol, 'bf16', d), {}) for d in widths}
         entries[kind] = {
             'name': name, 'route': 'cuda',
             'source': f'skypilot_tpu_torch/csrc/flash_attention_{kernel}'
                       f'_wide.cu',
             'replaces': f'skypilot_tpu/ops/pallas/flash_attention.py:{line}',
-            'max_abs_err': errs[kind],
+            'max_abs_err': errs[name],
             # The kernels-line numbers at Phi-3-mini's training shape; every
-            # timed shape under at_shapes.
+            # timed shape of its widths under at_shapes.
             **{key: times[('phi-3-mini', 'training')][kind][key] for key in (
                 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
                 'tflops', 'shape')},
@@ -1738,6 +1874,39 @@ def head_dims_phase(device, card, smi, ptxas):
             'smem_bytes': attrs[symbol].get('shared memory'),
             'launch': attrs[symbol],
             'head_dims_checked': {d: worst[d] for d in worst}}
+    # dq and dk/dv at 256 (wgmma): the kernels-line numbers at Gemma-7B's
+    # training shape, every Gemma shape under at_shapes; dk/dv's split at
+    # each, its main kernel and partials' reduce apart at Gemma-2B's.
+    for kind, kernel, line in (('dq', 'bwd_dq', 196),
+                               ('dkv', 'bwd_dkv', 225)):
+        name = f'flash_attention_{kernel}_256'
+        symbol = KERNEL_SYMBOLS[name]
+        report = ptxas.get((symbol, 'bf16', 256), {})
+        reduce = ptxas.get(('fa_bwd_dkv_256_reduce', 'bf16', 256), {})
+        at = {f'{family} {label}': {
+            **times[(family, label)][kind],
+            'pair_ms': times[(family, label)]['pair_ms'],
+            'pair_over_sdpa': times[(family, label)]['pair_over_sdpa']}
+            for family, label in times if family in HEAD_DIM_256_FAMILIES}
+        entries[f'{kind}_256'] = {
+            'name': name, 'route': 'cuda',
+            'source': f'skypilot_tpu_torch/csrc/flash_attention_{kernel}'
+                      f'_256.cu',
+            'replaces': f'skypilot_tpu/ops/pallas/flash_attention.py:{line}',
+            'max_abs_err': errs[name],
+            **{key: times[('gemma-7b', 'training')][kind][key] for key in (
+                'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
+                'tflops', 'shape')},
+            'at_shapes': at,
+            'registers': report.get('registers'),
+            'spill_bytes': report.get('spill_stores'),
+            **({'reduce_registers': reduce.get('registers'),
+                'reduce_spill_bytes': reduce.get('spill_stores'),
+                'bit_identical_at_split': splits} if kind == 'dkv' else {}),
+            'smem_bytes': attrs[symbol].get('shared memory'),
+            'launch': attrs[symbol],
+            'head_dims_checked': {d: worst[d] for d in (160, 200, 256)
+                                  if d in worst}}
     return entries, counts
 
 
@@ -2087,17 +2256,21 @@ SMALL_KERNELS = (SMALL_KERNEL, 'flash_attention_bwd_dq_small',
                  'flash_attention_bwd_dkv_small')
 
 
-# The wide-head-dim kernels' wrappers (head_dim 80, 96 and 256), and the
+# The wide-head-dim kernels' wrappers (head_dim 80 and 96, and the
+# forward's at 256), the wrappers of dq and dk/dv at 256 (wgmma), and the
 # public wrappers' counts of calls that took the zero-padded route (a
 # head_dim no kernel takes, padded to the next width).
 WIDE_KERNELS = ('flash_attention_fwd_wide', 'flash_attention_bwd_dq_wide',
                 'flash_attention_bwd_dkv_wide')
+BWD_256_KERNELS = ('flash_attention_bwd_dq_256',
+                   'flash_attention_bwd_dkv_256')
 PADDED = tuple(f'{name}.padded' for name in KERNEL_NAMES)
 # The f32 kernels' wrappers (3xTF32 mma.sync at every width): every f32
 # call on a CUDA tensor launches one of these.
 F32_KERNELS = ('flash_attention_fwd_f32', 'flash_attention_bwd_dq_f32',
                'flash_attention_bwd_dkv_f32')
-ROUTED = KERNEL_NAMES + SMALL_KERNELS + WIDE_KERNELS + F32_KERNELS
+ROUTED = (KERNEL_NAMES + SMALL_KERNELS + WIDE_KERNELS + BWD_256_KERNELS +
+          F32_KERNELS)
 
 
 def zero_launches() -> None:
@@ -8049,7 +8222,7 @@ def main() -> int:
     # and from the relayed bucket serve: the flash forward, no backward).
     new_paths = {'ssh_pool': ('flash_attention_fwd',),
                  'bucket_relay': ('flash_attention_fwd',),
-                 'head_dims': WIDE_KERNELS,
+                 'head_dims': WIDE_KERNELS + BWD_256_KERNELS,
                  'f32_training': F32_KERNELS,
                  'tensor_serving': ('flash_attention_fwd_f32',),
                  'moe_tensor_serving': ('flash_attention_fwd_f32',)}
@@ -8112,12 +8285,12 @@ def main() -> int:
                      launches_by_path=counts)
         rows.append({**{key: entry[key] for key in keys},
                      **{key: entry[key] for key in entry if key not in keys}})
-    # The wide kernels (head_dim 80, 96, 256): launched on the head_dims
-    # path's serving and training runs; the f32 kernels on f32_training's
-    # and (the forward) on the f32 serving runs of tensor_serving and
-    # moe_tensor_serving.
-    for entry in (wide['fwd'], wide['dq'], wide['dkv'], f32k['fwd'],
-                  f32k['dq'], f32k['dkv']):
+    # The wide kernels (head_dim 80, 96; the forward's at 256 too) and dq
+    # and dk/dv at 256: launched on the head_dims path's serving and
+    # training runs; the f32 kernels on f32_training's and (the forward)
+    # on the f32 serving runs of tensor_serving and moe_tensor_serving.
+    for entry in (wide['fwd'], wide['dq'], wide['dkv'], wide['dq_256'],
+                  wide['dkv_256'], f32k['fwd'], f32k['dq'], f32k['dkv']):
         counts = {path: c.get(entry['name'], 0)
                   for path, c in by_path.items()
                   if c.get(entry['name'], 0)}

@@ -1,8 +1,8 @@
 // Flash-attention backward, dk/dv kernel, in mma.sync on Hopper (sm_90a),
-// where the wgmma kernel (flash_attention_bwd_dkv.cu: bf16/fp16 at D = 64
-// and 128) does not reach: bf16/fp16 at D = 16 and 32 (instantiated in
-// flash_attention_bwd_dkv_small.cu) and D = 80, 96 and 256
-// (flash_attention_bwd_dkv_wide.cu), and f32 at D = 16, 32, 64 and 128
+// where the wgmma kernels (flash_attention_bwd_dkv.cu: bf16/fp16 at D = 64
+// and 128; flash_attention_bwd_dkv_256.cu at 256) do not reach: bf16/fp16
+// at D = 16 and 32 (instantiated in flash_attention_bwd_dkv_small.cu) and
+// D = 80 and 96 (flash_attention_bwd_dkv_wide.cu), and f32 at D = 16, 32, 64 and 128
 // (flash_attention_bwd_dkv_f32.cu) and 80, 96 and 256
 // (flash_attention_bwd_dkv_f32_wide.cu).  m16n8k16 products, or m16n8k8
 // tf32 ones taken three times for f32 (3xTF32, sm80_mma.cuh), Q/dO tiles

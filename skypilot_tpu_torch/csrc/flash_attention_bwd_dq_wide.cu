@@ -1,15 +1,18 @@
-// Flash-attention backward, dq kernel, at head_dim 80, 96 and 256: the
+// Flash-attention backward, dq kernel, at head_dim 80 and 96: the
 // mma.sync kernel of flash_attention_bwd_dq_mma.cuh (its design, bounds
 // and the Pallas kernel it replaces are described there) at the attention
-// widths of Phi-2 (80), Phi-3-mini (96) and Gemma (256), which the wgmma
-// kernel's 64-element swizzled rows do not take.  Any other head_dim up
-// to 256 that no kernel takes reaches a kernel zero-padded to the next
-// width by the wrapper (skypilot_tpu_torch/ops/cuda/flash_attention.py).
+// widths of Phi-2 (80) and Phi-3-mini (96), which the wgmma kernel's
+// 64-element swizzled rows do not take.  bf16 and fp16 at 256 (Gemma's
+// width) take the wgmma kernel flash_attention_bwd_dq_256.cu; f32 at 256
+// the template in flash_attention_bwd_dq_f32_wide.cu.  Any other
+// head_dim up to 256 that no kernel takes reaches a kernel zero-padded to
+// the next width by the wrapper
+// (skypilot_tpu_torch/ops/cuda/flash_attention.py).
 
 #include "flash_attention_bwd_dq_mma.cuh"
 
 // Plain C entry point (bound with ctypes); the contract of
-// skytpu_flash_attention_bwd_dq at head_dim 80, 96 or 256.  q, dout, dq
+// skytpu_flash_attention_bwd_dq at head_dim 80 or 96.  q, dout, dq
 // [B,Hq,S,D] and k, v [B,Hkv,S,D] contiguous, 16-byte aligned; lse, delta
 // [B,Hq,S] f32.  dtype: 0 = bf16, 1 = fp16.  Returns the launch's
 // cudaError_t.
@@ -27,8 +30,5 @@ extern "C" int skytpu_flash_attention_bwd_dq_wide(
   if (head_dim == 96)
     return int(flash_mma::launch_dq<96>(q, k, v, dout, lse, delta, dq, b, hq,
                                         hkv, s_len, dtype, scale, causal, st));
-  if (head_dim == 256)
-    return int(flash_mma::launch_dq<256>(q, k, v, dout, lse, delta, dq, b, hq,
-                                         hkv, s_len, dtype, scale, causal, st));
   return int(cudaErrorInvalidValue);
 }

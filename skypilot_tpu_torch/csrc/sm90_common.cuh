@@ -4,8 +4,8 @@
 // products (A from shared memory or from registers), warpgroup register
 // reallocation, and the host-side tensor maps.
 //
-// Layout convention.  Every 16-bit tile of R rows by D columns (D = 64 or
-// 128) lies in shared memory as D / 64 column chunks of R rows x 128
+// Layout convention.  Every 16-bit tile of R rows by D columns (D = 64,
+// 128 or 256) lies in shared memory as D / 64 column chunks of R rows x 128
 // bytes, each chunk 1024-byte aligned and swizzled as TMA's
 // CU_TENSOR_MAP_SWIZZLE_128B writes it (16-byte unit u of row r lands at
 // u ^ (r % 8)).  That is the canonical 128-byte-swizzle layout of wgmma
@@ -170,6 +170,17 @@ __device__ __forceinline__ uint64_t desc_mnmajor(const T* tile, int rows,
   return make_desc(tile + k * 16 * 64, uint32_t(rows) * 128, 1024);
 }
 
+// The pointer, hidden from the optimizer at this point: wgmma descriptors
+// of a tile that stays resident over a loop, derived from it inside the
+// loop, are then formed where each product is issued instead of being
+// hoisted out of the loop and held (at D = 256 sixteen 64-bit descriptors
+// per product, more registers than a consumer can spare).
+template <typename P>
+__device__ __forceinline__ P* opaque(P* p) {
+  asm volatile("" : "+l"(p));
+  return p;
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -197,6 +208,8 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 #define SKYTPU_ACC32(i) \
   SKYTPU_ACC8(i), SKYTPU_ACC8(i + 8), SKYTPU_ACC8(i + 16), SKYTPU_ACC8(i + 24)
+#define SKYTPU_D16                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define SKYTPU_D32                                                           \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
@@ -207,18 +220,46 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
   "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
   "%58, %59, %60, %61, %62, %63}"
+#define SKYTPU_D128                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "                               \
+  "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "                      \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "                      \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "                      \
+  "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "                      \
+  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "                      \
+  "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "                      \
+  "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "                      \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, "                      \
+  "%90, %91, %92, %93, %94, %95, %96, %97, %98, %99, "                      \
+  "%100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "            \
+  "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "            \
+  "%120, %121, %122, %123, %124, %125, %126, %127}"
 #define SKYTPU_PRED(n) "{\n.reg .pred p;\nsetp.ne.b32 p, %" #n ", 0;\n"
 
 template <typename T>
 constexpr bool kIsBf16 = std::is_same<T, __nv_bfloat16>::value;
 
 // d (64 x N, f32) (+)= A (64 x 16, shared, K-major) B (16 x N, shared;
-// K-major, or MN-major with kTransB = 1).
+// K-major, or MN-major with kTransB = 1); N = 32, 64 or 128.
 template <typename T, int N, int kTransB>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
                                          uint64_t desc_b, bool accumulate) {
-  static_assert(N == 64 || N == 128, "N is 64 or 128");
-  if constexpr (N == 64 && kIsBf16<T>) {
+  static_assert(N == 32 || N == 64 || N == 128, "N is 32, 64 or 128");
+  if constexpr (N == 32 && kIsBf16<T>) {
+    asm volatile(SKYTPU_PRED(18)
+                 "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+                 SKYTPU_D16 ", %16, %17, p, 1, 1, 0, %19;\n}\n"
+                 : SKYTPU_ACC8(0), SKYTPU_ACC8(8)
+                 : "l"(desc_a), "l"(desc_b), "r"(int(accumulate)),
+                   "n"(kTransB));
+  } else if constexpr (N == 32) {
+    asm volatile(SKYTPU_PRED(18)
+                 "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 "
+                 SKYTPU_D16 ", %16, %17, p, 1, 1, 0, %19;\n}\n"
+                 : SKYTPU_ACC8(0), SKYTPU_ACC8(8)
+                 : "l"(desc_a), "l"(desc_b), "r"(int(accumulate)),
+                   "n"(kTransB));
+  } else if constexpr (N == 64 && kIsBf16<T>) {
     asm volatile(SKYTPU_PRED(34)
                  "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
                  SKYTPU_D32 ", %32, %33, p, 1, 1, 0, %35;\n}\n"
@@ -250,12 +291,36 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
 }
 
 // d (64 x N, f32) (+)= A (64 x 16, four 16-bit pairs per thread in the
-// register fragment above) B (16 x N, shared; kTransB as wgmma_ss).
+// register fragment above) B (16 x N, shared; kTransB as wgmma_ss); N = 64,
+// 128 or 256.
 template <typename T, int N, int kTransB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t desc_b, bool accumulate) {
-  static_assert(N == 64 || N == 128, "N is 64 or 128");
+  static_assert(N == 64 || N == 128 || N == 256, "N is 64, 128 or 256");
+  if constexpr (N == 256) {
+    // One m64n256k16 (dq at D = 256: every column of dQ in one product).
+    if constexpr (kIsBf16<T>) {
+      asm volatile(SKYTPU_PRED(133)
+                   "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+                   SKYTPU_D128 ", {%128, %129, %130, %131}, %132, p, 1, 1, "
+                   "%134;\n}\n"
+                   : SKYTPU_ACC32(0), SKYTPU_ACC32(32), SKYTPU_ACC32(64),
+                     SKYTPU_ACC32(96)
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+                     "r"(int(accumulate)), "n"(kTransB));
+    } else {
+      asm volatile(SKYTPU_PRED(133)
+                   "wgmma.mma_async.sync.aligned.m64n256k16.f32.f16.f16 "
+                   SKYTPU_D128 ", {%128, %129, %130, %131}, %132, p, 1, 1, "
+                   "%134;\n}\n"
+                   : SKYTPU_ACC32(0), SKYTPU_ACC32(32), SKYTPU_ACC32(64),
+                     SKYTPU_ACC32(96)
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+                     "r"(int(accumulate)), "n"(kTransB));
+    }
+    return;
+  }
   if constexpr (N == 64 && kIsBf16<T>) {
     asm volatile(SKYTPU_PRED(37)
                  "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -289,8 +354,10 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
 
 #undef SKYTPU_ACC8
 #undef SKYTPU_ACC32
+#undef SKYTPU_D16
 #undef SKYTPU_D32
 #undef SKYTPU_D64
+#undef SKYTPU_D128
 #undef SKYTPU_PRED
 
 // 2^x by the SFU (ex2.approx, subnormal results flushed to 0): what the

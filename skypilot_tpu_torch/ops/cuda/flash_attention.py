@@ -16,18 +16,27 @@ PyTorch/CUDA counterparts of `skypilot_tpu/ops/pallas/flash_attention.py`:
   `csrc/flash_attention_bwd_dkv.cu`, wgmma with P^T and dS^T in
   registers), at head_dim 64 and 128.
 
+The backward at head_dim 256 in bf16 and fp16 has wgmma kernels of its
+own (`csrc/flash_attention_bwd_dq_256.cu`, 32-row K/V stages under a
+128-row q tile; `csrc/flash_attention_bwd_dkv_256.cu`, two consumer
+warpgroups, one computing S^T and dV, the other dP^T and dK, and a grid
+split over each kv tile's query work, `plan_dkv_256_split`,
+with f32 partials summed in a fixed order by a second kernel; the
+wrappers `flash_attention_bwd_dq_256`, `flash_attention_bwd_dkv_256`).
 The same three kernels in mma.sync (K/V or Q/dO tiles by cp.async;
 templates in `csrc/flash_attention_{fwd,bwd_dq,bwd_dkv}_mma.cuh`) take
 what the wgmma kernels' 64-element 16-bit swizzled rows do not: bf16 and
 fp16 at 16 and 32 (m16n8k16; `csrc/*_small.cu`, the wrappers
 `flash_attention_fwd_small`, `flash_attention_bwd_dq_small`,
-`flash_attention_bwd_dkv_small`) and 80, 96 and 256 (`csrc/*_wide.cu`,
-the `*_wide` wrappers), and f32 at every width, 16, 32, 64, 80, 96, 128
+`flash_attention_bwd_dkv_small`), 80 and 96 (`csrc/*_wide.cu`, the
+`*_wide` wrappers) and the forward at 256 (`flash_attention_fwd_wide`),
+and f32 at every width, 16, 32, 64, 80, 96, 128
 and 256 (m16n8k8 tf32 taken three times, 3xTF32: each operand split into
 tf32 hi and lo parts, f32-class error; `csrc/*_f32.cu` and
 `csrc/*_f32_wide.cu`, the `*_f32` wrappers).  The public wrappers route
-by dtype and head_dim (`kernel_width`, the same widths in every dtype):
-f32 goes to the f32 kernels, bf16 and fp16 to the others; a kernel
+by kernel, dtype and head_dim (`kernel_width`, the same widths in every
+dtype; `_ROUTE_SUFFIX`, per kernel): f32 goes to the f32 kernels, bf16
+and fp16 to the others; a kernel
 width goes to its kernel; any other head_dim up to 256 is zero-padded
 in q, k, v (and dO) to the smallest wider width, runs that width's
 kernel with the real head_dim^-1/2 as its scale (zero columns add
@@ -37,9 +46,9 @@ refused, and so is any other dtype (f64 included) or a mix of dtypes.
 Nothing is cast: f32 never runs as bf16.  The padded route is no
 fallback: no route is tried after another fails.  Each launch counts on
 the `.launches` of the wrapper of the kernel that ran; each padded call
-also on the public wrapper's `.padded_launches`.  The mma.sync kernels'
-wrappers (`*_small`, `*_wide`, `*_f32`) are built by `_route_wrapper`
-from one table of head dims and dtypes.  The Hopper building blocks the
+also on the public wrapper's `.padded_launches`.  The per-route wrappers
+(`*_small`, `*_wide`, `*_256`, `*_f32`) are built by `_route_wrapper`
+from one table of routes.  The Hopper building blocks the
 three wgmma kernels share are in `csrc/sm90_common.cuh`; the mma.sync
 ones in `csrc/sm80_mma.cuh`.
 
@@ -98,11 +107,16 @@ _SMALL_HEAD_DIMS = (16, 32)
 _WIDE_HEAD_DIMS = (80, 96, 256)
 KERNEL_WIDTHS = tuple(sorted(_HEAD_DIMS + _SMALL_HEAD_DIMS + _WIDE_HEAD_DIMS))
 MAX_HEAD_DIM = KERNEL_WIDTHS[-1]
-# The suffix of each bf16/fp16 width's C entry and wrapper (every f32
-# width's is '_f32').
-_ROUTE_SUFFIX = {**dict.fromkeys(_HEAD_DIMS, ''),
-                 **dict.fromkeys(_SMALL_HEAD_DIMS, '_small'),
-                 **dict.fromkeys(_WIDE_HEAD_DIMS, '_wide')}
+KERNELS = ('fwd', 'bwd_dq', 'bwd_dkv')
+# The suffix of each kernel's bf16/fp16 C entry and wrapper at each width
+# (every f32 width's is '_f32'): the forward at 256 runs the mma.sync
+# kernel, dq and dk/dv the wgmma kernels of that width.
+_ROUTE_SUFFIX = {
+    kernel: {**dict.fromkeys(_HEAD_DIMS, ''),
+             **dict.fromkeys(_SMALL_HEAD_DIMS, '_small'),
+             **dict.fromkeys(_WIDE_HEAD_DIMS, '_wide'),
+             **({256: '_256'} if kernel != 'fwd' else {})}
+    for kernel in KERNELS}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argtypes.
@@ -123,6 +137,8 @@ _SIGNATURES = {
         [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I, _P],
     'skytpu_flash_attention_bwd_dq_f32':
         [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I, _P],
+    'skytpu_flash_attention_bwd_dq_256':
+        [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I, _P],
     'skytpu_flash_attention_bwd_dkv':
         [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _P],
     'skytpu_flash_attention_bwd_dkv_small':
@@ -131,7 +147,22 @@ _SIGNATURES = {
         [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _P],
     'skytpu_flash_attention_bwd_dkv_f32':
         [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _P],
+    # The dk/dv entries' arguments, then the split's f32 workspace and
+    # count (plan_dkv_256_split), then the stream.
+    'skytpu_flash_attention_bwd_dkv_256':
+        [_P] * 8 + [_I] * 6 + [ctypes.c_float, _I, _P, _I, _P],
 }
+# The dk/dv kernel at 256 (csrc/flash_attention_bwd_dkv_256.cu): k rows a
+# CTA (and q rows a step), and the most ranges the host cuts a kv tile's
+# query work into.
+DKV_256_BLOCK = 64
+DKV_256_MAX_SPLIT = 16
+# How far above the card's share of the steps a split's least time may
+# stay before the planner doubles it (plan_dkv_256_split).
+DKV_256_SLACK = 2
+# Streaming multiprocessors of an H100 SXM: the planner's default (a
+# launch asks the card).
+H100_SMS = 132
 
 
 def sources() -> List[pathlib.Path]:
@@ -309,7 +340,8 @@ def kernel_width(head_dim: int) -> int:
 def _route(kernel: str, width: int, dtype: torch.dtype):
     """(C entry, the wrapper that counts its launches) of `kernel` ('fwd',
     'bwd_dq' or 'bwd_dkv') at a kernel width of `dtype`."""
-    suffix = '_f32' if dtype == torch.float32 else _ROUTE_SUFFIX[width]
+    suffix = ('_f32' if dtype == torch.float32 else
+              _ROUTE_SUFFIX[kernel][width])
     name = f'flash_attention_{kernel}{suffix}'
     return f'skytpu_{name}', globals()[name]
 
@@ -569,20 +601,65 @@ flash_attention_bwd_dkv.padded_launches = 0
 
 
 
+def plan_dkv_256_split(b: int, hq: int, hkv: int, s: int, causal: bool,
+                       sms: int = H100_SMS) -> int:
+    """How many ranges the dk/dv kernel at 256 cuts each kv tile's query
+    work into.  A kv tile of DKV_256_BLOCK rows takes Hq / Hkv query heads
+    times its q tiles (when causal, those from its diagonal down) steps,
+    and the grid has B * Hkv * n_tiles CTAs.  Under MQA that grid is short
+    and the causal tile 0 far heavier than an SM's share of all the steps.
+    The split doubles (up to DKV_256_MAX_SPLIT, and no further than tile
+    0's steps) while the least time the grid can take, in steps (the
+    heaviest range, or the steps over the SMs the grid can fill), is more
+    than DKV_256_SLACK times the card's share (all the steps over `sms`).
+    Each doubling also writes and sums split * B * Hkv * S * D * 8 bytes
+    of f32 partials more, hence the slack: on an H100 the split this
+    picks at Gemma-2B's training and serving shapes (2 and 4) measured
+    faster than the next one, whose heaviest range is within the share."""
+    n_tiles = -(-s // DKV_256_BLOCK)
+    heaviest = hq // hkv * n_tiles
+    steps = b * hq * (n_tiles * (n_tiles + 1) // 2 if causal
+                      else n_tiles * n_tiles)
+    share = -(-steps // sms)
+
+    def least_steps(split: int) -> int:
+        grid = b * hkv * n_tiles * split
+        return max(-(-heaviest // split), -(-steps // min(sms, grid)))
+
+    split = 1
+    while (split < DKV_256_MAX_SPLIT and 2 * split <= heaviest and
+           least_steps(split) > DKV_256_SLACK * share):
+        split *= 2
+    return split
+
+
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _launch_dkv(entry: str, wrapper, q, k, v, g, lse, delta, causal,
                 scale):
     """Launch a dk/dv kernel through its C entry on checked CUDA inputs and
-    count the launch on `wrapper`."""
+    count the launch on `wrapper`.  The kernel at 256 also takes its
+    split (plan_dkv_256_split) and, above 1, an f32 workspace for the
+    partials."""
     b, hq, s, d = q.shape
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    split_args = ()
+    if entry == 'skytpu_flash_attention_bwd_dkv_256':
+        split = plan_dkv_256_split(b, hq, k.shape[1], s, causal,
+                                   _sm_count(q.device))
+        partial = (torch.empty((split, 2, *k.shape), dtype=torch.float32,
+                               device=q.device) if split > 1 else None)
+        split_args = (None if partial is None else partial.data_ptr(), split)
     lib = _LIBRARY.get()
     with torch.cuda.device(q.device):
         err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b, hq, k.shape[1], s, d, _DTYPE_CODES[q.dtype], scale,
-            int(causal), _stream(q.device))
+            int(causal), *split_args, _stream(q.device))
     _raise_on(err, wrapper.__name__)
     wrapper.launches += 1
     return dk, dv
@@ -610,25 +687,36 @@ def flash_attention_bwd(q: torch.Tensor,
 
 # ----- the per-route wrappers -------------------------------------------------
 
-# The mma.sync kernels' wrappers, one per kernel and route suffix: the
-# head dims and dtypes each takes, and the sources of its kernels.
+# The per-route wrappers, one per kernel and route suffix: the dtypes each
+# takes, its kind of kernel and the sources of its kernels.  Its head dims
+# are the widths _ROUTE_SUFFIX gives the suffix (f32: every width).
 _ROUTE_WRAPPERS = {
-    '_small': (_SMALL_HEAD_DIMS, _HALF_DTYPES, 'at head_dim 16 or 32',
-               '{}_small.cu'),
-    '_wide': (_WIDE_HEAD_DIMS, _HALF_DTYPES, 'at head_dim 80, 96 or 256',
-              '{}_wide.cu'),
-    '_f32': (KERNEL_WIDTHS, _F32_DTYPES,
-             'in f32 (3xTF32) at head_dim 16, 32, 64, 80, 96, 128 or 256',
-             '{}_f32.cu`, `{}_f32_wide.cu'),
+    '_small': (_HALF_DTYPES, 'mma.sync', '{}_small.cu'),
+    '_wide': (_HALF_DTYPES, 'mma.sync', '{}_wide.cu'),
+    '_256': (_HALF_DTYPES, 'wgmma', '{}_256.cu'),
+    '_f32': (_F32_DTYPES, 'mma.sync', '{}_f32.cu`, `{}_f32_wide.cu'),
 }
 
 
+def route_head_dims(kernel: str, suffix: str) -> Tuple[int, ...]:
+    """The kernel widths `kernel`'s route `suffix` takes."""
+    if suffix == '_f32':
+        return KERNEL_WIDTHS
+    return tuple(sorted(w for w, sfx in _ROUTE_SUFFIX[kernel].items()
+                        if sfx == suffix))
+
+
 def _route_wrapper(kernel: str, suffix: str):
-    """The wrapper of `kernel`'s ('fwd', 'bwd_dq' or 'bwd_dkv') mma.sync
-    route `suffix`: the public wrapper's contract at that route's head
-    dims and dtypes (CPU tensors take the plain version), the launches of
-    its C entry counted in `.launches`."""
-    head_dims, dtypes, what, files = _ROUTE_WRAPPERS[suffix]
+    """The wrapper of `kernel`'s ('fwd', 'bwd_dq' or 'bwd_dkv') route
+    `suffix`: the public wrapper's contract at that route's head dims and
+    dtypes (CPU tensors take the plain version), the launches of its C
+    entry counted in `.launches`."""
+    dtypes, design, files = _ROUTE_WRAPPERS[suffix]
+    head_dims = route_head_dims(kernel, suffix)
+    what = ('in f32 (3xTF32) ' if suffix == '_f32' else '') + (
+        f'at head_dim {", ".join(map(str, head_dims[:-1]))} or '
+        f'{head_dims[-1]}' if len(head_dims) > 1
+        else f'at head_dim {head_dims[0]}')
     name = f'flash_attention_{kernel}{suffix}'
     entry = f'skytpu_{name}'
     if kernel == 'fwd':
@@ -658,7 +746,7 @@ def _route_wrapper(kernel: str, suffix: str):
     sources_ = files.format(f'csrc/flash_attention_{kernel}',
                             f'csrc/flash_attention_{kernel}')
     wrapper.__name__ = wrapper.__qualname__ = name
-    wrapper.__doc__ = (f'The mma.sync {kernel} kernel {what} (`{sources_}`): '
+    wrapper.__doc__ = (f'The {design} {kernel} kernel {what} (`{sources_}`): '
                        f'`flash_attention_{kernel}`\'s contract, whose '
                        f'launches on this route it counts.')
     wrapper.launches = 0
@@ -670,7 +758,9 @@ flash_attention_fwd_wide = _route_wrapper('fwd', '_wide')
 flash_attention_fwd_f32 = _route_wrapper('fwd', '_f32')
 flash_attention_bwd_dq_small = _route_wrapper('bwd_dq', '_small')
 flash_attention_bwd_dq_wide = _route_wrapper('bwd_dq', '_wide')
+flash_attention_bwd_dq_256 = _route_wrapper('bwd_dq', '_256')
 flash_attention_bwd_dq_f32 = _route_wrapper('bwd_dq', '_f32')
 flash_attention_bwd_dkv_small = _route_wrapper('bwd_dkv', '_small')
 flash_attention_bwd_dkv_wide = _route_wrapper('bwd_dkv', '_wide')
+flash_attention_bwd_dkv_256 = _route_wrapper('bwd_dkv', '_256')
 flash_attention_bwd_dkv_f32 = _route_wrapper('bwd_dkv', '_f32')

@@ -7,8 +7,10 @@
     python -m skypilot_tpu_torch.ops.cuda.probe check wide  # D 80/96/256,
                                                             # padded D
     python -m skypilot_tpu_torch.ops.cuda.probe check f32  # the f32 route
+    python -m skypilot_tpu_torch.ops.cuda.probe check 256  # dq, dk/dv at 256
     python -m skypilot_tpu_torch.ops.cuda.probe time   # CUDA-event times
     python -m skypilot_tpu_torch.ops.cuda.probe time dq  # only names with 'dq'
+    python -m skypilot_tpu_torch.ops.cuda.probe time 256  # dq, dk/dv at 256
 
 `build DIR` compiles the sources of the csrc directory DIR afresh into a
 temporary directory (nvcc's processes in parallel, as the library's build)
@@ -20,8 +22,14 @@ and 32: forward, dq and dk/dv) at their tile edges, then the wide ones
 (head_dim 80, 96, 256) and the zero-padded route (head_dims that no
 kernel takes), then the f32 kernels (3xTF32) under their own f32-class
 gates (F32_OUT_TOL, F32_NORM_RTOL) against plain versions in full f32
-(TF32 matmuls off); `check small`, `check wide` and `check f32` run only
-those; `time`
+(TF32 matmuls off), then the wgmma dq and dk/dv kernels at head_dim 256
+(bf16 and fp16, and 160 and 200 zero-padded to them) against their plain
+versions, with their launches and, at shapes whose dk/dv splits, two
+calls bit for bit; `check small`, `check wide`, `check f32` and
+`check 256` run only those; `time 256` times dq and dk/dv at 256 at
+Gemma's four shapes beside their bounds and SDPA's backward, dk/dv at
+every split it can take, and its partials' reduce apart (torch.profiler);
+`time`
 times the forward, dq and dk/dv at
 bench-1b's shape (B=4, Hq=16, Hkv=8, S=4096, D=128, causal bf16) and the
 forward at the serving shape (B=8, H=32, S=256), each the mean of 20 calls
@@ -185,8 +193,9 @@ def check_small() -> None:
 WIDE_KERNELS = ('flash_attention_fwd_wide', 'flash_attention_bwd_dq_wide',
                 'flash_attention_bwd_dkv_wide')
 ROUTE_COUNTERS = (*(f'flash_attention_{k}{suffix}.launches'
-                    for suffix in ('', '_small', '_wide', '_f32')
-                    for k in ('fwd', 'bwd_dq', 'bwd_dkv')),
+                    for suffix in ('', '_small', '_wide', '_256', '_f32')
+                    for k in ('fwd', 'bwd_dq', 'bwd_dkv')
+                    if hasattr(fa, f'flash_attention_{k}{suffix}')),
                   *(f'flash_attention_{k}.padded_launches'
                     for k in ('fwd', 'bwd_dq', 'bwd_dkv')))
 
@@ -392,6 +401,246 @@ def check() -> None:
     check_small()
     check_wide()
     check_f32()
+    check_256()
+
+
+# The wgmma dq and dk/dv kernels at head_dim 256 (bf16 and fp16): S on both
+# sides of their 32-row (dq's K/V stages), 64-row (dk/dv's tiles) and
+# 128-row (dq's q tile) edges and S = 1000; GQA groups 1, 8 and 16; causal
+# and not; then head_dims 160 and 200, zero-padded to 256.  Many of these
+# take a split dk/dv (plan_dkv_256_split), so the split, its partials and
+# their reduce are checked here too.  Gates: PERF.md section 2's (dq, dk,
+# dv within BWD_NORM_RTOL norm-relative; an output 0 in exact arithmetic
+# within BWD_ZERO_ATOL).
+BWD_256_CHECK_SHAPES = [
+    (b, hq, hkv, s, 256, causal, dtype)
+    for b, hq, hkv in ((2, 4, 4), (1, 8, 1), (1, 16, 1))
+    for s in (1, 17, 31, 33, 63, 64, 65, 127, 129, 1000)
+    for causal in (True, False)
+    for dtype in (torch.bfloat16, torch.float16)
+] + [(2, 8, 1, s, d, causal, torch.bfloat16)
+     for d in (160, 200) for s in (17, 129) for causal in (True, False)]
+BWD_NORM_RTOL = 1e-2
+BWD_ZERO_ATOL = 1e-5
+# Gemma-2B's MQA shapes, at which dk/dv splits (causal bf16): two calls of
+# each kernel give the same bits.
+BWD_256_REPEAT_SHAPES = [(2, 8, 1, 1024, 256), (8, 8, 1, 256, 256)]
+# Gemma's attention at the training shape (2 x 4096) and the serving
+# bucket's (8 x 256), causal bf16: (b, hq, hkv, s, d).
+BWD_256_TIMED = {'gemma-7b training': (2, 16, 16, 4096, 256),
+                 'gemma-2b training': (2, 8, 1, 4096, 256),
+                 'gemma-2b serving': (8, 8, 1, 256, 256),
+                 'gemma-7b serving': (8, 16, 16, 256, 256)}
+# An H100 SXM's bf16 tensor-core peak and HBM rate (the bounds').
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES_S = 3.35e12
+
+
+def bwd_bound_ms(kind: str, b, hq, hkv, s, d, causal=True, itemsize=2):
+    """(least ms, 'operations' or 'bytes') of dq ('dq') or dk/dv ('dkv'):
+    q, dO, k, v, lse and delta read once and the outputs written once over
+    the HBM rate, vs 6 D (dq) or 8 D (dk/dv) flops per (q, k) pair this
+    input needs over the bf16 peak."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = (6 if kind == 'dq' else 8) * b * hq * pairs * d
+    nbytes = ((2 * b * hq * s * d + 2 * b * hkv * s * d) * itemsize +
+              2 * b * hq * s * 4 +
+              (b * hq * s * d if kind == 'dq' else 2 * b * hkv * s * d) *
+              itemsize)
+    t_flops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES_S
+    return (max(t_flops, t_bytes) * 1e3,
+            'operations' if t_flops > t_bytes else 'bytes')
+
+
+def check_256(quiet: bool = False) -> dict:
+    """Every BWD_256_CHECK_SHAPES case: dq and dk/dv against their plain
+    versions, each call launching the `_256` wrapper's kernel once (and
+    the padded counters at 160 and 200); then BWD_256_REPEAT_SHAPES' two
+    calls bit for bit.  Prints each case (with `quiet`, the worst of each
+    head_dim), raises on a miss; returns the worst numbers and the splits
+    seen."""
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    worst = {'dq': 0.0, 'dk': 0.0, 'dv': 0.0}
+    splits = set()
+    for shape in BWD_256_CHECK_SHAPES:
+        b, hq, hkv, s, d, causal, dtype = shape
+        q, k, v, g = _inputs(gen, b, hq, hkv, s, d, dtype)
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                          block_size=s,
+                                          return_residuals=True)
+        delta = (g.float() * out.float()).sum(-1)
+        before = _counters()
+        dq = fa.flash_attention_bwd_dq(q, k, v, g, lse, delta, causal)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal)
+        torch.cuda.synchronize()
+        moved = {name: n - before[name] for name, n in _counters().items()
+                 if n != before[name]}
+        want = {'flash_attention_bwd_dq_256.launches': 1,
+                'flash_attention_bwd_dkv_256.launches': 1}
+        if d != 256:
+            want.update({'flash_attention_bwd_dq.padded_launches': 1,
+                         'flash_attention_bwd_dkv.padded_launches': 1})
+        if moved != want:
+            raise SystemExit(f'{shape} moved {moved}, expected {want}')
+        split = fa.plan_dkv_256_split(b, hq, hkv, s, causal,
+                                      fa._sm_count(q.device))
+        splits.add(split)
+        refs = (fa.flash_attention_bwd_dq_reference(q, k, v, g, lse, delta,
+                                                    causal),
+                *fa.flash_attention_bwd_dkv_reference(q, k, v, g, lse,
+                                                      delta, causal))
+        nums = {}
+        for name, x, r in zip(('dq', 'dk', 'dv'), (dq, dk, dv), refs):
+            ok = (x.dtype == dtype and x.shape == r.shape and
+                  bool(torch.isfinite(x).all()))
+            if r.float().abs().max().item() <= BWD_ZERO_ATOL:
+                err = (x.float() - r.float()).abs().max().item()
+                nums[name] = 0.0 if ok and err <= BWD_ZERO_ATOL else (
+                    float('inf'))
+            else:
+                nums[name] = _norm_rel(x, r) if ok else float('inf')
+            worst[name] = max(worst[name], nums[name])
+        if not quiet:
+            print(f'{(b, hq, hkv, s, d, causal, str(dtype)[6:])} split '
+                  f'{split}: norm-rel dq {nums["dq"]:.3e} dk {nums["dk"]:.3e} '
+                  f'dv {nums["dv"]:.3e}', flush=True)
+        if max(nums.values()) > BWD_NORM_RTOL:
+            raise SystemExit(f'the 256 backward kernels disagree with their '
+                             f'plain versions at {shape}: {nums}')
+    for b, hq, hkv, s, d in BWD_256_REPEAT_SHAPES:
+        q, k, v, g = _inputs(gen, b, hq, hkv, s, d, torch.bfloat16)
+        out, lse = fa.flash_attention_fwd(q, k, v, return_residuals=True)
+        delta = (g.float() * out.float()).sum(-1)
+        first, second = (
+            (fa.flash_attention_bwd_dq(q, k, v, g, lse, delta),
+             *fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta))
+            for _ in range(2))
+        split = fa.plan_dkv_256_split(b, hq, hkv, s, True,
+                                      fa._sm_count(q.device))
+        same = [bool(torch.equal(x, y)) for x, y in zip(first, second)]
+        print(f'{(b, hq, hkv, s, d)} split {split}: two calls bit-identical '
+              f'dq/dk/dv {same}', flush=True)
+        if split == 1 or not all(same):
+            raise SystemExit(f'{(b, hq, hkv, s, d)}: split {split}, '
+                             f'bit-identical {same}')
+    print(f'256 backward ({len(BWD_256_CHECK_SHAPES)} cases, splits '
+          f'{sorted(splits)}): worst norm-rel dq {worst["dq"]:.3e} dk '
+          f'{worst["dk"]:.3e} dv {worst["dv"]:.3e} (gate {BWD_NORM_RTOL}); '
+          f'launches exact; repeats bit-identical', flush=True)
+    return {'worst': worst, 'splits': sorted(splits)}
+
+
+def dkv_256_at_split(q, k, v, g, lse, delta, split, causal=True):
+    """(dk, dv) from the dk/dv kernel at 256 at a given split (not the
+    planned one), through its C entry; not counted on any wrapper."""
+    b, hq, s, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    partial = (torch.empty((split, 2, *k.shape), dtype=torch.float32,
+                           device=q.device) if split > 1 else None)
+    err = fa._LIBRARY.get().skytpu_flash_attention_bwd_dkv_256(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
+        hq, k.shape[1], s, d, fa._DTYPE_CODES[q.dtype], d**-0.5, int(causal),
+        None if partial is None else partial.data_ptr(), split,
+        fa._stream(q.device))
+    fa._raise_on(err, 'flash_attention_bwd_dkv_256')
+    return dk, dv
+
+
+def device_ms_by_kernel(fn, names, calls: int = 5) -> dict:
+    """{name: device ms per call of the kernels whose symbol holds `name`}
+    over `calls` calls of `fn` under torch.profiler; None where the trace
+    holds no such kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys(names)
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        for name in names:
+            if name in evt.key:
+                out[name] = (out[name] or 0.0) + (
+                    evt.self_device_time_total / 1e3 / calls)
+    return out
+
+
+def time_256() -> dict:
+    """dq and dk/dv at 256 at BWD_256_TIMED's shapes (CUDA events, the
+    mean of 20 calls behind a spin kernel), SDPA's backward (dq, dk and dv
+    in one call) on the same inputs, the bounds; dk/dv at each split from
+    1 up (forced through the C entry, held to the planned split's result)
+    and, at the planned split, its main kernel and the partials' reduce
+    apart (torch.profiler).  Prints each line; returns the numbers."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    results = {}
+    for label, (b, hq, hkv, s, d) in BWD_256_TIMED.items():
+        q, k, v, g = _inputs(gen, b, hq, hkv, s, d, torch.bfloat16)
+        out, lse = fa.flash_attention_fwd(q, k, v, return_residuals=True)
+        delta = (g.float() * out.float()).sum(-1)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                                  enable_gqa=True)
+        sdpa_ms = _time_ms(lambda: torch.autograd.grad(
+            sdpa_out, leaves, g, retain_graph=True))
+        del sdpa_out, leaves
+        row = {'shape': [b, hq, hkv, s, d, True, 'bfloat16'],
+               'sdpa_bwd_ms': sdpa_ms}
+        for kind, fn in (
+                ('dq', lambda: fa.flash_attention_bwd_dq_256(
+                    q, k, v, g, lse, delta)),
+                ('dkv', lambda: fa.flash_attention_bwd_dkv_256(
+                    q, k, v, g, lse, delta))):
+            bound, by = bwd_bound_ms(kind, b, hq, hkv, s, d)
+            ms = _time_ms(fn)
+            row[kind] = {'ms': ms, 'bound_ms': bound, 'bound_by': by}
+            print(f'{label} {kind}_256 ms {ms:.4f} bound {bound:.4f} '
+                  f'({by}) x{ms / bound:.2f}', flush=True)
+        pair = row['dq']['ms'] + row['dkv']['ms']
+        row['pair_over_sdpa'] = pair / sdpa_ms
+        planned = fa.plan_dkv_256_split(b, hq, hkv, s, True,
+                                        fa._sm_count(q.device))
+        row['split'] = planned
+        want = fa.flash_attention_bwd_dkv_256(q, k, v, g, lse, delta)
+        n_tiles = -(-s // fa.DKV_256_BLOCK)
+        row['dkv_by_split'] = {}
+        split = 1
+        while split <= min(fa.DKV_256_MAX_SPLIT, hq // hkv * n_tiles):
+            got = dkv_256_at_split(q, k, v, g, lse, delta, split)
+            rel = max(_norm_rel(x, y) for x, y in zip(got, want))
+            if rel > BWD_NORM_RTOL:
+                raise SystemExit(f'{label}: dk/dv at split {split} is '
+                                 f'{rel} from the planned split\'s')
+            row['dkv_by_split'][split] = _time_ms(
+                lambda sp=split: dkv_256_at_split(q, k, v, g, lse, delta,
+                                                  sp))
+            split *= 2
+        if planned > 1:
+            row['dkv_parts_ms'] = device_ms_by_kernel(
+                lambda: fa.flash_attention_bwd_dkv_256(q, k, v, g, lse,
+                                                       delta),
+                ('fa_bwd_dkv_256_kernel', 'fa_bwd_dkv_256_reduce'))
+            row['partial_bytes'] = planned * b * hkv * s * d * 8
+        print(f'{label} b={b} hq={hq} hkv={hkv} s={s} d={d}: dq + dk/dv '
+              f'{pair:.4f} ms, sdpa backward {sdpa_ms:.4f} ms (pair / sdpa '
+              f'{pair / sdpa_ms:.2f}); planned split {planned}; dk/dv by '
+              f'split ' + ', '.join(f'{sp}: {ms:.4f}' for sp, ms in
+                                    row['dkv_by_split'].items()) +
+              (f'; at the planned split main / reduce ms '
+               f'{row["dkv_parts_ms"]}, partials '
+               f'{row["partial_bytes"] / 1e6:.1f} MB' if planned > 1
+               else ''), flush=True)
+        results[label] = row
+        del q, k, v, g, out, lse, delta, want, got
+        torch.cuda.empty_cache()
+    return results
 
 
 def build_fresh(csrc: pathlib.Path) -> None:
@@ -464,6 +713,9 @@ def time_kernels(only: str = '') -> None:
             if only in f'{label} {kind}':
                 print(f'{label} {kind} ms {_time_ms(fn):.4f}', flush=True)
         del q, k, v, g, out, lse, delta
+    # dq and dk/dv at 256 (wgmma) at Gemma's shapes, beside SDPA's backward.
+    if only in ('', '256'):
+        time_256()
 
 
 def main(argv) -> int:
@@ -473,8 +725,8 @@ def main(argv) -> int:
     elif mode == 'build':
         print(fa.build())
     elif mode == 'check':
-        {'small': check_small, 'wide': check_wide, 'f32': check_f32}.get(
-            ''.join(argv[2:3]), check)()
+        {'small': check_small, 'wide': check_wide, 'f32': check_f32,
+         '256': check_256}.get(''.join(argv[2:3]), check)()
     elif mode == 'time':
         time_kernels(argv[2] if len(argv) > 2 else '')
     else:

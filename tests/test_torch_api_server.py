@@ -471,10 +471,11 @@ def test_cli_entrypoints(launched, tmp_path):
 _CANONICAL = ['INIT', 'PENDING', 'SETTING_UP', 'RUNNING', 'SUCCEEDED']
 
 
-def _rest_sequence(url, headers, version_header, min_version):
-    """Drive one REST sequence against `url`; returns the record the two
-    packages must agree on (status codes, JSON keys, request, cluster and
-    job statuses) and the job statuses each poll saw."""
+def _rest_sequence(url, headers, version_header, min_version, package):
+    """Drive one REST sequence against `url`, the server of `package`
+    ('jax' or 'torch', named in every wait's timeout); returns the record
+    the two packages must agree on (status codes, JSON keys, request,
+    cluster and job statuses) and the job statuses each poll saw."""
     out = []
 
     def call(step, method, path, **kwargs):
@@ -496,7 +497,8 @@ def _rest_sequence(url, headers, version_header, min_version):
                                  timeout=60)
             return r if r.json()['status'] in (
                 'SUCCEEDED', 'FAILED', 'CANCELLED') else None
-        r = wait_for(done, REQUEST_TIMEOUT_S, f'request {rid}', 0.3)
+        r = wait_for(done, REQUEST_TIMEOUT_S,
+                     f'the {package} package\'s request {rid}', 0.3)
         body = rec('request', r)
         out.append(('request-status', body['status'],
                     sorted(body['result'] or {})))
@@ -522,7 +524,8 @@ def _rest_sequence(url, headers, version_header, min_version):
         if not seen or seen[-1] != status:
             seen.append(status)
         return r if status in ('SUCCEEDED', 'FAILED', 'CANCELLED') else None
-    r = wait_for(job_terminal, 60, 'the scenario job', 0.2)
+    r = wait_for(job_terminal, 60,
+                 f'the {package} package\'s scenario job {job_id}', 0.2)
     jobs = rec('queue', r)
     out.append(('queue-statuses', [j['status'] for j in jobs], None))
     _, r = call('logs', 'GET', f'/logs/scen/{job_id}',
@@ -582,7 +585,7 @@ def test_same_rest_sequence_in_both_packages(api_server, tmp_path,
                 monkeypatch.setenv('SKYTPU_API_SERVER', url)
                 runs[name] = _rest_sequence(
                     url, pkg_sdk.request_headers(), API_VERSION_HEADER,
-                    MIN_COMPATIBLE_API_VERSION)
+                    MIN_COMPATIBLE_API_VERSION, name)
         finally:
             jax_jobs_controller.stop_all_controllers()
             jax_serve_controller.stop_all_controllers()

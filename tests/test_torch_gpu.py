@@ -1,6 +1,8 @@
 """GPU-only checks of the PyTorch port: the hand-written flash-attention
 kernels (forward, dq, dk/dv, the three at head_dim 16/32 and at 80/96/256,
-the zero-padded route of the other head_dims, and the three in f32, 3xTF32,
+dq and dk/dv at 256 on their wgmma kernels, bit for bit run to run where
+dk/dv splits its grid, the zero-padded route of the other head_dims, and
+the three in f32, 3xTF32,
 under f32-class gates) against their plain versions, the autograd
 op against autograd through `mha_reference`, the engine's kernel path
 against attention_impl='xla', a narrow model trained through the
@@ -299,11 +301,14 @@ def test_wide_and_padded_head_dim_kernels_match_plain(cuda, s, d, hq, hkv,
     k, v = (torch.randn((2, hkv, s, d), generator=gen,
                         device=cuda).to(dtype) for _ in range(2))
     width = fa.kernel_width(d)
-    suffix = '_f32' if _f32(dtype) else {
-        16: '_small', 32: '_small', 64: '', 128: '', 80: '_wide',
-        96: '_wide', 256: '_wide'}[width]
-    counters = [getattr(fa, f'flash_attention_{kernel}{suffix}')
-                for kernel in ('fwd', 'bwd_dq', 'bwd_dkv')]
+    suffix = {16: '_small', 32: '_small', 64: '', 128: '', 80: '_wide',
+              96: '_wide', 256: '_wide'}[width]
+    # dq and dk/dv at 256 run the wgmma kernels of that width.
+    suffixes = (('_f32',) * 3 if _f32(dtype) else
+                (suffix, *(['_256'] * 2 if width == 256 else [suffix] * 2)))
+    counters = [getattr(fa, f'flash_attention_{kernel}{sfx}')
+                for kernel, sfx in zip(('fwd', 'bwd_dq', 'bwd_dkv'),
+                                       suffixes)]
     publics = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
                fa.flash_attention_bwd_dkv)
     before = ([c.launches for c in counters],
@@ -427,6 +432,66 @@ def test_flash_bwd_kernels_match_plain(cuda, b, hq, hkv, s, d, causal,
         assert got.dtype == dtype and got.shape == ref.shape
         assert torch.isfinite(got).all()
         assert _norm_rel(got, ref) <= rtol
+
+
+# dq and dk/dv at head_dim 256 (the wgmma kernels of that width, bf16 and
+# fp16) at GQA groups 1, 8 and 16, causal and not, S on both sides of
+# their 32-, 64- and 128-row edges: each call launches its `_256` kernel
+# once, and the outputs hold BWD_NORM_RTOL against the plain versions.
+# Under MQA most of these shapes split dk/dv's grid (plan_dkv_256_split).
+@pytest.mark.parametrize('s', [1, 33, 64, 65, 129, 300])
+@pytest.mark.parametrize('b,hq,hkv', [(2, 4, 4), (1, 8, 1), (1, 16, 1)])
+@pytest.mark.parametrize('causal', [True, False])
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16])
+def test_bwd_256_kernels_match_plain(cuda, s, b, hq, hkv, causal, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q, g = (torch.randn((b, hq, s, 256), generator=gen,
+                        device=cuda).to(dtype) for _ in range(2))
+    k, v = (torch.randn((b, hkv, s, 256), generator=gen,
+                        device=cuda).to(dtype) for _ in range(2))
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                      return_residuals=True)
+    delta = (g.float() * out.float()).sum(-1)
+    counters = (fa.flash_attention_bwd_dq_256, fa.flash_attention_bwd_dkv_256)
+    before = [c.launches for c in counters]
+    dq = fa.flash_attention_bwd_dq(q, k, v, g, lse, delta, causal)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert [c.launches - n for c, n in zip(counters, before)] == [1, 1]
+    refs = (fa.flash_attention_bwd_dq_reference(q, k, v, g, lse, delta,
+                                                causal),
+            *fa.flash_attention_bwd_dkv_reference(q, k, v, g, lse, delta,
+                                                  causal))
+    for got, want in zip((dq, dk, dv), refs):
+        assert got.dtype == dtype and got.shape == want.shape
+        assert torch.isfinite(got).all()
+        if want.float().abs().max() <= SMALL_BWD_ZERO_ATOL:
+            assert got.float().abs().max() <= SMALL_BWD_ZERO_ATOL
+        else:
+            assert _norm_rel(got, want) <= BWD_NORM_RTOL
+
+
+@pytest.mark.parametrize('b,hq,hkv,s', [(2, 8, 1, 1024), (8, 8, 1, 256),
+                                        (1, 16, 1, 300)])
+def test_bwd_256_kernels_are_deterministic_when_split(cuda, b, hq, hkv, s):
+    """At Gemma-2B's MQA widths dk/dv at 256 splits each kv tile's query
+    work over the grid and sums the f32 partials in a fixed order (no
+    atomics): two calls of dq and dk/dv agree bit for bit."""
+    assert fa.plan_dkv_256_split(b, hq, hkv, s, True,
+                                 fa._sm_count(torch.device(cuda))) > 1
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    q, g = (torch.randn((b, hq, s, 256), generator=gen,
+                        device=cuda).to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((b, hkv, s, 256), generator=gen,
+                        device=cuda).to(torch.bfloat16) for _ in range(2))
+    out, lse = fa.flash_attention_fwd(q, k, v, return_residuals=True)
+    delta = (g.float() * out.float()).sum(-1)
+    first, second = ((fa.flash_attention_bwd_dq(q, k, v, g, lse, delta),
+                      *fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta))
+                     for _ in range(2))
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
 
 
 @pytest.mark.parametrize('causal', [True, False])

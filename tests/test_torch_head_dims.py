@@ -1,6 +1,7 @@
 """A port Llama at attention widths outside the port's first kernels'
 (head_dim 96, Phi-3-mini's, and 256, Gemma's; on the card they take the
-wide mma.sync kernels) against the Flax model on the same weights
+wide mma.sync kernels, and the backward at 256 its wgmma kernels) against
+the Flax model on the same weights
 (converted by `models/convert.py`): full-forward logits, one training
 step's loss and per-tensor gradients, and the dense engine's greedy
 tokens against the JAX model's.  Two layers, 2 query heads over 1 kv head,

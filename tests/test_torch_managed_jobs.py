@@ -289,8 +289,10 @@ def _package(name):
 
 def _scenario(pkg, kind, home, monkeypatch):
     """Run one scripted managed job through `pkg` under `home`; returns
-    (every status it passed through, in order, recovery_count)."""
+    (every status it passed through, in order, recovery_count).  Each wait
+    names the package whose half it is."""
     state = pkg['state']
+    package = pkg['jobs'].__name__.split('.')[0]
     seen = []
     set_status, request_cancel = state.set_status, state.request_cancel
 
@@ -326,18 +328,19 @@ def _scenario(pkg, kind, home, monkeypatch):
     try:
         if kind == 'preempt':
             wait_for(lambda: started.exists() and 'RUNNING' in seen, 30,
-                     'the job RUNNING', 0.05)
+                     f'{package}: the job RUNNING', 0.05)
             # The node is lost with its processes (the local provisioner's
             # terminate kills none): no agent of the old cluster outlives
             # the recovery's teardown and touches the state it removes.
             assert kill_with_env(f'HOME={home}') >= 2
             pkg['instance'].inject_preemption(
                 state.get(job_id)['cluster_name'])
-            wait_for(lambda: 'RECOVERING' in seen, 30, 'RECOVERING', 0.05)
+            wait_for(lambda: 'RECOVERING' in seen, 30,
+                     f'{package}: RECOVERING', 0.05)
             gate.write_text('go')
         elif kind == 'cancel':
             wait_for(lambda: started.exists() and 'RUNNING' in seen, 30,
-                     'the job RUNNING', 0.05)
+                     f'{package}: the job RUNNING', 0.05)
             assert pkg['jobs'].cancel(job_id)
         ctl.wait_job(job_id, timeout_s=60)
         rec = state.get(job_id)
@@ -354,7 +357,7 @@ SCENARIO_TIMEOUT_S = 300
 def _wait_gone(pkg, cluster):
     gus = pkg['global_user_state']
     wait_for(lambda: gus.get_cluster(cluster) is None, 30,
-             f'{cluster} gone', 0.05)
+             f'{gus.__name__.split(".")[0]}: {cluster} gone', 0.05)
 
 
 @pytest.mark.parametrize('kind', ['succeed', 'preempt', 'fail', 'cancel'])

@@ -128,22 +128,33 @@ def test_flash_fwd_small_head_dims_plain_match_pallas_interpret(s, d,
     assert torch_fa.flash_attention_fwd.padded_launches == 0
 
 
-# head_dim -> (the kernel width that runs it, its C entries' suffix):
-# every kernel width natively, every other head_dim up to 256 zero-padded
-# to the next width.
-ROUTES = {16: (16, '_small'), 32: (32, '_small'), 64: (64, ''),
-          80: (80, '_wide'), 96: (96, '_wide'), 128: (128, ''),
-          256: (256, '_wide'), 8: (16, '_small'), 24: (32, '_small'),
-          48: (64, ''), 72: (80, '_wide'), 100: (128, ''),
-          160: (256, '_wide'), 200: (256, '_wide')}
+# head_dim -> (the kernel width that runs it, the suffix of the forward's C
+# entry, of dq's and dk/dv's): every kernel width natively, every other
+# head_dim up to 256 zero-padded to the next width; at 256 the forward
+# runs the mma.sync kernel, dq and dk/dv the wgmma ones of that width.
+ROUTES = {16: (16, '_small', '_small'), 32: (32, '_small', '_small'),
+          64: (64, '', ''), 80: (80, '_wide', '_wide'),
+          96: (96, '_wide', '_wide'), 128: (128, '', ''),
+          256: (256, '_wide', '_256'), 8: (16, '_small', '_small'),
+          24: (32, '_small', '_small'), 48: (64, '', ''),
+          72: (80, '_wide', '_wide'), 100: (128, '', ''),
+          160: (256, '_wide', '_256'), 200: (256, '_wide', '_256')}
+# Each bf16/fp16 route's widths, by kernel.
+ROUTE_WIDTHS = {'fwd': {'_small': (16, 32), '_wide': (80, 96, 256)},
+                'bwd_dq': {'_small': (16, 32), '_wide': (80, 96),
+                           '_256': (256,)},
+                'bwd_dkv': {'_small': (16, 32), '_wide': (80, 96),
+                            '_256': (256,)}}
 
 
 def test_forward_dispatches_small_head_dims_to_their_kernel(monkeypatch):
     """On a CUDA tensor the forward, dq and dk/dv take each head_dim to
     the C entry of `kernel_width(head_dim)` (ROUTES): 16 and 32 to the
-    small mma.sync kernels (counted on the `_small` wrappers), 80, 96 and
-    256 to the wide ones (the `_wide` wrappers), 64 and 128 to the wgmma
-    kernels, with the real head_dim^-1/2 as the scale; any other head_dim
+    small mma.sync kernels (counted on the `_small` wrappers), 80 and 96
+    to the wide ones (the `_wide` wrappers), the forward at 256 to its wide
+    one and dq and dk/dv at 256 to their wgmma kernels of that width (the
+    `_256` wrappers), 64 and 128 to the wgmma kernels, with the real
+    head_dim^-1/2 as the scale; any other head_dim
     up to 256 reaches the next width's entry on inputs zero-padded to
     that width, counted on that kernel's wrapper and once on the public
     wrapper's `padded_launches`, and comes back at its own head_dim; 257
@@ -166,7 +177,7 @@ def test_forward_dispatches_small_head_dims_to_their_kernel(monkeypatch):
         monkeypatch.setattr(torch_fa, launch, stub)
     publics = (torch_fa.flash_attention_fwd, torch_fa.flash_attention_bwd_dq,
                torch_fa.flash_attention_bwd_dkv)
-    for d, (width, suffix) in ROUTES.items():
+    for d, (width, fwd_suffix, bwd_suffix) in ROUTES.items():
         assert torch_fa.kernel_width(d) == width
         q, k, v = (t.to(torch.bfloat16)
                    for t in _t(*_qkv(b=2, h=4, s=16, d=d, hkv=2)))
@@ -179,7 +190,9 @@ def test_forward_dispatches_small_head_dims_to_their_kernel(monkeypatch):
         assert calls == [
             (f'skytpu_flash_attention_{kernel}{suffix}',
              getattr(torch_fa, f'flash_attention_{kernel}{suffix}'), width,
-             d**-0.5) for kernel in ('fwd', 'bwd_dq', 'bwd_dkv')], d
+             d**-0.5) for kernel, suffix in (('fwd', fwd_suffix),
+                                             ('bwd_dq', bwd_suffix),
+                                             ('bwd_dkv', bwd_suffix))], d
         calls.clear()
         assert out.shape == dq.shape == q.shape, d
         assert dk.shape == dv.shape == k.shape and got_lse.shape == (2, 4, 16)
@@ -187,17 +200,17 @@ def test_forward_dispatches_small_head_dims_to_their_kernel(monkeypatch):
         assert [fn.padded_launches - n for fn, n in zip(publics, padded)] == (
             [int(width != d)] * 3), d
         # Each route's own wrapper takes its widths and refuses the others.
-        for suffix_, widths in (('_small', (16, 32)),
-                                ('_wide', (80, 96, 256))):
-            if d in widths:
-                continue
-            with pytest.raises(ValueError, match=', '.join(map(str, widths))):
-                getattr(torch_fa, f'flash_attention_fwd{suffix_}')(q, k, v)
-            for kernel in ('bwd_dq', 'bwd_dkv'):
+        for kernel, routes in ROUTE_WIDTHS.items():
+            for suffix_, widths in routes.items():
+                assert torch_fa.route_head_dims(kernel, suffix_) == widths
+                if d in widths:
+                    continue
+                args = (q, k, v) if kernel == 'fwd' else (q, k, v, q, lse,
+                                                          lse)
                 with pytest.raises(ValueError,
                                    match=', '.join(map(str, widths))):
                     getattr(torch_fa, f'flash_attention_{kernel}{suffix_}')(
-                        q, k, v, q, lse, lse)
+                        *args)
     assert not calls
     q, k, v = (t.to(torch.bfloat16)
                for t in _t(*_qkv(b=1, h=2, s=16, d=257, hkv=1)))
@@ -209,11 +222,16 @@ def test_forward_dispatches_small_head_dims_to_their_kernel(monkeypatch):
         with pytest.raises(ValueError, match='head_dim 257 is past 256'):
             call()
     assert not calls
-    for kernel in ('fwd', 'bwd_dq', 'bwd_dkv'):
-        for suffix in ('_small', '_wide'):
+    for kernel, routes in ROUTE_WIDTHS.items():
+        for suffix in routes:
+            # The dk/dv entry at 256 also takes its split's workspace and
+            # count (before the stream).
+            extra = ([ctypes.c_void_p, ctypes.c_int]
+                     if (kernel, suffix) == ('bwd_dkv', '_256') else [])
+            base = torch_fa._SIGNATURES[f'skytpu_flash_attention_{kernel}']
             assert torch_fa._SIGNATURES[
                 f'skytpu_flash_attention_{kernel}{suffix}'] == (
-                    torch_fa._SIGNATURES[f'skytpu_flash_attention_{kernel}'])
+                    base[:-1] + extra + base[-1:])
             assert (torch_fa.CSRC_DIR /
                     f'flash_attention_{kernel}{suffix}.cu') in (
                         torch_fa.sources())
@@ -415,12 +433,13 @@ def test_flash_bwd_small_head_dims_plain_match_pallas_interpret(s, d,
     args = _t(q, k, v, g, lse)
     names = ('flash_attention_bwd_dq', 'flash_attention_bwd_dkv',
              'flash_attention_bwd_dq_small', 'flash_attention_bwd_dkv_small',
-             'flash_attention_bwd_dq_wide', 'flash_attention_bwd_dkv_wide')
+             'flash_attention_bwd_dq_wide', 'flash_attention_bwd_dkv_wide',
+             'flash_attention_bwd_dq_256', 'flash_attention_bwd_dkv_256')
     before = [getattr(torch_fa, name).launches for name in names]
     got = torch_fa.flash_attention_bwd(*_t(q, k, v, out, lse, g),
                                        causal=causal)
     delta = torch_fa._delta(torch.from_numpy(out), args[3])
-    for suffix in ('_small', '_wide'):
+    for suffix in ('_small', '_wide', '_256'):
         route = (getattr(torch_fa, f'flash_attention_bwd_dq{suffix}')(
             *args, delta, causal),
                  *getattr(torch_fa, f'flash_attention_bwd_dkv{suffix}')(
@@ -432,6 +451,86 @@ def test_flash_bwd_small_head_dims_plain_match_pallas_interpret(s, d,
         assert x.shape == ref.shape and x.dtype == torch.float32, name
         np.testing.assert_allclose(x.numpy(), np.asarray(ref),
                                    atol=FLASH_ATOL, rtol=0, err_msg=name)
+
+
+# The dk/dv kernel at 256 cuts each kv tile's (query head, q tile) steps
+# into `split` ranges when its grid alone would not fill the card: at
+# Gemma-2B's causal shapes (8 query heads over 1 kv head) it splits, 2 at
+# 2 x 4096 and 4 at the serving bucket's 8 x 256 (the splits an H100
+# measured fastest there); Gemma-7B's 2048 CTAs (16 kv heads) and
+# bench-1b-like GQA take none.  The split is a power of two, no finer than
+# tile 0's steps, and the least time it leaves (heaviest range, or steps
+# over the SMs its grid fills) is within DKV_256_SLACK of the card's
+# share unless the split is at its cap.  Each tile's ranges cover its
+# steps once, in order, within one step of each other.
+def _dkv_256_ranges(n_steps, split):
+    """The dk/dv kernel's cut of a kv tile's `n_steps` (query head, q
+    tile) steps into `split` ranges [lo, hi), as
+    csrc/flash_attention_bwd_dkv_256.cu forms them (it_lo, n_iters)."""
+    return [(n_steps * c // split, n_steps * (c + 1) // split)
+            for c in range(split)]
+
+
+@pytest.mark.parametrize('b,hq,hkv,s,causal,want_split', [
+    (2, 8, 1, 4096, True, 2), (8, 8, 1, 256, True, 4),
+    (2, 8, 1, 4096, False, 1), (8, 8, 1, 256, False, 2),
+    (2, 16, 16, 4096, True, 1), (8, 16, 16, 256, True, 1),
+    (2, 16, 16, 4096, False, 1), (4, 16, 8, 4096, True, 1),
+    (2, 8, 2, 17, False, None), (1, 8, 1, 1000, True, None),
+    (2, 4, 4, 1, True, 1), (1, 8, 2, 65, True, None)])
+def test_dkv_256_split_plan_fills_the_card(b, hq, hkv, s, causal,
+                                           want_split):
+    sms = torch_fa.H100_SMS
+    split = torch_fa.plan_dkv_256_split(b, hq, hkv, s, causal, sms)
+    n_tiles = -(-s // torch_fa.DKV_256_BLOCK)
+    steps = [hq // hkv * (n_tiles - (j if causal else 0))
+             for j in range(n_tiles)]
+    total = b * hkv * sum(steps)
+    share = -(-total // sms)
+    assert 1 <= split <= torch_fa.DKV_256_MAX_SPLIT
+    assert split & (split - 1) == 0 and split <= max(steps)
+    if want_split is not None:
+        assert split == want_split
+    heaviest = max(hi - lo for lo, hi in _dkv_256_ranges(steps[0],
+                                                                 split))
+    grid = b * hkv * n_tiles * split
+    least = max(heaviest, -(-total // min(sms, grid)))
+    assert (least <= torch_fa.DKV_256_SLACK * share or
+            split == torch_fa.DKV_256_MAX_SPLIT or 2 * split > steps[0])
+    for n in steps:
+        ranges = _dkv_256_ranges(n, split)
+        assert len(ranges) == split and ranges[0][0] == 0
+        assert ranges[-1][1] == n
+        assert all(a[1] == b_[0] for a, b_ in zip(ranges, ranges[1:]))
+        sizes = [hi - lo for lo, hi in ranges]
+        assert min(sizes) >= 0 and max(sizes) - min(sizes) <= 1
+
+
+# On CPU tensors the wgmma kernels' wrappers at 256 take the plain
+# versions: bit for bit the `_reference` functions, no launch counted.
+@pytest.mark.parametrize('hq,hkv,causal', [(4, 4, True), (8, 1, False),
+                                           (8, 1, True), (4, 2, False)])
+def test_bwd_256_wrappers_take_the_plain_version_on_cpu(hq, hkv, causal):
+    q, k, v = _qkv(b=1, h=hq, s=65, d=256, hkv=hkv, seed=9)
+    g = np.random.default_rng(10).standard_normal(q.shape).astype(np.float32)
+    q, k, v, g = (t.to(torch.bfloat16) for t in _t(q, k, v, g))
+    out, lse = torch_fa.flash_attention_fwd_reference(
+        q, k, v, causal=causal, return_residuals=True)
+    delta = torch_fa._delta(out, g)
+    before = (torch_fa.flash_attention_bwd_dq_256.launches,
+              torch_fa.flash_attention_bwd_dkv_256.launches)
+    dq = torch_fa.flash_attention_bwd_dq_256(q, k, v, g, lse, delta, causal)
+    dk, dv = torch_fa.flash_attention_bwd_dkv_256(q, k, v, g, lse, delta,
+                                                  causal)
+    assert (torch_fa.flash_attention_bwd_dq_256.launches,
+            torch_fa.flash_attention_bwd_dkv_256.launches) == before
+    want = (torch_fa.flash_attention_bwd_dq_reference(q, k, v, g, lse, delta,
+                                                      causal),
+            *torch_fa.flash_attention_bwd_dkv_reference(q, k, v, g, lse,
+                                                        delta, causal))
+    for name, x, ref in zip(('dq', 'dk', 'dv'), (dq, dk, dv), want):
+        assert x.dtype == torch.bfloat16 and x.shape == ref.shape, name
+        torch.testing.assert_close(x, ref, atol=0, rtol=0, msg=name)
 
 
 def test_flash_bwd_contract():
