@@ -51,16 +51,17 @@ followed by its seconds:
    GQA groups 1, 4, 8; causal and not; bf16, fp16 too at 96 and 256)
    against their plain versions under the kernel phase's gates, each
    call launching the kernel of its head_dim's width exactly once (the
-   wide mma.sync kernels at 80/96 and the forward's at 256,
-   csrc/flash_attention_*_wide.cu; dq and dk/dv at 256 on the wgmma
-   kernels csrc/flash_attention_bwd_{dq,dkv}_256.cu; the other head_dims
+   wide mma.sync kernels at 80/96, csrc/flash_attention_*_wide.cu; the
+   three at 256 on the wgmma kernels
+   csrc/flash_attention_{fwd,bwd_dq,bwd_dkv}_256.cu; the other head_dims
    zero-padded to the next width, counted on the public wrapper's
    padded_launches), head_dim 257 refused; then, at Gemma-2B's training
    and serving shapes (where dk/dv at 256 splits its grid), two calls of
    dq and dk/dv at 256 bit for bit; (b) the wide kernels and those at
    256, their plain versions and SDPA timed beside the bounds at Phi-2's,
    Phi-3-mini's, Gemma-2B's and Gemma-7B's attention shapes at B=2 x 4096
-   and B=8 x 256 (with dq + dk/dv against SDPA's backward at Gemma's),
+   and B=8 x 256 (with the forward against SDPA's forward and dq + dk/dv
+   against SDPA's backward at Gemma's),
    at Gemma-2B's dk/dv at 256's main kernel and its partials' reduce
    apart (torch.profiler), and at Phi-3-mini's the padded route 96 ->
    128 (the wgmma kernels on zero-padded inputs); one profiled launch
@@ -449,6 +450,9 @@ LOGITS_RTOL = 5e-2
 # and in the output's bf16 rounding (2^-8 relative).  Judged on ||kernel - plain|| / ||plain|| per
 # output; a wrong kernel is off by ~1.
 BWD_NORM_RTOL = 1e-2
+# The forward's and the gradients' gates above, as against_plain takes them.
+HALF_GATES = {'out': (OUT_ATOL, OUT_RTOL), 'lse': (LSE_ATOL, 0.0),
+              'norm': BWD_NORM_RTOL}
 # Training gradients at batch 1 through the backward kernels vs the same
 # step whose attention backward is the kernels' plain versions on the
 # same CUDA tensors (same forward kernel, same bf16 rounding of P and
@@ -739,8 +743,7 @@ def cold_l2_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 # Kernel symbols as ptxas and the profiler name them, by wrapper.
 # The small, the wide and the f32 wrappers launch one mma.sync template
-# each (at head_dim 16/32 and 80/96/256 in bf16/fp16; at every width in
-# f32).
+# each (at head_dim 16/32 and 80/96 in bf16/fp16; at every width in f32).
 KERNEL_SYMBOLS = {'flash_attention_fwd': 'fa_fwd_kernel',
                   'flash_attention_fwd_small': 'fa_fwd_mma_kernel',
                   'flash_attention_fwd_wide': 'fa_fwd_mma_kernel',
@@ -753,6 +756,7 @@ KERNEL_SYMBOLS = {'flash_attention_fwd': 'fa_fwd_kernel',
                   'flash_attention_fwd_f32': 'fa_fwd_mma_kernel',
                   'flash_attention_bwd_dq_f32': 'fa_bwd_dq_mma_kernel',
                   'flash_attention_bwd_dkv_f32': 'fa_bwd_dkv_mma_kernel',
+                  'flash_attention_fwd_256': 'fa_fwd_256_kernel',
                   'flash_attention_bwd_dq_256': 'fa_bwd_dq_256_kernel',
                   'flash_attention_bwd_dkv_256': 'fa_bwd_dkv_256_kernel'}
 
@@ -1326,22 +1330,22 @@ def small_kernel_phase(device):
 
 # ----- head_dims: every head_dim up to 256 ------------------------------------
 
-# Each kernel width's wrapper suffix, per kernel (the kernel width of a
-# head_dim is the smallest width a kernel takes that is at least the
-# head_dim): the checker's own table of the routes
-# ops/cuda/flash_attention.py must take.  At 256 the forward runs the
-# mma.sync kernel, dq and dk/dv the wgmma kernels of that width.
+# Each kernel width's wrapper suffix, the same for the forward, dq and
+# dk/dv (the kernel width of a head_dim is the smallest width a kernel
+# takes that is at least the head_dim): the checker's own table of the
+# routes ops/cuda/flash_attention.py must take.  At 256 all three run the
+# wgmma kernels of that width.
 WIDTH_SUFFIX = {16: '_small', 32: '_small', 64: '', 80: '_wide',
-                96: '_wide', 128: '', 256: '_wide'}
-ROUTE_SUFFIX = {'fwd': WIDTH_SUFFIX,
-                'bwd_dq': {**WIDTH_SUFFIX, 256: '_256'},
-                'bwd_dkv': {**WIDTH_SUFFIX, 256: '_256'}}
-# Every native width of the mma.sync kernels and every padded route: 8 ->
-# 16, 24 -> 32, 48 -> 64, 72 -> 80, 100 and 112 -> 128, 160 and 200 ->
-# 256.  Cases (b, hq, hkv, s, causal): one row, S on both sides of the
-# 32-row (D = 256) and 64-row tiles and of 128, and S = 1000; GQA groups
-# 1, 4 and 8 (Gemma-2B's 8 query heads over 1 kv head); causal and not;
-# bf16, and fp16 too at 96 and 256.  Held to PERF.md section 2's gates.
+                96: '_wide', 128: '', 256: '_256'}
+HEAD_DIM_KERNELS = ('fwd', 'bwd_dq', 'bwd_dkv')
+# Every native width of the mma.sync kernels and of the wgmma kernels at
+# 256, and every padded route: 8 -> 16, 24 -> 32, 48 -> 64, 72 -> 80, 100
+# and 112 -> 128, 160 and 200 -> 256.  Cases (b, hq, hkv, s, causal): one
+# row, S on both sides of the 32-row (dq's at D = 256) and 64-row tiles and
+# of 128, and S = 1000; GQA groups 1, 4 and 8 (Gemma-2B's 8 query heads
+# over 1 kv head); causal and not; bf16, and fp16 too at 96 and 256; and
+# the head_dims path's own shapes (added after HEAD_DIM_E2E).  Held to
+# PERF.md section 2's gates.
 HEAD_DIM_SWEEP = (8, 24, 48, 72, 80, 96, 100, 112, 160, 200, 256)
 HEAD_DIM_CASES = [
     (b, hq, hkv, s, d, causal, dtype)
@@ -1359,8 +1363,8 @@ HEAD_DIM_CASES = [
 HEAD_DIM_FAMILIES = {'phi-2': (32, 32, 80), 'phi-3-mini': (32, 32, 96),
                      'gemma-2b': (8, 1, 256), 'gemma-7b': (16, 16, 256)}
 HEAD_DIM_TIMED = {'training': (2, 4096), 'serving': (8, 256)}
-# The families whose dq and dk/dv run the wgmma kernels at 256 (the others
-# the wide mma.sync ones).
+# The families whose forward, dq and dk/dv run the wgmma kernels at 256
+# (the others the wide mma.sync ones).
 HEAD_DIM_256_FAMILIES = ('gemma-2b', 'gemma-7b')
 # Llama blocks (RMSNorm, RoPE, SwiGLU, untied or tied embeddings) at the
 # attention widths of two public model families, from their config.json:
@@ -1385,16 +1389,25 @@ HEAD_DIM_E2E = dict(n_layers=2, max_seq_len=448, n_slots=4,
                     prompt_len=219, max_new=16, train_batch=2,
                     train_seq=2048, train_steps=3, grad_batch=1,
                     warmup_steps=5, total_steps=1000)
+# The shapes that path gives the kernels, held to the plain versions with
+# the cases above: each model's prefill group (n_prompts rows of the
+# bucket) and training batch, causal bf16.
+HEAD_DIM_CASES += [
+    (b, cfg['n_heads'], cfg['n_kv_heads'], s, cfg['dim'] // cfg['n_heads'],
+     True, 'bfloat16')
+    for cfg in HEAD_DIM_MODELS.values()
+    for b, s in ((HEAD_DIM_E2E['n_prompts'],
+                  HEAD_DIM_E2E['prefill_buckets'][-1]),
+                 (HEAD_DIM_E2E['train_batch'], HEAD_DIM_E2E['train_seq']))]
 
 
-def route_launches(d, calls=1, kernels=('fwd', 'bwd_dq', 'bwd_dkv')):
+def route_launches(d, calls=1, kernels=HEAD_DIM_KERNELS):
     """The launch and padded counts `calls` calls of each of `kernels` at
     head_dim d must leave (read_route_launches' keys)."""
     width = min(w for w in WIDTH_SUFFIX if w >= d)
     want = dict.fromkeys(ROUTED + PADDED, 0)
     for kernel in kernels:
-        want[f'flash_attention_{kernel}{ROUTE_SUFFIX[kernel][width]}'] += (
-            calls)
+        want[f'flash_attention_{kernel}{WIDTH_SUFFIX[width]}'] += calls
         if width != d:
             want[f'flash_attention_{kernel}.padded'] += calls
     return want
@@ -1412,8 +1425,7 @@ def head_dims_kernel_checks(device):
 
     gen = torch.Generator(device=device).manual_seed(SEED + 7)
     errs = {f'flash_attention_{kernel}{suffix}': 0.0
-            for kernel, routes in ROUTE_SUFFIX.items()
-            for suffix in set(routes.values()) if suffix in ('_wide', '_256')}
+            for kernel in HEAD_DIM_KERNELS for suffix in ('_wide', '_256')}
     worst = {}
     for shape in HEAD_DIM_CASES:
         b, hq, hkv, s, d, causal, dtype_name = shape
@@ -1460,7 +1472,7 @@ def head_dims_kernel_checks(device):
                                  f'{err}')
             nums[name] = rel
             kernel = 'bwd_dq' if name == 'dq' else 'bwd_dkv'
-            key = f'flash_attention_{kernel}{ROUTE_SUFFIX[kernel].get(d)}'
+            key = f'flash_attention_{kernel}{WIDTH_SUFFIX.get(d)}'
             if key in errs:
                 errs[key] = max(errs[key], err)
         key = f'flash_attention_fwd{WIDTH_SUFFIX.get(d)}'
@@ -1471,9 +1483,8 @@ def head_dims_kernel_checks(device):
             row[key] = max(row[key], x)
     for d, row in worst.items():
         width = min(w for w in WIDTH_SUFFIX if w >= d)
-        route = ('/'.join(dict.fromkeys(
-            (ROUTE_SUFFIX[kernel][width] or '_wgmma').lstrip('_')
-            for kernel in ROUTE_SUFFIX)) + f' kernels at {width}'
+        route = (('wgmma' if WIDTH_SUFFIX[width] in ('', '_256') else
+                  WIDTH_SUFFIX[width].lstrip('_')) + f' kernels at {width}'
                  + (' (zero-padded)' if width != d else ''))
         log(f'  head_dim {d:3d} -> {route}: '
             f'{sum(c[4] == d for c in HEAD_DIM_CASES)} cases, worst out '
@@ -1565,8 +1576,9 @@ def padded_route_calls(q, k, v, g, lse, delta, width):
 
 def head_dims_times(device):
     """(b) The wide kernels and those at 256, their plain versions and
-    SDPA at HEAD_DIM_FAMILIES' shapes beside the bounds (at Gemma's, dq +
-    dk/dv against SDPA's backward); at Gemma-2B's the dk/dv kernel at 256
+    SDPA at HEAD_DIM_FAMILIES' shapes beside the bounds (at Gemma's, the
+    forward against SDPA's forward and dq + dk/dv against SDPA's
+    backward); at Gemma-2B's the dk/dv kernel at 256
     and its partials' reduce apart (torch.profiler); at Phi-3-mini's also
     the padded route 96 -> 128 (checked against the native kernels'
     results); one profiled launch of each wide kernel at Phi-3-mini's
@@ -1586,6 +1598,13 @@ def head_dims_times(device):
             if family not in HEAD_DIM_256_FAMILIES:
                 continue
             row = times[(family, label)]
+            row['fwd_over_sdpa'] = row['fwd']['ms'] / row['fwd']['library_ms']
+            log(f'  {family} {label}: the forward at 256 '
+                f'{row["fwd"]["ms"]:.4f} ms, bound '
+                f'{row["fwd"]["bound_ms"]:.4f} ms ({row["fwd"]["bound_by"]}; '
+                f'x{row["fwd"]["ms"] / row["fwd"]["bound_ms"]:.2f}), SDPA\'s '
+                f'forward {row["fwd"]["library_ms"]:.4f} ms (x'
+                f'{row["fwd_over_sdpa"]:.2f})')
             pair = row['dq']['ms'] + row['dkv']['ms']
             row['dkv']['split'] = fa.plan_dkv_256_split(
                 b, hq, hkv, s, True, fa._sm_count(device))
@@ -1681,6 +1700,8 @@ def head_dims_times(device):
     out, lse = fa.flash_attention_fwd(q, k, v, return_residuals=True)
     bwd_args = (q, k, v, g, lse, (g.float() * out.float()).sum(-1))
     at_256 = launch_attrs({
+        'fa_fwd_256_kernel': lambda: fa.flash_attention_fwd(
+            q, k, v, return_residuals=True),
         'fa_bwd_dq_256_kernel': lambda: fa.flash_attention_bwd_dq(*bwd_args),
         'fa_bwd_dkv_256_kernel':
             lambda: fa.flash_attention_bwd_dkv(*bwd_args)})
@@ -1828,8 +1849,8 @@ def head_dims_models(device, card, smi):
 
 def head_dims_phase(device, card, smi, ptxas):
     """(a) with the bit-identity check at 256, (b), (c) above; returns
-    (the kernels-line entries of the three wide kernels and of dq and
-    dk/dv at 256, launches aside; the launch counts of (c))."""
+    (the kernels-line entries of the three wide kernels and of the three
+    at 256, launches aside; the launch counts of (c))."""
     t0 = time.perf_counter()
     errs, worst = head_dims_kernel_checks(device)
     splits = bwd_256_repeats(device)
@@ -1844,7 +1865,7 @@ def head_dims_phase(device, card, smi, ptxas):
                                ('dkv', 'bwd_dkv', 225)):
         name = f'flash_attention_{kernel}_wide'
         symbol = KERNEL_SYMBOLS[name]
-        widths = tuple(w for w, sfx in ROUTE_SUFFIX[kernel].items()
+        widths = tuple(w for w, sfx in WIDTH_SUFFIX.items()
                        if sfx == '_wide')
         at = {f'{family} {label}': times[(family, label)][kind]
               for family, label in times
@@ -1874,19 +1895,22 @@ def head_dims_phase(device, card, smi, ptxas):
             'smem_bytes': attrs[symbol].get('shared memory'),
             'launch': attrs[symbol],
             'head_dims_checked': {d: worst[d] for d in worst}}
-    # dq and dk/dv at 256 (wgmma): the kernels-line numbers at Gemma-7B's
-    # training shape, every Gemma shape under at_shapes; dk/dv's split at
-    # each, its main kernel and partials' reduce apart at Gemma-2B's.
-    for kind, kernel, line in (('dq', 'bwd_dq', 196),
+    # The three at 256 (wgmma): the kernels-line numbers at Gemma-7B's
+    # training shape, every Gemma shape under at_shapes (the forward beside
+    # SDPA's forward, dq and dk/dv as a pair beside SDPA's backward);
+    # dk/dv's split at each, its main kernel and partials' reduce apart at
+    # Gemma-2B's.
+    for kind, kernel, line in (('fwd', 'fwd', 37), ('dq', 'bwd_dq', 196),
                                ('dkv', 'bwd_dkv', 225)):
         name = f'flash_attention_{kernel}_256'
         symbol = KERNEL_SYMBOLS[name]
         report = ptxas.get((symbol, 'bf16', 256), {})
         reduce = ptxas.get(('fa_bwd_dkv_256_reduce', 'bf16', 256), {})
+        keys = (('fwd_over_sdpa',) if kind == 'fwd' else
+                ('pair_ms', 'pair_over_sdpa'))
         at = {f'{family} {label}': {
             **times[(family, label)][kind],
-            'pair_ms': times[(family, label)]['pair_ms'],
-            'pair_over_sdpa': times[(family, label)]['pair_over_sdpa']}
+            **{key: times[(family, label)][key] for key in keys}}
             for family, label in times if family in HEAD_DIM_256_FAMILIES}
         entries[f'{kind}_256'] = {
             'name': name, 'route': 'cuda',
@@ -2256,20 +2280,20 @@ SMALL_KERNELS = (SMALL_KERNEL, 'flash_attention_bwd_dq_small',
                  'flash_attention_bwd_dkv_small')
 
 
-# The wide-head-dim kernels' wrappers (head_dim 80 and 96, and the
-# forward's at 256), the wrappers of dq and dk/dv at 256 (wgmma), and the
-# public wrappers' counts of calls that took the zero-padded route (a
-# head_dim no kernel takes, padded to the next width).
+# The wide-head-dim kernels' wrappers (head_dim 80 and 96), the wrappers
+# of the three at 256 (wgmma), and the public wrappers' counts of calls
+# that took the zero-padded route (a head_dim no kernel takes, padded to
+# the next width).
 WIDE_KERNELS = ('flash_attention_fwd_wide', 'flash_attention_bwd_dq_wide',
                 'flash_attention_bwd_dkv_wide')
-BWD_256_KERNELS = ('flash_attention_bwd_dq_256',
-                   'flash_attention_bwd_dkv_256')
+KERNELS_256 = ('flash_attention_fwd_256', 'flash_attention_bwd_dq_256',
+               'flash_attention_bwd_dkv_256')
 PADDED = tuple(f'{name}.padded' for name in KERNEL_NAMES)
 # The f32 kernels' wrappers (3xTF32 mma.sync at every width): every f32
 # call on a CUDA tensor launches one of these.
 F32_KERNELS = ('flash_attention_fwd_f32', 'flash_attention_bwd_dq_f32',
                'flash_attention_bwd_dkv_f32')
-ROUTED = (KERNEL_NAMES + SMALL_KERNELS + WIDE_KERNELS + BWD_256_KERNELS +
+ROUTED = (KERNEL_NAMES + SMALL_KERNELS + WIDE_KERNELS + KERNELS_256 +
           F32_KERNELS)
 
 
@@ -3990,12 +4014,13 @@ def kernel_times(device, shape, label, kinds=('fwd', 'dq', 'dkv'),
     at `shape` (b, hq, hkv, s, d; causal, in `dtype_name`), of their
     plain versions (the mean of `plain_iters` calls) and of SDPA
     (forward; backward: one call for dq, dk and dv), beside the bounds
-    (f32: its bytes, and TF32's peak).  In f32 also the kernel that took
-    most of one SDPA forward's and backward's device time (the backend
-    PyTorch chose), and each kernel held to its plain version (TF32
-    matmuls off) under the probe's f32 gates: out and lse within
-    F32_OUT_TOL + F32_OUT_TOL * |ref|, dq, dk and dv within F32_NORM_RTOL
-    norm-relative; a miss raises.  Returns {kind: numbers}."""
+    (f32: its bytes, and TF32's peak).  Each kernel's outputs are held to
+    its plain version's on the same inputs: in bf16/fp16 under PERF.md
+    section 2's gates (HALF_GATES), in f32 (TF32 matmuls off) under the
+    probe's f32 gates; a miss raises (against_plain).  In
+    f32 also the kernel that took most of one SDPA forward's and
+    backward's device time (the backend PyTorch chose).  Returns {kind:
+    numbers}."""
     import torch
     import torch.nn.functional as F
     from skypilot_tpu_torch.ops.cuda import flash_attention as fa
@@ -4004,6 +4029,9 @@ def kernel_times(device, shape, label, kinds=('fwd', 'dq', 'dkv'),
     b, hq, hkv, s, d = shape
     dtype = getattr(torch, dtype_name)
     peak = PEAK_TF32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
+    gates = ({'out': (probe.F32_OUT_TOL,) * 2, 'lse': (probe.F32_OUT_TOL,) * 2,
+              'norm': probe.F32_NORM_RTOL} if dtype == torch.float32
+             else HALF_GATES)
     gen = torch.Generator(device=device).manual_seed(SEED + 3)
     q, g = (torch.randn((b, hq, s, d), generator=gen,
                         device=device).to(dtype) for _ in range(2))
@@ -4061,9 +4089,7 @@ def kernel_times(device, shape, label, kinds=('fwd', 'dq', 'dkv'),
         t['tflops'] = flops / t['ms'] / 1e9
         if backend:
             t['library_kernel'] = backend['fwd' if kind == 'fwd' else 'bwd']
-        if dtype == torch.float32:
-            t['f32_check'] = f32_against_plain(kind, kernel(), plain(),
-                                               probe, shape)
+        t['check'] = against_plain(kind, kernel(), plain(), shape, gates)
         log(f'  timing {kind} at the {label} shape b={b} hq={hq} '
             f'hkv={hkv} s={s} d={d} causal {dtype_name}: kernel '
             f'{t["ms"]:.4f} ms ({t["tflops"]:.1f} TFLOP/s), plain '
@@ -4073,20 +4099,18 @@ def kernel_times(device, shape, label, kinds=('fwd', 'dq', 'dkv'),
             + (f' ({t["library_kernel"]})' if backend else '') +
             f', bound {bound_ms:.6f} ms ({bound_by}: {flops / 1e6:.1f} '
             f'MFLOP, {nbytes / 1e6:.3f} MB), {bound_ms / t["ms"]:.1%} of '
-            f'bound' + (f'; against plain {t["f32_check"]}'
-                        if 'f32_check' in t else ''))
+            f'bound; against plain {t["check"]}')
     del q, k, v, g, out, lse, delta
     torch.cuda.empty_cache()
     return times
 
 
-def f32_against_plain(kind, got, want, probe, shape):
-    """The f32 kernel's outputs of `kind` ('fwd': (out, lse); 'dq': dq;
-    'dkv': (dk, dv)) against its plain version's under the probe's f32
-    gates (TF32 matmuls off, as f32_kernel_phase sets): the forward's
-    max(|d| - F32_OUT_TOL * |ref|) within F32_OUT_TOL, the gradients'
-    norm-rel within F32_NORM_RTOL; raises on a miss or a non-finite value.
-    Returns the numbers."""
+def against_plain(kind, got, want, shape, gates):
+    """The kernel's outputs of `kind` ('fwd': (out, lse); 'dq': dq; 'dkv':
+    (dk, dv)) against its plain version's under `gates`: {'out': (atol,
+    rtol), 'lse': (atol, rtol)}, each |d| <= atol + rtol * |ref|, and
+    'norm': the gradients' norm-rel; raises on a miss, a non-finite value
+    or another dtype.  Returns the numbers."""
     import torch
 
     got = got if isinstance(got, tuple) else (got,)
@@ -4096,18 +4120,16 @@ def f32_against_plain(kind, got, want, probe, shape):
     for name, x, r in zip(names, got, want):
         ok &= bool(torch.isfinite(x).all()) and x.dtype == r.dtype
         if kind == 'fwd':
-            diff = (x - r).abs()
+            atol, rtol = gates[name]
+            diff = (x.float() - r.float()).abs()
             nums[f'{name}_abs'] = diff.max().item()
-            beyond = (diff - probe.F32_OUT_TOL * r.abs()).max().item()
-            ok &= beyond <= probe.F32_OUT_TOL
+            ok &= bool((diff <= atol + rtol * r.float().abs()).all())
         else:
-            nums[name] = probe._norm_rel(x, r)
-            ok &= nums[name] <= probe.F32_NORM_RTOL
+            nums[name] = _norm_rel(x, r)
+            ok &= nums[name] <= gates['norm']
     if not ok:
-        raise SystemExit(f'the f32 {kind} kernel disagrees with its plain '
-                         f'version at {shape}: {nums} (gates out/lse '
-                         f'{probe.F32_OUT_TOL} + {probe.F32_OUT_TOL}*|ref|, '
-                         f'norm-rel {probe.F32_NORM_RTOL})')
+        raise SystemExit(f'the {x.dtype} {kind} kernel disagrees with its '
+                         f'plain version at {shape}: {nums} (gates {gates})')
     return nums
 
 
@@ -8222,7 +8244,7 @@ def main() -> int:
     # and from the relayed bucket serve: the flash forward, no backward).
     new_paths = {'ssh_pool': ('flash_attention_fwd',),
                  'bucket_relay': ('flash_attention_fwd',),
-                 'head_dims': WIDE_KERNELS + BWD_256_KERNELS,
+                 'head_dims': WIDE_KERNELS + KERNELS_256,
                  'f32_training': F32_KERNELS,
                  'tensor_serving': ('flash_attention_fwd_f32',),
                  'moe_tensor_serving': ('flash_attention_fwd_f32',)}
@@ -8285,12 +8307,13 @@ def main() -> int:
                      launches_by_path=counts)
         rows.append({**{key: entry[key] for key in keys},
                      **{key: entry[key] for key in entry if key not in keys}})
-    # The wide kernels (head_dim 80, 96; the forward's at 256 too) and dq
-    # and dk/dv at 256: launched on the head_dims path's serving and
-    # training runs; the f32 kernels on f32_training's and (the forward)
-    # on the f32 serving runs of tensor_serving and moe_tensor_serving.
-    for entry in (wide['fwd'], wide['dq'], wide['dkv'], wide['dq_256'],
-                  wide['dkv_256'], f32k['fwd'], f32k['dq'], f32k['dkv']):
+    # The wide kernels (head_dim 80, 96) and the three at 256: launched on
+    # the head_dims path's serving and training runs; the f32 kernels on
+    # f32_training's and (the forward) on the f32 serving runs of
+    # tensor_serving and moe_tensor_serving.
+    for entry in (wide['fwd'], wide['dq'], wide['dkv'], wide['fwd_256'],
+                  wide['dq_256'], wide['dkv_256'], f32k['fwd'], f32k['dq'],
+                  f32k['dkv']):
         counts = {path: c.get(entry['name'], 0)
                   for path, c in by_path.items()
                   if c.get(entry['name'], 0)}

@@ -68,7 +68,6 @@ constexpr int kThreads = 384;
 constexpr int kConsumerThreads = 256;
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
-constexpr float kNegInf = -1e30f;  // the TPU kernel's mask value
 constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
@@ -89,65 +88,6 @@ struct Smem {
   static_assert(kQBytes % 1024 == 0 && kKVBytes % 1024 == 0,
                 "tiles must keep 1024-byte alignment");
 };
-
-// One tile's online-softmax step on this thread's share of the S
-// accumulator (rows rows[0], rows[1]; columns k0 + 8 j + 2 quad + e):
-// masks the raw scores (the last tile only), updates the running max m
-// (log2 units: max times scale log2 e) and the thread's share of the row
-// sum l, leaves P = 2^(s scale log2 e - m) in s (one FFMA and one SFU op
-// an element), and returns in corr the factor the O accumulator must
-// take.
-__device__ __forceinline__ void softmax_tile(
-    float (&s)[kBlockN / 2], float (&m)[2], float (&l)[2], float (&corr)[2],
-    bool mask, int k0, const int (&rows)[2], int s_len, int causal,
-    float scale_log2, int quad) {
-  float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-  for (int j = 0; j < kBlockN / 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float& x = s[4 * j + 2 * i + e];
-        if (mask) {
-          const int col = k0 + 8 * j + 2 * quad + e;
-          if (col >= s_len || (causal && col > rows[i])) x = kNegInf;
-        }
-        mx[i] = fmaxf(mx[i], x);
-      }
-  float neg_m[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-    const float m_new = fmaxf(m[i], mx[i] * scale_log2);
-    corr[i] = sm90::ex2(m[i] - m_new);
-    m[i] = m_new;
-    neg_m[i] = -m_new;
-    l[i] *= corr[i];
-  }
-#pragma unroll
-  for (int j = 0; j < kBlockN / 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float& x = s[4 * j + 2 * i + e];
-        x = sm90::ex2(fmaf(x, scale_log2, neg_m[i]));
-        l[i] += x;
-      }
-}
-
-// P rounded to T, as the register A fragments of the k16 slices of P V.
-template <typename T>
-__device__ __forceinline__ void to_a_frags(const float (&s)[kBlockN / 2],
-                                           uint32_t (&frag)[kBlockN / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < kBlockN / 16; ++kk)
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-      frag[kk][r] = sm90::pack2<T>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -230,8 +170,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     float o_acc[D / 2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o_acc[i] = 0.f;
-    float m[2] = {kNegInf, kNegInf};  // running max, log2 units
-    float l[2] = {0.f, 0.f};          // this thread's share of the row sum
+    // The running max (log2 units) and this thread's share of the row sum.
+    float m[2] = {sm90::kMaskValue, sm90::kMaskValue};
+    float l[2] = {0.f, 0.f};
     float corr[2];
     float s_acc[kBlockN / 2];
     uint32_t p_frag[kBlockN / 16][4];
@@ -269,9 +210,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     sm90::wgmma_wait<0>();
     sm90::fence_regs(s_acc);
     if (lane == 0) sm90::mbar_arrive(&k_empty[0]);
-    softmax_tile(s_acc, m, l, corr, n_tiles == 1, 0, rows, s_len, causal,
-                 scale_log2, quad);
-    to_a_frags<T>(s_acc, p_frag);
+    sm90::softmax_tile<kBlockN>(s_acc, m, l, corr, n_tiles == 1, 0, rows,
+                                s_len, causal, scale_log2, quad);
+    sm90::to_a_frags<T, kBlockN>(s_acc, p_frag);
 
     // Tile t: S_t = Q K_t^T and O += P_{t-1} V_{t-1} in flight together;
     // the softmax of S_t runs under P V.
@@ -288,8 +229,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       sm90::wgmma_wait<1>();
       sm90::fence_regs(s_acc);
       if (lane == 0) sm90::mbar_arrive(&k_empty[s]);
-      softmax_tile(s_acc, m, l, corr, t == n_tiles - 1, t * kBlockN, rows,
-                   s_len, causal, scale_log2, quad);
+      sm90::softmax_tile<kBlockN>(s_acc, m, l, corr, t == n_tiles - 1,
+                                  t * kBlockN, rows, s_len, causal,
+                                  scale_log2, quad);
       sm90::wgmma_wait<0>();
       sm90::fence_regs(o_acc);
       if (lane == 0) sm90::mbar_arrive(&v_empty[sp]);
@@ -300,7 +242,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           o_acc[4 * j + 2 * i] *= corr[i];
           o_acc[4 * j + 2 * i + 1] *= corr[i];
         }
-      to_a_frags<T>(s_acc, p_frag);
+      sm90::to_a_frags<T, kBlockN>(s_acc, p_frag);
     }
 
     // The last tile's P V.

@@ -1,8 +1,8 @@
 // Flash-attention forward in mma.sync on Hopper (sm_90a), where the wgmma
-// kernel (flash_attention_fwd.cu: bf16/fp16 at D = 64 and 128) does not
-// reach: bf16/fp16 at D = 16 and 32 (instantiated in
-// flash_attention_fwd_small.cu) and at D = 80, 96 and 256
-// (flash_attention_fwd_wide.cu), and f32 at D = 16, 32, 64 and 128
+// kernels (flash_attention_fwd.cu: bf16/fp16 at D = 64 and 128;
+// flash_attention_fwd_256.cu: at D = 256) do not reach: bf16/fp16 at D =
+// 16 and 32 (instantiated in flash_attention_fwd_small.cu) and at D = 80
+// and 96 (flash_attention_fwd_wide.cu), and f32 at D = 16, 32, 64 and 128
 // (flash_attention_fwd_f32.cu) and 80, 96 and 256
 // (flash_attention_fwd_f32_wide.cu).  m16n8k16 products (bf16/fp16) or
 // m16n8k8 tf32 products taken three times (3xTF32, f32 class: see
@@ -12,12 +12,13 @@
 // Replaces the Pallas TPU kernel `_fa_kernel`, driven by
 // `flash_attention_fwd` in skypilot_tpu/ops/pallas/flash_attention.py, at
 // those head dims: the wgmma kernel's shared-memory layout and descriptors
-// assume 128-byte swizzled rows of 64 elements, and a 16-, 32-, 80-, 96- or
-// 256-wide bf16 row is 32, 64, 160, 192 or 512 bytes, and wgmma takes tf32
-// only with both operands K-major (P V would need V transposed in shared
+// assume 128-byte swizzled rows of 64 elements, and a 16-, 32-, 80- or
+// 96-wide bf16 row is 32, 64, 160 or 192 bytes, and wgmma takes tf32 only
+// with both operands K-major (P V would need V transposed in shared
 // memory).  The Pallas kernel takes any D and the input's dtype (bf16,
 // fp16 or f32: out in q's dtype, P cast to v's); the `tiny` configs have
-// D = 16, Phi-2's widths D = 80, Phi-3-mini's 96 and Gemma's 256.  Same
+// D = 16, Phi-2's widths D = 80, Phi-3-mini's 96 and Gemma's 256 (here in
+// f32 only).  Same
 // function: softmax(Q K^T * scale) V, causal or not, GQA, -1e30 masking,
 // causal tiles above the diagonal skipped, rows whose denominator is 0
 // emitting 0 and lse +inf, the row logsumexp in natural log units when
@@ -34,23 +35,21 @@
 //
 // Design (simple, correct first):
 // - One CTA of 4 warps per (batch * q-head, 64-row q tile); each warp owns
-//   16 q rows.  Up to D = 128 (16-bit) Q stays in registers as the A
-//   fragments of m16n8k16 (D/16 k-steps, read once from global memory).
-//   At D = 256 the 16 x 256 f32 output accumulator alone is 128 registers
-//   a thread, so Q's fragments (64 more) would spill: Q goes into shared
-//   memory with the first K/V tile and each k-step's A fragment is read
-//   from there.  f32 always takes that route: Q's tf32 hi and lo parts
-//   are D registers, split from shared memory per k-step instead.
-// - K and V tiles of kBlockN rows (64; 32 at D = 256, which keeps the S
-//   tile at 16 registers and the stages at 66 KB; in f32 32 from D = 80
-//   and 16 at D = 256, stages of 20-68 KB) go through two
+//   16 q rows.  In 16 bits Q stays in registers as the A fragments of
+//   m16n8k16 (D/16 k-steps, read once from global memory).  In f32 Q goes
+//   into shared memory with the first K/V tile and each k-step's A
+//   fragment is read from there: Q's tf32 hi and lo parts are D
+//   registers, split from shared memory per k-step instead (at D = 256
+//   the 16 x 256 f32 output accumulator alone is 128 registers a thread).
+// - K and V tiles of kBlockN rows (64; in f32 32 from D = 80 and 16 at
+//   D = 256, stages of 20-68 KB) go through two
 //   shared-memory stages filled by cp.async (16 bytes a thread and copy;
 //   rows past S zero-filled), so tile t + 1 loads while tile t computes.
 //   Rows are padded by 8 16-bit elements or 4 f32 ones (sm80_mma.cuh),
 //   which makes both the K fragment reads (one 32-bit word per row) and
 //   the V column reads conflict-free.  The stages (and Q) are dynamic
-//   shared memory: 52 KB at D = 96, 99 KB at D = 256 (bf16); 25-130 KB in
-//   f32; past the 48 KB a launch gets unasked.
+//   shared memory: 52 KB at D = 96 (bf16); 25-130 KB in f32; past the
+//   48 KB a launch gets unasked.
 // - S = Q K^T by mma.sync, kBlockN / 8 n-tiles of 8 keys, k-steps outer so
 //   each A fragment is formed once; the online softmax on the accumulator
 //   as the wgmma kernel's softmax_tile (2^x with log2 e folded into the
@@ -90,8 +89,8 @@ struct FwdCfg {
   static constexpr bool kF32 = sm80::kIsF32<T>;
   // kv rows per tile
   static constexpr int kBlockN =
-      kF32 ? (D > 128 ? 16 : D > 64 ? 32 : 64) : (D > 128 ? 32 : 64);
-  static constexpr bool kQInSmem = kF32 || D > 128;
+      kF32 ? (D > 128 ? 16 : D > 64 ? 32 : 64) : 64;
+  static constexpr bool kQInSmem = kF32;
   static constexpr int kLd = D + sm80::kPad<T>;  // shared row, in elements
   static constexpr int kKvTile = kBlockN * kLd;
   static constexpr int kSmemBytes =
@@ -115,7 +114,7 @@ __global__ void __launch_bounds__(kFwdThreads)
   extern __shared__ __align__(16) unsigned char smem[];
   T* k_s = reinterpret_cast<T*>(smem);           // [stage][kBlockN * kLd]
   T* v_s = k_s + kFwdStages * Cfg::kKvTile;      // [stage][kBlockN * kLd]
-  T* q_s = v_s + kFwdStages * Cfg::kKvTile;      // [kBlockM * kLd] (D = 256)
+  T* q_s = v_s + kFwdStages * Cfg::kKvTile;      // [kBlockM * kLd] (f32)
 
   const int bh = blockIdx.x;                      // b * hq + h
   const int q_tile = gridDim.y - 1 - blockIdx.y;  // heaviest first
@@ -131,7 +130,7 @@ __global__ void __launch_bounds__(kFwdThreads)
   const T* k_head = k + size_t(bkv) * s_len * D;
   const T* v_head = v + size_t(bkv) * s_len * D;
 
-  // Q (at D = 256) joins the first K/V tile's commit group.
+  // Q (f32) joins the first K/V tile's commit group.
   if constexpr (Cfg::kQInSmem)
     sm80::load_rows<D, kBlockM, kFwdThreads>(q_s, q_head, q0, s_len);
   auto load_tile = [&](int t) {
@@ -149,8 +148,8 @@ __global__ void __launch_bounds__(kFwdThreads)
   const int row_base = q0 + warp * 16 + g;
   const int rows[2] = {row_base, row_base + 8};
 
-  // Q as the A fragments of the D / 16 k-steps of S = Q K^T (16-bit up to
-  // D = 128; at D = 256 and in f32 they are read from q_s per k-step).
+  // Q as the A fragments of the D / 16 k-steps of S = Q K^T (16-bit; in
+  // f32 they are read from q_s per k-step).
   uint32_t q_frag[Cfg::kQInSmem ? 1 : D / 16][4];
   if constexpr (!Cfg::kQInSmem)
     sm80::load_a_rows<D>(q_frag, q_head, rows, quad, s_len);

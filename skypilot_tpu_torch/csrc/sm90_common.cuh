@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention kernels:
-// mbarriers, TMA tile loads into 128-byte-swizzled shared memory, the
-// wgmma shared-memory descriptor and the m64nNk16 bf16/fp16 -> f32
-// products (A from shared memory or from registers), warpgroup register
-// reallocation, and the host-side tensor maps.
+// mbarriers, TMA tile loads into 128-byte-swizzled shared memory and
+// stores out of it, the wgmma shared-memory descriptor and the m64nNk16
+// bf16/fp16 -> f32 products (A from shared memory or from registers),
+// warpgroup register reallocation, the forwards' online-softmax step, and
+// the host-side tensor maps.
 //
 // Layout convention.  Every 16-bit tile of R rows by D columns (D = 64,
 // 128 or 256) lies in shared memory as D / 64 column chunks of R rows x 128
@@ -113,6 +114,36 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
       : "memory");
+}
+
+// One box of shared memory (laid out as tma_load_3d lays it down) into a
+// 3-D tensor map at (column c0, row c1, head c2), as a bulk async-group of
+// the issuing thread; rows past the map's S are not written.  The writes
+// to `src` must be made visible to the async proxy first (fence_async).
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// async-proxy (TMA) reads of it.
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until every committed bulk group of this thread has read its
+// shared-memory source (so the source may be freed or rewritten).
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 
 // All D / 64 column chunks of `rows` rows starting at row `row0` of head
@@ -379,6 +410,70 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
     __half2 v = __floats2half2_rn(lo, hi);
     return *reinterpret_cast<uint32_t*>(&v);
   }
+}
+
+// ----- the forward's online softmax ------------------------------------------
+
+constexpr float kMaskValue = -1e30f;  // the TPU kernel's mask value
+
+// One kv tile's online-softmax step on this thread's share of an m64nN S
+// accumulator (rows rows[0], rows[1]; columns k0 + 8 j + 2 quad + e):
+// masks the raw scores (where `mask`: keys past s_len, and above the
+// diagonal when causal), updates the running max m (log2 units: max times
+// scale log2 e) and the thread's share of the row sum l, leaves P =
+// 2^(s scale log2 e - m) in s (one FFMA and one SFU op an element), and
+// returns in corr the factor the O accumulator must take.
+template <int N>
+__device__ __forceinline__ void softmax_tile(
+    float (&s)[N / 2], float (&m)[2], float (&l)[2], float (&corr)[2],
+    bool mask, int k0, const int (&rows)[2], int s_len, int causal,
+    float scale_log2, int quad) {
+  float mx[2] = {kMaskValue, kMaskValue};
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * j + 2 * i + e];
+        if (mask) {
+          const int col = k0 + 8 * j + 2 * quad + e;
+          if (col >= s_len || (causal && col > rows[i])) x = kMaskValue;
+        }
+        mx[i] = fmaxf(mx[i], x);
+      }
+  float neg_m[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i] * scale_log2);
+    corr[i] = ex2(m[i] - m_new);
+    m[i] = m_new;
+    neg_m[i] = -m_new;
+    l[i] *= corr[i];
+  }
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * j + 2 * i + e];
+        x = ex2(fmaf(x, scale_log2, neg_m[i]));
+        l[i] += x;
+      }
+}
+
+// P rounded to T, as the register A fragments of the k16 slices of P V.
+template <typename T, int N>
+__device__ __forceinline__ void to_a_frags(const float (&s)[N / 2],
+                                           uint32_t (&frag)[N / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      frag[kk][r] = pack2<T>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
 }
 
 // ----- host: tensor maps ----------------------------------------------------

@@ -16,26 +16,28 @@ PyTorch/CUDA counterparts of `skypilot_tpu/ops/pallas/flash_attention.py`:
   `csrc/flash_attention_bwd_dkv.cu`, wgmma with P^T and dS^T in
   registers), at head_dim 64 and 128.
 
-The backward at head_dim 256 in bf16 and fp16 has wgmma kernels of its
-own (`csrc/flash_attention_bwd_dq_256.cu`, 32-row K/V stages under a
-128-row q tile; `csrc/flash_attention_bwd_dkv_256.cu`, two consumer
-warpgroups, one computing S^T and dV, the other dP^T and dK, and a grid
-split over each kv tile's query work, `plan_dkv_256_split`,
-with f32 partials summed in a fixed order by a second kernel; the
-wrappers `flash_attention_bwd_dq_256`, `flash_attention_bwd_dkv_256`).
-The same three kernels in mma.sync (K/V or Q/dO tiles by cp.async;
-templates in `csrc/flash_attention_{fwd,bwd_dq,bwd_dkv}_mma.cuh`) take
-what the wgmma kernels' 64-element 16-bit swizzled rows do not: bf16 and
-fp16 at 16 and 32 (m16n8k16; `csrc/*_small.cu`, the wrappers
+The three kernels at head_dim 256 in bf16 and fp16 are wgmma kernels of
+their own (`csrc/flash_attention_fwd_256.cu`, 64-row K/V stages under a
+128-row q tile, 64 q rows a consumer warpgroup;
+`csrc/flash_attention_bwd_dq_256.cu`, 32-row K/V stages under a 128-row
+q tile; `csrc/flash_attention_bwd_dkv_256.cu`, two consumer warpgroups,
+one computing S^T and dV, the other dP^T and dK, and a grid split over
+each kv tile's query work, `plan_dkv_256_split`, with f32 partials
+summed in a fixed order by a second kernel; the wrappers
+`flash_attention_fwd_256`, `flash_attention_bwd_dq_256`,
+`flash_attention_bwd_dkv_256`).  The same three kernels in mma.sync (K/V
+or Q/dO tiles by cp.async; templates in
+`csrc/flash_attention_{fwd,bwd_dq,bwd_dkv}_mma.cuh`) take what the wgmma
+kernels' 64-element 16-bit swizzled rows do not: bf16 and fp16 at 16
+and 32 (m16n8k16; `csrc/*_small.cu`, the wrappers
 `flash_attention_fwd_small`, `flash_attention_bwd_dq_small`,
-`flash_attention_bwd_dkv_small`), 80 and 96 (`csrc/*_wide.cu`, the
-`*_wide` wrappers) and the forward at 256 (`flash_attention_fwd_wide`),
-and f32 at every width, 16, 32, 64, 80, 96, 128
+`flash_attention_bwd_dkv_small`) and 80 and 96 (`csrc/*_wide.cu`, the
+`*_wide` wrappers), and f32 at every width, 16, 32, 64, 80, 96, 128
 and 256 (m16n8k8 tf32 taken three times, 3xTF32: each operand split into
 tf32 hi and lo parts, f32-class error; `csrc/*_f32.cu` and
 `csrc/*_f32_wide.cu`, the `*_f32` wrappers).  The public wrappers route
 by kernel, dtype and head_dim (`kernel_width`, the same widths in every
-dtype; `_ROUTE_SUFFIX`, per kernel): f32 goes to the f32 kernels, bf16
+dtype; `_ROUTE_SUFFIX`): f32 goes to the f32 kernels, bf16
 and fp16 to the others; a kernel
 width goes to its kernel; any other head_dim up to 256 is zero-padded
 in q, k, v (and dO) to the smallest wider width, runs that width's
@@ -98,25 +100,23 @@ LINK_FLAGS = ARCH_FLAGS + ('-shared',)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 _HALF_DTYPES = (torch.bfloat16, torch.float16)
 _F32_DTYPES = (torch.float32,)
-# bf16/fp16 head dims of the wgmma kernels (forward, dq, dk/dv), and of
-# the mma.sync ones (the same three) at the small and at the wide widths;
-# f32 (the mma.sync kernels in 3xTF32) takes every one of these widths.
-# Every other head_dim up to the widest is zero-padded to the next width.
+# bf16/fp16 head dims of the wgmma kernels (forward, dq, dk/dv) at 64 and
+# 128 and at 256, and of the mma.sync ones (the same three) at the small
+# and at the wide widths; f32 (the mma.sync kernels in 3xTF32) takes every
+# one of these widths.  Every other head_dim up to the widest is
+# zero-padded to the next width.
 _HEAD_DIMS = (64, 128)
 _SMALL_HEAD_DIMS = (16, 32)
-_WIDE_HEAD_DIMS = (80, 96, 256)
-KERNEL_WIDTHS = tuple(sorted(_HEAD_DIMS + _SMALL_HEAD_DIMS + _WIDE_HEAD_DIMS))
+_WIDE_HEAD_DIMS = (80, 96)
+KERNEL_WIDTHS = tuple(sorted(_HEAD_DIMS + _SMALL_HEAD_DIMS + _WIDE_HEAD_DIMS
+                             + (256,)))
 MAX_HEAD_DIM = KERNEL_WIDTHS[-1]
 KERNELS = ('fwd', 'bwd_dq', 'bwd_dkv')
-# The suffix of each kernel's bf16/fp16 C entry and wrapper at each width
-# (every f32 width's is '_f32'): the forward at 256 runs the mma.sync
-# kernel, dq and dk/dv the wgmma kernels of that width.
-_ROUTE_SUFFIX = {
-    kernel: {**dict.fromkeys(_HEAD_DIMS, ''),
-             **dict.fromkeys(_SMALL_HEAD_DIMS, '_small'),
-             **dict.fromkeys(_WIDE_HEAD_DIMS, '_wide'),
-             **({256: '_256'} if kernel != 'fwd' else {})}
-    for kernel in KERNELS}
+# The suffix of the three kernels' bf16/fp16 C entries and wrappers at
+# each width (every f32 width's is '_f32').
+_ROUTE_SUFFIX = {**dict.fromkeys(_HEAD_DIMS, ''),
+                 **dict.fromkeys(_SMALL_HEAD_DIMS, '_small'),
+                 **dict.fromkeys(_WIDE_HEAD_DIMS, '_wide'), 256: '_256'}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argtypes.
@@ -128,6 +128,8 @@ _SIGNATURES = {
     'skytpu_flash_attention_fwd_wide':
         [_P] * 5 + [_I] * 6 + [ctypes.c_float, _I, _P],
     'skytpu_flash_attention_fwd_f32':
+        [_P] * 5 + [_I] * 6 + [ctypes.c_float, _I, _P],
+    'skytpu_flash_attention_fwd_256':
         [_P] * 5 + [_I] * 6 + [ctypes.c_float, _I, _P],
     'skytpu_flash_attention_bwd_dq':
         [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I, _P],
@@ -340,8 +342,7 @@ def kernel_width(head_dim: int) -> int:
 def _route(kernel: str, width: int, dtype: torch.dtype):
     """(C entry, the wrapper that counts its launches) of `kernel` ('fwd',
     'bwd_dq' or 'bwd_dkv') at a kernel width of `dtype`."""
-    suffix = ('_f32' if dtype == torch.float32 else
-              _ROUTE_SUFFIX[kernel][width])
+    suffix = '_f32' if dtype == torch.float32 else _ROUTE_SUFFIX[width]
     name = f'flash_attention_{kernel}{suffix}'
     return f'skytpu_{name}', globals()[name]
 
@@ -698,11 +699,11 @@ _ROUTE_WRAPPERS = {
 }
 
 
-def route_head_dims(kernel: str, suffix: str) -> Tuple[int, ...]:
-    """The kernel widths `kernel`'s route `suffix` takes."""
+def route_head_dims(suffix: str) -> Tuple[int, ...]:
+    """The kernel widths the route `suffix` takes."""
     if suffix == '_f32':
         return KERNEL_WIDTHS
-    return tuple(sorted(w for w, sfx in _ROUTE_SUFFIX[kernel].items()
+    return tuple(sorted(w for w, sfx in _ROUTE_SUFFIX.items()
                         if sfx == suffix))
 
 
@@ -712,7 +713,7 @@ def _route_wrapper(kernel: str, suffix: str):
     dtypes (CPU tensors take the plain version), the launches of its C
     entry counted in `.launches`."""
     dtypes, design, files = _ROUTE_WRAPPERS[suffix]
-    head_dims = route_head_dims(kernel, suffix)
+    head_dims = route_head_dims(suffix)
     what = ('in f32 (3xTF32) ' if suffix == '_f32' else '') + (
         f'at head_dim {", ".join(map(str, head_dims[:-1]))} or '
         f'{head_dims[-1]}' if len(head_dims) > 1
@@ -755,6 +756,7 @@ def _route_wrapper(kernel: str, suffix: str):
 
 flash_attention_fwd_small = _route_wrapper('fwd', '_small')
 flash_attention_fwd_wide = _route_wrapper('fwd', '_wide')
+flash_attention_fwd_256 = _route_wrapper('fwd', '_256')
 flash_attention_fwd_f32 = _route_wrapper('fwd', '_f32')
 flash_attention_bwd_dq_small = _route_wrapper('bwd_dq', '_small')
 flash_attention_bwd_dq_wide = _route_wrapper('bwd_dq', '_wide')

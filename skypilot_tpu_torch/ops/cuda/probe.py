@@ -7,10 +7,10 @@
     python -m skypilot_tpu_torch.ops.cuda.probe check wide  # D 80/96/256,
                                                             # padded D
     python -m skypilot_tpu_torch.ops.cuda.probe check f32  # the f32 route
-    python -m skypilot_tpu_torch.ops.cuda.probe check 256  # dq, dk/dv at 256
+    python -m skypilot_tpu_torch.ops.cuda.probe check 256  # the three at 256
     python -m skypilot_tpu_torch.ops.cuda.probe time   # CUDA-event times
     python -m skypilot_tpu_torch.ops.cuda.probe time dq  # only names with 'dq'
-    python -m skypilot_tpu_torch.ops.cuda.probe time 256  # dq, dk/dv at 256
+    python -m skypilot_tpu_torch.ops.cuda.probe time 256  # the three at 256
 
 `build DIR` compiles the sources of the csrc directory DIR afresh into a
 temporary directory (nvcc's processes in parallel, as the library's build)
@@ -22,13 +22,14 @@ and 32: forward, dq and dk/dv) at their tile edges, then the wide ones
 (head_dim 80, 96, 256) and the zero-padded route (head_dims that no
 kernel takes), then the f32 kernels (3xTF32) under their own f32-class
 gates (F32_OUT_TOL, F32_NORM_RTOL) against plain versions in full f32
-(TF32 matmuls off), then the wgmma dq and dk/dv kernels at head_dim 256
-(bf16 and fp16, and 160 and 200 zero-padded to them) against their plain
-versions, with their launches and, at shapes whose dk/dv splits, two
-calls bit for bit; `check small`, `check wide`, `check f32` and
-`check 256` run only those; `time 256` times dq and dk/dv at 256 at
-Gemma's four shapes beside their bounds and SDPA's backward, dk/dv at
-every split it can take, and its partials' reduce apart (torch.profiler);
+(TF32 matmuls off), then the wgmma forward, dq and dk/dv kernels at
+head_dim 256 (bf16 and fp16, and 160 and 200 zero-padded to them) against
+their plain versions, with their launches and, at shapes whose dk/dv
+splits, two calls bit for bit; `check small`, `check wide`, `check f32`
+and `check 256` run only those; `time 256` times the forward, dq and
+dk/dv at 256 at Gemma's four shapes beside their bounds and SDPA's
+forward and backward, dk/dv at every split it can take, and its
+partials' reduce apart (torch.profiler);
 `time`
 times the forward, dq and dk/dv at
 bench-1b's shape (B=4, Hq=16, Hkv=8, S=4096, D=128, causal bf16) and the
@@ -404,14 +405,16 @@ def check() -> None:
     check_256()
 
 
-# The wgmma dq and dk/dv kernels at head_dim 256 (bf16 and fp16): S on both
-# sides of their 32-row (dq's K/V stages), 64-row (dk/dv's tiles) and
-# 128-row (dq's q tile) edges and S = 1000; GQA groups 1, 8 and 16; causal
-# and not; then head_dims 160 and 200, zero-padded to 256.  Many of these
-# take a split dk/dv (plan_dkv_256_split), so the split, its partials and
-# their reduce are checked here too.  Gates: PERF.md section 2's (dq, dk,
-# dv within BWD_NORM_RTOL norm-relative; an output 0 in exact arithmetic
-# within BWD_ZERO_ATOL).
+# The wgmma forward, dq and dk/dv kernels at head_dim 256 (bf16 and fp16):
+# S on both sides of their 32-row (dq's K/V stages), 64-row (the
+# forward's K/V stages and consumer slabs, dk/dv's tiles) and 128-row (the
+# forward's and dq's q tiles) edges and S = 1000; GQA groups 1, 8 and 16;
+# causal and not; then head_dims 160 and 200, zero-padded to 256.  Many of
+# these take a split dk/dv (plan_dkv_256_split), so the split, its
+# partials and their reduce are checked here too.  Gates: PERF.md section
+# 2's (out within FWD_OUT_ATOL + FWD_OUT_RTOL |ref|, lse within
+# FWD_LSE_ATOL; dq, dk, dv within BWD_NORM_RTOL norm-relative; an output
+# 0 in exact arithmetic within BWD_ZERO_ATOL).
 BWD_256_CHECK_SHAPES = [
     (b, hq, hkv, s, 256, causal, dtype)
     for b, hq, hkv in ((2, 4, 4), (1, 8, 1), (1, 16, 1))
@@ -420,6 +423,9 @@ BWD_256_CHECK_SHAPES = [
     for dtype in (torch.bfloat16, torch.float16)
 ] + [(2, 8, 1, s, d, causal, torch.bfloat16)
      for d in (160, 200) for s in (17, 129) for causal in (True, False)]
+FWD_OUT_ATOL = 1e-2
+FWD_OUT_RTOL = 1e-2
+FWD_LSE_ATOL = 1e-3
 BWD_NORM_RTOL = 1e-2
 BWD_ZERO_ATOL = 1e-5
 # Gemma-2B's MQA shapes, at which dk/dv splits (causal bf16): two calls of
@@ -437,59 +443,80 @@ PEAK_HBM_BYTES_S = 3.35e12
 
 
 def bwd_bound_ms(kind: str, b, hq, hkv, s, d, causal=True, itemsize=2):
-    """(least ms, 'operations' or 'bytes') of dq ('dq') or dk/dv ('dkv'):
-    q, dO, k, v, lse and delta read once and the outputs written once over
-    the HBM rate, vs 6 D (dq) or 8 D (dk/dv) flops per (q, k) pair this
-    input needs over the bf16 peak."""
+    """(least ms, 'operations' or 'bytes') of the forward ('fwd'), dq
+    ('dq') or dk/dv ('dkv'): their inputs (the forward's q, k, v; the
+    backward's q, dO, k, v, lse and delta) read once and the outputs
+    written once over the HBM rate, vs 4 D (forward), 6 D (dq) or 8 D
+    (dk/dv) flops per (q, k) pair this input needs over the bf16 peak."""
     pairs = s * (s + 1) // 2 if causal else s * s
-    flops = (6 if kind == 'dq' else 8) * b * hq * pairs * d
-    nbytes = ((2 * b * hq * s * d + 2 * b * hkv * s * d) * itemsize +
-              2 * b * hq * s * 4 +
-              (b * hq * s * d if kind == 'dq' else 2 * b * hkv * s * d) *
-              itemsize)
+    flops = {'fwd': 4, 'dq': 6, 'dkv': 8}[kind] * b * hq * pairs * d
+    if kind == 'fwd':
+        nbytes = (2 * b * hq * s * d + 2 * b * hkv * s * d) * itemsize
+    else:
+        nbytes = ((2 * b * hq * s * d + 2 * b * hkv * s * d) * itemsize +
+                  2 * b * hq * s * 4 +
+                  (b * hq * s * d if kind == 'dq' else 2 * b * hkv * s * d) *
+                  itemsize)
     t_flops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES_S
     return (max(t_flops, t_bytes) * 1e3,
             'operations' if t_flops > t_bytes else 'bytes')
 
 
 def check_256(quiet: bool = False) -> dict:
-    """Every BWD_256_CHECK_SHAPES case: dq and dk/dv against their plain
+    """Every BWD_256_CHECK_SHAPES case: the forward (with lse, and
+    without: the same out bits), dq and dk/dv against their plain
     versions, each call launching the `_256` wrapper's kernel once (and
     the padded counters at 160 and 200); then BWD_256_REPEAT_SHAPES' two
     calls bit for bit.  Prints each case (with `quiet`, the worst of each
     head_dim), raises on a miss; returns the worst numbers and the splits
     seen."""
     gen = torch.Generator(device='cuda').manual_seed(0)
-    worst = {'dq': 0.0, 'dk': 0.0, 'dv': 0.0}
+    worst = {'out': 0.0, 'lse': 0.0, 'dq': 0.0, 'dk': 0.0, 'dv': 0.0}
     splits = set()
     for shape in BWD_256_CHECK_SHAPES:
         b, hq, hkv, s, d, causal, dtype = shape
         q, k, v, g = _inputs(gen, b, hq, hkv, s, d, dtype)
+        before = _counters()
         out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
                                           block_size=s,
                                           return_residuals=True)
+        no_lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                        block_size=s)
         delta = (g.float() * out.float()).sum(-1)
-        before = _counters()
         dq = fa.flash_attention_bwd_dq(q, k, v, g, lse, delta, causal)
         dk, dv = fa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal)
         torch.cuda.synchronize()
         moved = {name: n - before[name] for name, n in _counters().items()
                  if n != before[name]}
-        want = {'flash_attention_bwd_dq_256.launches': 1,
+        want = {'flash_attention_fwd_256.launches': 2,
+                'flash_attention_bwd_dq_256.launches': 1,
                 'flash_attention_bwd_dkv_256.launches': 1}
         if d != 256:
-            want.update({'flash_attention_bwd_dq.padded_launches': 1,
+            want.update({'flash_attention_fwd.padded_launches': 2,
+                         'flash_attention_bwd_dq.padded_launches': 1,
                          'flash_attention_bwd_dkv.padded_launches': 1})
         if moved != want:
             raise SystemExit(f'{shape} moved {moved}, expected {want}')
         split = fa.plan_dkv_256_split(b, hq, hkv, s, causal,
                                       fa._sm_count(q.device))
         splits.add(split)
+        ref, ref_lse = fa.flash_attention_fwd_reference(
+            q, k, v, causal=causal, return_residuals=True)
+        diff = (out.float() - ref.float()).abs()
+        nums = {'out': diff.max().item(),
+                'lse': (lse - ref_lse).abs().max().item()}
+        if not (out.dtype == dtype and out.shape == ref.shape and
+                bool(torch.isfinite(out).all()) and
+                bool((diff <= FWD_OUT_ATOL +
+                      FWD_OUT_RTOL * ref.float().abs()).all()) and
+                nums['lse'] <= FWD_LSE_ATOL and torch.equal(out, no_lse)):
+            raise SystemExit(f'the 256 forward disagrees with its plain '
+                             f'version at {shape}: {nums}, without lse the '
+                             f'same bits {torch.equal(out, no_lse)}')
         refs = (fa.flash_attention_bwd_dq_reference(q, k, v, g, lse, delta,
                                                     causal),
                 *fa.flash_attention_bwd_dkv_reference(q, k, v, g, lse,
                                                       delta, causal))
-        nums = {}
         for name, x, r in zip(('dq', 'dk', 'dv'), (dq, dk, dv), refs):
             ok = (x.dtype == dtype and x.shape == r.shape and
                   bool(torch.isfinite(x).all()))
@@ -499,12 +526,14 @@ def check_256(quiet: bool = False) -> dict:
                     float('inf'))
             else:
                 nums[name] = _norm_rel(x, r) if ok else float('inf')
-            worst[name] = max(worst[name], nums[name])
+        for name, x in nums.items():
+            worst[name] = max(worst[name], x)
         if not quiet:
             print(f'{(b, hq, hkv, s, d, causal, str(dtype)[6:])} split '
-                  f'{split}: norm-rel dq {nums["dq"]:.3e} dk {nums["dk"]:.3e} '
-                  f'dv {nums["dv"]:.3e}', flush=True)
-        if max(nums.values()) > BWD_NORM_RTOL:
+                  f'{split}: out max-abs {nums["out"]:.3e} lse '
+                  f'{nums["lse"]:.3e}; norm-rel dq {nums["dq"]:.3e} dk '
+                  f'{nums["dk"]:.3e} dv {nums["dv"]:.3e}', flush=True)
+        if max(nums[name] for name in ('dq', 'dk', 'dv')) > BWD_NORM_RTOL:
             raise SystemExit(f'the 256 backward kernels disagree with their '
                              f'plain versions at {shape}: {nums}')
     for b, hq, hkv, s, d in BWD_256_REPEAT_SHAPES:
@@ -523,10 +552,13 @@ def check_256(quiet: bool = False) -> dict:
         if split == 1 or not all(same):
             raise SystemExit(f'{(b, hq, hkv, s, d)}: split {split}, '
                              f'bit-identical {same}')
-    print(f'256 backward ({len(BWD_256_CHECK_SHAPES)} cases, splits '
-          f'{sorted(splits)}): worst norm-rel dq {worst["dq"]:.3e} dk '
-          f'{worst["dk"]:.3e} dv {worst["dv"]:.3e} (gate {BWD_NORM_RTOL}); '
-          f'launches exact; repeats bit-identical', flush=True)
+    print(f'256 kernels ({len(BWD_256_CHECK_SHAPES)} cases, splits '
+          f'{sorted(splits)}): forward worst out max-abs {worst["out"]:.3e} '
+          f'(gate {FWD_OUT_ATOL} + {FWD_OUT_RTOL}|ref|) lse '
+          f'{worst["lse"]:.3e} (gate {FWD_LSE_ATOL}); worst norm-rel dq '
+          f'{worst["dq"]:.3e} dk {worst["dk"]:.3e} dv {worst["dv"]:.3e} '
+          f'(gate {BWD_NORM_RTOL}); launches exact; repeats bit-identical',
+          flush=True)
     return {'worst': worst, 'splits': sorted(splits)}
 
 
@@ -572,10 +604,11 @@ def device_ms_by_kernel(fn, names, calls: int = 5) -> dict:
 
 
 def time_256() -> dict:
-    """dq and dk/dv at 256 at BWD_256_TIMED's shapes (CUDA events, the
-    mean of 20 calls behind a spin kernel), SDPA's backward (dq, dk and dv
-    in one call) on the same inputs, the bounds; dk/dv at each split from
-    1 up (forced through the C entry, held to the planned split's result)
+    """The forward, dq and dk/dv at 256 at BWD_256_TIMED's shapes (CUDA
+    events, the mean of 20 calls behind a spin kernel), SDPA's forward and
+    backward (dq, dk and dv in one call) on the same inputs, the bounds;
+    dk/dv at each split from 1 up (forced through the C entry, held to
+    the planned split's result)
     and, at the planned split, its main kernel and the partials' reduce
     apart (torch.profiler).  Prints each line; returns the numbers."""
     import torch.nn.functional as F
@@ -591,8 +624,19 @@ def time_256() -> dict:
         sdpa_ms = _time_ms(lambda: torch.autograd.grad(
             sdpa_out, leaves, g, retain_graph=True))
         del sdpa_out, leaves
+        with torch.no_grad():
+            sdpa_fwd_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))
         row = {'shape': [b, hq, hkv, s, d, True, 'bfloat16'],
-               'sdpa_bwd_ms': sdpa_ms}
+               'sdpa_bwd_ms': sdpa_ms, 'sdpa_fwd_ms': sdpa_fwd_ms}
+        bound, by = bwd_bound_ms('fwd', b, hq, hkv, s, d)
+        ms = _time_ms(lambda: fa.flash_attention_fwd_256(
+            q, k, v, return_residuals=True))
+        row['fwd'] = {'ms': ms, 'bound_ms': bound, 'bound_by': by,
+                      'over_sdpa': ms / sdpa_fwd_ms}
+        print(f'{label} fwd_256 ms {ms:.4f} bound {bound:.4f} ({by}) '
+              f'x{ms / bound:.2f}; sdpa forward {sdpa_fwd_ms:.4f} ms (x'
+              f'{ms / sdpa_fwd_ms:.2f})', flush=True)
         for kind, fn in (
                 ('dq', lambda: fa.flash_attention_bwd_dq_256(
                     q, k, v, g, lse, delta)),

@@ -1,8 +1,8 @@
 """GPU-only checks of the PyTorch port: the hand-written flash-attention
-kernels (forward, dq, dk/dv, the three at head_dim 16/32 and at 80/96/256,
-dq and dk/dv at 256 on their wgmma kernels, bit for bit run to run where
-dk/dv splits its grid, the zero-padded route of the other head_dims, and
-the three in f32, 3xTF32,
+kernels (forward, dq, dk/dv, the three at head_dim 16/32 and at 80/96,
+the three at 256 on their wgmma kernels, dq and dk/dv bit for bit run to
+run where dk/dv splits its grid, the zero-padded route of the other
+head_dims, and the three in f32, 3xTF32,
 under f32-class gates) against their plain versions, the autograd
 op against autograd through `mha_reference`, the engine's kernel path
 against attention_impl='xla', a narrow model trained through the
@@ -260,11 +260,11 @@ def test_small_head_dim_bwd_kernels_match_plain(cuda, s, d, hq, causal,
             assert _norm_rel(got, ref) <= BWD_NORM_RTOL
 
 
-# The wide mma.sync kernels (head_dim 80, 96, 256: 64-row K/V tiles, 32 at
-# 256) and the zero-padded route (head_dims no kernel takes, each to the
-# next width) at the edges of their tiles: one row, both sides of 32, 64
-# and 128, GQA groups 1, 4 and 8 (Gemma-2B's 8 query heads over 1 kv
-# head), causal and not, bf16 and fp16.  The forward within SMALL_ATOL
+# The wide mma.sync kernels (head_dim 80, 96: 64-row K/V tiles), the wgmma
+# kernels at 256 and the zero-padded route (head_dims no kernel takes, each
+# to the next width) at the edges of their tiles: one row, both sides of
+# 32, 64 and 128, GQA groups 1, 4 and 8 (Gemma-2B's 8 query heads over 1
+# kv head), causal and not, bf16 and fp16.  The forward within SMALL_ATOL
 # beyond one output ulp and its lse within SMALL_ATOL, dq and dk/dv within
 # BWD_NORM_RTOL; each call launches the kernel of kernel_width(d) once,
 # and a padded head_dim also counts once on the public wrapper's
@@ -301,14 +301,11 @@ def test_wide_and_padded_head_dim_kernels_match_plain(cuda, s, d, hq, hkv,
     k, v = (torch.randn((2, hkv, s, d), generator=gen,
                         device=cuda).to(dtype) for _ in range(2))
     width = fa.kernel_width(d)
-    suffix = {16: '_small', 32: '_small', 64: '', 128: '', 80: '_wide',
-              96: '_wide', 256: '_wide'}[width]
-    # dq and dk/dv at 256 run the wgmma kernels of that width.
-    suffixes = (('_f32',) * 3 if _f32(dtype) else
-                (suffix, *(['_256'] * 2 if width == 256 else [suffix] * 2)))
-    counters = [getattr(fa, f'flash_attention_{kernel}{sfx}')
-                for kernel, sfx in zip(('fwd', 'bwd_dq', 'bwd_dkv'),
-                                       suffixes)]
+    suffix = '_f32' if _f32(dtype) else {
+        16: '_small', 32: '_small', 64: '', 128: '', 80: '_wide',
+        96: '_wide', 256: '_256'}[width]
+    counters = [getattr(fa, f'flash_attention_{kernel}{suffix}')
+                for kernel in ('fwd', 'bwd_dq', 'bwd_dkv')]
     publics = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
                fa.flash_attention_bwd_dkv)
     before = ([c.launches for c in counters],
@@ -432,6 +429,37 @@ def test_flash_bwd_kernels_match_plain(cuda, b, hq, hkv, s, d, causal,
         assert got.dtype == dtype and got.shape == ref.shape
         assert torch.isfinite(got).all()
         assert _norm_rel(got, ref) <= rtol
+
+
+# The forward at head_dim 256 (the wgmma kernel of that width, bf16 and
+# fp16) at GQA groups 1, 8 and 16, causal and not, with and without lse, S
+# on both sides of its 64-row K/V tiles and consumer slabs and its 128-row
+# q tiles: each call launches the `_256` kernel once, and out and lse hold
+# the forward's gates against the plain version (out within OUT_ATOL +
+# OUT_RTOL |ref|, lse within LSE_ATOL); without lse, out is the same bits.
+@pytest.mark.parametrize('s', [1, 63, 64, 65, 127, 128, 129, 300])
+@pytest.mark.parametrize('b,hq,hkv', [(2, 4, 4), (1, 8, 1), (1, 16, 1)])
+@pytest.mark.parametrize('causal', [True, False])
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float16])
+def test_fwd_256_kernel_matches_plain(cuda, s, b, hq, hkv, causal, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    q = torch.randn((b, hq, s, 256), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((b, hkv, s, 256), generator=gen,
+                        device=cuda).to(dtype) for _ in range(2))
+    before = fa.flash_attention_fwd_256.launches
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal,
+                                      return_residuals=True)
+    no_lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_fwd_256.launches - before == 2
+    ref, ref_lse = fa.flash_attention_fwd_reference(q, k, v, causal=causal,
+                                                    return_residuals=True)
+    assert out.shape == q.shape and out.dtype == dtype
+    assert torch.isfinite(out).all()
+    torch.testing.assert_close(out.float(), ref.float(), atol=OUT_ATOL,
+                               rtol=OUT_RTOL)
+    torch.testing.assert_close(lse, ref_lse, atol=LSE_ATOL, rtol=0)
+    assert torch.equal(out, no_lse)
 
 
 # dq and dk/dv at head_dim 256 (the wgmma kernels of that width, bf16 and

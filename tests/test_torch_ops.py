@@ -93,10 +93,11 @@ def test_flash_fwd_plain_matches_pallas_interpret(causal, hkv):
 
 
 # The `tiny` configs' head_dim 16 (and 32) go to the small-head-dim
-# kernel on the card, 80, 96 (Phi-2's and Phi-3-mini's widths) and 256
-# (Gemma's) to the wide one, and any other head_dim (8, 48, 100 here)
-# zero-padded to the next kernel width; the plain version the CPU takes
-# is the same function at every head_dim, GQA 4 -> 2.  In f32 (these
+# kernel on the card, 80, 96 (Phi-2's and Phi-3-mini's widths) to the wide
+# one, 256 (Gemma's) to the wgmma one of that width, and any other
+# head_dim (8, 48, 100 here) zero-padded to the next kernel width; the
+# plain version the CPU takes is the same function at every head_dim, GQA
+# 4 -> 2.  In f32 (these
 # inputs) every width is native on the card (16, 32, 64, 80, 96, 128,
 # 256): 128 is here too, 64 in the test above.
 @pytest.mark.parametrize('s,d,causal', [(8, 16, True), (16, 16, True),
@@ -113,11 +114,12 @@ def test_flash_fwd_small_head_dims_plain_match_pallas_interpret(s, d,
     want_out, want_lse = jax_fa.flash_attention_fwd(
         q, k, v, causal=causal, interpret=True, return_residuals=True)
     names = ('flash_attention_fwd', 'flash_attention_fwd_small',
-             'flash_attention_fwd_wide')
+             'flash_attention_fwd_wide', 'flash_attention_fwd_256')
     before = [getattr(torch_fa, name).launches for name in names]
     for fn in (torch_fa.flash_attention_fwd,
                torch_fa.flash_attention_fwd_small,
-               torch_fa.flash_attention_fwd_wide):
+               torch_fa.flash_attention_fwd_wide,
+               torch_fa.flash_attention_fwd_256):
         got_out, got_lse = fn(*_t(q, k, v), causal=causal,
                               return_residuals=True)
         np.testing.assert_allclose(got_out.numpy(), np.asarray(want_out),
@@ -128,32 +130,27 @@ def test_flash_fwd_small_head_dims_plain_match_pallas_interpret(s, d,
     assert torch_fa.flash_attention_fwd.padded_launches == 0
 
 
-# head_dim -> (the kernel width that runs it, the suffix of the forward's C
-# entry, of dq's and dk/dv's): every kernel width natively, every other
-# head_dim up to 256 zero-padded to the next width; at 256 the forward
-# runs the mma.sync kernel, dq and dk/dv the wgmma ones of that width.
-ROUTES = {16: (16, '_small', '_small'), 32: (32, '_small', '_small'),
-          64: (64, '', ''), 80: (80, '_wide', '_wide'),
-          96: (96, '_wide', '_wide'), 128: (128, '', ''),
-          256: (256, '_wide', '_256'), 8: (16, '_small', '_small'),
-          24: (32, '_small', '_small'), 48: (64, '', ''),
-          72: (80, '_wide', '_wide'), 100: (128, '', ''),
-          160: (256, '_wide', '_256'), 200: (256, '_wide', '_256')}
-# Each bf16/fp16 route's widths, by kernel.
-ROUTE_WIDTHS = {'fwd': {'_small': (16, 32), '_wide': (80, 96, 256)},
-                'bwd_dq': {'_small': (16, 32), '_wide': (80, 96),
-                           '_256': (256,)},
-                'bwd_dkv': {'_small': (16, 32), '_wide': (80, 96),
-                            '_256': (256,)}}
+# head_dim -> (the kernel width that runs it, the suffix of the C entries
+# of the forward, dq and dk/dv): every kernel width natively, every other
+# head_dim up to 256 zero-padded to the next width; at 256 all three run
+# the wgmma kernels of that width.
+ROUTES = {16: (16, '_small'), 32: (32, '_small'), 64: (64, ''),
+          80: (80, '_wide'), 96: (96, '_wide'), 128: (128, ''),
+          256: (256, '_256'), 8: (16, '_small'), 24: (32, '_small'),
+          48: (64, ''), 72: (80, '_wide'), 100: (128, ''),
+          160: (256, '_256'), 200: (256, '_256')}
+# Each bf16/fp16 route's widths (the same for the three kernels).
+ROUTE_WIDTHS = {'_small': (16, 32), '_wide': (80, 96), '_256': (256,)}
+KERNELS = ('fwd', 'bwd_dq', 'bwd_dkv')
 
 
 def test_forward_dispatches_small_head_dims_to_their_kernel(monkeypatch):
     """On a CUDA tensor the forward, dq and dk/dv take each head_dim to
     the C entry of `kernel_width(head_dim)` (ROUTES): 16 and 32 to the
     small mma.sync kernels (counted on the `_small` wrappers), 80 and 96
-    to the wide ones (the `_wide` wrappers), the forward at 256 to its wide
-    one and dq and dk/dv at 256 to their wgmma kernels of that width (the
-    `_256` wrappers), 64 and 128 to the wgmma kernels, with the real
+    to the wide ones (the `_wide` wrappers), all three at 256 to their
+    wgmma kernels of that width (the `_256` wrappers), 64 and 128 to the
+    wgmma kernels, with the real
     head_dim^-1/2 as the scale; any other head_dim
     up to 256 reaches the next width's entry on inputs zero-padded to
     that width, counted on that kernel's wrapper and once on the public
@@ -177,7 +174,7 @@ def test_forward_dispatches_small_head_dims_to_their_kernel(monkeypatch):
         monkeypatch.setattr(torch_fa, launch, stub)
     publics = (torch_fa.flash_attention_fwd, torch_fa.flash_attention_bwd_dq,
                torch_fa.flash_attention_bwd_dkv)
-    for d, (width, fwd_suffix, bwd_suffix) in ROUTES.items():
+    for d, (width, suffix) in ROUTES.items():
         assert torch_fa.kernel_width(d) == width
         q, k, v = (t.to(torch.bfloat16)
                    for t in _t(*_qkv(b=2, h=4, s=16, d=d, hkv=2)))
@@ -190,9 +187,7 @@ def test_forward_dispatches_small_head_dims_to_their_kernel(monkeypatch):
         assert calls == [
             (f'skytpu_flash_attention_{kernel}{suffix}',
              getattr(torch_fa, f'flash_attention_{kernel}{suffix}'), width,
-             d**-0.5) for kernel, suffix in (('fwd', fwd_suffix),
-                                             ('bwd_dq', bwd_suffix),
-                                             ('bwd_dkv', bwd_suffix))], d
+             d**-0.5) for kernel in KERNELS], d
         calls.clear()
         assert out.shape == dq.shape == q.shape, d
         assert dk.shape == dv.shape == k.shape and got_lse.shape == (2, 4, 16)
@@ -200,9 +195,9 @@ def test_forward_dispatches_small_head_dims_to_their_kernel(monkeypatch):
         assert [fn.padded_launches - n for fn, n in zip(publics, padded)] == (
             [int(width != d)] * 3), d
         # Each route's own wrapper takes its widths and refuses the others.
-        for kernel, routes in ROUTE_WIDTHS.items():
-            for suffix_, widths in routes.items():
-                assert torch_fa.route_head_dims(kernel, suffix_) == widths
+        for kernel in KERNELS:
+            for suffix_, widths in ROUTE_WIDTHS.items():
+                assert torch_fa.route_head_dims(suffix_) == widths
                 if d in widths:
                     continue
                 args = (q, k, v) if kernel == 'fwd' else (q, k, v, q, lse,
@@ -222,8 +217,8 @@ def test_forward_dispatches_small_head_dims_to_their_kernel(monkeypatch):
         with pytest.raises(ValueError, match='head_dim 257 is past 256'):
             call()
     assert not calls
-    for kernel, routes in ROUTE_WIDTHS.items():
-        for suffix in routes:
+    for kernel in KERNELS:
+        for suffix in ROUTE_WIDTHS:
             # The dk/dv entry at 256 also takes its split's workspace and
             # count (before the stream).
             extra = ([ctypes.c_void_p, ctypes.c_int]
@@ -508,6 +503,26 @@ def test_dkv_256_split_plan_fills_the_card(b, hq, hkv, s, causal,
 
 # On CPU tensors the wgmma kernels' wrappers at 256 take the plain
 # versions: bit for bit the `_reference` functions, no launch counted.
+@pytest.mark.parametrize('hq,hkv', [(4, 4), (8, 1)])
+@pytest.mark.parametrize('causal', [True, False])
+@pytest.mark.parametrize('with_lse', [True, False])
+def test_fwd_256_wrapper_takes_the_plain_version_on_cpu(hq, hkv, causal,
+                                                        with_lse):
+    q, k, v = (t.to(torch.bfloat16) for t in _t(*_qkv(
+        b=1, h=hq, s=65, d=256, hkv=hkv, seed=11)))
+    before = torch_fa.flash_attention_fwd_256.launches
+    got = torch_fa.flash_attention_fwd_256(q, k, v, causal=causal,
+                                           return_residuals=with_lse)
+    want = torch_fa.flash_attention_fwd_reference(
+        q, k, v, causal=causal, return_residuals=with_lse)
+    assert torch_fa.flash_attention_fwd_256.launches == before == 0
+    got, want = ((x,) if not with_lse else x for x in (got, want))
+    assert len(got) == len(want) == (2 if with_lse else 1)
+    assert got[0].dtype == torch.bfloat16 and got[0].shape == q.shape
+    for x, ref in zip(got, want):
+        torch.testing.assert_close(x, ref, atol=0, rtol=0)
+
+
 @pytest.mark.parametrize('hq,hkv,causal', [(4, 4, True), (8, 1, False),
                                            (8, 1, True), (4, 2, False)])
 def test_bwd_256_wrappers_take_the_plain_version_on_cpu(hq, hkv, causal):

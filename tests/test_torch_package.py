@@ -123,7 +123,8 @@ KERNEL_SOURCES = ['flash_attention_bwd_dkv.cu',
                   'flash_attention_bwd_dq_mma.cuh',
                   'flash_attention_bwd_dq_small.cu',
                   'flash_attention_bwd_dq_wide.cu',
-                  'flash_attention_fwd.cu', 'flash_attention_fwd_f32.cu',
+                  'flash_attention_fwd.cu', 'flash_attention_fwd_256.cu',
+                  'flash_attention_fwd_f32.cu',
                   'flash_attention_fwd_f32_wide.cu',
                   'flash_attention_fwd_mma.cuh',
                   'flash_attention_fwd_small.cu',
@@ -436,10 +437,10 @@ def test_gate_ledger_and_storage_slice_modules_are_covered():
     # The small-head-dim kernels (the forward, then dq and dk/dv) are
     # mma.sync + cp.async kernels on the helpers of csrc/sm80_mma.cuh:
     # one template each (flash_attention_{kernel}_mma.cuh), instantiated
-    # at head_dim 16/32 in its `_small` source and at 80/96 (the forward
-    # also at 256) in its `_wide` source, each with its own C entry; dq and
-    # dk/dv at 256 in bf16/fp16 are wgmma kernels of their own (`_256`
-    # source, on csrc/sm90_common.cuh).  The templates' products go
+    # at head_dim 16/32 in its `_small` source and at 80/96 in its `_wide`
+    # source, each with its own C entry; all three at 256 in bf16/fp16 are
+    # wgmma kernels of their own (`_256` source, on
+    # csrc/sm90_common.cuh).  The templates' products go
     # through sm80::mma: m16n8k16 for bf16/fp16, m16n8k8 tf32 three times
     # (3xTF32) for f32, whose C entry (`_f32` source, 16/32/64/128)
     # reaches 80/96/256 in its `_f32_wide` source.
@@ -459,8 +460,7 @@ def test_gate_ledger_and_storage_slice_modules_are_covered():
         for width, text in ((16, src), (32, src), (64, src), (128, src),
                             (80, wide), (96, wide), (256, wide)):
             assert f'<float, {width}>(' in text, (kernel, width)
-        wide = (80, 96, 256) if kernel == 'fwd' else (80, 96)
-        for suffix, widths in (('small', (16, 32)), ('wide', wide)):
+        for suffix, widths in (('small', (16, 32)), ('wide', (80, 96))):
             src = (PORT / 'csrc' /
                    f'flash_attention_{kernel}_{suffix}.cu').read_text()
             assert (f'extern "C" int skytpu_flash_attention_{kernel}_'
@@ -468,15 +468,11 @@ def test_gate_ledger_and_storage_slice_modules_are_covered():
             assert f'#include "flash_attention_{kernel}_mma.cuh"' in src
             for width in widths:
                 assert f'<{width}>(' in src, (kernel, suffix, width)
-            if kernel != 'fwd':
-                assert '<256>(' not in src, (kernel, suffix)
-        if kernel != 'fwd':
-            src = (PORT / 'csrc' /
-                   f'flash_attention_{kernel}_256.cu').read_text()
-            assert f'extern "C" int skytpu_flash_attention_{kernel}_256(' in (
-                src)
-            assert '#include "sm90_common.cuh"' in src
-            assert 'sm90::wgmma_ss<' in src and 'sm90::wgmma_rs<' in src
+            assert '<256>(' not in src, (kernel, suffix)
+        src = (PORT / 'csrc' / f'flash_attention_{kernel}_256.cu').read_text()
+        assert f'extern "C" int skytpu_flash_attention_{kernel}_256(' in src
+        assert '#include "sm90_common.cuh"' in src
+        assert 'sm90::wgmma_ss<' in src and 'sm90::wgmma_rs<' in src
 
 
 def _code_without_docstrings(text):
